@@ -8,16 +8,23 @@ Phases, each timed, each fatal on failure:
   1. print the card's name and power limit; build every CUDA kernel from
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card,
-     bit for bit, at main-path shapes (4096-key chunks, a 16M-slot table,
-     the parity block);
-  3. run one seeded ~100k-key EOF stream through ``OCF(device="cuda")``
-     and ``OCF(device="cpu")`` (with and without a stash) and require
-     identical tables, stashes, stats and answers after every operation;
-  4. the main path at full size: one node's membership filter of a
+     bit for bit, at main-path shapes (4096-key chunks, 16M-slot tables,
+     the parity block): the four OCF kernels, and the four adaptive ones
+     on a four-plane state with nonzero selectors;
+  3. run seeded streams through the card and the CPU and require
+     identical state and answers after every operation: ~100k-key EOF
+     streams through ``OCF`` (with and without a stash), and two
+     ``AdaptiveMembership`` streams (inserts, lookups, reports, deletes;
+     one at load ~0.95 with kicks of adapted slots);
+  4. the OCF main path at full size: one node's membership filter of a
      distributed store (capacity 2^22 slots, 8 bursts of 1M inserts, 3M
      verified + 100k blind deletes, lookups of every resident key plus 5M
-     absent ones), with every kernel's launch count read around it;
-  5. time each kernel, its plain version and its bound, and print them as
+     absent ones), with its kernels' launch counts read around it;
+  5. the adaptive path at full size: an abuse-detection denylist of one
+     node (2^22 buckets of 4, 12 bursts of 1M members, 4 feedback rounds
+     over 10M replayed benign keys, 3M deletes), launch counts read
+     around it;
+  6. time each kernel, its plain version and its bound, and print them as
      one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -44,6 +51,9 @@ SECTOR = 32                   # bytes per device-memory sector
 # 32-bit operations per key of the fused hash (fingerprint, index_hash and
 # alt_index of csrc/ocf_common.cuh, each modulo counted as one).
 HASH_OPS = 55
+# ... and of the family hash: three more fingerprint_sel of ~24 operations
+# each (two murmur3 mixes, the seed tweak, mask and zero remap).
+FAMILY_OPS = HASH_OPS + 3 * 24
 FULL_BUCKETS = 1 << 22        # 16M slots of 4: the main path's grown size
 KERNEL_ROWS = {
     # name: (source, TPU kernel it replaces, what holds it back on the card)
@@ -56,7 +66,21 @@ KERNEL_ROWS = {
                     "src/repro/kernels/insert.py:440", "serial_cta_loop"),
     "delete_bulk": ("src/repro_torch/csrc/delete.cu",
                     "src/repro/kernels/delete.py:129", "serial_cta_loop"),
+    "fingerprint_hash_family": ("src/repro_torch/csrc/fingerprint_family.cu",
+                                "src/repro/kernels/fingerprint.py:119",
+                                "not measured"),
+    "probe_adaptive": ("src/repro_torch/csrc/probe_adaptive.cu",
+                       "src/repro/kernels/probe.py:264", "not measured"),
+    "insert_bulk_adaptive": ("src/repro_torch/csrc/insert_adaptive.cu",
+                             "src/repro/kernels/insert.py:929",
+                             "serial_cta_loop"),
+    "delete_bulk_adaptive": ("src/repro_torch/csrc/delete_adaptive.cu",
+                             "src/repro/kernels/delete.py:245",
+                             "serial_cta_loop"),
 }
+STATIC_KERNELS = ("fingerprint_hash", "probe", "insert_bulk", "delete_bulk")
+ADAPTIVE_KERNELS = ("fingerprint_hash_family", "probe_adaptive",
+                    "insert_bulk_adaptive", "delete_bulk_adaptive")
 
 
 def check(cond, msg: str) -> None:
@@ -250,6 +274,174 @@ class KernelBench:
               "delete missed a resident key")
 
 
+class AdaptiveKernelBench(KernelBench):
+    """The four adaptive kernels against their plain versions on a
+    four-plane state of main-path size with nonzero selectors."""
+
+    def adaptive_state(self, load: float, sel_share: float = 0.25):
+        """Keys placed in their home buckets up to ``load`` of the active
+        region; a ``sel_share`` of the occupied slots on a nonzero selector
+        with the fingerprint rewritten under it -> [table, sels, khi, klo]
+        int32 tensors on the card, and the resident keys' (hi, lo)."""
+        torch = self.torch
+        from repro_torch.core import hashing
+        from repro_torch.core.scheduling import conflict_waves
+        from repro_torch.kernels.selector import sel_pack
+        nb, buf, dev = self.n_buckets, self.buffer, self.dev
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(self.rng.randint(1 << 30)))
+        n = int(nb * 4 * load * 2.5)
+        keys = torch.randint(-2 ** 31, 2 ** 31, (2, n), dtype=torch.int32,
+                             device=dev, generator=gen)
+        home = hashing.index_hash(keys[0], keys[1], nb)
+        rank = conflict_waves(home, torch.ones_like(home, dtype=torch.bool))
+        take = torch.nonzero(rank < 4).flatten()[: int(nb * 4 * load)]
+        b, s = home[take], rank[take]
+        khi = torch.zeros((buf, 4), dtype=torch.int32, device=dev)
+        klo = torch.zeros_like(khi)
+        khi[b, s], klo[b, s] = keys[0, take], keys[1, take]
+        sel = torch.zeros((buf, 4), dtype=torch.int64, device=dev)
+        adapt = torch.rand(take.numel(), generator=gen, device=dev) < sel_share
+        sel[b[adapt], s[adapt]] = torch.randint(
+            1, 4, (int(adapt.sum()),), generator=gen, device=dev)
+        table = torch.zeros_like(khi)
+        table[b, s] = hashing.to_i32(hashing.fingerprint_sel(
+            khi[b, s], klo[b, s], sel[b, s], 16))
+        return [table, sel_pack(sel), khi, klo], (keys[0, take],
+                                                  keys[1, take])
+
+    @staticmethod
+    def adapted_slots(planes) -> int:
+        from repro_torch.kernels.selector import sel_unpack
+        return int(((planes[0] != 0) & (sel_unpack(planes[1], 4) != 0)).sum())
+
+    def run(self) -> None:
+        torch = self.torch
+        from repro_torch.kernels import ops as kops
+        from repro_torch.kernels.delete import (delete_bulk_adaptive,
+                                                delete_bulk_adaptive_plain)
+        from repro_torch.kernels.fingerprint import (
+            fingerprint_hash, fingerprint_hash_family,
+            fingerprint_hash_family_plain)
+        from repro_torch.kernels.insert import (insert_bulk_adaptive,
+                                                insert_bulk_adaptive_plain)
+        from repro_torch.kernels.probe import (probe, probe_adaptive,
+                                               probe_adaptive_plain)
+
+        nb = self.n_buckets
+        _k, hi, lo = self.keys()
+        fam, i1, i2 = fingerprint_hash_family(hi, lo, fp_bits=16,
+                                              n_buckets=nb)
+        p_fam, p_i1, p_i2 = fingerprint_hash_family_plain(
+            hi, lo, fp_bits=16, n_buckets=nb)
+        self.record("fingerprint_hash_family",
+                    zip((*fam, i1, i2), (*p_fam, p_i1, p_i2)))
+        static = fingerprint_hash(hi, lo, fp_bits=16, n_buckets=nb)
+        check(all(torch.equal(a, b) for a, b in zip((fam[0], i1, i2),
+                                                     static)),
+              "the family's (f0, i1, i2) differ from fingerprint_hash")
+
+        # With an all-zero selector plane the adaptive probe is the probe.
+        table = self.synthetic_table(0.85)
+        zero = torch.zeros((self.buffer, 1), dtype=torch.int32,
+                           device=self.dev)
+        stash = torch.zeros((2, 128), dtype=torch.int32, device=self.dev)
+        stash[0, :64] = torch.arange(1, 65, device=self.dev)
+        stash[1, :64] = i2[:64]
+        for st in (None, stash):
+            check(torch.equal(
+                probe_adaptive(table, zero, hi, lo, fp_bits=16, n_buckets=nb,
+                               stash=st),
+                probe(table, hi, lo, fp_bits=16, n_buckets=nb, stash=st)),
+                "probe_adaptive on a zero selector plane differs from probe")
+
+        # insert: (load, evict_rounds, stash, what it must reach).
+        cases = [("uncontended", 0.5, 32, False, set()),
+                 ("optimistic+spill", 0.85, 0, True, {"spill"}),
+                 ("storm+rollback", 0.95, 8, True,
+                  {"kick", "spill", "rollback"}),
+                 ("storm", 0.95, 32, True, {"kick", "spill"})]
+        storm = None
+        for label, load, rounds, with_stash, must in cases:
+            base, (m_hi, m_lo) = self.adaptive_state(load)
+            _k, hi, lo = self.keys()
+            valid = torch.from_numpy(self.rng.rand(self.n_keys) < 0.97
+                                     ).to(self.dev)
+            block = min(kops.autotune_block(
+                "insert", table_bytes=kops._adaptive_plane_bytes(base[0]),
+                evict_rounds=2 * rounds,
+                stash_slots=128 if with_stash else 0, n_keys=CHUNK), CHUNK)
+            pk = [p.clone() for p in base]
+            pp = [p.clone() for p in base]
+            sk = (torch.zeros((2, 128), dtype=torch.int32, device=self.dev)
+                  if with_stash else None)
+            sp = None if sk is None else sk.clone()
+            out = insert_bulk_adaptive(*pk, hi, lo, fp_bits=16, n_buckets=nb,
+                                       valid=valid, evict_rounds=rounds,
+                                       stash=sk, block=block)
+            okp = insert_bulk_adaptive_plain(*pp, hi, lo, valid, fp_bits=16,
+                                             n_buckets=nb,
+                                             evict_rounds=rounds, stash=sp,
+                                             block=block)
+            pairs = list(zip(pk, pp)) + [(out[-1], okp)]
+            if sk is not None:
+                pairs.append((sk, sp))
+            self.record("insert_bulk_adaptive", pairs)
+            failed = int((valid & ~okp).sum())
+            spilled = 0 if sp is None else int((sp[0] != 0).sum())
+            reset = self.adapted_slots(base) - self.adapted_slots(pp)
+            print(f"   insert_adaptive {label}: block={block} "
+                  f"rounds={rounds} failed={failed} stashed={spilled} "
+                  f"adapted slots reset by kicks={reset}", flush=True)
+            reached = {name for name, hit in (("kick", reset > 0),
+                                              ("spill", spilled > 0),
+                                              ("rollback", failed > 0))
+                       if hit}
+            check(must <= reached, f"insert case {label} reached {reached}, "
+                                   f"not {must}")
+            if label == "storm+rollback":
+                storm = pk, sk, (m_hi, m_lo), (hi, lo, okp)
+
+        # probe and delete on the storm's state: members, landed keys,
+        # absent keys; deletes with duplicates.
+        planes, stash, (m_hi, m_lo), (n_hi, n_lo, okp) = storm
+        half = CHUNK // 2
+        _k, a_hi, a_lo = self.keys()
+        p_hi = torch.cat([m_hi[:half // 2], n_hi[okp][:half // 2],
+                          a_hi[:half]])
+        p_lo = torch.cat([m_lo[:half // 2], n_lo[okp][:half // 2],
+                          a_lo[:half]])
+        pblock = min(kops.autotune_block(
+            "probe", table_bytes=kops._adaptive_plane_bytes(planes[0]),
+            stash_slots=128), CHUNK)
+        for st in (None, stash):
+            got = probe_adaptive(planes[0], planes[1], p_hi, p_lo,
+                                 fp_bits=16, n_buckets=nb, stash=st,
+                                 block=pblock)
+            want = probe_adaptive_plain(planes[0], planes[1], p_hi, p_lo,
+                                        fp_bits=16, n_buckets=nb, stash=st)
+            self.record("probe_adaptive", [(got, want)])
+        check(bool(got[:p_hi.numel() - half].all()),
+              "probe_adaptive missed a member")
+        d_hi = torch.cat([m_hi[:half], m_hi[:half // 2], m_hi[:half // 2]])
+        d_lo = torch.cat([m_lo[:half], m_lo[:half // 2], m_lo[:half // 2]])
+        valid = torch.ones(CHUNK, dtype=torch.bool, device=self.dev)
+        dblock = min(kops.autotune_block(
+            "delete", table_bytes=kops._adaptive_plane_bytes(planes[0]),
+            n_keys=CHUNK), CHUNK)
+        pk = [p.clone() for p in planes]
+        pp = [p.clone() for p in planes]
+        okk = delete_bulk_adaptive(*pk, d_hi, d_lo, fp_bits=16, n_buckets=nb,
+                                   valid=valid, block=dblock)[-1]
+        okd = delete_bulk_adaptive_plain(*pp, d_hi, d_lo, valid, fp_bits=16,
+                                         n_buckets=nb, block=dblock)
+        self.record("delete_bulk_adaptive",
+                    list(zip(pk, pp)) + [(okk, okd)])
+        print(f"   delete_adaptive: block={dblock} cleared={int(okd.sum())} "
+              f"of {CHUNK} (duplicates past the resident copy miss)",
+              flush=True)
+
+
 # --------------------------------------------------- phase 3: slice parity --
 
 
@@ -314,6 +506,65 @@ def slice_parity(n_keys: int, stash_slots: int):
           flush=True)
     check(o.stats.grows >= 1 and o.stats.shrinks >= 1,
           "the parity stream did not both grow and shrink")
+
+
+def adaptive_snapshot(m) -> dict:
+    from repro_torch.convert import adaptive_state_to_numpy
+    d = adaptive_state_to_numpy(m.filt.state)
+    d["stash"] = m.filt.stash.cpu().numpy()
+    d["adapted"] = m.filt.adapted
+    d["promoted"] = m.reputation.promoted
+    d["deferred"] = m.deferred_reports
+    return d
+
+
+def adaptive_parity(label: str, *, n_buckets: int, n_members: int,
+                    n_benign: int, late: int = 0):
+    """One seeded AdaptiveMembership stream on the card and on the CPU:
+    4096-key insert bursts, lookups, two report rounds over the benign
+    hits, deletes (with duplicates and absent keys); ``late`` more members
+    are inserted after the reports, so their chains kick adapted slots.
+    Identical state and answers after every operation."""
+    from repro_torch.adaptive import AdaptiveConfig, AdaptiveMembership
+    rng = np.random.RandomState(SEED + 4)
+    members = random_keys(rng, n_members + late)
+    benign = random_keys(rng, n_benign)
+    probe = np.concatenate([members, benign])
+    ops = [("insert", members[i:i + CHUNK])
+           for i in range(0, n_members, CHUNK)]
+    ops += [("lookup", probe), ("report", None), ("lookup", probe),
+            ("report", None)]
+    ops += [("insert", members[i:i + CHUNK])
+            for i in range(n_members, n_members + late, CHUNK)]
+    ops += [("lookup", probe),
+            ("delete", np.concatenate([members[: n_members // 4],
+                                       members[: n_members // 16],
+                                       benign[:1000]])),
+            ("lookup", probe)]
+    ms = [AdaptiveMembership(AdaptiveConfig(n_buckets=n_buckets,
+                                            stash_slots=128, device=d))
+          for d in ("cuda", "cpu")]
+    hits, peak = None, 0.0
+    for step, (op, keys) in enumerate(ops):
+        if op == "report":
+            keys = benign[hits[members.size:]]
+        answers = [np.asarray(getattr(m, op)(keys)) for m in ms]
+        peak = max(peak, ms[1].filt.fills()[0])
+        check((answers[0] == answers[1]).all(),
+              f"{label} {op} #{step}: answers differ between devices")
+        check(same_snapshot(*(adaptive_snapshot(m) for m in ms)),
+              f"{label} {op} #{step}: adaptive state differs between "
+              f"devices")
+        if op == "lookup":
+            hits = answers[1]
+    m = ms[1]
+    snap = adaptive_snapshot(m)
+    print(f"   {label}: peak load={peak!r} "
+          f"final load={snap['count'] / (n_buckets * 4)!r} "
+          f"stash={int((snap['stash'][0] != 0).sum())} "
+          f"adapted={m.filt.adapted} promoted={m.reputation.promoted} "
+          f"sels_nonzero={int((snap['sels'] != 0).sum())}", flush=True)
+    check(m.filt.adapted > 0, f"{label}: no report adapted a slot")
 
 
 # ------------------------------------------------------ phase 4: main path --
@@ -389,7 +640,119 @@ def main_path(device, card: str, *, capacity=1 << 22, bursts=8,
         "insert_s": t_ins, "delete_s": t_del, "lookup_s": t_look}
 
 
-# --------------------------------------------------------- phase 5: times --
+# ---------------------------------------------- phase 5: the adaptive path --
+
+
+def adaptive_path(card: str, *, n_buckets=1 << 22, bursts=12,
+                  burst=1_000_000, n_benign=10_000_000, rounds=4,
+                  n_delete=3_000_000):
+    """An abuse-detection denylist of one node (the deployment of
+    examples/adaptive_abuse_detection.py at 16M slots): member bursts, a
+    lookup of every member, feedback rounds over one replayed benign
+    population, deletes, and a lookup of the remaining members."""
+    import torch
+    from repro_torch.adaptive import AdaptiveConfig, AdaptiveMembership
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.stash import stash_occupancy
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(SEED + 3)
+    members = random_keys(rng, bursts * burst)
+    benign = random_keys(rng, n_benign)
+    m = AdaptiveMembership(AdaptiveConfig(n_buckets=n_buckets, bucket_size=4,
+                                          fp_bits=16, stash_slots=128))
+    times, phases = {}, []
+
+    def timed(name, fn):
+        before = dict(cuda.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+        phases.append((name, {k: v - before.get(k, 0)
+                              for k, v in cuda.LAUNCHES.items()
+                              if v != before.get(k, 0)}))
+        return out
+
+    # One CUDA-activity trace over the whole path gives the device's busy
+    # time per kernel (the host's time is the rest of each phase).
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        cuda.reset_counts()
+        ok = np.concatenate([timed("insert", lambda b=b: m.insert(
+            members[b * burst:(b + 1) * burst])) for b in range(bursts)])
+        acked = members[ok]
+        load = m.filt.fills()[0]
+        hit = timed("member lookup", lambda: m.lookup(members))
+        fn_before = int((~hit[ok]).sum())
+        fp_rounds = []
+        for r in range(rounds):
+            hits = timed("benign lookup", lambda: m.lookup(benign))
+            fps = benign[hits]
+            adapted = timed("report", lambda: m.report(fps))
+            fp_rounds.append((int(fps.size), int(adapted.sum()),
+                              m.reputation.promoted, m.deferred_reports))
+        d_ok = timed("delete", lambda: m.delete(acked[:n_delete]))
+        remaining = acked[n_delete:]
+        hit_r = timed("member lookup", lambda: m.lookup(remaining))
+        fn_after = int((~hit_r).sum())
+        launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    device_s = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0) or 0.0
+        if us > 0:
+            device_s[ev.key] = device_s.get(ev.key, 0.0) + us / 1e6
+
+    stash_n = int(stash_occupancy(m.filt.stash))
+    eps = 2 * 4 * load / 2 ** 16
+    for name, counts in phases:
+        print(f"   phase {name}: launches {counts}", flush=True)
+    print(f"   load after inserts={load!r} failed inserts="
+          f"{int((~ok).sum())} stash occupancy={stash_n} "
+          f"false negatives before deletes={fn_before} after={fn_after}",
+          flush=True)
+    for r, (n_fp, n_ad, n_pr, n_def) in enumerate(fp_rounds):
+        print(f"   [{card}] round {r}: false positives={n_fp} "
+              f"(rate {n_fp / n_benign!r}, bound 4 x {eps!r}) "
+              f"adapted={n_ad} promoted={n_pr} deferred={n_def}",
+              flush=True)
+    n_look = members.size + remaining.size
+    print(f"   [{card}] insert {bursts * burst / times['insert']!r} keys/s, "
+          f"member lookup {n_look / times['member lookup']!r} keys/s, "
+          f"benign lookup {rounds * n_benign / times['benign lookup']!r} "
+          f"keys/s, report {sum(r[0] for r in fp_rounds) / times['report']!r}"
+          f" keys/s ({times['report']!r} s), delete "
+          f"{n_delete / times['delete']!r} keys/s", flush=True)
+    print(f"   launches={launches} plain_calls={plain}", flush=True)
+    wall = sum(times.values())
+    busy = sum(device_s.values())
+    print(f"   [{card}] device busy {busy!r} s of {wall!r} s of phases "
+          f"(idle share {1 - busy / wall!r})", flush=True)
+    for kernel, phase_names in (
+            ("insert_adaptive_kernel", ("insert",)),
+            ("probe_adaptive_kernel", ("member lookup", "benign lookup")),
+            ("family_kernel", ("report",)),
+            ("delete_adaptive_kernel", ("delete",))):
+        k_s = sum(v for key, v in device_s.items() if kernel in key)
+        p_s = sum(times[n] for n in phase_names)
+        print(f"   {kernel}: {k_s!r} s on the device, {k_s / p_s!r} of "
+              f"its phases ({'+'.join(phase_names)}, {p_s!r} s)", flush=True)
+
+    check(fn_before == 0 and fn_after == 0,
+          f"false negatives: {fn_before} before, {fn_after} after deletes")
+    check(bool(d_ok.all()), "a verified delete was refused")
+    check(fp_rounds[0][0] / n_benign <= 4 * eps,
+          f"round 0 fp rate {fp_rounds[0][0] / n_benign} > 4 x {eps}")
+    check(fp_rounds[-1][0] <= 0.01 * fp_rounds[0][0],
+          f"the last round kept {fp_rounds[-1][0]} of "
+          f"{fp_rounds[0][0]} false positives")
+    return m, remaining, launches, plain, {
+        "load": load, "fp_rounds": fp_rounds, "times": times,
+        "device_s": device_s}
+
+
+# --------------------------------------------------------- phase 6: times --
 
 
 def time_ms(fn, reps: int, setup=None) -> float:
@@ -586,6 +949,12 @@ def kernel_times(ocf, resident: np.ndarray) -> dict:
                                 second=delete_second),
             "delete_kernel"),
     }
+    return time_rows(rows)
+
+
+def time_rows(rows: dict) -> dict:
+    """Device, wrapper, plain and bound times of each row
+    ``name: (kernel call, plain call, setup, (bytes, ops), symbol)``."""
     out = {}
     for name, (kern, plain, setup, (nbytes, ops), symbol) in rows.items():
         bound_ms, bound_by = least_ms(nbytes, ops)
@@ -606,6 +975,171 @@ def kernel_times(ocf, resident: np.ndarray) -> dict:
               f"{w1!r} / {w2!r} ms, plain {p1!r} / {p2!r} ms, bound "
               f"{bound_ms!r} ms ({nbytes} B, {ops} ops)", flush=True)
     return out
+
+
+def sectors_of(index, per_sector: int) -> int:
+    """Distinct 32-byte sectors holding rows ``index`` of a plane whose
+    rows are ``32 / per_sector`` bytes."""
+    import torch
+    return int(torch.unique(index // per_sector).numel())
+
+
+def adaptive_work(before, after, hi, lo, valid, nb, *, lane_bytes: int,
+                  second, reads_sels: bool, key_ops: int, slot_ops: int):
+    """(bytes, ops) of one call on the four adaptive planes, for this run's
+    data: keys and masks once; the home bucket's table sector (and, where
+    the kernel reads it, its selector-word sector) of every valid lane; the
+    alternate's for the lanes ``second(i1)`` says the home cannot answer;
+    every changed sector of each of the four planes, written once.
+    Distinct sectors are counted once."""
+    import torch
+    from repro_torch.core import hashing
+    fp = hashing.fingerprint(hi, lo, 16)
+    i1 = hashing.index_hash(hi, lo, nb)
+    i2 = hashing.alt_index(i1, fp, nb)
+    again = second(i1) & valid
+    looked = torch.cat([i1[valid], i2[again]])
+    bucket_row = SECTOR // (4 * before[0].shape[1])      # buckets / sector
+    reads = sectors_of(looked, bucket_row)
+    if reads_sels:
+        reads += sectors_of(looked, SECTOR // 4)
+    writes = 0
+    for plane, old, new in zip(("table", "sels", "khi", "klo"), before,
+                               after):
+        changed = (old != new).any(dim=1).nonzero().flatten()
+        writes += sectors_of(changed, SECTOR // 4 if plane == "sels"
+                             else bucket_row)
+    nbytes = hi.numel() * lane_bytes + SECTOR * (reads + writes)
+    ops = hi.numel() * key_ops + slot_ops * before[0].shape[1] * (
+        int(valid.sum()) + int(again.sum()))
+    return nbytes, ops
+
+
+def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
+    """Kernel, wrapper, plain and bound times of the adaptive kernels at
+    the adaptive path's final state, for one 4096-key call each."""
+    import torch
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.delete import (delete_bulk_adaptive,
+                                            delete_bulk_adaptive_plain)
+    from repro_torch.kernels.fingerprint import (
+        fingerprint_hash_family, fingerprint_hash_family_plain)
+    from repro_torch.kernels.insert import (insert_bulk_adaptive,
+                                            insert_bulk_adaptive_plain)
+    from repro_torch.kernels.probe import (probe_adaptive,
+                                           probe_adaptive_plain)
+    from repro_torch.kernels.rank import rank_among_earlier
+    from repro_torch.kernels.selector import (fp_family, sel_unpack,
+                                              select_fp)
+
+    st = m.filt.state
+    nb, dev = st.n_buckets, st.table.device
+    base = [st.table, st.sels, st.khi, st.klo]
+    work = [p.clone() for p in base]
+    rng = np.random.RandomState(SEED + 5)
+
+    def pair(keys):
+        hi, lo = hashing.key_to_u32_pair_np(keys)
+        return (torch.from_numpy(hi.view(np.int32)).to(dev),
+                torch.from_numpy(lo.view(np.int32)).to(dev))
+
+    look_hi, look_lo = pair(np.concatenate([remaining[: CHUNK // 2],
+                                            random_keys(rng, CHUNK // 2)]))
+    new_hi, new_lo = pair(random_keys(rng, CHUNK))
+    del_hi, del_lo = pair(remaining[CHUNK: 2 * CHUNK])
+    valid = torch.ones(CHUNK, dtype=torch.bool, device=dev)
+    rounds = m.filt.ops.evict_rounds
+    plane_bytes = kops._adaptive_plane_bytes(st.table)
+    iblock = min(kops.autotune_block("insert", table_bytes=plane_bytes,
+                                     evict_rounds=2 * rounds, n_keys=CHUNK),
+                 CHUNK)
+    dblock = min(kops.autotune_block("delete", table_bytes=plane_bytes,
+                                     n_keys=CHUNK), CHUNK)
+    pblock = min(kops.autotune_block("probe", table_bytes=plane_bytes),
+                 CHUNK)
+
+    def restore():
+        for w, b in zip(work, base):
+            w.copy_(b)
+
+    def after(kern):
+        restore()
+        kern()
+        return [w.clone() for w in work]
+
+    def home_hits(hi, lo):
+        """Per lane, the copies of its key the home bucket holds under the
+        slots' selectors."""
+        fam = fp_family(hi, lo, 16)
+        i1 = hashing.index_hash(hi, lo, nb)
+        exp = hashing.to_i32(select_fp(fam, sel_unpack(base[1][i1], 4)))
+        return (base[0][i1] == exp).sum(dim=1), hashing.to_i32(fam[0])
+
+    look_home, _ = home_hits(look_hi, look_lo)
+    del_home, del_fp0 = home_hits(del_hi, del_lo)
+
+    def probe_second(i1):
+        return look_home == 0
+
+    def insert_second(i1):
+        return rank_among_earlier(i1, valid) >= (base[0][i1] == 0).sum(dim=1)
+
+    def delete_second(i1):
+        return rank_among_earlier(i1, valid, del_fp0) >= del_home
+
+    def probe_k():
+        return probe_adaptive(base[0], base[1], look_hi, look_lo, fp_bits=16,
+                              n_buckets=nb, block=pblock)
+
+    def insert_k():
+        return insert_bulk_adaptive(*work, new_hi, new_lo, fp_bits=16,
+                                    n_buckets=nb, valid=valid,
+                                    evict_rounds=rounds, block=iblock)
+
+    def delete_k():
+        return delete_bulk_adaptive(*work, del_hi, del_lo, fp_bits=16,
+                                    n_buckets=nb, valid=valid, block=dblock)
+
+    n = CHUNK
+    rows = {
+        "fingerprint_hash_family": (
+            lambda: fingerprint_hash_family(new_hi, new_lo, fp_bits=16,
+                                            n_buckets=nb),
+            lambda: fingerprint_hash_family_plain(new_hi, new_lo,
+                                                  fp_bits=16, n_buckets=nb),
+            None, (n * (8 + 24), n * FAMILY_OPS), "family_kernel"),
+        "probe_adaptive": (
+            probe_k,
+            lambda: probe_adaptive_plain(base[0], base[1], look_hi, look_lo,
+                                         fp_bits=16, n_buckets=nb),
+            None, adaptive_work(base, base, look_hi, look_lo, valid, nb,
+                                lane_bytes=8 + 1, second=probe_second,
+                                reads_sels=True, key_ops=FAMILY_OPS,
+                                slot_ops=3),
+            "probe_adaptive_kernel"),
+        "insert_bulk_adaptive": (
+            insert_k,
+            lambda: insert_bulk_adaptive_plain(
+                *work, new_hi, new_lo, valid, fp_bits=16, n_buckets=nb,
+                evict_rounds=rounds, stash=None, block=iblock),
+            restore, adaptive_work(base, after(insert_k), new_hi, new_lo,
+                                   valid, nb, lane_bytes=8 + 1 + 1,
+                                   second=insert_second, reads_sels=False,
+                                   key_ops=HASH_OPS, slot_ops=2),
+            "insert_adaptive_kernel"),
+        "delete_bulk_adaptive": (
+            delete_k,
+            lambda: delete_bulk_adaptive_plain(
+                *work, del_hi, del_lo, valid, fp_bits=16, n_buckets=nb,
+                block=dblock),
+            restore, adaptive_work(base, after(delete_k), del_hi, del_lo,
+                                   valid, nb, lane_bytes=8 + 1 + 1,
+                                   second=delete_second, reads_sels=True,
+                                   key_ops=FAMILY_OPS, slot_ops=3),
+            "delete_adaptive_kernel"),
+    }
+    return time_rows(rows)
 
 
 # ------------------------------------------------------------------ main --
@@ -643,29 +1177,49 @@ def main() -> int:
     with phase("kernels vs plain versions"):
         bench = KernelBench("cuda")
         bench.run()
+        abench = AdaptiveKernelBench("cuda")
+        abench.run()
+        max_err = {**bench.max_err, **abench.max_err}
         torch.cuda.synchronize()
 
     with phase("slice parity cuda vs cpu"):
         for slots in (0, 64):
             slice_parity(100_000, slots)
+        adaptive_parity("adaptive stream", n_buckets=1 << 14,
+                        n_members=48 * 1024, n_benign=200_000)
+        adaptive_parity("adaptive stream at load 0.95", n_buckets=1 << 12,
+                        n_members=12 * 1024, n_benign=100_000,
+                        late=int(0.95 * (1 << 14)) - 12 * 1024)
 
+    # Each path runs with the counts set to 0 just before it and read just
+    # after; its kernels' "launches" come from that run.
+    launches, plain = {}, {}
     with phase("main path at full size"):
-        ocf, resident, launches, plain, times = main_path("cuda", card)
-        for name in cuda.KERNELS:
-            check(launches.get(name, 0) > 0,
-                  f"{name} was never launched on the main path")
-        check(sum(plain.values()) == 0,
-              f"plain versions ran on the main path: {plain}")
+        ocf, resident, counts, plain["main"], _times = main_path("cuda",
+                                                                 card)
+        launches.update({k: counts.get(k, 0) for k in STATIC_KERNELS})
+
+    with phase("adaptive path at full size"):
+        m, remaining, counts, plain["adaptive"], _stats = adaptive_path(card)
+        launches.update({k: counts.get(k, 0) for k in ADAPTIVE_KERNELS})
+
+    for name in cuda.KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"{name} was never launched on its path")
+    for path, calls in plain.items():
+        check(sum(calls.values()) == 0,
+              f"plain versions ran on the {path} path: {calls}")
 
     with phase("kernel times"):
         perf = kernel_times(ocf, resident)
+        perf.update(adaptive_kernel_times(m, remaining))
 
     rows = []
     for name, (source, replaces, held_by) in KERNEL_ROWS.items():
         t = perf[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": bench.max_err[name], "ms": t["ms"],
+                     "max_abs_err": max_err[name], "ms": t["ms"],
                      "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "held_by": held_by, "library_ms": None})

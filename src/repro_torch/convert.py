@@ -4,7 +4,8 @@ Tables and stashes cross as ``uint32`` numpy arrays (the reference's
 dtype) and live here as ``int32`` tensors with the same bit pattern.
 ``ocf_from_numpy`` also loads the keystore (and, optionally, the policy,
 stats and capacity history), so a port ``OCF`` can continue a stream
-from the reference's state.
+from the reference's state.  ``adaptive_state_from_numpy`` does the same
+for the four planes of the adaptive filter.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.adaptive.state import AdaptiveState
 from repro_torch.core.filter import FilterState
 from repro_torch.core.hashing import resolve_device
 from repro_torch.core.ocf import OCF, OcfConfig, OcfStats
@@ -45,6 +47,35 @@ def state_to_numpy(state: FilterState, stash: Optional[torch.Tensor] = None
     return {"table": u32(state.table), "count": int(state.count),
             "n_buckets": int(state.n_buckets),
             "stash": None if stash is None else u32(stash)}
+
+
+def adaptive_state_from_numpy(table: np.ndarray, sels: np.ndarray,
+                              khi: np.ndarray, klo: np.ndarray, count: int,
+                              n_buckets: int, *, device="cuda"
+                              ) -> AdaptiveState:
+    """uint32 planes (table, khi, klo [buf, b]; packed sels [buf, 1])
+    -> ``AdaptiveState`` on ``device``."""
+    dev = resolve_device(device)
+    table = np.asarray(table)
+    if np.asarray(sels).shape != (table.shape[0], 1) or any(
+            np.asarray(p).shape != table.shape for p in (khi, klo)):
+        raise ValueError("sels must be [buffer, 1] and khi/klo the table's "
+                         "shape")
+    return AdaptiveState(
+        table=_tensor(table, dev), sels=_tensor(sels, dev),
+        khi=_tensor(khi, dev), klo=_tensor(klo, dev),
+        count=torch.tensor(int(count), dtype=torch.int64, device=dev),
+        n_buckets=int(n_buckets))
+
+
+def adaptive_state_to_numpy(state: AdaptiveState) -> dict:
+    """-> {"table", "sels", "khi", "klo": uint32 arrays, "count": int,
+    "n_buckets": int}."""
+    def u32(t):
+        return t.detach().cpu().numpy().view(np.uint32).copy()
+    return {"table": u32(state.table), "sels": u32(state.sels),
+            "khi": u32(state.khi), "klo": u32(state.klo),
+            "count": int(state.count), "n_buckets": int(state.n_buckets)}
 
 
 def ocf_from_numpy(config: OcfConfig, *, table: np.ndarray, count: int,

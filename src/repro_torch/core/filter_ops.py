@@ -141,6 +141,93 @@ class FilterOps:
                            buffer_buckets=buffer_buckets, device=hi.device)
         return self.insert(state, hi, lo, valid=valid)
 
+    # ---------------------------------------------------- adaptive ops --
+    #
+    # Selector-aware entry points over the four-plane adaptive state
+    # (``adaptive.state.AdaptiveState``, duck-typed here: anything with
+    # table/sels/khi/klo/count/n_buckets fields and NamedTuple
+    # ``_replace``).
+
+    def lookup_adaptive(self, state, hi: torch.Tensor, lo: torch.Tensor,
+                        stash: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Selector-aware membership -> bool[N]: a slot answers under ITS
+        selector; stash entries are selector-0."""
+        return kops.adaptive_lookup(state.table, state.sels, hi, lo,
+                                    fp_bits=self.fp_bits,
+                                    n_buckets=state.n_buckets, stash=stash)
+
+    def insert_adaptive(self, state, hi: torch.Tensor, lo: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None,
+                        stash: Optional[torch.Tensor] = None):
+        """Bulk insert over the adaptive planes -> (state, ok[N]) or
+        (state, stash, ok[N]).
+
+        New entries land as selector-0 slots with the key mirrored; kicks
+        reset the victim's selector; rollback restores all four planes.
+        ``count`` tracks table-resident fingerprints only.
+        """
+        if stash is not None:
+            spilled_before = stash_occupancy(stash)
+        out = kops.adaptive_insert(
+            state.table, state.sels, state.khi, state.klo, hi, lo,
+            fp_bits=self.fp_bits, n_buckets=state.n_buckets, valid=valid,
+            evict_rounds=self.evict_rounds, stash=stash,
+            schedule=self.schedule, donate=self.donate)
+        ok = out[-1]
+        count = state.count + ok.sum()
+        table, sels, khi, klo = out[:4]
+        if stash is None:
+            return state._replace(table=table, sels=sels, khi=khi, klo=klo,
+                                  count=count), ok
+        new_stash = out[4]
+        count = count - (stash_occupancy(new_stash) - spilled_before)
+        return state._replace(table=table, sels=sels, khi=khi, klo=klo,
+                              count=count), new_stash, ok
+
+    def delete_adaptive(self, state, hi: torch.Tensor, lo: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None,
+                        stash: Optional[torch.Tensor] = None):
+        """Verified bulk delete -> (state, ok[N]) or (state, stash, ok[N]).
+
+        Slots match under THEIR selector; clearing zeroes all four planes.
+        With a stash, lanes that miss the table clear their selector-0
+        stash entry.
+        """
+        if stash is not None:
+            stash_before = stash_occupancy(stash)
+        out = kops.adaptive_delete(
+            state.table, state.sels, state.khi, state.klo, hi, lo,
+            fp_bits=self.fp_bits, n_buckets=state.n_buckets, valid=valid,
+            stash=stash, donate=self.donate)
+        ok = out[-1]
+        table, sels, khi, klo = out[:4]
+        count = state.count - ok.sum()
+        if stash is None:
+            return state._replace(table=table, sels=sels, khi=khi, klo=klo,
+                                  count=count), ok
+        new_stash = out[4]
+        count = count + (stash_before - stash_occupancy(new_stash))
+        return state._replace(table=table, sels=sels, khi=khi, klo=klo,
+                              count=count), new_stash, ok
+
+    def report_false_positive(self, state, hi: torch.Tensor,
+                              lo: torch.Tensor,
+                              valid: Optional[torch.Tensor] = None):
+        """Feed confirmed false positives back -> (state, adapted[N],
+        resident[N]).
+
+        Every slot of a reported key's candidate pair whose stored
+        fingerprint collides under that slot's selector is bumped to its
+        next family member and rewritten from the mirrored resident key;
+        ``resident`` flags reports that were true positives (never
+        repaired).  Stash-resident collisions cannot adapt.
+        """
+        table, sels, adapted, resident = kops.adaptive_report(
+            state.table, state.sels, state.khi, state.klo, hi, lo,
+            fp_bits=self.fp_bits, n_buckets=state.n_buckets, valid=valid,
+            donate=self.donate)
+        return state._replace(table=table, sels=sels), adapted, resident
+
     # --------------------------------------------------- raw-table ops --
 
     def probe_table(self, table: torch.Tensor, hi: torch.Tensor,

@@ -43,6 +43,13 @@ _SM_C3 = 0x846CA68B
 _FP_SEED = 0xDEADBEEF
 _IDX_SEED = 0x51ED270B
 
+# Selector-parameterized fingerprint family (adaptive cuckoo filters).
+# Selector s XORs a tweak into the pre-mix seed; tweak 0 is the identity,
+# so ``fingerprint_sel(.., sel=0)`` is bit-identical to ``fingerprint`` and
+# an all-zero selector plane behaves exactly like the static filter.
+SEL_VARIANTS = 4          # 2 selector bits per slot
+_SEL_TWEAKS = (0x00000000, 0x7F4A7C15, 0x94D049BB, 0xBF58476D)
+
 
 # ---------------------------------------------------------------- device ---
 
@@ -129,6 +136,29 @@ def fingerprint_np(hi: np.ndarray, lo: np.ndarray, fp_bits: int) -> np.ndarray:
     return np.where(fp == 0, np.uint32(1), fp)
 
 
+def sel_tweak_np(sel) -> np.ndarray:
+    """Per-selector seed tweak; scalars or arrays of selectors in [0, 3]."""
+    sel = np.asarray(sel, dtype=np.uint32) & np.uint32(3)
+    t = np.where(sel == 1, np.uint32(_SEL_TWEAKS[1]), np.uint32(0))
+    t = np.where(sel == 2, np.uint32(_SEL_TWEAKS[2]), t)
+    t = np.where(sel == 3, np.uint32(_SEL_TWEAKS[3]), t)
+    return t.astype(np.uint32)
+
+
+def fingerprint_sel_np(hi: np.ndarray, lo: np.ndarray, sel,
+                       fp_bits: int) -> np.ndarray:
+    """Selector-indexed fingerprint in [1, 2^fp_bits - 1]; sel=0 == static.
+
+    ``sel`` broadcasts against ``hi``/``lo`` (per-slot selectors of shape
+    [N, bucket_size] against keys of shape [N, 1]).
+    """
+    seed = np.uint32(_FP_SEED) ^ sel_tweak_np(sel)
+    h = murmur3_mix_np(np.asarray(lo, np.uint32)
+                       ^ murmur3_mix_np(np.asarray(hi, np.uint32) ^ seed))
+    fp = (h & np.uint32((1 << fp_bits) - 1)).astype(np.uint32)
+    return np.where(fp == 0, np.uint32(1), fp)
+
+
 def index_hash_np(hi: np.ndarray, lo: np.ndarray, n_buckets: int) -> np.ndarray:
     with np.errstate(over="ignore"):
         h = splitmix32_np(lo) ^ murmur3_mix_np(
@@ -171,6 +201,24 @@ def fingerprint(hi: torch.Tensor, lo: torch.Tensor, fp_bits: int
                 ) -> torch.Tensor:
     """Fingerprint in [1, 2^fp_bits - 1] -> int64."""
     h = murmur3_mix(to_u32(lo) ^ murmur3_mix(to_u32(hi) ^ _FP_SEED))
+    fp = h & ((1 << fp_bits) - 1)
+    return torch.where(fp == 0, torch.ones_like(fp), fp)
+
+
+def sel_tweak(sel) -> torch.Tensor:
+    """Torch twin of ``sel_tweak_np`` -> int64 in [0, 2^32)."""
+    sel = torch.as_tensor(sel).to(torch.int64) & 3
+    t = torch.where(sel == 1, _SEL_TWEAKS[1], 0)
+    t = torch.where(sel == 2, _SEL_TWEAKS[2], t)
+    return torch.where(sel == 3, _SEL_TWEAKS[3], t)
+
+
+def fingerprint_sel(hi: torch.Tensor, lo: torch.Tensor, sel, fp_bits: int
+                    ) -> torch.Tensor:
+    """Torch twin of ``fingerprint_sel_np`` -> int64; ``sel`` broadcasts
+    against ``hi``/``lo``."""
+    seed = _FP_SEED ^ sel_tweak(sel).to(hi.device)
+    h = murmur3_mix(to_u32(lo) ^ murmur3_mix(to_u32(hi) ^ seed))
     fp = h & ((1 << fp_bits) - 1)
     return torch.where(fp == 0, torch.ones_like(fp), fp)
 

@@ -1,7 +1,7 @@
 """Conflict-aware batch scheduling — the insert path's dispatch pre-pass.
 
 Counterpart of ``repro.core.scheduling`` (``conflict_waves``,
-``dispatch_order``, ``dedupe_keys``).  Every lane's home bucket is ranked
+``dispatch_order``, ``pair_rank``, ``dedupe_keys``).  Every lane's home bucket is ranked
 within its equal-bucket group: the k-th lane targeting a bucket lands in
 wave k, and the batch is dispatched wave-major.  Both sorts are stable, so
 same-bucket lanes keep their relative order and the rank each lane sees in
@@ -41,6 +41,30 @@ def conflict_waves(bucket: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     wave = torch.empty_like(idx)
     wave[order] = idx - run_start
     return torch.where(valid, wave, n)
+
+
+def pair_rank(a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor
+              ) -> torch.Tensor:
+    """Occurrence rank within equal-``(a, b)`` groups -> int64[N].
+
+    ``rank[i]`` counts earlier valid lanes carrying the same (a, b) pair as
+    lane i, in lane order: two stable sorts (b-minor, then a-major) bring
+    equal pairs into contiguous runs while ties keep lane order.  Values
+    are compared as int32, like the reference.  Invalid lanes get rank N.
+    """
+    n = a.shape[0]
+    idx = torch.arange(n, device=a.device)
+    av = torch.where(valid, hashing.to_i32(a).to(torch.int64), _PARKED)
+    bv = torch.where(valid, hashing.to_i32(b).to(torch.int64), _PARKED)
+    ord1 = _stable_order(bv)                    # minor key ...
+    order = ord1[_stable_order(av[ord1])]       # ... then major
+    sa, sb = av[order], bv[order]
+    new_run = torch.ones((n,), dtype=torch.bool, device=a.device)
+    new_run[1:] = (sa[1:] != sa[:-1]) | (sb[1:] != sb[:-1])
+    run_start = torch.cummax(torch.where(new_run, idx, 0), dim=0).values
+    rank = torch.empty_like(idx)
+    rank[order] = idx - run_start
+    return torch.where(valid, rank, n)
 
 
 def dispatch_order(hi: torch.Tensor, lo: torch.Tensor, valid: torch.Tensor,

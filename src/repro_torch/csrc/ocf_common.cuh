@@ -60,6 +60,46 @@ __host__ __device__ __forceinline__ uint32_t alt_index(uint32_t i,
   return (hfp + n - i) % n;
 }
 
+// ------------------------------------------- selector family (adaptive) --
+//
+// Selector s XORs a tweak into the fingerprint's pre-mix seed; tweak 0 is
+// the identity, so fingerprint_sel(.., 0, ..) == fingerprint(..).  Bucket
+// geometry always comes from the selector-0 member.  The packed selector
+// plane keeps slot s of a bucket in bits [2s, 2s+2) of one uint32 word.
+
+__host__ __device__ __forceinline__ uint32_t sel_tweak(uint32_t sel) {
+  switch (sel & 3u) {
+    case 1u: return 0x7F4A7C15u;
+    case 2u: return 0x94D049BBu;
+    case 3u: return 0xBF58476Du;
+    default: return 0u;
+  }
+}
+
+__host__ __device__ __forceinline__ uint32_t fingerprint_sel(uint32_t hi,
+                                                             uint32_t lo,
+                                                             uint32_t sel,
+                                                             int fp_bits) {
+  const uint32_t h =
+      murmur3_mix(lo ^ murmur3_mix(hi ^ (0xDEADBEEFu ^ sel_tweak(sel))));
+  const uint32_t mask =
+      fp_bits >= 32 ? 0xFFFFFFFFu : ((1u << fp_bits) - 1u);
+  const uint32_t fp = h & mask;
+  return fp == 0u ? 1u : fp;
+}
+
+// Selector of slot s in a packed selector word.
+__host__ __device__ __forceinline__ uint32_t sel_of(uint32_t word, int s) {
+  return (word >> (2 * s)) & 3u;
+}
+
+// The four family fingerprints of a key.
+__host__ __device__ __forceinline__ void fp_family(uint32_t hi, uint32_t lo,
+                                                   int fp_bits,
+                                                   uint32_t fam[4]) {
+  for (uint32_t s = 0; s < 4u; ++s) fam[s] = fingerprint_sel(hi, lo, s, fp_bits);
+}
+
 // ------------------------------------------------- one-CTA lane helpers --
 //
 // The insert and delete kernels run ONE thread block that walks the
@@ -97,6 +137,16 @@ __device__ __forceinline__ int nth_slot_equal(const uint32_t* row,
     }
   }
   return -1;
+}
+
+// Set slot s's 2-bit field of a packed selector word.  In one write pass
+// several lanes may set DIFFERENT fields of one word (placements of
+// different ranks, rollbacks of different lanes); the fields are disjoint,
+// so two atomics per field (clear, then set) keep every other field
+// intact in any order, where a plain read-modify-write would lose bits.
+__device__ __forceinline__ void set_sel(uint32_t* word, int s, uint32_t v) {
+  atomicAnd(word, ~(3u << (2 * s)));
+  if (v & 3u) atomicOr(word, (v & 3u) << (2 * s));
 }
 
 }  // namespace ocf

@@ -40,6 +40,17 @@ KERNELS = {
                      _P, _P, _P, _P, _P]),
     "delete_bulk": ("delete.cu", "ocf_delete_bulk",
                     [_P, _I, _U, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "fingerprint_hash_family": ("fingerprint_family.cu",
+                                "ocf_fingerprint_hash_family",
+                                [_P, _P, _P, _I, _I, _U, _P]),
+    "probe_adaptive": ("probe_adaptive.cu", "ocf_probe_adaptive",
+                       [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _U, _P]),
+    "insert_bulk_adaptive": ("insert_adaptive.cu", "ocf_insert_bulk_adaptive",
+                             [_P, _P, _P, _P, _I, _U, _P, _I, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "delete_bulk_adaptive": ("delete_adaptive.cu", "ocf_delete_bulk_adaptive",
+                             [_P, _P, _P, _P, _I, _U, _P, _P, _P, _P, _I, _I,
+                              _I, _P, _P, _P]),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -148,9 +159,12 @@ def check_cuda(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def check_table(name: str, table, n_buckets: int, stash=None) -> None:
-    """A [buffer, bucket_size] table whose active region fits, and a
-    [2, S] stash when one is given."""
+def check_table(name: str, table, n_buckets: int, stash=None, *,
+                sels=None, khi=None, klo=None) -> None:
+    """A [buffer, bucket_size] table whose active region fits, a [2, S]
+    stash when one is given, and, for the adaptive kernels, a packed
+    [buffer, 1] selector plane and mirror key planes of the table's shape.
+    """
     if table.dim() != 2 or not 0 < n_buckets <= table.shape[0]:
         raise ValueError(f"{name}: table must be [buffer, bucket_size] "
                          f"with 0 < n_buckets <= buffer, got "
@@ -158,6 +172,17 @@ def check_table(name: str, table, n_buckets: int, stash=None) -> None:
     if stash is not None and (stash.dim() != 2 or stash.shape[0] != 2):
         raise ValueError(f"{name}: stash must be [2, slots], got "
                          f"{tuple(stash.shape)}")
+    if sels is not None and tuple(sels.shape) != (table.shape[0], 1):
+        raise ValueError(f"{name}: sels must be [buffer, 1], got "
+                         f"{tuple(sels.shape)}")
+    if sels is not None and table.shape[1] > 16:
+        raise ValueError(f"{name}: a packed selector word holds at most "
+                         f"16 slots, got bucket_size {table.shape[1]}")
+    for key, plane in (("khi", khi), ("klo", klo)):
+        if plane is not None and plane.shape != table.shape:
+            raise ValueError(f"{name}: {key} must have the table's shape "
+                             f"{tuple(table.shape)}, got "
+                             f"{tuple(plane.shape)}")
 
 
 def check_dtype(name: str, dtype, **tensors) -> None:

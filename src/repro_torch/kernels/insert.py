@@ -1,6 +1,8 @@
-"""Fused hash + bulk insert with bounded eviction rounds (kernel 3).
+"""Fused hash + bulk insert with bounded eviction rounds (kernels 3 and 8).
 
-Counterpart of ``repro.kernels.insert.insert_bulk`` / ``insert_once``.
+Counterpart of ``repro.kernels.insert.insert_bulk`` / ``insert_once`` and
+of ``insert_bulk_adaptive`` (the four-plane insert, at the end of this
+module).
 Per logical block, in order, with the table (and stash) carried from block
 to block:
 
@@ -28,6 +30,7 @@ from repro_torch.core.scheduling import dispatch_order_from_buckets
 from repro_torch.kernels import cuda
 from repro_torch.kernels.fingerprint import fingerprint_hash
 from repro_torch.kernels.rank import rank_among_earlier
+from repro_torch.kernels.selector import sel_pack, sel_unpack
 from repro_torch.kernels.stash import stash_spill
 
 DEFAULT_BLOCK = 1024
@@ -237,3 +240,220 @@ def insert_once(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
     """One optimistic insert round (no eviction) -> (table, placed)."""
     return insert_bulk(table, hi, lo, fp_bits=fp_bits, n_buckets=n_buckets,
                        valid=valid, evict_rounds=0, block=block)
+
+
+# ------------------------------------------- selector-aware (adaptive) -----
+#
+# The four-plane insert (table, packed selectors, mirror khi/klo): the
+# same block / round / rank schedule as above, with three differences.
+# Placements and kicks write (fp0, selector 0, key).  Lanes carry the KEY,
+# and a kicked victim's next bucket comes from its MIRROR key's fp0 (the
+# stored fingerprint may be an adapted member).  The chain history keeps
+# each kicked slot's original four-plane contents, and rollback restores
+# them newest first; a failed lane owns its kicked slots (they stay
+# dirty), so that is exact.  The plain version unpacks the selector plane
+# once per call and packs it back at the end (pack and unpack are
+# inverses); the kernel (``csrc/insert_adaptive.cu``) edits the 2-bit
+# fields of the packed words with atomics.
+
+
+def _place_round_adaptive(planes, target, active, fp32, khi32, klo32):
+    """Adaptive placement round: (fp, sel 0, key) into the rank-th empty
+    slot of each active lane's ``target`` bucket -> placed bool[N]."""
+    table, sel_tbl, khi_t, klo_t = planes
+    rank = rank_among_earlier(target, active)
+    empty = table[target] == 0                            # [n, bucket_size]
+    fits = active & (rank < empty.sum(dim=1))
+    empty_pos = torch.cumsum(empty.to(torch.int64), dim=1) - 1
+    slot = _first_true(empty & (empty_pos == rank[:, None]))
+    t, s = target[fits], slot[fits]
+    table[t, s] = fp32[fits]
+    sel_tbl[t, s] = 0
+    khi_t[t, s] = khi32[fits]
+    klo_t[t, s] = klo32[fits]
+    return fits
+
+
+def _evict_rounds_adaptive(planes, stash, hi, lo, start_bucket, residue,
+                           n_buckets, rounds: int, *, fp_bits: int):
+    """Bounded eviction rounds, stash spill and rollback over the four
+    planes -> completed bool[N]."""
+    table, sel_tbl, khi_t, klo_t = planes
+    buf, bucket_size = table.shape
+    n = hi.shape[0]
+    dev = table.device
+    dirty = torch.zeros((buf, bucket_size), dtype=torch.bool, device=dev)
+    chi, clo = hi.clone(), lo.clone()            # carried key (int32 bits)
+    bucket, active = start_bucket.clone(), residue.clone()
+    steps = torch.zeros((n,), dtype=torch.int64, device=dev)
+    hb = torch.zeros((n, rounds), dtype=torch.int64, device=dev)
+    hs, hsel = torch.zeros_like(hb), torch.zeros_like(hb)
+    hfp = torch.zeros((n, rounds), dtype=torch.int32, device=dev)
+    hhi, hlo = torch.zeros_like(hfp), torch.zeros_like(hfp)
+    t_iota = torch.arange(rounds, device=dev)
+    slot_iota = torch.arange(bucket_size, device=dev)
+    r = 0
+    while r < rounds and bool(active.any()):
+        cfp = hashing.to_i32(hashing.fingerprint(chi, clo, fp_bits))
+        # phase A: the carried key into an empty slot of its bucket.
+        placed = _place_round_adaptive(planes, bucket, active, cfp, chi, clo)
+        active = active & ~placed
+        # A lane that landed never rolls back: release its kicked slots.
+        rel = placed[:, None] & (t_iota[None, :] < steps[:, None])
+        dirty[hb[rel], hs[rel]] = False
+        # phase B: one kick per bucket, earliest active lane wins.
+        first = active & (rank_among_earlier(bucket, active) == 0)
+        pos = (slot_iota[None, :] + (steps % bucket_size)[:, None]) \
+            % bucket_size
+        cand_free = ~torch.gather(dirty[bucket], 1, pos)
+        kick = first & cand_free.any(dim=1)
+        slot = torch.gather(pos, 1, _first_true(cand_free)[:, None])[:, 0]
+        # The victim's original contents, all four planes.
+        vfp, vsel = table[bucket, slot], sel_tbl[bucket, slot]
+        vhi, vlo = khi_t[bucket, slot], klo_t[bucket, slot]
+        kb, ks = bucket[kick], slot[kick]
+        table[kb, ks] = cfp[kick]
+        sel_tbl[kb, ks] = 0
+        khi_t[kb, ks] = chi[kick]
+        klo_t[kb, ks] = clo[kick]
+        dirty[kb, ks] = True
+        lanes = torch.nonzero(kick).flatten()
+        col = steps[lanes]
+        for plane, value in ((hb, kb), (hs, ks), (hfp, vfp[lanes]),
+                             (hsel, vsel[lanes]), (hhi, vhi[lanes]),
+                             (hlo, vlo[lanes])):
+            plane[lanes, col] = value
+        # Chase the victim to ITS alternate bucket: selector-0 geometry
+        # from the mirror key.
+        nxt = hashing.alt_index(bucket, hashing.fingerprint(vhi, vlo, fp_bits),
+                                n_buckets)
+        chi = torch.where(kick, vhi, chi)
+        clo = torch.where(kick, vlo, clo)
+        bucket = torch.where(kick, nxt, bucket)
+        steps = steps + kick.to(torch.int64)
+        r += 1
+    if stash is not None:
+        # Spills park the carried key's fp0.
+        cfp = hashing.fingerprint(chi, clo, fp_bits)
+        active = active & ~stash_spill(stash, cfp, bucket, active)
+    failed = active
+    if bool(failed.any()):
+        for k in range(rounds):
+            t = steps - 1 - k
+            do = failed & (t >= 0)
+            if not bool(do.any()):
+                break
+            tc = t.clamp(0, rounds - 1)[:, None]
+            b = torch.gather(hb, 1, tc)[:, 0][do]
+            s = torch.gather(hs, 1, tc)[:, 0][do]
+            for plane, hist in ((table, hfp), (sel_tbl, hsel), (khi_t, hhi),
+                                (klo_t, hlo)):
+                plane[b, s] = torch.gather(hist, 1, tc)[:, 0][do]
+    return residue & ~failed
+
+
+def _insert_adaptive_block(planes, stash, hi, lo, valid, n_buckets, *,
+                           fp_bits: int, evict_rounds: int):
+    fp = hashing.fingerprint(hi, lo, fp_bits)
+    i1 = hashing.index_hash(hi, lo, n_buckets)
+    i2 = hashing.alt_index(i1, fp, n_buckets)
+    fp32 = hashing.to_i32(fp)
+    ok = _place_round_adaptive(planes, i1, valid, fp32, hi, lo)
+    ok = ok | _place_round_adaptive(planes, i2, valid & ~ok, fp32, hi, lo)
+    if evict_rounds > 0:
+        # Chains start at the alternate bucket, like the static path.
+        ok = ok | _evict_rounds_adaptive(planes, stash, hi, lo, i2,
+                                         valid & ~ok, n_buckets,
+                                         evict_rounds, fp_bits=fp_bits)
+    elif stash is not None:
+        ok = ok | stash_spill(stash, fp, i2, valid & ~ok)
+    return ok
+
+
+def insert_bulk_adaptive_plain(table, sels, khi, klo, hi, lo, valid, *,
+                               fp_bits: int, n_buckets: int,
+                               evict_rounds: int, stash, block: int
+                               ) -> torch.Tensor:
+    """Plain PyTorch version: logical blocks in order, all four planes
+    (and the stash) updated IN PLACE -> ok."""
+    cuda.PLAIN_CALLS["insert_bulk_adaptive"] += 1
+    sel_tbl = sel_unpack(sels, table.shape[1])
+    planes = (table, sel_tbl, khi, klo)
+    ok = [_insert_adaptive_block(planes, stash, hi[s:s + block],
+                                 lo[s:s + block], valid[s:s + block],
+                                 n_buckets, fp_bits=fp_bits,
+                                 evict_rounds=evict_rounds)
+          for s in range(0, hi.shape[0], block)]
+    sels.copy_(sel_pack(sel_tbl))
+    return torch.cat(ok)
+
+
+def _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
+                          n_buckets, evict_rounds, stash, block):
+    name = "insert_bulk_adaptive"
+    cuda.check_cuda(name, table=table, sels=sels, khi=khi, klo=klo, hi=hi,
+                    lo=lo, valid=valid, stash=stash)
+    cuda.check_dtype(name, torch.int32, table=table, sels=sels, khi=khi,
+                     klo=klo, hi=hi, lo=lo, stash=stash)
+    cuda.check_dtype(name, torch.bool, valid=valid)
+    cuda.check_table(name, table, n_buckets, stash, sels=sels, khi=khi,
+                     klo=klo)
+    n = hi.shape[0]
+    dev = table.device
+    ok = torch.empty((n,), dtype=torch.bool, device=dev)
+    lane_u32 = torch.empty((13, block), dtype=torch.int32, device=dev)
+    lane_u8 = torch.empty((5, block), dtype=torch.uint8, device=dev)
+    hist = torch.empty((6, block * max(evict_rounds, 1)), dtype=torch.int32,
+                       device=dev)
+    cuda.launch(name, table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
+                klo.data_ptr(), table.shape[1], int(n_buckets),
+                cuda.ptr(stash), 0 if stash is None else stash.shape[1],
+                hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), ok.data_ptr(),
+                n, block, fp_bits, evict_rounds, lane_u32.data_ptr(),
+                lane_u8.data_ptr(), hist.data_ptr(),
+                _dirty_mask(table).data_ptr())
+    return ok
+
+
+def insert_bulk_adaptive(table: torch.Tensor, sels: torch.Tensor,
+                         khi: torch.Tensor, klo: torch.Tensor,
+                         hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
+                         n_buckets: int | None = None,
+                         valid: torch.Tensor | None = None,
+                         evict_rounds: int = DEFAULT_EVICT_ROUNDS,
+                         stash: torch.Tensor | None = None,
+                         block: int = DEFAULT_BLOCK, schedule: bool = False):
+    """Selector-aware bulk insert over the four adaptive planes, IN PLACE
+    -> (table, sels, khi, klo, ok) or (table, sels, khi, klo, stash, ok).
+
+    ``sels``: the packed selector plane int32[buffer, 1]; ``khi``/``klo``:
+    mirror key planes of the table's shape.  Otherwise the contract of
+    ``insert_bulk``.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel.
+    """
+    n = hi.shape[0]
+    block = min(block, n) if n else block
+    if n and n % block:
+        raise ValueError(f"{n=} not a multiple of {block=}")
+    if n_buckets is None:
+        n_buckets = table.shape[0]
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=hi.device)
+    planes = (table, sels, khi, klo)
+    if n == 0:
+        ok = torch.zeros((0,), dtype=torch.bool, device=table.device)
+        return (*planes, ok) if stash is None else (*planes, stash, ok)
+    schedule = schedule and n > block
+    if schedule:
+        _fp, i1, _i2 = fingerprint_hash(hi, lo, fp_bits=fp_bits,
+                                        n_buckets=n_buckets, block=block)
+        perm, inv = dispatch_order_from_buckets(i1, valid)
+        hi, lo, valid = hi[perm], lo[perm], valid[perm]
+    run = (insert_bulk_adaptive_plain if table.device.type == "cpu"
+           else _insert_adaptive_cuda)
+    ok = run(table, sels, khi, klo, hi, lo, valid, fp_bits=fp_bits,
+             n_buckets=n_buckets, evict_rounds=evict_rounds, stash=stash,
+             block=block)
+    if schedule:
+        ok = ok[inv]
+    return (*planes, ok) if stash is None else (*planes, stash, ok)

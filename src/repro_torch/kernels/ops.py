@@ -1,7 +1,9 @@
 """Public wrappers around the filter kernels: padding, block rule, copies.
 
 Counterpart of ``repro.kernels.ops`` for the main path (``hash_keys``,
-``probe_dispatch``, ``filter_insert``, ``filter_delete``).  Every wrapper
+``probe_dispatch``, ``filter_insert``, ``filter_delete``) and the adaptive
+filter (``adaptive_lookup``, ``adaptive_insert``, ``adaptive_delete``,
+``adaptive_report``).  Every wrapper
 goes to its kernel; a kernel module takes its plain version only for CPU
 tensors, so there is no fallback arm here.
 
@@ -21,10 +23,13 @@ import functools
 
 import torch
 
-from repro_torch.kernels.delete import delete_bulk
-from repro_torch.kernels.fingerprint import fingerprint_hash
-from repro_torch.kernels.insert import insert_bulk
-from repro_torch.kernels.probe import probe
+from repro_torch.kernels.delete import delete_bulk, delete_bulk_adaptive
+from repro_torch.kernels.fingerprint import (fingerprint_hash,
+                                             fingerprint_hash_family)
+from repro_torch.kernels.insert import insert_bulk, insert_bulk_adaptive
+from repro_torch.kernels.probe import probe, probe_adaptive
+from repro_torch.kernels.selector import report_adapt
+from repro_torch.kernels.stash import stash_delete_ref
 
 # Parity constants: the reference's VMEM footprint model and candidates.
 PARITY_VMEM_TABLE_BUDGET = 12 * 2**20
@@ -174,3 +179,146 @@ def filter_delete(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
     table, ok = delete_bulk(table, hi_p, lo_p, fp_bits=fp_bits,
                             n_buckets=n_buckets, valid=valid_p, block=block)
     return table, _unpad(ok, n)
+
+
+# ------------------------------------------------- adaptive dispatch -------
+#
+# The adaptive state is four planes (fingerprints, packed selector column,
+# two mirror-key planes).  The parity block rule is fed the reference's
+# adaptive arguments: the plane-scaled table bytes, and twice the eviction
+# rounds for insert (its chain history is six arrays wide, not three).
+
+
+def _adaptive_plane_bytes(table: torch.Tensor) -> int:
+    """The reference's footprint of the four planes (parity only)."""
+    return 3 * table.numel() * 4 + table.shape[0] * 4
+
+
+def hash_family(hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
+                n_buckets: int):
+    """((f0..f3), i1, i2) via the family kernel, padded to its block."""
+    n = hi.shape[0]
+    if n == 0:
+        empty = torch.zeros((0,), dtype=torch.int32, device=hi.device)
+        return tuple(empty.clone() for _ in range(4)), empty, empty.clone()
+    block = min(autotune_block("probe", table_bytes=0), n)
+    hi_p, _ = _pad_to(hi, block)
+    lo_p, _ = _pad_to(lo, block)
+    fam, i1, i2 = fingerprint_hash_family(hi_p, lo_p, fp_bits=fp_bits,
+                                          n_buckets=n_buckets, block=block)
+    return (tuple(_unpad(f, n) for f in fam), _unpad(i1, n), _unpad(i2, n))
+
+
+def adaptive_lookup(table: torch.Tensor, sels: torch.Tensor,
+                    hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
+                    n_buckets: int | None = None,
+                    stash: torch.Tensor | None = None) -> torch.Tensor:
+    """Selector-aware bulk membership through the kernel -> bool[N]."""
+    if hi.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=table.device)
+    stash_slots = 0 if stash is None else stash.shape[1]
+    block = min(autotune_block("probe",
+                               table_bytes=_adaptive_plane_bytes(table),
+                               stash_slots=stash_slots), hi.shape[0])
+    hi_p, n = _pad_to(hi, block)
+    lo_p, _ = _pad_to(lo, block)
+    hit = probe_adaptive(table, sels, hi_p, lo_p, fp_bits=fp_bits,
+                         n_buckets=n_buckets, stash=stash, block=block)
+    return _unpad(hit, n)
+
+
+def adaptive_insert(table: torch.Tensor, sels: torch.Tensor,
+                    khi: torch.Tensor, klo: torch.Tensor, hi: torch.Tensor,
+                    lo: torch.Tensor, *, fp_bits: int,
+                    n_buckets: int | None = None,
+                    valid: torch.Tensor | None = None, evict_rounds: int = 0,
+                    stash: torch.Tensor | None = None,
+                    schedule: bool = False, donate: bool = False):
+    """Bulk insert over the adaptive planes through the kernel
+    -> (table, sels, khi, klo, ok) or (..., stash, ok).
+
+    ``donate=True`` updates the caller's planes (and stash) in place;
+    otherwise they are copied first and the copies are returned.
+    """
+    planes = (table, sels, khi, klo)
+    if not donate:
+        planes = tuple(p.clone() for p in planes)
+        stash = None if stash is None else stash.clone()
+    if hi.shape[0] == 0:
+        ok = torch.zeros((0,), dtype=torch.bool, device=table.device)
+        return (*planes, ok) if stash is None else (*planes, stash, ok)
+    if valid is None:
+        valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
+    stash_slots = 0 if stash is None else stash.shape[1]
+    block = min(autotune_block("insert",
+                               table_bytes=_adaptive_plane_bytes(table),
+                               evict_rounds=2 * evict_rounds,
+                               stash_slots=stash_slots,
+                               n_keys=hi.shape[0]), hi.shape[0])
+    hi_p, n = _pad_to(hi, block)
+    lo_p, _ = _pad_to(lo, block)
+    valid_p, _ = _pad_to(valid, block)   # pads False: never touches planes
+    out = insert_bulk_adaptive(*planes, hi_p, lo_p, fp_bits=fp_bits,
+                               n_buckets=n_buckets, valid=valid_p,
+                               evict_rounds=evict_rounds, stash=stash,
+                               block=block, schedule=schedule)
+    return (*out[:-1], _unpad(out[-1], n))
+
+
+def adaptive_delete(table: torch.Tensor, sels: torch.Tensor,
+                    khi: torch.Tensor, klo: torch.Tensor, hi: torch.Tensor,
+                    lo: torch.Tensor, *, fp_bits: int,
+                    n_buckets: int | None = None,
+                    valid: torch.Tensor | None = None,
+                    stash: torch.Tensor | None = None, donate: bool = False):
+    """Bulk delete over the adaptive planes through the kernel
+    -> (table, sels, khi, klo, ok) or (..., stash, ok).
+
+    Lanes that miss the table clear their selector-0 stash entry in the
+    composed ``stash_delete_ref`` pass (unpadded lanes), as in the
+    reference.
+    """
+    planes = (table, sels, khi, klo)
+    if not donate:
+        planes = tuple(p.clone() for p in planes)
+        stash = None if stash is None else stash.clone()
+    if hi.shape[0] == 0:
+        ok = torch.zeros((0,), dtype=torch.bool, device=table.device)
+        return (*planes, ok) if stash is None else (*planes, stash, ok)
+    if valid is None:
+        valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
+    block = min(autotune_block("delete",
+                               table_bytes=_adaptive_plane_bytes(table),
+                               n_keys=hi.shape[0]), hi.shape[0])
+    hi_p, n = _pad_to(hi, block)
+    lo_p, _ = _pad_to(lo, block)
+    valid_p, _ = _pad_to(valid, block)
+    out = delete_bulk_adaptive(*planes, hi_p, lo_p, fp_bits=fp_bits,
+                               n_buckets=n_buckets, valid=valid_p,
+                               block=block)
+    ok = _unpad(out[-1], n)
+    if stash is None:
+        return (*planes, ok)
+    nb = table.shape[0] if n_buckets is None else n_buckets
+    cleared = stash_delete_ref(stash, hi, lo, valid & ~ok, fp_bits=fp_bits,
+                               n_buckets=nb)
+    return (*planes, stash, ok | cleared)
+
+
+def adaptive_report(table: torch.Tensor, sels: torch.Tensor,
+                    khi: torch.Tensor, klo: torch.Tensor, hi: torch.Tensor,
+                    lo: torch.Tensor, *, fp_bits: int, n_buckets: int,
+                    valid: torch.Tensor | None = None, donate: bool = False):
+    """Confirmed-false-positive feedback -> (table, sels, adapted[N],
+    resident[N]).
+
+    The reported keys are hashed once by the family kernel; the sequential
+    repair (``kernels.selector.report_adapt``) is torch code.
+    """
+    if not donate:
+        table, sels = table.clone(), sels.clone()
+    if valid is None:
+        valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
+    family = hash_family(hi, lo, fp_bits=fp_bits, n_buckets=n_buckets)
+    return report_adapt(table, sels, khi, klo, hi, lo, valid,
+                        fp_bits=fp_bits, n_buckets=n_buckets, family=family)

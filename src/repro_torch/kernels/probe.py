@@ -1,9 +1,12 @@
-"""Fused hash + bucket-probe bulk lookup, with an optional stash (kernel 2).
+"""Fused hash + bucket-probe bulk lookup, with an optional stash
+(kernels 2 and 7).
 
-Counterpart of ``repro.kernels.probe.probe``.  The CUDA kernel
-(``csrc/probe.cu``) runs one thread per key: hash, two 16-byte bucket
-loads, compare; with a stash, a scan of the stash staged in shared memory.
-The plain version below gathers both buckets with tensor indexing.
+Counterpart of ``repro.kernels.probe.probe`` and ``probe_adaptive``.  The
+CUDA kernels (``csrc/probe.cu``, ``csrc/probe_adaptive.cu``) run one
+thread per key: hash, two 16-byte bucket loads (and, adaptive, the two
+packed selector words), compare; with a stash, a scan of the stash staged
+in shared memory.  The plain versions below gather both buckets with
+tensor indexing.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.kernels import cuda
+from repro_torch.kernels.selector import fp_family, sel_unpack, select_fp
 from repro_torch.kernels.stash import stash_match
 
 DEFAULT_BLOCK = 1024
@@ -62,4 +66,64 @@ def probe(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
     cuda.launch("probe", table.data_ptr(), table.shape[1], cuda.ptr(stash),
                 0 if stash is None else stash.shape[1], hi.data_ptr(),
                 lo.data_ptr(), hit.data_ptr(), n, fp_bits, int(n_buckets))
+    return hit
+
+
+def probe_adaptive_plain(table: torch.Tensor, sels: torch.Tensor,
+                         hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
+                         n_buckets: int | None = None,
+                         stash: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version -> bool[N]."""
+    cuda.PLAIN_CALLS["probe_adaptive"] += 1
+    if n_buckets is None:
+        n_buckets = table.shape[0]
+    bucket_size = table.shape[1]
+    fam = fp_family(hi, lo, fp_bits)
+    i1 = hashing.index_hash(hi, lo, n_buckets)
+    i2 = hashing.alt_index(i1, fam[0], n_buckets)
+    hit = torch.zeros(hi.shape, dtype=torch.bool, device=hi.device)
+    for b in (i1, i2):
+        exp = select_fp(fam, sel_unpack(sels[b], bucket_size))
+        hit |= (table[b] == hashing.to_i32(exp)).any(dim=1)
+    if stash is not None:
+        hit = hit | stash_match(stash, fam[0], i1, i2)
+    return hit
+
+
+def probe_adaptive(table: torch.Tensor, sels: torch.Tensor, hi: torch.Tensor,
+                   lo: torch.Tensor, *, fp_bits: int,
+                   n_buckets: int | None = None,
+                   stash: torch.Tensor | None = None,
+                   block: int = DEFAULT_BLOCK) -> torch.Tensor:
+    """Selector-aware bulk membership -> bool[N].
+
+    A slot hits when it stores the key's family fingerprint under the
+    slot's own selector (``sels``: the packed plane int32[buffer, 1]);
+    stash entries are selector-0.  With an all-zero selector plane this is
+    ``probe``.  Same contract as ``probe`` otherwise.
+    """
+    n = hi.shape[0]
+    if n and n % min(block, n):
+        raise ValueError(f"{n=} not a multiple of {block=}")
+    if n_buckets is None:
+        n_buckets = table.shape[0]
+    if table.device.type == "cpu":
+        return probe_adaptive_plain(table, sels, hi, lo, fp_bits=fp_bits,
+                                    n_buckets=n_buckets, stash=stash)
+    return _probe_adaptive_cuda(table, sels, hi, lo, fp_bits=fp_bits,
+                                n_buckets=n_buckets, stash=stash)
+
+
+def _probe_adaptive_cuda(table, sels, hi, lo, *, fp_bits, n_buckets, stash):
+    name = "probe_adaptive"
+    cuda.check_cuda(name, table=table, sels=sels, hi=hi, lo=lo, stash=stash)
+    cuda.check_dtype(name, torch.int32, table=table, sels=sels, hi=hi, lo=lo,
+                     stash=stash)
+    cuda.check_table(name, table, n_buckets, stash, sels=sels)
+    n = hi.shape[0]
+    hit = torch.empty((n,), dtype=torch.bool, device=table.device)
+    cuda.launch(name, table.data_ptr(), sels.data_ptr(), table.shape[1],
+                cuda.ptr(stash), 0 if stash is None else stash.shape[1],
+                hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
+                int(n_buckets))
     return hit

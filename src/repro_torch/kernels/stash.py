@@ -12,13 +12,15 @@ entry when the fingerprints agree AND the stored bucket is either of its
 two candidate buckets.
 
 These are plain tensor functions; the CUDA kernels implement the same
-match (``csrc/probe.cu``) and spill (``csrc/insert.cu``).
+match (``csrc/probe.cu``) and spill (``csrc/insert.cu``).  The stash
+delete runs outside the kernels, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import hashing
+from repro_torch.core.scheduling import pair_rank
 
 DEFAULT_STASH_SLOTS = 128
 
@@ -69,6 +71,35 @@ def stash_spill(stash: torch.Tensor, carried: torch.Tensor,
     return fits
 
 
+def stash_delete(stash: torch.Tensor, fp: torch.Tensor, i1: torch.Tensor,
+                 i2: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Clear ``want`` lanes' matching stash entries IN PLACE -> cleared[N].
+
+    Lane i matches slots whose fingerprint equals ``fp[i]`` and whose
+    stored bucket is either candidate, is ranked among earlier want-lanes
+    with the same (home bucket, fingerprint) pair (``pair_rank``), and
+    clears the rank-th matching slot; lanes whose rank reaches the match
+    count report False.  A cleared slot zeroes both rows.
+    """
+    cleared = torch.zeros_like(want)
+    lanes = torch.nonzero(want).flatten()   # ranks among want lanes only
+    if lanes.numel() == 0:
+        return cleared
+    fp, i1, i2 = fp[lanes], i1[lanes], i2[lanes]
+    s_fp = hashing.to_u32(stash[0])[None, :]
+    s_bkt = hashing.to_u32(stash[1])[None, :]
+    match = (s_fp == hashing.to_u32(fp)[:, None]) & (
+        (s_bkt == hashing.to_u32(i1)[:, None])
+        | (s_bkt == hashing.to_u32(i2)[:, None]))                 # [L, S]
+    rank = pair_rank(i1, fp, torch.ones_like(lanes, dtype=torch.bool))
+    hit = rank < match.sum(dim=1)
+    match_pos = torch.cumsum(match.to(torch.int64), dim=1) - 1
+    slot = (match & (match_pos == rank[:, None])).to(torch.int8).argmax(1)
+    stash[:, slot[hit]] = 0
+    cleared[lanes] = hit
+    return cleared
+
+
 def _hash(hi, lo, fp_bits: int, n_buckets: int):
     fp = hashing.fingerprint(hi, lo, fp_bits)
     i1 = hashing.index_hash(hi, lo, n_buckets)
@@ -89,3 +120,12 @@ def stash_spill_ref(stash: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
     -> spilled bool[N]."""
     fp, _i1, i2 = _hash(hi, lo, fp_bits, n_buckets)
     return stash_spill(stash, fp, i2, want)
+
+
+def stash_delete_ref(stash: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                     want: torch.Tensor, *, fp_bits: int, n_buckets: int
+                     ) -> torch.Tensor:
+    """Hash a key batch and clear its stash entries IN PLACE -> cleared[N]
+    (the whole-key pass the deletes compose after the table pass)."""
+    fp, i1, i2 = _hash(hi, lo, fp_bits, n_buckets)
+    return stash_delete(stash, fp, i1, i2, want)

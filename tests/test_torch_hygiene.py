@@ -11,11 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.convert import ocf_from_numpy, state_from_numpy
+from repro_torch.adaptive import (AdaptiveConfig, AdaptiveFilter,
+                                  AdaptiveMembership, make_adaptive_state)
+from repro_torch.convert import (adaptive_state_from_numpy, ocf_from_numpy,
+                                 state_from_numpy)
 from repro_torch.core.filter import make_state
 from repro_torch.core.filter_ops import FilterOps
 from repro_torch.core.ocf import OCF, OcfConfig
 from repro_torch.kernels import cuda
+from repro_torch.kernels.delete import _delete_adaptive_cuda
+from repro_torch.kernels.fingerprint import _family_cuda
+from repro_torch.kernels.insert import _insert_adaptive_cuda
+from repro_torch.kernels.probe import _probe_adaptive_cuda
 from repro_torch.kernels.stash import make_stash
 
 pytestmark = pytest.mark.tier1
@@ -53,7 +60,7 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
-        "assert len(mods) >= 17, mods\n"
+        "assert len(mods) >= 27, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -72,7 +79,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: state_from_numpy(table, 0, 1024),
                  lambda: ocf_from_numpy(OcfConfig(), table=table, count=0,
                                         n_buckets=1024,
-                                        keys=np.zeros(0, np.uint64))):
+                                        keys=np.zeros(0, np.uint64)),
+                 lambda: make_adaptive_state(256),
+                 lambda: AdaptiveFilter(AdaptiveConfig(n_buckets=256)),
+                 lambda: AdaptiveMembership(AdaptiveConfig(n_buckets=256)),
+                 lambda: adaptive_state_from_numpy(
+                     table, np.zeros((1024, 1), np.uint32), table, table, 0,
+                     1024)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asking for the CPU is what makes it run there
@@ -103,11 +116,33 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
             cuda.check_table("insert_bulk", table, bad)
     with pytest.raises(ValueError):
         cuda.check_table("probe", table, 8, torch.zeros((3, 4)))
+    sels = torch.zeros((16, 1), dtype=torch.int32)
+    cuda.check_table("insert_bulk_adaptive", table, 16, sels=sels, khi=table,
+                     klo=table)
+    for bad in (dict(sels=sels[:8]), dict(sels=table),
+                dict(khi=table[:8]), dict(klo=table[:, :2])):
+        with pytest.raises(ValueError):
+            cuda.check_table("insert_bulk_adaptive", table, 16, **bad)
+    # the four adaptive wrappers' CUDA paths refuse CPU tensors
+    keys = torch.zeros(128, dtype=torch.int32)
+    valid = torch.ones(128, dtype=torch.bool)
+    kw = dict(fp_bits=16, n_buckets=16)
+    for call in (
+            lambda: _family_cuda(keys, keys, **kw),
+            lambda: _probe_adaptive_cuda(table, sels, keys, keys, stash=None,
+                                         **kw),
+            lambda: _insert_adaptive_cuda(table, sels, table, table, keys,
+                                          keys, valid, evict_rounds=8,
+                                          stash=None, block=128, **kw),
+            lambda: _delete_adaptive_cuda(table, sels, table, table, keys,
+                                          keys, valid, block=128, **kw)):
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
 
 
 def test_build_names_a_library_per_source():
     names = {cuda._lib_path(k).name for k in cuda.KERNELS}
-    assert len(names) == 4
+    assert len(names) == 8
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert cuda.BUILD_DIR == ROOT / "build"
     for src, _fn, _args in cuda.KERNELS.values():

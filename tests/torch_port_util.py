@@ -96,3 +96,37 @@ def run_ocf_parity(ref_ocf, port_ocf, ops):
         np.testing.assert_array_equal(pa, ra, err_msg=f"{step} {op}")
         assert_same_state(ref_snapshot(ref_ocf), port_snapshot(port_ocf),
                           f"after op {step} ({op})")
+
+
+# ------------------------------------------------------------- adaptive --
+
+
+def adaptive_planes(rng, n_buckets, buffer, load, *, fp_bits=16,
+                    bucket_size=4, sel_share=0.25):
+    """A consistent four-plane adaptive state, uint32 numpy: keys placed in
+    their home buckets up to ``load``, and a ``sel_share`` of the occupied
+    slots given a nonzero selector with the fingerprint rewritten under it
+    -> (table, sels, khi, klo, resident keys)."""
+    from repro_torch.core import hashing
+    keys = random_keys(rng, int(n_buckets * bucket_size * load * 1.6))
+    hi, lo = split(keys)
+    home = hashing.index_hash_np(hi, lo, n_buckets).astype(np.int64)
+    order = np.argsort(home, kind="stable")
+    start = np.searchsorted(home[order], home[order], side="left")
+    rank = np.empty_like(home)
+    rank[order] = np.arange(keys.size) - start
+    take = np.nonzero(rank < bucket_size)[0][: int(n_buckets * bucket_size
+                                                   * load)]
+    shape = (buffer, bucket_size)
+    khi, klo = np.zeros(shape, np.uint32), np.zeros(shape, np.uint32)
+    sel = np.zeros(shape, np.uint32)
+    b, s = home[take], rank[take]
+    khi[b, s], klo[b, s] = hi[take], lo[take]
+    adapt = rng.rand(take.size) < sel_share
+    sel[b[adapt], s[adapt]] = rng.randint(1, 4, size=int(adapt.sum()))
+    table = np.zeros(shape, np.uint32)
+    table[b, s] = hashing.fingerprint_sel_np(khi[b, s], klo[b, s], sel[b, s],
+                                             fp_bits)
+    sels = (sel << (2 * np.arange(bucket_size, dtype=np.uint32))).sum(
+        axis=1, keepdims=True, dtype=np.uint32)
+    return table, sels, khi, klo, keys[take]
