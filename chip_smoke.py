@@ -9,13 +9,16 @@ Phases, each timed, each fatal on failure:
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card,
      bit for bit, at main-path shapes (4096-key chunks, 16M-slot tables,
-     the parity block): the four OCF kernels, and the four adaptive ones
-     on a four-plane state with nonzero selectors;
+     the parity block): the four OCF kernels, the four adaptive ones on a
+     four-plane state with nonzero selectors, and ``probe_multi`` over
+     K = 1, 2, 4 of four generation tables int32[4, 2^20, 4];
   3. run seeded streams through the card and the CPU and require
      identical state and answers after every operation: ~100k-key EOF
-     streams through ``OCF`` (with and without a stash), and two
+     streams through ``OCF`` (with and without a stash), two
      ``AdaptiveMembership`` streams (inserts, lookups, reports, deletes;
-     one at load ~0.95 with kicks of adapted slots);
+     one at load ~0.95 with kicks of adapted slots), a ~100k-event
+     ``GenerationalFilter`` stream (rotations, TTL expiries, spills, a
+     rotate-and-retry) and a ``GenerationalPrefixIndex`` stream;
   4. the OCF main path at full size: one node's membership filter of a
      distributed store (capacity 2^22 slots, 8 bursts of 1M inserts, 3M
      verified + 100k blind deletes, lookups of every resident key plus 5M
@@ -24,6 +27,10 @@ Phases, each timed, each fatal on failure:
      node (2^22 buckets of 4, 12 bursts of 1M members, 4 feedback rounds
      over 10M replayed benign keys, 3M deletes), launch counts read
      around it;
+  5b. the streaming path at full size: the dedup stage of one node
+     (``examples/streaming_dedup.py`` at scale: a ring of 4 generations
+     of 2^22 slots, 32 ticks of 600k events with a 4x burst, 40% repeats),
+     then the TTL step; launch counts read around it;
   6. time each kernel, its plain version and its bound, and print them as
      one JSON line.
 
@@ -77,10 +84,17 @@ KERNEL_ROWS = {
     "delete_bulk_adaptive": ("src/repro_torch/csrc/delete_adaptive.cu",
                              "src/repro/kernels/delete.py:245",
                              "serial_cta_loop"),
+    "probe_multi": ("src/repro_torch/csrc/probe_multi.cu",
+                    "src/repro/kernels/probe.py:403", "stash_scan"),
 }
 STATIC_KERNELS = ("fingerprint_hash", "probe", "insert_bulk", "delete_bulk")
 ADAPTIVE_KERNELS = ("fingerprint_hash_family", "probe_adaptive",
                     "insert_bulk_adaptive", "delete_bulk_adaptive")
+STREAMING_KERNELS = ("probe_multi",)
+# The streaming dedup stage of one node: examples/streaming_dedup.py's ring
+# at 2^22 slots a generation (4 x 16 MiB of tables on the card).
+RING = dict(generations=4, capacity=1 << 22, bucket_size=4, fp_bits=16,
+            stash_slots=128, ttl=24.0, o_max=0.85)
 
 
 def check(cond, msg: str) -> None:
@@ -442,6 +456,80 @@ class AdaptiveKernelBench(KernelBench):
               flush=True)
 
 
+class StreamingKernelBench(KernelBench):
+    """probe_multi against its plain version at the ring's shape: K = 1, 2,
+    4 of four generation tables int32[4, 2^20, 4] filled by the insert
+    kernel to loads 0.25 .. 0.9 (spills in their int32[2, 128] stashes),
+    with and without the stashes, once with n_buckets == buffer (the
+    ring's case) and once below it; 4096-key chunks half present, half
+    absent."""
+
+    def __init__(self, device):
+        buf = RING["capacity"] // RING["bucket_size"]
+        super().__init__(device, n_buckets=buf, buffer=buf)
+
+    def generations(self, nb: int, loads):
+        torch = self.torch
+        from repro_torch.core import hashing
+        from repro_torch.kernels.insert import insert_bulk
+        k = len(loads)
+        tables = torch.zeros((k, self.buffer, 4), dtype=torch.int32,
+                             device=self.dev)
+        stashes = torch.zeros((k, 2, 128), dtype=torch.int32,
+                              device=self.dev)
+        landed = []
+        for g, load in enumerate(loads):
+            keys = random_keys(self.rng, int(nb * 4 * load) // 128 * 128)
+            hi, lo = (torch.from_numpy(x.view(np.int32)).to(self.dev)
+                      for x in hashing.key_to_u32_pair_np(keys))
+            ok = insert_bulk(tables[g], hi, lo, fp_bits=16, n_buckets=nb,
+                             evict_rounds=16, stash=stashes[g], block=128)[-1]
+            landed.append(keys[ok.cpu().numpy()])
+        return tables, stashes, landed
+
+    def run(self) -> None:
+        torch = self.torch
+        from repro_torch.core import hashing
+        from repro_torch.kernels import ops as kops
+        from repro_torch.kernels.probe import probe_multi, probe_multi_plain
+
+        half = CHUNK // 2
+        pblock = min(kops.autotune_block(
+            "probe", table_bytes=self.buffer * 4 * 4, stash_slots=128), CHUNK)
+        for nb in (self.buffer, self.buffer - self.buffer // 100):
+            tables, stashes, landed = self.generations(
+                nb, (0.25, 0.5, 0.75, 0.9))
+            spilled = [int((s[0] != 0).sum()) for s in stashes]
+            check(spilled[-1] > 0, "the 0.9-load generation spilled nothing")
+            for k in (1, 2, 4):
+                pool = np.concatenate(landed[:k])
+                keys = np.concatenate([
+                    pool[self.rng.randint(0, pool.size, half)],
+                    random_keys(self.rng, half)])
+                hi, lo = (torch.from_numpy(x.view(np.int32)).to(self.dev)
+                          for x in hashing.key_to_u32_pair_np(keys))
+                for st in (None, stashes[:k]):
+                    got = probe_multi(tables[:k], hi, lo, fp_bits=16,
+                                      n_buckets=nb, stashes=st, block=pblock)
+                    want = probe_multi_plain(tables[:k], hi, lo, fp_bits=16,
+                                             n_buckets=nb, stashes=st)
+                    self.record("probe_multi", [(got, want)])
+                check(bool(got[:half].all()), "probe_multi missed a key")
+                # The ring's launch: the pool's live slots, in any order.
+                gens = list(range(k - 1, -1, -1))
+                got = probe_multi(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                                  stashes=stashes, gens=gens, block=pblock)
+                want = probe_multi_plain(tables, hi, lo, fp_bits=16,
+                                         n_buckets=nb, stashes=stashes,
+                                         gens=gens)
+                self.record("probe_multi", [(got, want)])
+                check(bool(got[:half].all()), "probe_multi missed a key")
+                print(f"   probe_multi n_buckets={nb} K={k}: hits "
+                      f"{int(got[:half].sum())} of {half} present, "
+                      f"{int(got[half:].sum())} of {half} absent; stash "
+                      f"entries {spilled[:k]}", flush=True)
+
+
 # --------------------------------------------------- phase 3: slice parity --
 
 
@@ -454,6 +542,8 @@ def snapshot(ocf) -> dict:
 
 
 def same_snapshot(a: dict, b: dict) -> bool:
+    if a.keys() != b.keys():
+        return False
     for key, va in a.items():
         vb = b[key]
         if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
@@ -565,6 +655,99 @@ def adaptive_parity(label: str, *, n_buckets: int, n_members: int,
           f"adapted={m.filt.adapted} promoted={m.reputation.promoted} "
           f"sels_nonzero={int((snap['sels'] != 0).sum())}", flush=True)
     check(m.filt.adapted > 0, f"{label}: no report adapted a slot")
+
+
+def ring_snapshot(ring) -> dict:
+    from repro_torch.convert import generational_to_numpy
+    d = generational_to_numpy(ring)
+    for i, g in enumerate(d.pop("gens")):
+        for key, value in g.items():
+            d[f"gen{i}.{key}"] = value
+    return d
+
+
+def ring_parity(n_events: int = 100_000):
+    """One seeded dedup stream through a ring on the card and one on the
+    CPU: per tick a lookup of the tick's events (60% fresh, 40% repeats of
+    recent ones), an insert of those it missed and a lookup_active of the
+    repeats; 8192-slot generations so 4096-key chunks overflow a filling
+    generation (spills, a rotate-and-retry) and the ring rotates; one
+    explicit rotate, and a quiet gap in the clock that expires every
+    generation.  Identical answers, tables, stashes, counts, clock and
+    GenStats after every operation."""
+    from repro_torch.streaming import GenerationalFilter, GenerationConfig
+    cfg = dict(generations=3, capacity=8192, stash_slots=32, evict_rounds=8,
+               ttl=6.0)
+    rings = [GenerationalFilter(GenerationConfig(device=d, **cfg), now=0.0)
+             for d in ("cuda", "cpu")]
+    rng = np.random.RandomState(SEED + 7)
+    recent, done, step, t = [], 0, 0, 0.0
+
+    def both(op, *args, **kw):
+        nonlocal step
+        answers = [getattr(r, op)(*args, **kw) for r in rings]
+        if answers[0] is not None:
+            check(np.array_equal(answers[0], answers[1]),
+                  f"ring {op} #{step}: answers differ between devices")
+        check(same_snapshot(*(ring_snapshot(r) for r in rings)),
+              f"ring {op} #{step}: ring state differs between devices")
+        step += 1
+        return answers[1]
+
+    while done < n_events:
+        n = int(rng.choice([3000, 6000, 12000]))
+        fresh = random_keys(rng, int(n * 0.6))
+        pool = np.concatenate(recent[-3:]) if recent else fresh
+        repeats = pool[rng.randint(0, pool.size, n - fresh.size)]
+        events = np.concatenate([fresh, repeats])
+        new = ~both("lookup", events, now=t)
+        both("insert", events[new], now=t)
+        both("lookup_active", repeats, now=t)
+        recent.append(fresh)
+        done += n
+        t += 1.0
+        if done >= n_events // 2 and t < 20.0:
+            both("rotate", now=t)
+            t = 20.0                         # a quiet gap: all expire
+            both("advance", now=t)
+    st = rings[1].stats
+    print(f"   ring stream: {done} events, {step} ops, stats={st}",
+          flush=True)
+    check(st.rotations > 0 and st.expirations > 0 and st.spills > 0
+          and st.rotate_retries > 0,
+          "the ring stream missed a rotation, expiry, spill or retry")
+
+
+def prefix_index_parity(steps: int = 40):
+    """One seeded GenerationalPrefixIndex stream (shared system prompts,
+    varied user turns, a TTL on a logical clock) on the card and the CPU:
+    identical answers, PrefixStats and ring state after every call."""
+    from repro_torch.serving import GenerationalPrefixIndex
+    idx = [GenerationalPrefixIndex(block=32, capacity=4096, generations=3,
+                                   ttl=5.0, now=0.0, device=d)
+           for d in ("cuda", "cpu")]
+    rng = np.random.RandomState(SEED + 8)
+    systems = [rng.randint(0, 32000, 256).astype(np.uint32)
+               for _ in range(4)]
+    for step in range(steps):
+        now = 0.5 * step
+        prompt = np.concatenate([
+            systems[rng.randint(len(systems))],
+            rng.randint(0, 32000, int(rng.randint(64, 257))).astype(
+                np.uint32)])
+        for op in ("match_prefix", "admit"):
+            answers = [getattr(i, op)(prompt, now=now) for i in idx]
+            check(answers[0] == answers[1],
+                  f"prefix {op} #{step}: answers differ between devices")
+            check(dataclasses.asdict(idx[0].stats)
+                  == dataclasses.asdict(idx[1].stats)
+                  and same_snapshot(*(ring_snapshot(i.filt) for i in idx)),
+                  f"prefix {op} #{step}: state differs between devices")
+    st, gs = idx[1].stats, idx[1].filt.stats
+    print(f"   prefix index: {st} hit_rate={idx[1].hit_rate!r} ring={gs}",
+          flush=True)
+    check(st.block_hits > 0 and gs.expirations > 0,
+          "the prefix stream never hit or never expired a generation")
 
 
 # ------------------------------------------------------ phase 4: main path --
@@ -750,6 +933,160 @@ def adaptive_path(card: str, *, n_buckets=1 << 22, bursts=12,
     return m, remaining, launches, plain, {
         "load": load, "fp_rounds": fp_rounds, "times": times,
         "device_s": device_s}
+
+
+# --------------------------------------------- phase 5b: the streaming path --
+
+
+def streaming_path(card: str, *, ticks=32, base=600_000, burst=4,
+                   burst_ticks=(8, 9, 10, 11), window=4):
+    """The dedup stage of one node (examples/streaming_dedup.py at scale):
+    per tick of a logical clock, ``new = ~lookup(events)`` then
+    ``insert(events[new])``; 60% of a tick's events are fresh 64-bit ids,
+    40% repeat ids drawn from the fresh ids of the previous ``window``
+    ticks (tick 0 repeats its own).  Then the TTL step."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.streaming import GenerationalFilter, GenerationConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = GenerationConfig(**RING)
+    rng = np.random.RandomState(SEED + 6)
+    gf = GenerationalFilter(cfg, now=0.0)
+
+    ring_pool = gf.pool
+
+    def pool_ptrs():
+        return ring_pool.tables.data_ptr(), ring_pool.stashes.data_ptr()
+
+    def in_pool():
+        return all(g.state.table.data_ptr()
+                   == ring_pool.tables[g.slot].data_ptr()
+                   and g.stash.array.data_ptr()
+                   == ring_pool.stashes[g.slot].data_ptr() for g in gf.gens)
+
+    ptrs = pool_ptrs()
+    every_in_pool = True
+    times = {"lookup": 0.0, "insert": 0.0}
+    n_probe = n_ins = n_fresh = fresh_flagged = 0
+    fn = missed_unheld = repeats_checked = 0
+    all_ok = True
+    fresh_hist, held_hist, inserted = [], [], []
+
+    def timed(name, fn_):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn_()
+        torch.cuda.synchronize()
+        times[name] += time.perf_counter() - t0
+        return out
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_counts()
+        for t in range(ticks):
+            n = base * (burst if t in burst_ticks else 1)
+            fresh = random_keys(rng, int(n * 0.6))
+            if t == 0:
+                pool, pool_held = fresh, None
+            else:
+                pool = np.concatenate(fresh_hist[-window:])
+                pool_held = np.concatenate(held_hist[-window:])
+            pick = rng.randint(0, pool.size, n - fresh.size)
+            events = np.concatenate([fresh, pool[pick]])
+            new = ~timed("lookup", lambda: gf.lookup(events, now=float(t)))
+            ok = timed("insert", lambda: gf.insert(events[new],
+                                                   now=float(t)))
+            all_ok &= bool(ok.all())
+            n_probe += events.size
+            n_ins += int(new.sum())
+            inserted.append(events[new][ok])
+            fresh_new = new[: fresh.size]
+            held = np.zeros(fresh.size, bool)  # in the filter from now on
+            held[fresh_new] = ok[: int(fresh_new.sum())]
+            n_fresh += fresh.size
+            fresh_flagged += int((~fresh_new).sum())
+            if t >= 1:
+                found = ~new[fresh.size:]
+                was_held = pool_held[pick]
+                repeats_checked += int(was_held.sum())
+                fn += int((was_held & ~found).sum())
+                missed_unheld += int((~was_held & ~found).sum())
+            fresh_hist.append(fresh)
+            held_hist.append(held)
+            every_in_pool &= in_pool()
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated() - base_bytes
+        live = gf._live(float(ticks - 1))
+        # A copy for phase 6 (the TTL step below zeroes the pool).
+        snap = (ring_pool.tables.clone(), ring_pool.stashes.clone(),
+                [g.slot for g in live], cfg.n_buckets)
+        stats_end = dataclasses.replace(gf.stats)
+        # The TTL step: every generation has expired by now.
+        now_end = float(ticks - 1) + RING["ttl"] + 1.0
+        every = np.concatenate(inserted)
+        stale_hits = int(gf.lookup(every, now=now_end).sum())
+        n_gens, exp0 = len(gf.gens), gf.stats.expirations
+        retired = gf.advance(now=now_end)
+        expired = gf.stats.expirations - exp0
+        torch.cuda.synchronize()
+        launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+
+    device_s = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0) or 0.0
+        if us > 0:
+            device_s[ev.key] = device_s.get(ev.key, 0.0) + us / 1e6
+    fp_share = fresh_flagged / n_fresh
+    fp_bound = (4 * RING["generations"] * 2 * RING["bucket_size"]
+                * RING["o_max"] / 2 ** RING["fp_bits"])
+    wall = sum(times.values())
+    busy = sum(device_s.values())
+    print(f"   stats at the end of the stream={stats_end} live generations="
+          f"{len(live)}", flush=True)
+    print(f"   [{card}] dedup probe {n_probe / times['lookup']!r} keys/s "
+          f"({n_probe} keys, {times['lookup']!r} s), insert "
+          f"{n_ins / times['insert']!r} keys/s ({n_ins} keys, "
+          f"{times['insert']!r} s)", flush=True)
+    print(f"   fresh ids flagged as duplicates: {fresh_flagged} of {n_fresh}"
+          f" (share {fp_share!r}, bound {fp_bound!r}); repeats of held ids "
+          f"{repeats_checked}, missed {fn}; repeats of ids never held "
+          f"(flagged when fresh) missed: {missed_unheld}", flush=True)
+    print(f"   TTL step at now={now_end}: hits of {every.size} inserted ids "
+          f"{stale_hits}; advance retired {retired} of {n_gens}, "
+          f"expirations +{expired}", flush=True)
+    print(f"   launches={launches} plain_calls={plain}", flush=True)
+    print(f"   device memory over the ring's pool during the ticks: peak "
+          f"{transient} B (the pool's tables: "
+          f"{ring_pool.tables.numel() * 4} B)",
+          flush=True)
+    print(f"   [{card}] device busy {busy!r} s of {wall!r} s of phases "
+          f"(idle share {1 - busy / wall!r})", flush=True)
+    for kernel, name in (("probe_multi_kernel", "lookup"),
+                         ("insert_kernel", "insert"),
+                         ("fingerprint_kernel", "insert")):
+        k_s = sum(v for key, v in device_s.items() if kernel in key)
+        print(f"   {kernel}: {k_s!r} s on the device, {k_s / times[name]!r} "
+              f"of the {name} phase ({times[name]!r} s)", flush=True)
+
+    check(fn == 0, f"{fn} repeats of held ids were not found")
+    check(fp_share <= fp_bound, f"fresh-flagged share {fp_share} > "
+                                f"{fp_bound}")
+    check(stats_end.rotations >= 4, f"only {stats_end.rotations} rotations")
+    check(pool_ptrs() == ptrs and every_in_pool,
+          "a generation's table or stash left the ring's pool")
+    # A copy of the live tables (what a stacked fan-out input would cost)
+    # would not fit under this: the ticks' keys and answers do.
+    check(transient < ring_pool.tables.numel() * 4,
+          f"{transient} B of device memory over the pool during the ticks")
+    check(all_ok, "an insert was not acknowledged")
+    check(stale_hits == 0, f"{stale_hits} hits after every TTL expired")
+    check(retired == n_gens and expired == n_gens,
+          f"advance retired {retired} and expired {expired} of {n_gens}")
+    return snap, inserted[-1], launches, plain, {
+        "times": times, "device_s": device_s, "fp_share": fp_share}
 
 
 # --------------------------------------------------------- phase 6: times --
@@ -1142,6 +1479,68 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
     return time_rows(rows)
 
 
+def streaming_kernel_times(snap, present: np.ndarray) -> dict:
+    """Kernel, wrapper, plain and bound times of probe_multi on the
+    streaming path's final ring (a copy of its pool with the live slots,
+    before the TTL step), for one 4096-key call half present, half
+    absent."""
+    import torch
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.probe import probe_multi, probe_multi_plain
+
+    tables, stashes, gens, nb = snap
+    dev = tables.device
+    b = tables.shape[2]
+    slots = stashes.shape[2]
+    rng = np.random.RandomState(SEED + 9)
+    keys = np.concatenate([present[rng.randint(0, present.size, CHUNK // 2)],
+                           random_keys(rng, CHUNK // 2)])
+    hi, lo = (torch.from_numpy(x.view(np.int32)).to(dev)
+              for x in hashing.key_to_u32_pair_np(keys))
+    pblock = min(kops.autotune_block("probe", table_bytes=tables[0].numel()
+                                     * 4, stash_slots=slots), CHUNK)
+
+    # Bytes and operations this call's data needs: keys (8 B) and hits
+    # (1 B) once; per live generation, in the kernel's (slot) order, the
+    # home sector of every lane not yet answered and the alternate sector
+    # only where the home bucket misses (distinct sectors once); every
+    # live stash byte once, scanned by the lanes no table answered.
+    fp = hashing.fingerprint(hi, lo, 16)
+    i1 = hashing.index_hash(hi, lo, nb)
+    i2 = hashing.alt_index(i1, fp, nb)
+    pending = torch.ones(CHUNK, dtype=torch.bool, device=dev)
+    reads, compares = 0, 0
+    for g in sorted(gens):
+        home = (hashing.to_u32(tables[g][i1]) == fp[:, None]).any(dim=1)
+        alt = (hashing.to_u32(tables[g][i2]) == fp[:, None]).any(dim=1)
+        again = pending & ~home
+        reads += sectors(i1[pending]) + sectors(i2[again])
+        compares += 2 * b * (int(pending.sum()) + int(again.sum()))
+        pending &= ~(home | alt)
+    k = len(gens)
+    nbytes = CHUNK * (8 + 1) + SECTOR * reads + k * 2 * slots * 4
+    ops = CHUNK * HASH_OPS + compares + 3 * k * slots * int(pending.sum())
+    rows = {"probe_multi": (
+        lambda: probe_multi(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                            stashes=stashes, gens=gens, block=pblock),
+        lambda: probe_multi_plain(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                                  stashes=stashes, gens=gens),
+        None, (nbytes, ops), "probe_multi_kernel")}
+    out = time_rows(rows)
+    # Where a launch's time goes: the same keys without the stash scan,
+    # and over the newest generation alone.
+    for label, sts, gs in (("K=%d, no stashes" % k, None, gens),
+                           ("K=1, stash", stashes, gens[-1:]),
+                           ("K=1, no stash", None, gens[-1:])):
+        ms = kernel_device_ms(
+            lambda: probe_multi(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                                stashes=sts, gens=gs, block=pblock),
+            20, None, "probe_multi_kernel")
+        print(f"   probe_multi {label}: {ms!r} ms (device)", flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -1179,7 +1578,9 @@ def main() -> int:
         bench.run()
         abench = AdaptiveKernelBench("cuda")
         abench.run()
-        max_err = {**bench.max_err, **abench.max_err}
+        sbench = StreamingKernelBench("cuda")
+        sbench.run()
+        max_err = {**bench.max_err, **abench.max_err, **sbench.max_err}
         torch.cuda.synchronize()
 
     with phase("slice parity cuda vs cpu"):
@@ -1190,6 +1591,8 @@ def main() -> int:
         adaptive_parity("adaptive stream at load 0.95", n_buckets=1 << 12,
                         n_members=12 * 1024, n_benign=100_000,
                         late=int(0.95 * (1 << 14)) - 12 * 1024)
+        ring_parity()
+        prefix_index_parity()
 
     # Each path runs with the counts set to 0 just before it and read just
     # after; its kernels' "launches" come from that run.
@@ -1203,6 +1606,13 @@ def main() -> int:
         m, remaining, counts, plain["adaptive"], _stats = adaptive_path(card)
         launches.update({k: counts.get(k, 0) for k in ADAPTIVE_KERNELS})
 
+    with phase("streaming path at full size"):
+        ring, present, counts, plain["streaming"], _stats = streaming_path(
+            card)
+        launches.update({k: counts.get(k, 0) for k in STREAMING_KERNELS})
+        check(counts.get("insert_bulk", 0) > 0,
+              "insert_bulk was never launched on the streaming path")
+
     for name in cuda.KERNELS:
         check(launches.get(name, 0) > 0,
               f"{name} was never launched on its path")
@@ -1213,6 +1623,7 @@ def main() -> int:
     with phase("kernel times"):
         perf = kernel_times(ocf, resident)
         perf.update(adaptive_kernel_times(m, remaining))
+        perf.update(streaming_kernel_times(ring, present))
 
     rows = []
     for name, (source, replaces, held_by) in KERNEL_ROWS.items():

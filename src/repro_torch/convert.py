@@ -5,7 +5,8 @@ dtype) and live here as ``int32`` tensors with the same bit pattern.
 ``ocf_from_numpy`` also loads the keystore (and, optionally, the policy,
 stats and capacity history), so a port ``OCF`` can continue a stream
 from the reference's state.  ``adaptive_state_from_numpy`` does the same
-for the four planes of the adaptive filter.
+for the four planes of the adaptive filter, and
+``generational_from_numpy`` for the streaming generation ring.
 """
 from __future__ import annotations
 
@@ -19,6 +20,10 @@ from repro_torch.adaptive.state import AdaptiveState
 from repro_torch.core.filter import FilterState
 from repro_torch.core.hashing import resolve_device
 from repro_torch.core.ocf import OCF, OcfConfig, OcfStats
+from repro_torch.streaming.generations import (GenerationalFilter,
+                                               GenerationConfig, GenStats,
+                                               _Generation)
+from repro_torch.streaming.stash import OverflowStash
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -108,3 +113,57 @@ def ocf_from_numpy(config: OcfConfig, *, table: np.ndarray, count: int,
     if capacity_history is not None:
         ocf.capacity_history = list(capacity_history)
     return ocf
+
+
+def generational_from_numpy(config: GenerationConfig, *, gens: list,
+                            last_now: Optional[float],
+                            stats: Optional[dict] = None
+                            ) -> GenerationalFilter:
+    """A ``GenerationalFilter`` holding the given ring state.
+
+    ``gens`` lists the generations oldest first, each a dict with
+    ``table`` (uint32 [buffer, bucket_size]), ``stash`` (uint32 [2, S]),
+    ``count``, ``born`` and ``expires``; ``last_now`` is the ring's
+    remembered clock and ``stats`` a ``GenStats`` field dict.  Each table
+    and stash go into one of the ring's pool slots.
+    """
+    if not 1 <= len(gens) <= config.generations:
+        raise ValueError(f"need 1..{config.generations} generations, got "
+                         f"{len(gens)}")
+    ring = GenerationalFilter(config, now=last_now)
+    for g in ring.gens:
+        ring.pool.release(g.slot)
+    ring.gens = []
+    for g in gens:
+        slot = ring.pool.acquire()
+        table, stash = ring.pool.tables[slot], ring.pool.stashes[slot]
+        for name, dst in (("table", table), ("stash", stash)):
+            src = np.asarray(g[name])
+            if src.shape != tuple(dst.shape):
+                raise ValueError(f"{name} shape {src.shape} is not the "
+                                 f"pool's {tuple(dst.shape)}")
+            dst.copy_(_tensor(src, ring.device))
+        state = FilterState(
+            table, torch.tensor(int(g["count"]), dtype=torch.int64,
+                                device=ring.device), config.n_buckets)
+        ring.gens.append(_Generation(state,
+                                     OverflowStash(config.stash_slots,
+                                                   array=stash),
+                                     born=g["born"], expires=g["expires"],
+                                     slot=slot))
+    ring._last_now = last_now
+    if stats is not None:
+        ring.stats = GenStats(**stats)
+    return ring
+
+
+def generational_to_numpy(ring: GenerationalFilter) -> dict:
+    """-> {"gens": [{"table", "stash": uint32 arrays, "count": int,
+    "born", "expires"}, ...] oldest first, "last_now", "stats": dict}."""
+    def u32(t):
+        return t.detach().cpu().numpy().view(np.uint32).copy()
+    return {"gens": [{"table": u32(g.state.table), "stash": u32(g.stash.array),
+                      "count": int(g.state.count), "born": g.born,
+                      "expires": g.expires} for g in ring.gens],
+            "last_now": ring._last_now,
+            "stats": dataclasses.asdict(ring.stats)}

@@ -20,7 +20,7 @@ tensors IN PLACE (the reference donated the buffers to XLA); with
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+from typing import Literal, Optional, Sequence
 
 import torch
 
@@ -140,6 +140,23 @@ class FilterOps:
         state = make_state(n_buckets, bucket_size,
                            buffer_buckets=buffer_buckets, device=hi.device)
         return self.insert(state, hi, lo, valid=valid)
+
+    def fanout_prober(self, tables: torch.Tensor,
+                      stashes: Optional[torch.Tensor], *, n_buckets: int,
+                      gens: Optional[Sequence[int]] = None):
+        """Pinned fan-out closure -> callable (hi, lo) -> bool[N].
+
+        Membership across K generations: ``tables`` is
+        int32[K, buffer_buckets, bucket_size] (the generation ring's pool),
+        ``stashes`` int32[K, 2, S], ``gens`` the live generations' indices
+        into K (default all), ``n_buckets`` their shared active count.  One
+        fused ``probe_multi`` launch per call (keys hashed once); the block
+        is pinned once, so the ring can reuse the closure across a batch's
+        chunks.
+        """
+        return kops.multi_prober(tables, fp_bits=self.fp_bits,
+                                 n_buckets=n_buckets, stashes=stashes,
+                                 gens=gens)
 
     # ---------------------------------------------------- adaptive ops --
     #

@@ -1,9 +1,10 @@
 """Public wrappers around the filter kernels: padding, block rule, copies.
 
 Counterpart of ``repro.kernels.ops`` for the main path (``hash_keys``,
-``probe_dispatch``, ``filter_insert``, ``filter_delete``) and the adaptive
-filter (``adaptive_lookup``, ``adaptive_insert``, ``adaptive_delete``,
-``adaptive_report``).  Every wrapper
+``probe_dispatch``, ``filter_insert``, ``filter_delete``), the streaming
+ring's fan-out (``filter_lookup_multi``, ``multi_prober``) and the
+adaptive filter (``adaptive_lookup``, ``adaptive_insert``,
+``adaptive_delete``, ``adaptive_report``).  Every wrapper
 goes to its kernel; a kernel module takes its plain version only for CPU
 tensors, so there is no fallback arm here.
 
@@ -20,6 +21,7 @@ against the port's own plain version at that block.
 from __future__ import annotations
 
 import functools
+from typing import Sequence
 
 import torch
 
@@ -27,7 +29,7 @@ from repro_torch.kernels.delete import delete_bulk, delete_bulk_adaptive
 from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                              fingerprint_hash_family)
 from repro_torch.kernels.insert import insert_bulk, insert_bulk_adaptive
-from repro_torch.kernels.probe import probe, probe_adaptive
+from repro_torch.kernels.probe import probe, probe_adaptive, probe_multi
 from repro_torch.kernels.selector import report_adapt
 from repro_torch.kernels.stash import stash_delete_ref
 
@@ -121,6 +123,50 @@ def probe_dispatch(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
     hit = probe(table, hi_p, lo_p, fp_bits=fp_bits, n_buckets=n_buckets,
                 stash=stash, block=block)
     return _unpad(hit, n)
+
+
+def filter_lookup_multi(tables: torch.Tensor, hi: torch.Tensor,
+                        lo: torch.Tensor, *, fp_bits: int,
+                        n_buckets: int | None = None,
+                        stashes: torch.Tensor | None = None,
+                        gens: Sequence[int] | None = None) -> torch.Tensor:
+    """Bulk membership across K generations -> bool[N]: one
+    ``probe_multi`` launch (keys hashed once).  ``tables``:
+    int32[K, buffer_buckets, bucket_size]; ``stashes``: optional
+    int32[K, 2, S]; ``gens``: the generations to probe, default all K;
+    ``n_buckets``: the shared ACTIVE bucket count."""
+    return multi_prober(tables, fp_bits=fp_bits, n_buckets=n_buckets,
+                        stashes=stashes, gens=gens)(hi, lo)
+
+
+def multi_prober(tables: torch.Tensor, *, fp_bits: int,
+                 n_buckets: int | None = None,
+                 stashes: torch.Tensor | None = None,
+                 gens: Sequence[int] | None = None):
+    """Pin ``filter_lookup_multi``'s block for a fixed set of generations
+    -> callable ``(hi, lo) -> bool[N]``.
+
+    The block is the parity rule's for ONE generation's bytes; it only sets
+    the padding (answers do not depend on it).  An empty batch gives
+    ``bool[0]`` without a launch.
+    """
+    per_table_bytes = (tables.numel() // max(tables.shape[0], 1)) * 4
+    stash_slots = 0 if stashes is None else stashes.shape[2]
+    block = autotune_block("probe", table_bytes=per_table_bytes,
+                           stash_slots=stash_slots)
+
+    def kernel_probe(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+        if hi.shape[0] == 0:
+            return torch.zeros((0,), dtype=torch.bool, device=tables.device)
+        b = min(block, hi.shape[0])
+        hi_p, n = _pad_to(hi, b)
+        lo_p, _ = _pad_to(lo, b)
+        hit = probe_multi(tables, hi_p, lo_p, fp_bits=fp_bits,
+                          n_buckets=n_buckets, stashes=stashes, gens=gens,
+                          block=b)
+        return _unpad(hit, n)
+
+    return kernel_probe
 
 
 def filter_insert(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,

@@ -2,8 +2,9 @@
 
 A copy of ``repro.streaming.admission`` (pure Python over the port's
 ``core/policy.py``), kept here so the port never imports the JAX package.
-The controller reads any filter with ``fills()``; the adaptive tier
-(``adaptive/reputation.py``) gates its report floods with it.
+The controller reads any filter with ``fills()``: the generation ring
+(``streaming/generations.py``) and the adaptive tier
+(``adaptive/reputation.py``), which gates its report floods with it.
 
 The paper's burst story is a control loop: congestion must be *measured*
 where it first appears and fed back to whatever admits work.  In the
@@ -55,8 +56,9 @@ class AdmissionController:
 
     ``filt`` is any fills-duck — something with
     ``fills() -> (fill, stash_fill)`` in [0, 1] each.  In this package:
-    ``adaptive.filter.AdaptiveFilter`` (live device read); the reference
-    also feeds it its generational filter and serving batchers.
+    ``streaming.generations.GenerationalFilter`` and
+    ``adaptive.filter.AdaptiveFilter`` (live device reads); the reference
+    also feeds it its serving batchers.
 
     ``last_signal`` / ``peak_signal`` record the most recent and worst
     congestion reading — the SLO report surfaces them so a burst scenario
@@ -72,9 +74,8 @@ class AdmissionController:
     deferred: int = 0
     last_signal: float = 0.0
     peak_signal: float = 0.0
-    # Optional metrics registry (the reference's ``obs`` one, not ported
-    # yet; anything with counter()/gauge()): trip/readmit transitions become
-    # counters, the congestion reading a pair of gauges.  None = free.
+    # Optional repro_torch.obs.MetricsRegistry: trip/readmit transitions
+    # become counters, the congestion reading a pair of gauges.  None = free.
     metrics: Optional[object] = None
     # Hard gate for control-plane windows (elastic cutover): while frozen,
     # peek()/admit() answer False without reading the signal — the filter

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, and the OCF and
-the adaptive filter on the card against the same on the CPU.  Needs a GPU (marker ``cuda``); on a
+"""The port's CUDA kernels against their plain versions, and the OCF,
+the adaptive filter and the streaming generation ring on the card against
+the same on the CPU.  Needs a GPU (marker ``cuda``); on a
 machine without one every test here skips.  ``chip_smoke.py`` runs the
 same checks at full size."""
 import numpy as np
@@ -7,7 +8,7 @@ import pytest
 import torch
 
 from repro_torch.adaptive import AdaptiveConfig, AdaptiveMembership
-from repro_torch.convert import adaptive_state_to_numpy
+from repro_torch.convert import adaptive_state_to_numpy, generational_to_numpy
 from repro_torch.core.ocf import OCF, OcfConfig
 from repro_torch.kernels import cuda
 from repro_torch.kernels.delete import (delete_bulk, delete_bulk_adaptive,
@@ -21,7 +22,9 @@ from repro_torch.kernels.insert import (insert_bulk, insert_bulk_adaptive,
                                         insert_bulk_adaptive_plain,
                                         insert_bulk_plain)
 from repro_torch.kernels.probe import (probe, probe_adaptive,
-                                       probe_adaptive_plain, probe_plain)
+                                       probe_adaptive_plain, probe_multi,
+                                       probe_multi_plain, probe_plain)
+from repro_torch.streaming import GenerationalFilter, GenerationConfig
 
 from torch_port_util import (adaptive_planes, ocf_stream, port_snapshot,
                              assert_same_state, random_keys, split, t32)
@@ -150,3 +153,63 @@ def test_adaptive_membership_on_card_matches_cpu(dev):
     for name in ("fingerprint_hash_family", "insert_bulk_adaptive",
                  "delete_bulk_adaptive"):
         assert cuda.LAUNCHES[name] > 0
+
+
+@pytest.mark.parametrize("k,slots,nb", [(1, 0, 1024), (2, 16, 1024),
+                                        (3, 32, 900)])
+def test_probe_multi_matches_plain(dev, k, slots, nb):
+    rng = np.random.RandomState(k + slots)
+    tables = torch.zeros((k, 1024, 4), dtype=torch.int32, device=dev)
+    stashes = (torch.zeros((k, 2, slots), dtype=torch.int32, device=dev)
+               if slots else None)
+    landed = []
+    for g in range(k):
+        keys = random_keys(rng, 1024 * (g + 2))
+        hi, lo = (t32(x).to(dev) for x in split(keys))
+        out = insert_bulk(tables[g], hi, lo, fp_bits=16, n_buckets=nb,
+                          evict_rounds=4, block=128,
+                          stash=None if stashes is None else stashes[g])
+        landed.append(keys[out[-1].cpu().numpy()])
+    keys = np.concatenate([np.concatenate(landed)[:2048],
+                           random_keys(rng, 2048)])
+    hi, lo = (t32(x).to(dev) for x in split(keys))
+    got = probe_multi(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                      stashes=stashes)
+    want = probe_multi_plain(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                             stashes=stashes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and bool(got[:2048].all())
+    for gens in ([k - 1], list(range(k - 1, -1, -2)), []):
+        got = probe_multi(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                          stashes=stashes, gens=gens)
+        want = probe_multi_plain(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                                 stashes=stashes, gens=gens)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), gens
+
+
+def test_ring_on_card_matches_cpu(dev):
+    kw = dict(generations=3, capacity=2048, stash_slots=16, evict_rounds=4,
+              ttl=4.0)
+    on_card, on_cpu = (GenerationalFilter(GenerationConfig(device=d, **kw),
+                                          now=0.0) for d in ("cuda", "cpu"))
+    rng = np.random.RandomState(2)
+    cuda.reset_counts()
+    seen = []
+    for t in range(8):
+        keys = random_keys(rng, 600 + 500 * (t % 3))
+        probe_keys = np.concatenate([keys] + seen[-2:])
+        for ring_op, arg in (("lookup", probe_keys), ("insert", keys),
+                             ("lookup_active", probe_keys)):
+            a, b = (getattr(r, ring_op)(arg, now=float(t))
+                    for r in (on_card, on_cpu))
+            np.testing.assert_array_equal(a, b)
+            want = generational_to_numpy(on_cpu)
+            got = generational_to_numpy(on_card)
+            assert got["stats"] == want["stats"]
+            assert len(got["gens"]) == len(want["gens"])
+            for gg, wg in zip(got["gens"], want["gens"]):
+                assert_same_state(wg, gg, f"t={t} {ring_op}")
+        seen.append(keys)
+    assert on_cpu.stats.rotations >= 2 and on_cpu.stats.expirations >= 1
+    assert cuda.LAUNCHES["probe_multi"] > 0 and cuda.LAUNCHES["insert_bulk"] > 0

@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.adaptive import (AdaptiveConfig, AdaptiveFilter,
                                   AdaptiveMembership, make_adaptive_state)
-from repro_torch.convert import (adaptive_state_from_numpy, ocf_from_numpy,
+from repro_torch.convert import (adaptive_state_from_numpy,
+                                 generational_from_numpy, ocf_from_numpy,
                                  state_from_numpy)
 from repro_torch.core.filter import make_state
 from repro_torch.core.filter_ops import FilterOps
@@ -22,8 +23,12 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.delete import _delete_adaptive_cuda
 from repro_torch.kernels.fingerprint import _family_cuda
 from repro_torch.kernels.insert import _insert_adaptive_cuda
-from repro_torch.kernels.probe import _probe_adaptive_cuda
+from repro_torch.kernels.probe import _probe_adaptive_cuda, _probe_multi_cuda
 from repro_torch.kernels.stash import make_stash
+from repro_torch.serving import GenerationalPrefixIndex, PrefixCacheIndex
+from repro_torch.streaming import (GenerationalFilter, GenerationConfig,
+                                   OverflowStash)
+from repro_torch.streaming.stash import make_sharded_stashes
 
 pytestmark = pytest.mark.tier1
 
@@ -36,6 +41,11 @@ def _port_files():
 
 
 def test_no_jax_or_reference_imports_in_source():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()[:-1]}
+    for sub in ("streaming/generations.py", "streaming/stash.py",
+                "obs/registry.py", "obs/trace.py", "obs/recovery.py",
+                "serving/kvcache.py"):
+        assert sub in files, sub
     bad = []
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -60,7 +70,10 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
-        "assert len(mods) >= 27, mods\n"
+        "assert len(mods) >= 35, mods\n"
+        "for m in ('streaming.generations', 'streaming.stash', 'obs.trace',"
+        " 'obs.registry', 'obs.recovery', 'serving.kvcache'):\n"
+        "    assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -85,13 +98,29 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: AdaptiveMembership(AdaptiveConfig(n_buckets=256)),
                  lambda: adaptive_state_from_numpy(
                      table, np.zeros((1024, 1), np.uint32), table, table, 0,
-                     1024)):
+                     1024),
+                 lambda: GenerationalFilter(),
+                 lambda: GenerationalFilter(GenerationConfig(capacity=4096)),
+                 lambda: generational_from_numpy(
+                     GenerationConfig(capacity=4096),
+                     gens=[dict(table=table, stash=np.zeros((2, 128),
+                                                            np.uint32),
+                                count=0, born=0.0, expires=None)],
+                     last_now=0.0),
+                 lambda: GenerationalPrefixIndex(),
+                 lambda: PrefixCacheIndex(),
+                 lambda: OverflowStash(8),
+                 lambda: make_sharded_stashes(2, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asking for the CPU is what makes it run there
     ocf = OCF(OcfConfig(capacity=4096, device="cpu"))
     ocf.insert(np.arange(100, dtype=np.uint64))
     assert ocf.lookup(np.arange(100, dtype=np.uint64)).all()
+    ring = GenerationalFilter(GenerationConfig(capacity=4096, device="cpu"),
+                              now=0.0)
+    assert ring.insert(np.arange(100, dtype=np.uint64), now=0.0).all()
+    assert ring.lookup(np.arange(100, dtype=np.uint64), now=0.0).all()
 
 
 def test_backends():
@@ -123,7 +152,8 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
                 dict(khi=table[:8]), dict(klo=table[:, :2])):
         with pytest.raises(ValueError):
             cuda.check_table("insert_bulk_adaptive", table, 16, **bad)
-    # the four adaptive wrappers' CUDA paths refuse CPU tensors
+    # the four adaptive wrappers' and probe_multi's CUDA paths refuse CPU
+    # tensors
     keys = torch.zeros(128, dtype=torch.int32)
     valid = torch.ones(128, dtype=torch.bool)
     kw = dict(fp_bits=16, n_buckets=16)
@@ -135,14 +165,16 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
                                           keys, valid, evict_rounds=8,
                                           stash=None, block=128, **kw),
             lambda: _delete_adaptive_cuda(table, sels, table, table, keys,
-                                          keys, valid, block=128, **kw)):
+                                          keys, valid, block=128, **kw),
+            lambda: _probe_multi_cuda(table[None], keys, keys,
+                                      stashes=None, **kw)):
         with pytest.raises(ValueError, match="CUDA device"):
             call()
 
 
 def test_build_names_a_library_per_source():
     names = {cuda._lib_path(k).name for k in cuda.KERNELS}
-    assert len(names) == 8
+    assert len(names) == 9
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert cuda.BUILD_DIR == ROOT / "build"
     for src, _fn, _args in cuda.KERNELS.values():

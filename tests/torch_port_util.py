@@ -130,3 +130,28 @@ def adaptive_planes(rng, n_buckets, buffer, load, *, fp_bits=16,
     sels = (sel << (2 * np.arange(bucket_size, dtype=np.uint32))).sum(
         axis=1, keepdims=True, dtype=np.uint32)
     return table, sels, khi, klo, keys[take]
+
+
+# ------------------------------------------------------------ streaming --
+
+
+def ref_ring_snapshot(ring):
+    """The reference ``GenerationalFilter``'s state in the form of
+    ``repro_torch.convert.generational_to_numpy``."""
+    return {"gens": [{"table": np.asarray(g.state.table),
+                      "stash": np.asarray(g.stash.array),
+                      "count": int(g.state.count), "born": g.born,
+                      "expires": g.expires} for g in ring.gens],
+            "last_now": ring._last_now,
+            "stats": dataclasses.asdict(ring.stats)}
+
+
+def assert_same_ring(ref_ring, port_ring, where=""):
+    from repro_torch.convert import generational_to_numpy
+    ref, port = ref_ring_snapshot(ref_ring), generational_to_numpy(port_ring)
+    assert ref["last_now"] == port["last_now"], where
+    assert ref["stats"] == port["stats"], (where, ref["stats"],
+                                           port["stats"])
+    assert len(ref["gens"]) == len(port["gens"]), where
+    for i, (rg, pg) in enumerate(zip(ref["gens"], port["gens"])):
+        assert_same_state(rg, pg, f"{where} gen {i}")
