@@ -11,14 +11,21 @@ Phases, each timed, each fatal on failure:
      bit for bit, at main-path shapes (4096-key chunks, 16M-slot tables,
      the parity block): the four OCF kernels, the four adaptive ones on a
      four-plane state with nonzero selectors, and ``probe_multi`` over
-     K = 1, 2, 4 of four generation tables int32[4, 2^20, 4];
+     K = 1, 2, 4 of four generation tables int32[4, 2^20, 4]; and
+     ``flash_attention`` within a stated tolerance at gemma3-1b's shapes
+     (Hq=4, Hkv=1, S=8192, D=256; float32 and bfloat16; window 512 and
+     none), small cases of the reference's sweep and a case with Sq > Skv;
   3. run seeded streams through the card and the CPU and require
      identical state and answers after every operation: ~100k-key EOF
      streams through ``OCF`` (with and without a stash), two
      ``AdaptiveMembership`` streams (inserts, lookups, reports, deletes;
      one at load ~0.95 with kicks of adapted slots), a ~100k-event
      ``GenerationalFilter`` stream (rotations, TTL expiries, spills, a
-     rotate-and-retry) and a ``GenerationalPrefixIndex`` stream;
+     rotate-and-retry) and a ``GenerationalPrefixIndex`` stream; and the
+     LM at gemma3-1b's full width and one period's depth (6 layers,
+     float32, TF32 off), built on the CPU and copied to the card: forward
+     logits within a stated tolerance, greedy tokens of prefill + 8 decode
+     steps equal;
   4. the OCF main path at full size: one node's membership filter of a
      distributed store (capacity 2^22 slots, 8 bursts of 1M inserts, 3M
      verified + 100k blind deletes, lookups of every resident key plus 5M
@@ -31,8 +38,15 @@ Phases, each timed, each fatal on failure:
      (``examples/streaming_dedup.py`` at scale: a ring of 4 generations
      of 2^22 slots, 32 ticks of 600k events with a 4x burst, 40% repeats),
      then the TTL step; launch counts read around it;
-  6. time each kernel, its plain version and its bound, and print them as
-     one JSON line.
+  5c. the LM serving path at full size: gemma3-1b (26 layers, full width,
+     bfloat16 activations, float32 weights from SEED): a cache-less
+     forward over 8192 tokens (prompt scoring, the flash kernel), the
+     flash forward against the cached prefill + decode of the same prompt
+     (float32, 1024 tokens, log-softmax within 1e-3), and ``serve()`` of
+     16 requests; launch counts read around it;
+  6. time each kernel, its plain version and its bound (and, for flash
+     attention, one ``scaled_dot_product_attention`` call as the library's
+     yardstick), and print them as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -54,6 +68,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # H100 SXM float32 rate outside the tensor cores (data sheet); no higher
 # rate is listed for the 32-bit integer operations the kernels do.
 SCALAR_OPS_PER_S = 67e12
+# H100 SXM dense bfloat16 tensor-core rate (data sheet): the bound of the
+# attention kernel's multiply-adds.
+TENSOR_OPS_PER_S = 989e12
 SECTOR = 32                   # bytes per device-memory sector
 # 32-bit operations per key of the fused hash (fingerprint, index_hash and
 # alt_index of csrc/ocf_common.cuh, each modulo counted as one).
@@ -86,11 +103,27 @@ KERNEL_ROWS = {
                              "serial_cta_loop"),
     "probe_multi": ("src/repro_torch/csrc/probe_multi.cu",
                     "src/repro/kernels/probe.py:403", "stash_scan"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:113",
+                        "smem_bandwidth_mma_sync"),
 }
 STATIC_KERNELS = ("fingerprint_hash", "probe", "insert_bulk", "delete_bulk")
 ADAPTIVE_KERNELS = ("fingerprint_hash_family", "probe_adaptive",
                     "insert_bulk_adaptive", "delete_bulk_adaptive")
 STREAMING_KERNELS = ("probe_multi",)
+LM_KERNELS = ("flash_attention",)
+LM_ARCH = "gemma3-1b"
+LM_SEQ = 8192                 # the prompt-scoring forward of phase 5c
+# Flash attention against its plain version, |got - want| <= tol * (1 +
+# |want|): the reference sweep's tolerances (tests/test_kernels.py).
+FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+# ... and row by row, ||got - want|| / ||want|| over each output row with a
+# live key.  On long rows the outputs shrink as 1/sqrt(live keys) (~0.02
+# at 8192), so the elementwise form above is about as large as the values
+# there; this one is not.  Limits: bfloat16 rounds p and the output (a few
+# 1e-3 a row); a kernel that dropped one 64-key tile from a row of n keys
+# reads about 8 / sqrt(n), 0.09 at n = 8192 (FlashKernelBench prints it).
+FLASH_ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # The streaming dedup stage of one node: examples/streaming_dedup.py's ring
 # at 2^22 slots a generation (4 x 16 MiB of tables on the card).
 RING = dict(generations=4, capacity=1 << 22, bucket_size=4, fp_bits=16,
@@ -530,6 +563,96 @@ class StreamingKernelBench(KernelBench):
                       f"entries {spilled[:k]}", flush=True)
 
 
+def row_rel_err(got, want):
+    """Per output row (the last axis) ||got - want|| / ||want|| over the
+    rows whose ``want`` is not all 0 -> a float tensor of those rows."""
+    num = (got.float() - want.float()).norm(dim=-1)
+    den = want.float().norm(dim=-1)
+    live = den > 0
+    return num[live] / den[live]
+
+
+class FlashKernelBench:
+    """flash_attention against its plain version on the card: gemma3-1b's
+    heads at the prompt-scoring length (global and 512-window layers, both
+    dtypes), small cases of the reference's sweep (soft-cap 30,
+    non-causal, decode-style Sq = 1, D of 16 to 128) and Sq > Skv, whose
+    first rows have no live key and must be 0.  Each case is held
+    elementwise (FLASH_TOL) and row by row (FLASH_ROW_TOL); on the long
+    global case the script also reads what the row check would see from a
+    kernel that dropped the first 64-key tile of every row (the plain
+    version without those keys) and requires the check to catch it."""
+
+    CASES = [
+        # b, hq, hkv, sq, skv, d, causal, window, softcap
+        (1, 4, 1, LM_SEQ, LM_SEQ, 256, True, 512, None),
+        (1, 4, 1, LM_SEQ, LM_SEQ, 256, True, None, None),
+        (2, 4, 2, 128, 128, 64, True, None, None),
+        (1, 8, 1, 256, 256, 64, True, 64, None),
+        (2, 2, 2, 128, 256, 128, True, None, 30.0),
+        (1, 4, 4, 1, 384, 64, True, None, None),
+        (1, 2, 1, 128, 128, 32, False, None, None),
+        (1, 4, 1, 256, 256, 16, True, 16, None),
+        (1, 2, 1, 256, 128, 32, True, None, None),
+    ]
+
+    def __init__(self, device):
+        import torch
+        self.torch = torch
+        self.dev = torch.device(device)
+        self.max_err = {"flash_attention": 0.0}
+
+    def run(self) -> None:
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_plain)
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED)
+        for case in self.CASES:
+            b, hq, hkv, sq, skv, d, causal, window, cap = case
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.randn(shape, device=self.dev, generator=gen)
+                           .to(dtype) for shape in ((b, hq, sq, d),
+                                                    (b, hkv, skv, d),
+                                                    (b, hkv, skv, d)))
+                kw = dict(causal=causal, window=window, logit_softcap=cap)
+                got = flash_attention(q, k, v, **kw).float()
+                want = flash_attention_plain(q, k, v, **kw).float()
+                err = (got - want).abs()
+                name = str(dtype).split(".")[-1]
+                tol, row_tol = FLASH_TOL[name], FLASH_ROW_TOL[name]
+                excess = float((err - tol * (1 + want.abs())).max())
+                m = float(err.max())
+                rel = float(row_rel_err(got, want).max())
+                print(f"   flash_attention {case} {dtype}: max_abs_err {m!r}"
+                      f" (tolerance {tol} x (1 + |want|), max |want| "
+                      f"{float(want.abs().max())!r}); row relative error "
+                      f"{rel!r} (limit {row_tol})", flush=True)
+                check(excess <= 0, f"flash_attention {case} {dtype}: "
+                                   f"outside the tolerance by {excess}")
+                check(rel <= row_tol, f"flash_attention {case} {dtype}: row "
+                                      f"relative error {rel} > {row_tol}")
+                if causal and window is None and sq == skv >= 4096:
+                    # The first 64-key tile dropped from every row: the
+                    # plain version over keys 64.. (query i at key 64 + i).
+                    cut = flash_attention_plain(q[:, :, 64:], k[:, :, 64:],
+                                                v[:, :, 64:], bq=64, bk=64,
+                                                **kw)
+                    fault = row_rel_err(cut[:, :, sq // 2 - 64:],
+                                        want[:, :, sq // 2:])
+                    weakest = float(fault.min())
+                    print(f"   ... a kernel dropping one 64-key tile of each "
+                          f"row of {sq // 2}+ keys would read at least "
+                          f"{weakest!r}", flush=True)
+                    check(weakest > row_tol, "the row check would not catch "
+                                             "a dropped kv tile")
+                if skv < sq:
+                    check(float(got[:, :, :sq - skv].abs().max()) == 0.0,
+                          "flash_attention: a row with no live key is not 0")
+                self.max_err["flash_attention"] = max(
+                    self.max_err["flash_attention"], m)
+
+
 # --------------------------------------------------- phase 3: slice parity --
 
 
@@ -748,6 +871,43 @@ def prefix_index_parity(steps: int = 40):
           flush=True)
     check(st.block_hits > 0 and gs.expirations > 0,
           "the prefix stream never hit or never expired a generation")
+
+
+def lm_parity(seq: int = 512, steps: int = 8):
+    """gemma3-1b at full width, one period deep (6 layers), float32, TF32
+    off: one seeded init on the CPU, copied to the card.  The cache-less
+    forward's logits agree within 1e-3 (float32 sums in other orders on
+    the two devices, through 6 layers and a 1152-wide unembedding; logits
+    are O(1)); the greedy tokens of prefill + ``steps`` decode steps are
+    equal."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import Transformer
+    from repro_torch.serving.engine import generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=6,
+                              dtype="float32")
+    cpu = Transformer(cfg, seed=SEED, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    toks = torch.from_numpy(np.random.RandomState(SEED + 10).randint(
+        0, cfg.vocab_size, (1, seq)))
+    cuda.reset_counts()
+    a = card.apply(toks.cuda()).logits
+    torch.cuda.synchronize()
+    check(cuda.LAUNCHES["flash_attention"] == cfg.n_layers,
+          "the card's forward did not launch flash_attention per layer")
+    b = cpu.apply(toks).logits
+    err = float((a.cpu() - b).abs().max())
+    gen = [generate(m, t, steps + 1).tokens.cpu().numpy()
+           for m, t in ((card, toks.cuda()), (cpu, toks))]
+    print(f"   LM {cfg.name} x{cfg.n_layers} layers, float32, S={seq}: "
+          f"logits max_abs_err card vs cpu {err!r} (max |logit| "
+          f"{float(b.abs().max())!r}); greedy tokens {gen[0].tolist()} / "
+          f"{gen[1].tolist()}", flush=True)
+    check(err < 1e-3, f"LM logits differ between devices by {err}")
+    check(np.array_equal(*gen), "greedy tokens differ between devices")
 
 
 # ------------------------------------------------------ phase 4: main path --
@@ -1089,6 +1249,163 @@ def streaming_path(card: str, *, ticks=32, base=600_000, burst=4,
         "times": times, "device_s": device_s, "fp_share": fp_share}
 
 
+def lm_profile(model, toks, card: str, *, prompt: int = 1024,
+               steps: int = 3) -> dict:
+    """Where the LM path's time goes, from CUDA-activity ``torch.profiler``
+    traces: one cache-less forward over ``toks`` (device time of the flash
+    kernel, of the matrix products and of everything else; the idle share
+    of the host clock), then ``steps`` greedy decode steps after a
+    ``prompt``-token prefill in a float32 cache (device kernels launched
+    and device busy time per step, against the host clock)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+        kernels = 0
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", 0.0) or 0.0
+            if us <= 0 or ev.key.startswith("aten::"):
+                continue
+            kernels += ev.count
+            key = ev.key.lower()
+            kind = ("flash" if "flash_" in key else "matmul"
+                    if any(w in key for w in ("gemm", "nvjet", "cutlass",
+                                              "xmma")) else "other")
+            by[kind] += us / 1e3
+        return wall * 1e3, by, kernels
+
+    wall, by, _n = trace(lambda: model.apply(toks))
+    busy = sum(by.values())
+    print(f"   (a) profile of one forward [{card}]: {wall!r} ms host clock, "
+          f"device busy {busy!r} ms (flash {by['flash']!r}, matrix products"
+          f" {by['matmul']!r}, other {by['other']!r}), idle share "
+          f"{1 - busy / wall!r}", flush=True)
+    cache = model.init_cache(1, prompt + steps + 1, dtype=torch.float32)
+    model.apply(toks[:, :prompt], cache=cache, cache_pos=0)
+    tok = toks[:, prompt:prompt + 1]
+
+    def decode():
+        for pos in range(prompt, prompt + steps):
+            int(model.decode_step(cache, tok, pos).logits[0, 0].argmax())
+    dwall, dby, dn = trace(decode)
+    dbusy = sum(dby.values())
+    print(f"   (a) profile of {steps} decode steps [{card}]: "
+          f"{dwall / steps!r} ms a step host clock, {dn / steps!r} device "
+          f"kernels a step, device busy {dbusy / steps!r} ms a step "
+          f"(matrix products {dby['matmul'] / steps!r}), idle share "
+          f"{1 - dbusy / dwall!r}", flush=True)
+    return {"forward_ms": wall, "forward_device_ms": by,
+            "decode_ms": dwall / steps, "decode_kernels": dn / steps,
+            "decode_device_ms": dbusy / steps}
+
+
+# -------------------------------------------- phase 5c: the LM serving path --
+
+
+def lm_path(card: str, *, seq: int = LM_SEQ, check_seq: int = 1024,
+            requests: int = 16, prefix_len: int = 1008, block: int = 16,
+            gen: int = 16):
+    """The LM path of gemma3-1b at full size (26 layers, full width, float32
+    weights from SEED): (a) a cache-less forward over ``seq`` tokens in
+    bfloat16 (prompt scoring: 22 local and 4 global flash launches); (b)
+    the serving consistency check of tests/test_models.py in float32: the
+    last position's log-softmax from the flash forward against the cached
+    prefill + one decode step (blockwise attention) of the same
+    ``check_seq``-token prompt, within 1e-3; (c) ``serve()`` of the port,
+    ``requests`` prompts of ``prefix_len + block`` tokens, ``gen`` tokens
+    each, through the OCF prefix-cache index."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Transformer
+
+    cfg = get_config(LM_ARCH)
+    rng = np.random.RandomState(SEED + 11)
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    out = {}
+
+    # (a) prompt scoring
+    model = Transformer(cfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq))).cuda()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.apply(toks).logits
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    flash_per_forward = cuda.LAUNCHES["flash_attention"] // len(times)
+    out["forward_s"] = min(times)
+    print(f"   (a) {cfg.name}: {n_params} parameters, forward over {seq} "
+          f"tokens {times!r} s -> {seq / min(times)!r} tokens/s [{card}]; "
+          f"logits {shape} finite={finite}; flash launches per forward "
+          f"{flash_per_forward}", flush=True)
+    check(finite and shape == (1, seq, cfg.vocab_size),
+          "the prompt-scoring logits are not finite or of the wrong shape")
+    check(flash_per_forward == cfg.n_layers,
+          f"{flash_per_forward} flash launches per forward, not "
+          f"{cfg.n_layers}")
+    out["forward_profile"] = lm_profile(model, toks, card)
+    torch.cuda.synchronize()
+    bf16_launches = cuda.LAUNCHES["flash_attention"]
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) the flash forward against the cached serving path, float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = Transformer(cfg32, seed=SEED, device="cuda")
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                        (1, check_seq))).cuda()
+    full = model.apply(toks).logits[:, -1]
+    cache = model.init_cache(1, check_seq + 4, dtype=torch.float32)
+    model.apply(toks[:, :-1], cache=cache, cache_pos=0)
+    dec = model.decode_step(cache, toks[:, -1:], check_seq - 1).logits[:, 0]
+    err = float((torch.log_softmax(full, -1)
+                 - torch.log_softmax(dec, -1)).abs().max())
+    out["serving_err"] = err
+    f32_launches = cuda.LAUNCHES["flash_attention"] - bf16_launches
+    print(f"   (b) flash forward vs cached prefill + decode, float32, "
+          f"S={check_seq}: log-softmax max err {err!r}", flush=True)
+    print(f"   flash launches: {bf16_launches} bfloat16 (flash_bf16_kernel, "
+          f"a), {f32_launches} float32 (flash_f32_kernel, b)", flush=True)
+    check(err < 1e-3, f"the flash forward and the cached serving path "
+                      f"differ by {err}")
+    del model, cache
+    torch.cuda.empty_cache()
+
+    # (c) the server
+    res = serve(LM_ARCH, requests=requests, prefix_len=prefix_len, gen=gen,
+                smoke=False, seed=SEED, block=block, device="cuda")
+    out["serve"] = res
+    print(f"   (c) serve {requests} requests x ({prefix_len} + {block} "
+          f"prompt, {gen} generated): latency mean "
+          f"{res['latency_mean_s']!r} s p99 {res['latency_p99_s']!r} s, "
+          f"prefill {res['prefill_tokens_per_s']!r} tokens/s, decode "
+          f"{res['decode_tokens_per_s']!r} tokens/s, prefix hit rate "
+          f"{res['prefix_hit_rate']!r}, reused blocks "
+          f"{res['reused_blocks']}, index {res['index_stats']} [{card}]",
+          flush=True)
+    check(res["reused_blocks"] > 0, "serve reused no prefix block")
+    torch.cuda.synchronize()
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    print(f"   launches={launches} plain_calls={plain}", flush=True)
+    return launches, plain, out
+
+
 # --------------------------------------------------------- phase 6: times --
 
 
@@ -1145,11 +1462,12 @@ def kernel_device_ms(fn, reps: int, setup, symbol: str):
     return None
 
 
-def least_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def least_ms(nbytes: float, ops: float,
+             ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     """The least time the card could take for some work: its bytes over
     the memory rate or its operations over the peak rate, the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1289,12 +1607,12 @@ def kernel_times(ocf, resident: np.ndarray) -> dict:
     return time_rows(rows)
 
 
-def time_rows(rows: dict) -> dict:
+def time_rows(rows: dict, ops_per_s: float = SCALAR_OPS_PER_S) -> dict:
     """Device, wrapper, plain and bound times of each row
     ``name: (kernel call, plain call, setup, (bytes, ops), symbol)``."""
     out = {}
     for name, (kern, plain, setup, (nbytes, ops), symbol) in rows.items():
-        bound_ms, bound_by = least_ms(nbytes, ops)
+        bound_ms, bound_by = least_ms(nbytes, ops, ops_per_s)
         # plain, kernel, kernel, plain: compare within one call, in turns.
         p1 = time_ms(plain, 3, setup)
         w1 = time_ms(kern, 20, setup)
@@ -1541,6 +1859,107 @@ def streaming_kernel_times(snap, present: np.ndarray) -> dict:
     return out
 
 
+def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave live, queries right-aligned."""
+    qpos = np.arange(skv - sq, skv, dtype=np.int64)
+    hi = np.minimum(qpos + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_kernel_times() -> dict:
+    """Kernel, wrapper, plain, bound and library times of flash_attention
+    at gemma3-1b's prompt-scoring shapes (bfloat16, B=1, Hq=4, Hkv=1,
+    S=8192, D=256): a global layer (causal) and a local one (window 512).
+    The bound is the larger of q, k, v and o moved once over the memory
+    rate and 4 * Hq * D operations per live (query, key) pair over the
+    bfloat16 tensor-core rate.  The library's yardstick is one
+    ``scaled_dot_product_attention`` call on the same inputs (GQA, causal;
+    the window as a boolean mask), timed here and used nowhere in the
+    port.  The float32 kernel is timed too, at phase 5c (b)'s shape
+    (S=1024), with its operations over the float32 CUDA-core rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cfg_window = 512
+    b, hq, hkv, s, d = 1, 4, 1, LM_SEQ, 256
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen)
+               .to(torch.bfloat16) for shape in ((b, hq, s, d),
+                                                 (b, hkv, s, d),
+                                                 (b, hkv, s, d)))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    pos = torch.arange(s, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - cfg_window)
+    out = {}
+    for label, window in (("global", None), ("local", cfg_window)):
+        ops = 4 * hq * d * live_pairs(s, s, True, window) * b
+        rows = {f"flash_attention ({label})": (
+            lambda w=window: flash_attention(q, k, v, window=w),
+            lambda w=window: flash_attention_plain(q, k, v, window=w),
+            None, (nbytes, ops), "flash_bf16_kernel")}
+        row = time_rows(rows, TENSOR_OPS_PER_S)[f"flash_attention "
+                                                f"({label})"]
+        mask = (dict(is_causal=True) if window is None
+                else dict(attn_mask=band))
+
+        def lib(mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **mask)
+        row["library_ms"] = (time_ms(lib, 10) + time_ms(lib, 10)) / 2
+        diff = float((lib().float() - flash_attention(
+            q, k, v, window=window).float()).abs().max())
+        how = ("causal" if window is None else
+               "a dense boolean band mask: SDPA has no windowed fast path")
+        print(f"   flash_attention ({label}): scaled_dot_product_attention "
+              f"{row['library_ms']!r} ms ({how}), max |difference| "
+              f"{diff!r}; {ops} operations", flush=True)
+        out[label] = row
+    # flash_f32_kernel at phase 5c (b)'s shape: float32, S = 1024, on the
+    # CUDA cores (bound: the float32 rate outside the tensor cores).
+    s32 = 1024
+    q, k, v = (x[:, :, :s32].float().contiguous() for x in (q, k, v))
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    for label, window in (("global", None), ("local", cfg_window)):
+        ops = 4 * hq * d * live_pairs(s32, s32, True, window) * b
+        name = f"flash_attention float32 S={s32} ({label})"
+        out[name] = time_rows({name: (
+            lambda w=window: flash_attention(q, k, v, window=w),
+            lambda w=window: flash_attention_plain(q, k, v, window=w),
+            None, (nbytes, ops), "flash_f32_kernel")})[name]
+    return out
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its name
+    (``name_kernel<D>``, read from the mangled symbol), registers, static
+    shared memory and spills.  The flash kernels' tiles are dynamic shared
+    memory, sized at launch (``csrc/flash_attention.cu``)."""
+    import re
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            # Itanium mangling: a length, then the identifier; a template
+            # argument <D> follows as ILi<D>E.
+            for k in re.finditer(r"(?=(\d+))", name):
+                start = k.start() + len(k.group(1))
+                ident = name[start:start + int(k.group(1))]
+                if re.fullmatch(r"[a-z]\w*_kernel", ident):
+                    t = re.match(r"ILi(\d+)E", name[start + len(ident):])
+                    name = ident + (f"<{t.group(1)}>" if t else "")
+                    break
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
+
+
 # ------------------------------------------------------------------ main --
 
 
@@ -1568,9 +1987,8 @@ def main() -> int:
         for name in cuda.KERNELS:
             log = cuda._lib_path(name).with_suffix(".log")
             if log.exists():
-                for line in log.read_text().splitlines():
-                    if "registers" in line or "spill" in line:
-                        print(f"   {name}: {line.strip()}", flush=True)
+                for line in ptxas_summary(log.read_text()):
+                    print(f"   {name}: {line}", flush=True)
             cuda.kernel_fn(name)
 
     with phase("kernels vs plain versions"):
@@ -1580,7 +1998,10 @@ def main() -> int:
         abench.run()
         sbench = StreamingKernelBench("cuda")
         sbench.run()
-        max_err = {**bench.max_err, **abench.max_err, **sbench.max_err}
+        fbench = FlashKernelBench("cuda")
+        fbench.run()
+        max_err = {**bench.max_err, **abench.max_err, **sbench.max_err,
+                   **fbench.max_err}
         torch.cuda.synchronize()
 
     with phase("slice parity cuda vs cpu"):
@@ -1593,6 +2014,7 @@ def main() -> int:
                         late=int(0.95 * (1 << 14)) - 12 * 1024)
         ring_parity()
         prefix_index_parity()
+        lm_parity()
 
     # Each path runs with the counts set to 0 just before it and read just
     # after; its kernels' "launches" come from that run.
@@ -1613,6 +2035,10 @@ def main() -> int:
         check(counts.get("insert_bulk", 0) > 0,
               "insert_bulk was never launched on the streaming path")
 
+    with phase("LM serving path at full size"):
+        counts, plain["lm"], _lm = lm_path(card)
+        launches.update({k: counts.get(k, 0) for k in LM_KERNELS})
+
     for name in cuda.KERNELS:
         check(launches.get(name, 0) > 0,
               f"{name} was never launched on its path")
@@ -1624,6 +2050,8 @@ def main() -> int:
         perf = kernel_times(ocf, resident)
         perf.update(adaptive_kernel_times(m, remaining))
         perf.update(streaming_kernel_times(ring, present))
+        flash = flash_kernel_times()
+        perf["flash_attention"] = flash["global"]
 
     rows = []
     for name, (source, replaces, held_by) in KERNEL_ROWS.items():
@@ -1633,7 +2061,8 @@ def main() -> int:
                      "max_abs_err": max_err[name], "ms": t["ms"],
                      "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                     "held_by": held_by, "library_ms": None})
+                     "held_by": held_by,
+                     "library_ms": t.get("library_ms")})
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

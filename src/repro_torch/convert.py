@@ -7,6 +7,14 @@ stats and capacity history), so a port ``OCF`` can continue a stream
 from the reference's state.  ``adaptive_state_from_numpy`` does the same
 for the four planes of the adaptive filter, and
 ``generational_from_numpy`` for the streaming generation ring.
+
+The LM stack's weights cross as the reference's parameter pytree of
+float32 numpy arrays (``embed``, ``final_norm``, ``blocks[j][...]``
+stacked over periods, ``tail[j][...]`` stacked over one):
+``transformer_params_from_numpy`` loads them into the port's
+``Transformer`` in its slot-major layer order, and
+``transformer_params_to_numpy`` gives them back in that pytree, and
+``cache_to_numpy`` gives a KV cache in the reference's layout.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ from repro_torch.adaptive.state import AdaptiveState
 from repro_torch.core.filter import FilterState
 from repro_torch.core.hashing import resolve_device
 from repro_torch.core.ocf import OCF, OcfConfig, OcfStats
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
 from repro_torch.streaming.generations import (GenerationalFilter,
                                                GenerationConfig, GenStats,
                                                _Generation)
@@ -167,3 +177,68 @@ def generational_to_numpy(ring: GenerationalFilter) -> dict:
                       "expires": g.expires} for g in ring.gens],
             "last_now": ring._last_now,
             "stats": dataclasses.asdict(ring.stats)}
+
+
+# ------------------------------------------------------------- LM stack --
+
+_BLOCK_GROUPS = ("mixer", "mlp", "norms")
+
+
+def _block_leaves(layer):
+    """(reference key path, parameter) of one port block; the norms sit at
+    the top of the reference's block dict."""
+    for group in _BLOCK_GROUPS:
+        for name, param in getattr(layer, group).items():
+            yield ((name,) if group == "norms" else (group, name)), param
+
+
+def transformer_params_from_numpy(params_np: dict, cfg: ModelConfig, *,
+                                  device="cuda") -> Transformer:
+    """The reference's parameter pytree (numpy) -> a port ``Transformer``
+    holding those weights: layer (slot j, period i) takes
+    ``blocks[j][...][i]``, tail layer j takes ``tail[j][...][0]``."""
+    model = Transformer(cfg, device=device)
+    dev = model.device
+    with torch.no_grad():
+        for name, param in model.emb.items():
+            param.copy_(torch.from_numpy(np.array(params_np[name])).to(dev))
+        for layer, (group, j, i) in zip(model.layers, model.slots):
+            tree = params_np[group][j]
+            for path, param in _block_leaves(layer):
+                arr = tree
+                for key in path:
+                    arr = arr[key]
+                param.copy_(torch.from_numpy(np.array(arr[i])).to(dev))
+    return model
+
+
+def transformer_params_to_numpy(model: Transformer) -> dict:
+    """A port ``Transformer``'s weights -> the reference's pytree (float32
+    numpy), blocks stacked over periods in the reference's order."""
+    out = {name: p.detach().cpu().numpy() for name, p in model.emb.items()}
+    stacks: dict = {}
+    for layer, (group, j, _i) in zip(model.layers, model.slots):
+        slot = stacks.setdefault(group, {}).setdefault(j, {})
+        for path, param in _block_leaves(layer):
+            node = slot
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node.setdefault(path[-1], []).append(
+                param.detach().cpu().numpy())
+
+    def stack(node):
+        if isinstance(node, list):
+            return np.stack(node)
+        return {k: stack(v) for k, v in node.items()}
+
+    for group, slots in stacks.items():
+        out[group] = tuple(stack(slots[j]) for j in sorted(slots))
+    return out
+
+
+def cache_to_numpy(cache: dict) -> dict:
+    """A port KV cache -> ``{"blocks": [(k, v)], "tail": [(k, v)]}`` of
+    numpy arrays in the reference's layout ([n, B, Hkv, S, D] per slot)."""
+    return {group: [(c.k.detach().float().cpu().numpy(),
+                     c.v.detach().float().cpu().numpy()) for c in slots]
+            for group, slots in cache.items()}

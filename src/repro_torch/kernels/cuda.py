@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 HEADER = "ocf_common.cuh"
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-_U64 = ctypes.c_uint64
+_U64, _F = ctypes.c_uint64, ctypes.c_float
 # kernel name -> (source, C function, argtypes)
 KERNELS = {
     "fingerprint_hash": ("fingerprint.cu", "ocf_fingerprint_hash",
@@ -55,6 +55,9 @@ KERNELS = {
     "probe_multi": ("probe_multi.cu", "ocf_probe_multi",
                     [_P, _I, _U64, _I, _I, _P, _I, _P, _P, _P, _I, _I, _U,
                      _P]),
+    "flash_attention": ("flash_attention.cu", "lm_flash_attention",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _P]),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

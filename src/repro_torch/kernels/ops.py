@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.ops`` for the main path (``hash_keys``,
 ``probe_dispatch``, ``filter_insert``, ``filter_delete``), the streaming
 ring's fan-out (``filter_lookup_multi``, ``multi_prober``) and the
 adaptive filter (``adaptive_lookup``, ``adaptive_insert``,
-``adaptive_delete``, ``adaptive_report``).  Every wrapper
+``adaptive_delete``, ``adaptive_report``), and the LM stack's attention
+dispatcher (``attention``).  Every wrapper
 goes to its kernel; a kernel module takes its plain version only for CPU
 tensors, so there is no fallback arm here.
 
@@ -26,10 +27,12 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.delete import delete_bulk, delete_bulk_adaptive
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                              fingerprint_hash_family)
 from repro_torch.kernels.insert import insert_bulk, insert_bulk_adaptive
 from repro_torch.kernels.probe import probe, probe_adaptive, probe_multi
+from repro_torch.kernels.ref import blockwise_attention
 from repro_torch.kernels.selector import report_adapt
 from repro_torch.kernels.stash import stash_delete_ref
 
@@ -368,3 +371,21 @@ def adaptive_report(table: torch.Tensor, sels: torch.Tensor,
     family = hash_family(hi, lo, fp_bits=fp_bits, n_buckets=n_buckets)
     return report_adapt(table, sels, khi, klo, hi, lo, valid,
                         fp_bits=fp_bits, n_buckets=n_buckets, family=family)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              logit_softcap: float | None = None, scale: float | None = None,
+              qpos_start=None, valid_len=None, key_positions=None):
+    """Attention dispatcher, with the reference's rule: a cache-less call
+    (no ``qpos_start``, ``valid_len`` or ``key_positions``) goes to the
+    flash kernel (its plain version for CPU tensors); a call over a cache
+    goes to ``blockwise_attention``.  The reference's off-TPU
+    ``local_attention`` arm is not ported (the port has a kernel on every
+    device it runs on)."""
+    if qpos_start is None and valid_len is None and key_positions is None:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               logit_softcap=logit_softcap, scale=scale)
+    return blockwise_attention(q, k, v, causal=causal, window=window,
+                               logit_softcap=logit_softcap, scale=scale,
+                               qpos_start=qpos_start, valid_len=valid_len,
+                               key_positions=key_positions)

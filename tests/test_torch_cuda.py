@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, and the OCF,
-the adaptive filter and the streaming generation ring on the card against
-the same on the CPU.  Needs a GPU (marker ``cuda``); on a
+the adaptive filter, the streaming generation ring and the LM forward on
+the card against the same on the CPU.  Needs a GPU (marker ``cuda``); on a
 machine without one every test here skips.  ``chip_smoke.py`` runs the
 same checks at full size."""
 import numpy as np
@@ -9,11 +9,14 @@ import torch
 
 from repro_torch.adaptive import AdaptiveConfig, AdaptiveMembership
 from repro_torch.convert import adaptive_state_to_numpy, generational_to_numpy
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.ocf import OCF, OcfConfig
 from repro_torch.kernels import cuda
 from repro_torch.kernels.delete import (delete_bulk, delete_bulk_adaptive,
                                         delete_bulk_adaptive_plain,
                                         delete_bulk_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                              fingerprint_hash_family,
                                              fingerprint_hash_family_plain,
@@ -24,10 +27,13 @@ from repro_torch.kernels.insert import (insert_bulk, insert_bulk_adaptive,
 from repro_torch.kernels.probe import (probe, probe_adaptive,
                                        probe_adaptive_plain, probe_multi,
                                        probe_multi_plain, probe_plain)
+from repro_torch.models import Transformer
+from repro_torch.serving import engine
 from repro_torch.streaming import GenerationalFilter, GenerationConfig
 
 from torch_port_util import (adaptive_planes, ocf_stream, port_snapshot,
-                             assert_same_state, random_keys, split, t32)
+                             assert_same_state, random_keys, row_rel_err,
+                             split, t32)
 
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
@@ -213,3 +219,64 @@ def test_ring_on_card_matches_cpu(dev):
         seen.append(keys)
     assert on_cpu.stats.rotations >= 2 and on_cpu.stats.expirations >= 1
     assert cuda.LAUNCHES["probe_multi"] > 0 and cuda.LAUNCHES["insert_bulk"] > 0
+
+
+@pytest.mark.parametrize("case", [
+    # b, hq, hkv, sq, skv, d, causal, window, softcap
+    (1, 4, 1, 512, 512, 256, True, 128, None),
+    (1, 4, 1, 512, 512, 256, True, None, None),
+    (1, 4, 1, 4096, 4096, 256, True, None, None),  # long rows, small values
+    (2, 2, 2, 128, 256, 128, True, None, 30.0),
+    (1, 4, 4, 1, 384, 64, True, None, None),
+    (1, 2, 1, 128, 128, 32, False, None, None),
+    (1, 2, 1, 256, 128, 16, True, None, None),     # rows past the keys
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, case, dtype):
+    """The kernel against its plain version on the card; tolerance: the
+    reference sweep's 2e-6 (float32, with the longer sums of 512 or more
+    keys at D = 256: 1e-5) and 2e-2 (bfloat16) elementwise, and row by row
+    ||got - want|| / ||want|| within 1e-5 (float32) and 1e-2 (bfloat16):
+    on long rows the outputs shrink to the size of the elementwise
+    tolerance, and one dropped 64-key tile reads 0.03 or more there."""
+    b, hq, hkv, sq, skv, d, causal, window, cap = case
+    rng = np.random.RandomState(sq + d)
+    q, k, v = (torch.from_numpy(rng.randn(*shape)).to(dev, dtype)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+    cuda.reset_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          logit_softcap=cap)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == 1
+    tol = (2e-2 if dtype == torch.bfloat16
+           else 1e-5 if d == 256 and skv >= 512 else 2e-6)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    row_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert float(row_rel_err(got, want).max()) <= row_tol
+    if skv < sq:
+        assert float(got[:, :, :sq - skv].abs().max()) == 0.0
+
+
+def test_lm_on_card_matches_cpu(dev):
+    """gemma3-1b smoke weights built on the CPU and copied to the card:
+    the flash forward's logits within 1e-4 in float32 (tf32 off), and the
+    greedy tokens of prefill + 8 decode steps equal."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("gemma3-1b"), dtype="float32")
+    cpu = Transformer(cfg, seed=1, device="cpu")
+    card = Transformer(cfg, seed=1, device="cpu").to(dev)
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 64)))
+    cuda.reset_counts()
+    a = card.apply(toks.to(dev)).logits
+    assert cuda.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert not cuda.PLAIN_CALLS
+    b = cpu.apply(toks).logits
+    torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    outs = [engine.generate(m, t, 9).tokens.cpu()
+            for m, t in ((card, toks.to(dev)), (cpu, toks))]
+    assert torch.equal(*outs)

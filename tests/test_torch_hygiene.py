@@ -20,11 +20,15 @@ from repro_torch.core.filter import make_state
 from repro_torch.core.filter_ops import FilterOps
 from repro_torch.core.ocf import OCF, OcfConfig
 from repro_torch.kernels import cuda
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.delete import _delete_adaptive_cuda
+from repro_torch.kernels.flash_attention import _flash_cuda
 from repro_torch.kernels.fingerprint import _family_cuda
 from repro_torch.kernels.insert import _insert_adaptive_cuda
 from repro_torch.kernels.probe import _probe_adaptive_cuda, _probe_multi_cuda
 from repro_torch.kernels.stash import make_stash
+from repro_torch.launch.serve import serve
+from repro_torch.models import Transformer
 from repro_torch.serving import GenerationalPrefixIndex, PrefixCacheIndex
 from repro_torch.streaming import (GenerationalFilter, GenerationConfig,
                                    OverflowStash)
@@ -44,7 +48,11 @@ def test_no_jax_or_reference_imports_in_source():
     files = {p.relative_to(PORT).as_posix() for p in _port_files()[:-1]}
     for sub in ("streaming/generations.py", "streaming/stash.py",
                 "obs/registry.py", "obs/trace.py", "obs/recovery.py",
-                "serving/kvcache.py"):
+                "serving/kvcache.py", "serving/engine.py",
+                "models/transformer.py", "models/attention.py",
+                "models/layers.py", "models/config.py",
+                "kernels/flash_attention.py", "kernels/ref.py",
+                "configs/registry.py", "launch/serve.py"):
         assert sub in files, sub
     bad = []
     for path in _port_files():
@@ -70,9 +78,11 @@ def test_importing_every_module_loads_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
-        "assert len(mods) >= 35, mods\n"
+        "assert len(mods) >= 50, mods\n"
         "for m in ('streaming.generations', 'streaming.stash', 'obs.trace',"
-        " 'obs.registry', 'obs.recovery', 'serving.kvcache'):\n"
+        " 'obs.registry', 'obs.recovery', 'serving.kvcache',"
+        " 'serving.engine', 'models.transformer', 'kernels.flash_attention',"
+        " 'configs.gemma3_1b', 'launch.serve'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
@@ -110,7 +120,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: GenerationalPrefixIndex(),
                  lambda: PrefixCacheIndex(),
                  lambda: OverflowStash(8),
-                 lambda: make_sharded_stashes(2, 8)):
+                 lambda: make_sharded_stashes(2, 8),
+                 lambda: Transformer(get_smoke_config("gemma3-1b")),
+                 lambda: serve("gemma3-1b", requests=1, prefix_len=16,
+                               gen=2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asking for the CPU is what makes it run there
@@ -167,20 +180,42 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
             lambda: _delete_adaptive_cuda(table, sels, table, table, keys,
                                           keys, valid, block=128, **kw),
             lambda: _probe_multi_cuda(table[None], keys, keys,
-                                      stashes=None, **kw)):
+                                      stashes=None, **kw),
+            lambda: _flash_cuda(torch.zeros((1, 4, 64, 16)),
+                                torch.zeros((1, 1, 64, 16)),
+                                torch.zeros((1, 1, 64, 16)), causal=True,
+                                window=None, logit_softcap=None,
+                                scale=None)):
         with pytest.raises(ValueError, match="CUDA device"):
             call()
 
 
 def test_build_names_a_library_per_source():
     names = {cuda._lib_path(k).name for k in cuda.KERNELS}
-    assert len(names) == 9
+    assert len(names) == 10
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert cuda.BUILD_DIR == ROOT / "build"
     for src, _fn, _args in cuda.KERNELS.values():
         assert (PORT / "csrc" / src).exists()
     text = (PORT / "csrc" / "ocf_common.cuh").read_text()
     assert "__host__ __device__" in text
+
+
+def test_no_library_attention_compile_or_fallback():
+    """The port computes attention with its own kernel: no module calls
+    ``scaled_dot_product_attention`` (only ``chip_smoke.py`` times it as a
+    yardstick) or ``torch.compile``, and no wrapper catches an error to
+    fall back to a plain version."""
+    bad = []
+    for path in _port_files()[:-1]:
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr in (
+                    "scaled_dot_product_attention", "compile"):
+                bad.append(f"{path.relative_to(ROOT)}: .{node.attr}")
+            if isinstance(node, ast.Try) and path.parent.name == "kernels":
+                bad.append(f"{path.relative_to(ROOT)}: try at {node.lineno}")
+    assert not bad, bad
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -155,3 +155,83 @@ def assert_same_ring(ref_ring, port_ring, where=""):
     assert len(ref["gens"]) == len(port["gens"]), where
     for i, (rg, pg) in enumerate(zip(ref["gens"], port["gens"])):
         assert_same_state(rg, pg, f"{where} gen {i}")
+
+
+# ------------------------------------------------------------- LM stack --
+
+# name -> (arch, ModelConfig overrides) of the smoke configs the LM tests
+# hold against the reference; gemma3 at 14 layers runs 2 periods + a tail.
+LM_CONFIGS = {"gemma3": ("gemma3_1b", {}),
+              "gemma3-14": ("gemma3_1b", dict(n_layers=14)),
+              "gemma2": ("gemma2_27b", {}),
+              "mistral-nemo": ("mistral_nemo_12b", {})}
+_REF_PARAMS = {}
+
+
+def lm_configs(name, dtype="float32"):
+    """(reference config, port config) of ``LM_CONFIGS[name]``."""
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro_torch.configs import get_smoke_config
+    arch, over = LM_CONFIGS[name]
+    return (dataclasses.replace(ref_smoke(arch), dtype=dtype, **over),
+            dataclasses.replace(get_smoke_config(arch), dtype=dtype, **over))
+
+
+def lm_params_np(name, seed=0):
+    """Weights for ``LM_CONFIGS[name]`` in the reference's parameter pytree,
+    made with numpy from ``seed``: fan-in scaled normals for the matrices
+    and the embedding, 1 + 0.1 N(0, 1) for the norm weights (so that a
+    norm weight read from the wrong place shows).  The pytree's structure
+    and shapes are the reference init's (``jax.eval_shape``)."""
+    import jax
+    from repro.models import Transformer as RefTransformer
+    rcfg, _ = lm_configs(name)
+    shapes = jax.eval_shape(lambda k: RefTransformer(rcfg).init(k)[0],
+                            jax.random.PRNGKey(0))
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        key = str(path[-1])
+        if "norm" in key:
+            return (1 + 0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+        fan_in = leaf.shape[-1] if "embed" in key else leaf.shape[-2]
+        return (rng.randn(*leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def lm_models(name, dtype="float32"):
+    """-> (reference Transformer, its params as jax arrays, the port's
+    Transformer on the CPU holding the same weights), the weights from
+    ``lm_params_np`` (made once per config and process)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import Transformer as RefTransformer
+    from repro_torch.convert import transformer_params_from_numpy
+    rcfg, pcfg = lm_configs(name, dtype)
+    if name not in _REF_PARAMS:
+        _REF_PARAMS[name] = lm_params_np(name)
+    pnp = _REF_PARAMS[name]
+    return (RefTransformer(rcfg), jax.tree.map(jnp.asarray, pnp),
+            transformer_params_from_numpy(pnp, pcfg, device="cpu"))
+
+
+def ref_logits(ref, params, toks):
+    """The reference's cache-less forward logits of numpy token ids."""
+    import jax
+    import jax.numpy as jnp
+    return np.asarray(jax.jit(lambda p, t: ref.apply(p, t).logits)(
+        params, jnp.asarray(toks)))
+
+
+def lm_tokens(cfg, shape, seed=0):
+    return np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, shape).astype(np.int32)
+
+
+def row_rel_err(got, want):
+    """Per output row (the last axis) ||got - want|| / ||want|| over the
+    rows whose ``want`` is not all 0 -> a float tensor of those rows."""
+    num = (got.float() - want.float()).norm(dim=-1)
+    den = want.float().norm(dim=-1)
+    live = den > 0
+    return num[live] / den[live]
