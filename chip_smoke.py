@@ -105,7 +105,7 @@ KERNEL_ROWS = {
                     "src/repro/kernels/probe.py:403", "stash_scan"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113",
-                        "smem_bandwidth_mma_sync"),
+                        "not measured"),
 }
 STATIC_KERNELS = ("fingerprint_hash", "probe", "insert_bulk", "delete_bulk")
 ADAPTIVE_KERNELS = ("fingerprint_hash_family", "probe_adaptive",
@@ -576,12 +576,17 @@ class FlashKernelBench:
     """flash_attention against its plain version on the card: gemma3-1b's
     heads at the prompt-scoring length (global and 512-window layers, both
     dtypes), small cases of the reference's sweep (soft-cap 30,
-    non-causal, decode-style Sq = 1, D of 16 to 128) and Sq > Skv, whose
-    first rows have no live key and must be 0.  Each case is held
-    elementwise (FLASH_TOL) and row by row (FLASH_ROW_TOL); on the long
-    global case the script also reads what the row check would see from a
-    kernel that dropped the first 64-key tile of every row (the plain
-    version without those keys) and requires the check to catch it."""
+    non-causal, decode-style Sq = 1, D of 16 to 128), Sq > Skv, whose
+    first rows have no live key and must be 0, and lengths that cut the
+    kernel's 128-row q tile and 64-key kv tile short.  STRIDED_CASES pass
+    q as a [B, S, Hq, D] tensor seen as [B, Hq, S, D] and k, v as slices
+    of one packed [B, S, 2, Hkv, D] tensor (Hkv > 1, so no stride is
+    dense), held against the plain version on contiguous copies.  Each
+    case is held elementwise (FLASH_TOL) and row by row (FLASH_ROW_TOL);
+    on the long global case the script also reads what the row check
+    would see from a kernel that dropped the first 64-key tile of every
+    row (the plain version without those keys) and requires the check to
+    catch it."""
 
     CASES = [
         # b, hq, hkv, sq, skv, d, causal, window, softcap
@@ -594,6 +599,17 @@ class FlashKernelBench:
         (1, 2, 1, 128, 128, 32, False, None, None),
         (1, 4, 1, 256, 256, 16, True, 16, None),
         (1, 2, 1, 256, 128, 32, True, None, None),
+        # the bfloat16 kernel's 128-row q tile and 64-key kv tile cut short
+        (1, 2, 2, 72, 72, 64, True, None, None),
+        (1, 4, 2, 1, 72, 128, True, None, None),
+        (1, 4, 1, 96, 96, 256, True, 1, None),
+    ]
+    STRIDED_CASES = [
+        (1, 8, 2, 1024, 1024, 256, True, None, None),
+        (2, 8, 4, 128, 256, 128, True, 64, 30.0),
+        (1, 4, 2, 128, 128, 64, False, None, None),
+        (1, 4, 2, 96, 96, 32, True, None, None),
+        (2, 4, 2, 72, 72, 16, True, 16, None),
     ]
 
     def __init__(self, device):
@@ -608,29 +624,43 @@ class FlashKernelBench:
             flash_attention, flash_attention_plain)
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED)
-        for case in self.CASES:
+        cases = [(c, False) for c in self.CASES] + \
+            [(c, True) for c in self.STRIDED_CASES]
+        for case, strided in cases:
             b, hq, hkv, sq, skv, d, causal, window, cap = case
             for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = (torch.randn(shape, device=self.dev, generator=gen)
-                           .to(dtype) for shape in ((b, hq, sq, d),
-                                                    (b, hkv, skv, d),
-                                                    (b, hkv, skv, d)))
+                def randn(*shape):
+                    return torch.randn(shape, device=self.dev,
+                                       generator=gen).to(dtype)
+                if strided:
+                    kv = randn(b, skv, 2, hkv, d)
+                    q, k, v = (randn(b, sq, hq, d).transpose(1, 2),
+                               kv[:, :, 0].transpose(1, 2),
+                               kv[:, :, 1].transpose(1, 2))
+                    check(not any(t.is_contiguous() for t in (q, k, v)),
+                          f"flash_attention {case}: a strided view is dense")
+                else:
+                    q, k, v = (randn(b, hq, sq, d), randn(b, hkv, skv, d),
+                               randn(b, hkv, skv, d))
                 kw = dict(causal=causal, window=window, logit_softcap=cap)
                 got = flash_attention(q, k, v, **kw).float()
-                want = flash_attention_plain(q, k, v, **kw).float()
+                want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                             v.contiguous(), **kw).float()
                 err = (got - want).abs()
                 name = str(dtype).split(".")[-1]
                 tol, row_tol = FLASH_TOL[name], FLASH_ROW_TOL[name]
                 excess = float((err - tol * (1 + want.abs())).max())
                 m = float(err.max())
                 rel = float(row_rel_err(got, want).max())
-                print(f"   flash_attention {case} {dtype}: max_abs_err {m!r}"
+                if strided:
+                    name += ", strided"
+                print(f"   flash_attention {case} {name}: max_abs_err {m!r}"
                       f" (tolerance {tol} x (1 + |want|), max |want| "
                       f"{float(want.abs().max())!r}); row relative error "
                       f"{rel!r} (limit {row_tol})", flush=True)
-                check(excess <= 0, f"flash_attention {case} {dtype}: "
+                check(excess <= 0, f"flash_attention {case} {name}: "
                                    f"outside the tolerance by {excess}")
-                check(rel <= row_tol, f"flash_attention {case} {dtype}: row "
+                check(rel <= row_tol, f"flash_attention {case} {name}: row "
                                       f"relative error {rel} > {row_tol}")
                 if causal and window is None and sq == skv >= 4096:
                     # The first 64-key tile dropped from every row: the
@@ -1380,8 +1410,8 @@ def lm_path(card: str, *, seq: int = LM_SEQ, check_seq: int = 1024,
     f32_launches = cuda.LAUNCHES["flash_attention"] - bf16_launches
     print(f"   (b) flash forward vs cached prefill + decode, float32, "
           f"S={check_seq}: log-softmax max err {err!r}", flush=True)
-    print(f"   flash launches: {bf16_launches} bfloat16 (flash_bf16_kernel, "
-          f"a), {f32_launches} float32 (flash_f32_kernel, b)", flush=True)
+    print(f"   flash launches: {bf16_launches} bfloat16 (flash_wgmma_kernel,"
+          f" a), {f32_launches} float32 (flash_f32_kernel, b)", flush=True)
     check(err < 1e-3, f"the flash forward and the cached serving path "
                       f"differ by {err}")
     del model, cache
@@ -1900,7 +1930,7 @@ def flash_kernel_times() -> dict:
         rows = {f"flash_attention ({label})": (
             lambda w=window: flash_attention(q, k, v, window=w),
             lambda w=window: flash_attention_plain(q, k, v, window=w),
-            None, (nbytes, ops), "flash_bf16_kernel")}
+            None, (nbytes, ops), "flash_wgmma_kernel")}
         row = time_rows(rows, TENSOR_OPS_PER_S)[f"flash_attention "
                                                 f"({label})"]
         mask = (dict(is_causal=True) if window is None
@@ -1944,19 +1974,47 @@ def ptxas_summary(log: str) -> list[str]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            # Itanium mangling: a length, then the identifier; a template
-            # argument <D> follows as ILi<D>E.
-            for k in re.finditer(r"(?=(\d+))", name):
-                start = k.start() + len(k.group(1))
-                ident = name[start:start + int(k.group(1))]
-                if re.fullmatch(r"[a-z]\w*_kernel", ident):
-                    t = re.match(r"ILi(\d+)E", name[start + len(ident):])
-                    name = ident + (f"<{t.group(1)}>" if t else "")
-                    break
+            # Itanium mangling: _Z, N for a nested name, then each
+            # component as its length and identifier (the anonymous
+            # namespace's carries digits of its own); the kernel is the
+            # last, and a template argument <D> follows as ILi<D>E.
+            z = re.match(r"_ZN?", name)
+            pos, ident = (z.end() if z else len(name)), None
+            while (k := re.match(r"\d+", name[pos:])):
+                pos += len(k.group()) + int(k.group())
+                ident = name[pos - int(k.group()):pos]
+            if ident:
+                t = re.match(r"ILi(\d+)E", name[pos:])
+                name = ident + (f"<{t.group(1)}>" if t else "")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
+
+
+def wgmma_report(summary: list[str]) -> list[str]:
+    """flash_wgmma_kernel's lines of ``ptxas_summary`` for the flash
+    library, each with the CTA's dynamic shared memory (from the
+    library's ``lm_flash_wgmma_smem_bytes``); raises on any spill."""
+    import ctypes
+    import re
+    from repro_torch.kernels import cuda
+    smem = ctypes.CDLL(str(cuda._lib_path("flash_attention"))) \
+        .lm_flash_wgmma_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    out = []
+    for line in summary:
+        m = re.match(r"flash_wgmma_kernel<(\d+)>", line)
+        if not m:
+            continue
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+        check(spills and not any(spills),
+              f"ptxas spills in flash_wgmma_kernel: {line}")
+        out.append(f"{line}; {smem(int(m.group(1)))} bytes of dynamic "
+                   f"shared memory a CTA")
+    check(len(out) == 5, f"ptxas reported {len(out)} of the 5 head dims of "
+                         f"flash_wgmma_kernel")
     return out
 
 
@@ -1987,8 +2045,12 @@ def main() -> int:
         for name in cuda.KERNELS:
             log = cuda._lib_path(name).with_suffix(".log")
             if log.exists():
-                for line in ptxas_summary(log.read_text()):
+                summary = ptxas_summary(log.read_text())
+                for line in summary:
                     print(f"   {name}: {line}", flush=True)
+                if name == "flash_attention":
+                    for line in wgmma_report(summary):
+                        print(f"   ptxas, no spills: {line}", flush=True)
             cuda.kernel_fn(name)
 
     with phase("kernels vs plain versions"):

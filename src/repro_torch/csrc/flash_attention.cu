@@ -9,37 +9,55 @@
 // the mask, which is applied to p after the exp; float32 running max,
 // denominator and accumulator; a row with no live key gives 0
 // (acc / max(l, 1e-30)); the output has q's type (float or bfloat16).
+// q, k and v may be strided views: their last dimension is contiguous and
+// every other stride is a multiple of 16 bytes; the output is contiguous.
 //
 // The TPU kernel walks a grid (B * Hq, Sq / BQ, Skv / BK) in order and
 // carries its online-softmax state in VMEM scratch across the kv axis.  A
-// CUDA grid has no order, so here one CTA owns one (batch x q head, 64-row
-// q tile) and loops over the kv tiles itself.  The loop bounds cover only
-// the tiles that the causal and window masks leave live for some row of the
-// q tile: the TPU kernel's block_live early-out, without visiting the dead
-// tiles at all.
+// CUDA grid has no order, so here one CTA owns one (batch x q head, q tile)
+// and loops over the kv tiles itself.  The loop bounds cover only the tiles
+// that the causal and window masks leave live for some row of the q tile:
+// the TPU kernel's block_live early-out, without visiting the dead tiles.
 //
 // What bounds it on the H100: the operations.  A global layer of gemma3-1b
 // at S = 8192 does 4 * D operations per live (query, key) pair, 137 GFLOP
-// per launch against 42 MB of q, k, v and o in bfloat16; a window of 512
-// keys cuts the pairs by 8, and the ratio stays far above the card's
-// balance point of ~295 operations per byte.  So the tensor cores set the
-// pace, and the design follows them where the type allows:
+// per launch against 42 MB of q, k, v and o in bfloat16 (0.139 ms at 989
+// TFLOP/s); a window of 512 keys cuts the pairs by 8, and the ratio stays
+// far above the card's balance point of ~295 operations per byte.  So the
+// tensor cores set the pace, and the design follows them where the type
+// allows:
 //
-// * bfloat16 (the model's activations): flash_bf16_kernel, 8 warps of 16
-//   q rows each (128 rows, the reference's bq), 64-key tiles, m16n8k16
-//   mma.sync with float32 accumulators, fragments by ldmatrix.  The
-//   scores never leave registers: the online softmax works on the
-//   accumulator fragments (a row's values sit in the four threads of a
-//   quad, reduced by two shuffles; masks only on tiles that cross a mask
-//   edge) and p is re-packed in place as the bfloat16 A operand of P V,
-//   whose V fragments come from a transposing ldmatrix.  The output
-//   accumulator (D / 2 floats a thread) stays in registers.  K and V are
-//   double-buffered: cp.async brings the next tile while the current one
-//   is computed.  Tiles are staged row-major with rows padded by 8
-//   elements, so the eight 16-byte rows an ldmatrix reads fall in
-//   distinct banks.  q tiles are issued heaviest (latest) first to even
-//   out the causal triangle.  p is rounded to bfloat16 for P V, as every
-//   tensor-core flash kernel does; the denominator sums the float32 p.
+// * bfloat16 (the model's activations): flash_wgmma_kernel, built on
+//   Hopper's warpgroup MMA (wgmma) and tensor memory accelerator (TMA).
+//   A CTA is three warpgroups over a 128-row q tile.  Warpgroup 0 is the
+//   producer: one thread issues TMA loads (the q tile once, then 64-key K
+//   and V tiles into a two-stage ring, with a full and an empty mbarrier
+//   per stage for K and for V, so a stage's K is refilled as soon as the
+//   scores are out, before its P V is done), and the warpgroup gives its
+//   registers back (setmaxnreg.dec).  Warpgroups 1 and 2 are consumers of
+//   64 q rows each (setmaxnreg.inc: at D = 256 the output accumulator
+//   alone is 128 float32 registers a thread).  Per kv tile a consumer runs
+//   S = Q K^T as D / 16 wgmma m64n64k16 with both operands K-major in
+//   shared memory, the online softmax on the accumulator fragments (a
+//   row's values sit in the four threads of a quad: two shuffles; exp2
+//   with the scale folded in; masks only on tiles that cross a causal or
+//   window edge or the end of the keys), then O += P V as one wgmma
+//   m64n(D)k16 a 16-key step, with p re-packed in registers as the
+//   bfloat16 A operand (the m64nNk16 accumulator layout is the
+//   register-A fragment layout) and V read MN-major through the
+//   descriptor's transpose bit.  The loop is software-pipelined: the
+//   scores of tile t go to the tensor cores ahead of P V of tile t - 1,
+//   and the softmax of tile t runs while that P V does.  Tiles sit in
+//   shared memory in the swizzled layout TMA writes and the wgmma
+//   descriptors read (128-byte swizzle for D >= 64, 64-byte for D = 32,
+//   32-byte for D = 16; a row of D > 64 is loaded as D / 64 boxes of 64
+//   columns).  The tensor maps are 4-D (D, S, H, B) over the caller's
+//   strides, so rows past S read as zero, never as the next head's rows.
+//   The output is written into the consumer's own rows of the q tile,
+//   then stored by TMA, which clips it at Sq.  q tiles run heaviest
+//   (latest) first across all heads, one CTA per SM.  p is rounded to
+//   bfloat16 for P V, as every tensor-core flash kernel does; the
+//   denominator sums the float32 p.
 // * float32 (the serving consistency check, the tests): flash_f32_kernel
 //   on the CUDA cores, 256 threads; the pre-scaled q tile, the K and V
 //   tiles and the score tile sit in shared memory (rows padded by 4 floats
@@ -47,15 +65,34 @@
 //   of scores and a 4-row slice of the accumulator, which stays in
 //   registers.  TF32 would lose the reference's float32 tolerance.
 //
-// Not yet done (later work): wgmma and TMA.  Under mma.sync at D = 256 each
-// warp re-reads the K and V fragments for its own 16 rows, so the shared
-// memory's bandwidth, not the tensor cores, sets the pace; wgmma reads B
-// from shared memory once per warpgroup of 64 rows.
+// What holds the bfloat16 kernel back (H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase 6, gemma3-1b heads at S = 8192): a global layer
+// takes 0.280 ms, 2.0x its 0.139 ms bound, below scaled_dot_product_
+// attention's 0.312 ms; a 512-window layer 0.060 ms, 3.6x its bound.
+// Under wgmma each K and V tile is read from shared memory once per
+// warpgroup of 64 rows.  A hypothesis, from a count and not from a
+// profile: the shared memory sets the ceiling.  Per 64-key tile the two
+// consumers read 96 KB each (Q, K and V: the scores take both operands
+// from shared memory) and TMA writes 64 KB, which at the tensor cores'
+// full rate (2048 clocks a tile) would be ~125 bytes a clock of the SM's
+// ~128.  How the factor of 2 splits (that traffic, waits on wgmma groups
+// and barriers, the softmax work the pipeline does not hide) is not
+// measured: no hardware profiler runs on that machine.  A local layer
+// adds each CTA's fixed cost (the q tile's load before the first
+// product, the pipeline's fill and drain, the store) to ~10 tiles of
+// work.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// Element strides of a [B, H, S, D] operand (D contiguous).
+struct HeadStrides {
+  long long b, h;
+  int s;
+};
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;     // q rows per CTA
@@ -86,28 +123,32 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// rows [row0, row0 + rows) of a [*, D] head slice -> smem (row stride
-// `stride`), times `mul`; rows at or past `limit` are zero.
+// rows [row0, row0 + rows) of a head slice (row stride `src_stride`) ->
+// smem (row stride `stride`), times `mul`; rows at or past `limit` are
+// zero.
 template <int D>
 __device__ __forceinline__ void stage(float* dst, int stride, const float* src,
-                                      int row0, int rows, int limit,
-                                      float mul) {
+                                      int src_stride, int row0, int rows,
+                                      int limit, float mul) {
   constexpr int kF = D / 4;
   for (int e = threadIdx.x; e < rows * kF; e += kThreads) {
     const int r = e / kF, c = (e % kF) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < limit) {
-      v = load4(src + (size_t)(row0 + r) * D + c);
+      v = load4(src + (long long)(row0 + r) * src_stride + c);
       v.x *= mul; v.y *= mul; v.z *= mul; v.w *= mul;
     }
     store4(dst + r * stride + c, v);
   }
 }
 
+// One CTA a block at least: left to its own heuristics ptxas holds D = 32
+// and 64 to 64 registers and spills.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int hq,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 HeadStrides qst, HeadStrides kst, HeadStrides vst, int hq,
                  int hkv, int sq, int skv, int causal, int window,
                  float softcap, float scale) {
   using L = Layout<D>;
@@ -121,13 +162,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int t = threadIdx.x;
   const int bh = blockIdx.y;             // batch * hq + q head
-  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int bi = bh / hq, h = bh % hq, kvh = h / (hq / hkv);
   const int q0 = blockIdx.x * kBQ;
-  const float* qh = q + (size_t)bh * sq * D;
-  const float* kh = k + (size_t)kvh * skv * D;
-  const float* vh = v + (size_t)kvh * skv * D;
+  const float* qh = q + bi * qst.b + h * qst.h;
+  const float* kh = k + bi * kst.b + kvh * kst.h;
+  const float* vh = v + bi * vst.b + kvh * vst.h;
 
-  stage<D>(Qs, L::kRow, qh, q0, kBQ, sq, scale);
+  stage<D>(Qs, L::kRow, qh, qst.s, q0, kBQ, sq, scale);
 
   // The live kv range of this q tile.
   const int qpos0 = skv - sq + q0;       // position of the tile's row 0
@@ -156,8 +197,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
     const int kv0 = tile * kBK;
     __syncthreads();                     // previous tile fully consumed
-    stage<D>(Ks, L::kRow, kh, kv0, kBK, skv, 1.f);
-    stage<D>(Vs, D, vh, kv0, kBK, skv, 1.f);
+    stage<D>(Ks, L::kRow, kh, kst.s, kv0, kBK, skv, 1.f);
+    stage<D>(Vs, D, vh, vst.s, kv0, kBK, skv, 1.f);
     __syncthreads();
 
     // s = q k^T over the tile.
@@ -269,279 +310,601 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------- bfloat16: mma.sync --
+// ------------------------------- bfloat16: wgmma, TMA, warp-specialised --
 
-// 8 warps of 16 q rows each, 64-key tiles, K and V double-buffered.  Rows
-// are padded by 8 bf16 elements, so the eight 16-byte rows an ldmatrix
-// reads fall in distinct banks.
-constexpr int kMWarps = 8;
-constexpr int kMThreads = 32 * kMWarps;
-constexpr int kMBQ = 16 * kMWarps;
-constexpr int kMBK = 64;
+constexpr int kWBQ = 128;      // q rows per CTA: two consumer warpgroups
+constexpr int kWBK = 64;       // keys per kv tile
+constexpr int kStages = 2;     // K and V ring depth
+constexpr int kWThreads = 384; // producer + two consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Shared memory of one CTA: the q tile, then kStages K tiles, then kStages
+// V tiles, then the mbarriers (q full; for K, then for V, kStages full and
+// kStages empty).  Each tile is D / kBC column blocks of rows kRB bytes
+// wide (the swizzle's width), every block 1024-byte aligned.
 template <int D>
-struct MmaLayout {
-  static constexpr int kRow = D + 8;         // row stride of every tile
-  static constexpr int kTile = kMBK * kRow;  // one K or V tile
-  static constexpr size_t kSmemBytes =
-      sizeof(__nv_bfloat16) * ((size_t)kMBQ * kRow + 4 * (size_t)kTile);
+struct WgLayout {
+  static constexpr int kBC = D < 64 ? D : 64;  // columns of a block
+  static constexpr int kRB = 2 * kBC;          // bytes of a block's row
+  static constexpr int kCB = D / kBC;          // column blocks
+  static constexpr int kKPB = kRB / 32;        // k-steps of 16 in a block
+  // wgmma descriptor layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+  static constexpr uint32_t kDescLayout = kRB == 128 ? 1 : kRB == 64 ? 2 : 3;
+  static constexpr uint32_t kSwzMask = kRB / 16 - 1;  // row bits XORed in
+  static constexpr int kQBytes = kWBQ * D * 2;
+  static constexpr int kKVBytes = kWBK * D * 2;        // one K or V tile
+  static constexpr int kBarOff = kQBytes + 2 * kStages * kKVBytes;
+  // + up to 1023 bytes to align the base to the swizzle pattern
+  static constexpr size_t kSmemBytes = 1024 + kBarOff + 8 * (1 + 4 * kStages);
+  static_assert(kBC % 16 == 0 && D % kBC == 0, "unsupported head dim");
 };
 
-// c += a b for one m16n8k16 tile: bf16 inputs, float32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 bf16 matrices from shared memory, one row address a lane
-// (lanes 8i..8i+7 give the rows of matrix i); ``_t`` transposes each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
-                                          const __nv_bfloat16* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// Named barrier `id` (1..15) over the 128 threads of one warpgroup.
+__device__ __forceinline__ void sync_warpgroup(uint32_t id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
 }
+
+// Generic-proxy writes to shared memory, before the async proxy (TMA)
+// reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) -> shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// Shared memory -> one box of a 4-D tensor map; elements outside the
+// tensor are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3) : "memory");
+}
+
+// Every TMA store this thread issued has completed.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most `pending` committed wgmma groups are in flight.
+template <int pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(pending)
+               : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous issue and the wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// ... and the register A operand, which must stay put until its wgmma is
+// done.
+template <int N, int M>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+#define WG_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F8(d, i) WG_F4(d, i), WG_F4(d, i + 4)
+#define WG_F16(d, i) WG_F8(d, i), WG_F8(d, i + 8)
+#define WG_F32(d, i) WG_F16(d, i), WG_F16(d, i + 16)
+#define WG_F64(d, i) WG_F32(d, i), WG_F32(d, i + 32)
+#define WG_F128(d, i) WG_F64(d, i), WG_F64(d, i + 64)
+
+// d (64 x 64, float32) (+)= A (64 x 16) B (16 x 64): both bfloat16 in
+// shared memory, K-major; `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_F32(d, 0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, float32) += A (64 x 16, bfloat16 fragments in registers)
+// B (16 x N, bfloat16 in shared memory, MN-major: the transpose bit), for
+// N = 2 x the accumulator's registers (N = D: one instruction a k-step).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_F128(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F64(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_F16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : WG_F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef WG_F4
+#undef WG_F8
+#undef WG_F16
+#undef WG_F32
+#undef WG_F64
+#undef WG_F128
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 16 bytes global -> shared without a register round trip; `bytes` 0
-// writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most `pending` committed groups are still in flight.
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending));
-}
-
-// rows [row0, row0 + rows) of a [*, D] bf16 head slice -> smem (row
-// stride D + 8), 16 bytes a copy, asynchronously; rows at or past `limit`
-// are zero.
+// One CTA: 128 q rows of one (batch, q head).  See the header note.
 template <int D>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           int row0, int rows, int limit) {
-  constexpr int kC = D / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < rows * kC; e += kMThreads) {
-    const int r = e / kC, c = (e % kC) * 8;
-    const bool in = row0 + r < limit;
-    cp_async16(dst + r * MmaLayout<D>::kRow + c,
-               src + (in ? (size_t)(row0 + r) * D + c : 0), in ? 16 : 0);
-  }
-}
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap to, int hq, int hkv,
+                   int sq, int skv, int causal, int window, float softcap,
+                   float scale) {
+  using L = WgLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + L::kQBytes;
+  const uint32_t sV = sK + kStages * L::kKVBytes;
+  // mbarriers: q full, then K full, K empty, V full, V empty per stage.
+  const uint32_t q_full = sQ + L::kBarOff;
+  const uint32_t k_full = q_full + 8, k_empty = k_full + 8 * kStages;
+  const uint32_t v_full = k_empty + 8 * kStages;
+  const uint32_t v_empty = v_full + 8 * kStages;
 
-// One CTA: 128 q rows of one (batch, q head), 16 rows per warp.  Per kv
-// tile of 64 keys (the next tile's K and V already in flight by cp.async):
-// S = Q K^T with m16n8k16 mma.sync (A and B fragments by ldmatrix from the
-// Q and K tiles), the online softmax on the accumulator fragments in
-// registers (a row's values live in the four threads of a quad; masks only
-// on tiles that cross a mask edge), then O += P V with P re-packed to bf16
-// A fragments straight from the S accumulators and the V fragments by
-// transposing ldmatrix.  O stays in registers (D / 2 floats a thread).
-template <int D>
-__global__ void __launch_bounds__(kMThreads, 1)
-flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int hq, int hkv, int sq,
-                 int skv, int causal, int window, float softcap,
-                 float scale) {
-  using L = MmaLayout<D>;
-  constexpr int kND = D / 8;       // n tiles of the output
-  constexpr int kNK = kMBK / 8;    // n tiles of the scores
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kMBQ * L::kRow;   // [2][kMBK][kRow]
-  __nv_bfloat16* Vs = Ks + 2 * L::kTile;      // [2][kMBK][kRow]
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tq = lane % 4;  // quad group, thread in quad
-  const int bh = blockIdx.y;
-  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
-  // The heaviest (latest) q tiles first: they have the most live keys.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMBQ;
-  const __nv_bfloat16* kh = k + (size_t)kvh * skv * D;
-  const __nv_bfloat16* vh = v + (size_t)kvh * skv * D;
-
-  stage_bf16<D>(Qs, q + (size_t)bh * sq * D, q0, kMBQ, sq);
+  const int bh = blockIdx.x;
+  const int bi = bh / hq, h = bh % hq, kvh = h / (hq / hkv);
+  // The heaviest (latest) q tiles of every head first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWBQ;
   const int qpos0 = skv - sq + q0;
-  const int qlast = skv - sq + min(q0 + kMBQ, sq) - 1;
+  const int qlast = skv - sq + min(q0 + kWBQ, sq) - 1;
   const int kv_hi = causal ? min(skv, qlast + 1) : skv;
   const int kv_lo = window > 0 ? max(0, qpos0 - window + 1) : 0;
-  const int tile_lo = kv_lo / kMBK;
-  const int tile_hi = kv_hi > kv_lo ? (kv_hi + kMBK - 1) / kMBK : tile_lo;
-  // Tiles whose every (row, key) pair is live need no mask.
-  const bool rows_full = q0 + kMBQ <= sq;
+  const int tile_lo = kv_lo / kWBK;
+  const int tile_hi = kv_hi > kv_lo ? (kv_hi + kWBK - 1) / kWBK : tile_lo;
 
-  if (tile_lo < tile_hi) {
-    stage_bf16<D>(Ks, kh, tile_lo * kMBK, kMBK, skv);
-    stage_bf16<D>(Vs, vh, tile_lo * kMBK, kMBK, skv);
-  }
-  cp_async_commit();  // with the Q tile
-
-  // This thread's two rows of the warp's 16: g and g + 8.
-  const int r0 = warp * 16 + g;
-  const int qp[2] = {qpos0 + r0, qpos0 + r0 + 8};
-  const bool rlive[2] = {q0 + r0 < sq, q0 + r0 + 8 < sq};
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
-  float acc[kND][4];
-#pragma unroll
-  for (int n = 0; n < kND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // ldmatrix row addresses: lane l feeds row l % 8 of matrix l / 8.
-  const int lr = lane % 8, lm = lane / 8;
-  const __nv_bfloat16* qa =
-      Qs + (warp * 16 + lr + 8 * (lm & 1)) * L::kRow + 8 * (lm >> 1);
-  const int ka0 = (lr + 8 * (lm >> 1)) * L::kRow + 8 * (lm & 1);
-  const int va0 = (lr + 8 * (lm & 1)) * L::kRow + 8 * (lm >> 1);
-
-  for (int tile = tile_lo; tile < tile_hi; ++tile) {
-    const int kv0 = tile * kMBK;
-    const int buf = (tile - tile_lo) & 1;
-    if (tile + 1 < tile_hi) {  // prefetch the next tile into the other half
-      stage_bf16<D>(Ks + (buf ^ 1) * L::kTile, kh, kv0 + kMBK, kMBK, skv);
-      stage_bf16<D>(Vs + (buf ^ 1) * L::kTile, vh, kv0 + kMBK, kMBK, skv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 2 * 128);  // every consumer thread
+      mbar_init(v_empty + 8 * s, 2 * 128);
     }
-    __syncthreads();  // this tile (and the Q tile) visible to every warp
-    const __nv_bfloat16* ka = Ks + buf * L::kTile + ka0;
-    const __nv_bfloat16* va = Vs + buf * L::kTile + va0;
-    const bool full = rows_full && kv0 + kMBK <= skv &&
-                      (!causal || kv0 + kMBK - 1 <= qpos0) &&
-                      (window <= 0 || kv0 > qlast - window);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    float s[kNK][4];
-#pragma unroll
-    for (int j = 0; j < kNK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, qa + kk);
-#pragma unroll
-      for (int j = 0; j < kNK; j += 2) {
-        uint32_t b[4];  // b0, b1 of n tiles j and j + 1
-        ldsm_x4(b, ka + 8 * j * L::kRow + kk);
-        mma_bf16(s[j], a, b[0], b[1]);
-        mma_bf16(s[j + 1], a, b[2], b[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread issues every copy.  A stage's K is freed
+    // as soon as both consumers have their scores, its V only after their
+    // P V, so each waits on its own empty barrier.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < L::kCB; ++c)
+        tma_load(sQ + c * kWBQ * L::kRB, &tq, q_full, c * L::kBC, q0, h, bi);
+      for (int t = tile_lo; t < tile_hi; ++t) {
+        const int i = t - tile_lo, s = i % kStages;
+        // Round i / kStages of this stage; round 0 finds it empty.
+        const uint32_t parity = ((i / kStages) & 1) ^ 1;
+        mbar_wait(k_empty + 8 * s, parity);
+        mbar_expect_tx(k_full + 8 * s, L::kKVBytes);
+        for (int c = 0; c < L::kCB; ++c)
+          tma_load(sK + s * L::kKVBytes + c * kWBK * L::kRB, &tk,
+                   k_full + 8 * s, c * L::kBC, t * kWBK, kvh, bi);
+        mbar_wait(v_empty + 8 * s, parity);
+        mbar_expect_tx(v_full + 8 * s, L::kKVBytes);
+        for (int c = 0; c < L::kCB; ++c)
+          tma_load(sV + s * L::kKVBytes + c * kWBK * L::kRB, &tv,
+                   v_full + 8 * s, c * L::kBC, t * kWBK, kvh, bi);
       }
     }
+  } else {
+    // ---- consumers: warpgroup w owns q rows [64 w, 64 w + 64).
+    setmaxnreg_inc<240>();
+    const int w = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, tq4 = lane % 4;  // quad group, thread in quad
+    const int r0 = 64 * w + 16 * warp + g;   // this thread's rows r0, r0 + 8
+    const int qp[2] = {qpos0 + r0, qpos0 + r0 + 8};
+    const bool rlive[2] = {q0 + r0 < sq, q0 + r0 + 8 < sq};
+    // This warpgroup's rows and the positions of its first and last.
+    const int wrow0 = q0 + 64 * w;
+    const bool wg_live = wrow0 < sq;
+    const bool wg_rows_full = wrow0 + 64 <= sq;
+    const int wq_first = skv - sq + wrow0;
+    const int wq_last = skv - sq + min(wrow0 + 64, sq) - 1;
+    // Scores are taken to the log2 domain: x = s * scale * log2(e), or
+    // with the soft-cap c * log2(e) * tanh(s * scale / c).
+    const bool capped = softcap > 0.f;
+    const float mul = capped ? scale / softcap : scale * kLog2e;
+    const float cap2 = softcap * kLog2e;
 
-    // Scale, soft-cap, mask; the online softmax per row.
-    float mx[2] = {kNegInf, kNegInf};
+    constexpr uint32_t kSbo = 8 * L::kRB;  // 8-row groups
+    const uint64_t dq = wg_desc(sQ + 64 * w * L::kRB, 16, kSbo,
+                                L::kDescLayout);
+    const uint64_t dk = wg_desc(sK, 16, kSbo, L::kDescLayout);
+    const uint64_t dv = wg_desc(sV, kWBK * L::kRB, kSbo, L::kDescLayout);
+
+    // The live tiles of this warpgroup are [wlo, whi): a window leaves the
+    // first tiles of the CTA's range dead for warpgroup 1, the causal mask
+    // the last for warpgroup 0.  Dead tiles are waited for and released
+    // unread (an early release would count towards the stage's next round).
+    auto dead = [&](int t) {
+      return !wg_live || (causal && t * kWBK > wq_last) ||
+             (window > 0 && t * kWBK + kWBK - 1 <= wq_first - window);
+    };
+    int wlo = tile_lo, whi = tile_hi;
+    while (wlo < whi && dead(wlo)) ++wlo;
+    while (whi > wlo && dead(whi - 1)) --whi;
+    auto stage = [&](int t) { return (t - tile_lo) % kStages; };
+    auto parity = [&](int t) { return ((t - tile_lo) / kStages) & 1; };
+    auto skip = [&](int t) {
+      mbar_wait(k_full + 8 * stage(t), parity(t));
+      mbar_arrive(k_empty + 8 * stage(t));
+      mbar_wait(v_full + 8 * stage(t), parity(t));
+      mbar_arrive(v_empty + 8 * stage(t));
+    };
+
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+    float o[D / 2];  // o[4 j + e]: row r0 + 8 (e / 2), column 8 j + 2 tq4 + e % 2
 #pragma unroll
-    for (int j = 0; j < kNK; ++j)
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float sacc[32];  // the same layout over the tile's 64 keys
+    uint32_t pa[4][4];  // p as the A operand of P V, 16 keys a k-step
+
+    // S = Q K^T of tile t: issued, not waited for.
+    auto issue_scores = [&](int t) {
+      const uint64_t dks = dk + ((stage(t) * L::kKVBytes) >> 4);
+      reg_fence(sacc);
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        bool ok = true;
-        if (!full) {
-          const int kpos = kv0 + 8 * j + 2 * tq + (e & 1);
-          ok = rlive[h] && kpos < skv;
-          if (causal) ok = ok && kpos <= qp[h];
-          if (window > 0) ok = ok && kpos > qp[h] - window;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t cb = kk / L::kKPB;         // column block
+        const uint32_t in = (kk % L::kKPB) * 32;  // bytes into the row
+        wgmma_ss(sacc, dq + ((cb * kWBQ * L::kRB + in) >> 4),
+                 dks + ((cb * kWBK * L::kRB + in) >> 4), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V of tile t: issued, not waited for.
+    auto issue_pv = [&](int t) {
+      const uint64_t dvs = dv + ((stage(t) * L::kKVBytes) >> 4);
+      reg_fence(o);
+      reg_fence(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(o, pa[kk], dvs + ((kk * 16 * L::kRB) >> 4));
+      wgmma_commit();
+    };
+    // Scale, soft-cap and mask the scores of tile t, and take the online
+    // softmax a step: p into sacc, the running max and this thread's share
+    // of the denominator updated; returns each row's rescale factor.
+    auto softmax = [&](int t, float (&alpha)[2]) {
+      const int kv0 = t * kWBK;
+      const bool full = wg_rows_full && kv0 + kWBK <= skv &&
+                        (!causal || kv0 + kWBK - 1 <= wq_first) &&
+                        (window <= 0 || kv0 > wq_last - window);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e / 2;
+          float x = sacc[4 * j + e] * mul;
+          if (capped) x = cap2 * tanhf(x);
+          if (!full) {
+            const int kpos = kv0 + 8 * j + 2 * tq4 + (e & 1);
+            bool ok = rlive[hh] && kpos < skv;
+            if (causal) ok = ok && kpos <= qp[hh];
+            if (window > 0) ok = ok && kpos > qp[hh] - window;
+            // -inf marks a masked score: its p is 0, it never sets the max
+            x = ok ? x : -INFINITY;
+          }
+          sacc[4 * j + e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
         }
-        float x = s[j][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        // -inf marks a masked score: its p is 0, and it never sets the max
-        s[j][e] = ok ? x : -INFINITY;
-        mx[h] = fmaxf(mx[h], ok ? x : kNegInf);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_cur = fmaxf(m_run[h], mx[h]);
-      alpha[h] = exp2f((m_run[h] - m_cur) * kLog2e);
-      m_run[h] = m_cur;
-    }
-#pragma unroll
-    for (int j = 0; j < kNK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e / 2;
-        const float p = s[j][e] == -INFINITY
-                            ? 0.f
-                            : exp2f((s[j][e] - m_run[h]) * kLog2e);
-        s[j][e] = p;
-        sum[h] += p;
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_cur = fmaxf(m_run[hh], mx[hh]);
+        alpha[hh] = exp2f(m_run[hh] - m_cur);
+        m_run[hh] = m_cur;
+        l_run[hh] *= alpha[hh];  // this thread's share; summed at the end
       }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      l_run[h] = l_run[h] * alpha[h] + sum[h];
-    }
+      for (int e = 0; e < 32; ++e) {
+        sacc[e] = exp2f(sacc[e] - m_run[(e / 2) % 2]);
+        l_run[(e / 2) % 2] += sacc[e];
+      }
+    };
+    auto pack_p = [&] {
 #pragma unroll
-    for (int n = 0; n < kND; ++n) {
-      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
-    }
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+    };
 
-    // O += P V over the tile's keys, 16 at a time.
+    mbar_wait(q_full, 0);
+    for (int t = tile_lo; t < wlo; ++t) skip(t);
+    if (wlo < whi) {
+      // Software pipeline: the scores of tile t go to the tensor cores
+      // ahead of P V of tile t - 1, and the softmax of tile t runs while
+      // P V of tile t - 1 does.
+      float alpha[2];
+      mbar_wait(k_full + 8 * stage(wlo), parity(wlo));
+      issue_scores(wlo);
+      wgmma_wait<0>();
+      reg_fence(sacc);
+      mbar_arrive(k_empty + 8 * stage(wlo));
+      softmax(wlo, alpha);  // o is still 0: no rescale
+      pack_p();
+      for (int t = wlo + 1; t < whi; ++t) {
+        mbar_wait(k_full + 8 * stage(t), parity(t));
+        issue_scores(t);
+        mbar_wait(v_full + 8 * stage(t - 1), parity(t - 1));
+        issue_pv(t - 1);
+        wgmma_wait<1>();  // the scores of tile t
+        reg_fence(sacc);
+        mbar_arrive(k_empty + 8 * stage(t));
+        softmax(t, alpha);
+        wgmma_wait<0>();  // P V of tile t - 1
+        reg_fence(o);
+        reg_fence(pa);
+        mbar_arrive(v_empty + 8 * stage(t - 1));
 #pragma unroll
-    for (int kk = 0; kk < kNK / 2; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kND; n += 2) {
-        uint32_t b[4];  // b0, b1 of n tiles n and n + 1
-        ldsm_x4_t(b, va + 16 * kk * L::kRow + 8 * n);
-        mma_bf16(acc[n], a, b[0], b[1]);
-        mma_bf16(acc[n + 1], a, b[2], b[3]);
+        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e / 2) % 2];
+        pack_p();
       }
+      mbar_wait(v_full + 8 * stage(whi - 1), parity(whi - 1));
+      issue_pv(whi - 1);
+      wgmma_wait<0>();
+      reg_fence(o);
+      reg_fence(pa);
+      mbar_arrive(v_empty + 8 * stage(whi - 1));
     }
-    __syncthreads();  // every warp is done with this half before its refill
-  }
-  cp_async_wait<0>();  // nothing may land after the CTA exits
+    for (int t = whi; t < tile_hi; ++t) skip(t);
 
-  __nv_bfloat16* oh = o + (size_t)bh * sq * D;
+    // Epilogue: o / l as bfloat16 into this warpgroup's rows of the q tile
+    // (its wgmmas are done with them), in the swizzled layout the output
+    // map reads, then one TMA store per column block; TMA clips at Sq.
+    float inv[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!rlive[h]) continue;
-    const float inv = 1.f / fmaxf(l_run[h], 1e-30f);
-    __nv_bfloat16* row = oh + (size_t)(q0 + r0 + 8 * h) * D + 2 * tq;
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = l_run[hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[hh] = 1.f / fmaxf(l, 1e-30f);
+    }
 #pragma unroll
-    for (int n = 0; n < kND; ++n)
-      *reinterpret_cast<uint32_t*>(row + 8 * n) =
-          pack_bf16(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+    for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = jj / (L::kBC / 8), j = jj % (L::kBC / 8);
+        const uint32_t off = c * kWBQ * L::kRB + (r0 + 8 * hh) * L::kRB +
+                             j * 16 + tq4 * 4;
+        const uint32_t swz = off ^ (((off >> 7) & L::kSwzMask) << 4);
+        st_shared(sQ + swz, pack_bf16(o[4 * jj + 2 * hh] * inv[hh],
+                                      o[4 * jj + 2 * hh + 1] * inv[hh]));
+      }
+    fence_proxy_async();  // the stores above, before TMA reads them
+    sync_warpgroup(1 + w);
+    if (tid == 0 && wg_live) {
+      for (int c = 0; c < L::kCB; ++c)
+        tma_store(&to, sQ + c * kWBQ * L::kRB + 64 * w * L::kRB,
+                  c * L::kBC, wrow0, h, bi);
+      tma_store_wait();
+    }
   }
 }
 
 // ------------------------------------------------------------- launch --
+
+// cuTensorMapEncodeTiled, found at run time through the CUDA runtime's
+// entry-point query (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D bfloat16 map (D, rows, heads, batch) with the given byte strides
+// (rows, heads, batch) and a box of kBC columns by `box_rows` rows.
+template <int D>
+bool encode_map(CUtensorMap* map, const void* base, int rows, int heads,
+                int batch, const long long* bstrides, int box_rows) {
+  using L = WgLayout<D>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)bstrides[2],
+                                 (cuuint64_t)bstrides[1],
+                                 (cuuint64_t)bstrides[0]};
+  const cuuint32_t box[4] = {(cuuint32_t)L::kBC, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = L::kRB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : L::kRB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem, bool& done) {
@@ -552,66 +915,103 @@ cudaError_t allow_smem(K kernel, size_t smem, bool& done) {
   return err;
 }
 
+// bstrides: byte strides (batch, head, row) of q, then k, then v.
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
                int hq, int hkv, int sq, int skv, int causal, int window,
-               float softcap, float scale, cudaStream_t stream) {
+               float softcap, float scale, const long long* bstrides,
+               cudaStream_t stream) {
   const size_t smem = Layout<D>::kSmemFloats * sizeof(float);
   static bool attr = false;
   const cudaError_t err = allow_smem(flash_f32_kernel<D>, smem, attr);
   if (err != cudaSuccess) return (int)err;
+  HeadStrides st[3];
+  for (int i = 0; i < 3; ++i) {
+    if (bstrides[3 * i + 2] / 4 > 0x7fffffff)
+      return (int)cudaErrorInvalidValue;
+    st[i] = {bstrides[3 * i] / 4, bstrides[3 * i + 1] / 4,
+             (int)(bstrides[3 * i + 2] / 4)};
+  }
   const dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
   flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, hq, hkv,
-      sq, skv, causal, window, softcap, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, st[0],
+      st[1], st[2], hq, hkv, sq, skv, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
                 int hq, int hkv, int sq, int skv, int causal, int window,
-                float softcap, float scale, cudaStream_t stream) {
-  const size_t smem = MmaLayout<D>::kSmemBytes;
+                float softcap, float scale, const long long* bstrides,
+                cudaStream_t stream) {
+  const size_t smem = WgLayout<D>::kSmemBytes;
   static bool attr = false;
-  const cudaError_t err = allow_smem(flash_bf16_kernel<D>, smem, attr);
+  const cudaError_t err = allow_smem(flash_wgmma_kernel<D>, smem, attr);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((sq + kMBQ - 1) / kMBQ, b * hq);
-  flash_bf16_kernel<D><<<grid, kMThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, hq, hkv, sq, skv, causal,
-      window, softcap, scale);
+  const long long ost[3] = {(long long)hq * sq * D * 2, (long long)sq * D * 2,
+                            (long long)D * 2};
+  CUtensorMap mq, mk, mv, mo;
+  if (!encode_map<D>(&mq, q, sq, hq, b, bstrides, kWBQ) ||
+      !encode_map<D>(&mk, k, skv, hkv, b, bstrides + 3, kWBK) ||
+      !encode_map<D>(&mv, v, skv, hkv, b, bstrides + 6, kWBK) ||
+      !encode_map<D>(&mo, o, sq, hq, b, ost, kWBQ / 2))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(b * hq, (sq + kWBQ - 1) / kWBQ);
+  flash_wgmma_kernel<D><<<grid, kWThreads, smem, stream>>>(
+      mq, mk, mv, mo, hq, hkv, sq, skv, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
            int b, int hq, int hkv, int sq, int skv, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           float softcap, float scale, const long long* bstrides,
+           cudaStream_t stream) {
   if (dtype == 0)
     return launch_f32<D>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
-                         softcap, scale, stream);
+                         softcap, scale, bstrides, stream);
   if (dtype == 1)
     return launch_bf16<D>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
-                          softcap, scale, stream);
+                          softcap, scale, bstrides, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Dynamic shared memory of one CTA of flash_wgmma_kernel<d>; -1 for an
+// unsupported d.
+extern "C" int lm_flash_wgmma_smem_bytes(int d) {
+  switch (d) {
+#define SMEM_CASE(D) \
+  case D:            \
+    return (int)WgLayout<D>::kSmemBytes;
+    SMEM_CASE(16)
+    SMEM_CASE(32)
+    SMEM_CASE(64)
+    SMEM_CASE(128)
+    SMEM_CASE(256)
+#undef SMEM_CASE
+    default:
+      return -1;
+  }
+}
+
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores).  window <= 0:
-// no window; softcap <= 0: none.
+// no window; softcap <= 0: none.  strides: 9 byte strides, (batch, head,
+// row) of q, k and v, each a positive multiple of 16; o is contiguous.
 extern "C" int lm_flash_attention(const void* q, const void* k,
                                   const void* v, void* o, int b, int hq,
                                   int hkv, int sq, int skv, int d, int dtype,
                                   int causal, int window, float softcap,
-                                  float scale, void* stream) {
+                                  float scale, const long long* strides,
+                                  void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
 #define FLASH_CASE(D)                                                        \
   case D:                                                                    \
     return launch<D>(dtype, q, k, v, o, b, hq, hkv, sq, skv, causal, window, \
-                     softcap, scale, st);
+                     softcap, scale, strides, st);
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(64)
@@ -622,4 +1022,3 @@ extern "C" int lm_flash_attention(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 }
-

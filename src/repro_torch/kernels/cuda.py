@@ -57,7 +57,7 @@ KERNELS = {
                      _P]),
     "flash_attention": ("flash_attention.cu", "lm_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _P]),
+                         _F, _F, _P, _P]),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -155,14 +155,15 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def check_cuda(name: str, **tensors) -> None:
-    """Wrapper-side checks: every tensor on one CUDA device, contiguous."""
+def check_cuda(name: str, *, contiguous: bool = True, **tensors) -> None:
+    """Wrapper-side checks: every tensor on one CUDA device and, unless the
+    kernel takes strides (``contiguous=False``), contiguous."""
     devs = {t.device for t in tensors.values() if t is not None}
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"{name}: tensors must share one CUDA device, got "
                          f"{sorted(str(d) for d in devs)}")
     for key, t in tensors.items():
-        if t is not None and not t.is_contiguous():
+        if contiguous and t is not None and not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
 
 

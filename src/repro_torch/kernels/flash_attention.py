@@ -4,10 +4,12 @@
 Counterpart of ``repro.kernels.flash_attention.flash_attention``.  The CUDA
 kernels (``csrc/flash_attention.cu``) run one CTA per (batch x q head, q
 tile) and loop over the kv tiles that its causal and window masks leave
-live: bfloat16 inputs on the tensor cores (``mma.sync``, 128-row q tiles,
-scores and the output accumulator in registers, K and V double-buffered,
-p rounded to bfloat16 for P V), float32 inputs on the CUDA cores (64-row
-q tiles).  The plain version below is the
+live: bfloat16 inputs on the tensor cores (``wgmma`` fed by TMA, 128-row q
+tiles, a producer warpgroup and two consumer warpgroups, scores and the
+output accumulator in registers, p rounded to bfloat16 for P V), float32
+inputs on the CUDA cores (64-row q tiles).  Both read q, k and v through
+their strides (``byte_strides``), so transposed views need no copy; the
+output is contiguous.  The plain version below is the
 reference kernel's schedule in torch ops: the same online softmax over the
 same ``bk``-key blocks (a fully masked block is an exact no-op there, so
 all q rows go through each block at once).
@@ -21,6 +23,8 @@ scale is D^-0.5, and a row with no live key gives 0.  Accumulation is in
 float32; the output has q's dtype (float32 or bfloat16).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -50,6 +54,37 @@ def _check(q, k, v, bq: int, bk: int) -> tuple[int, int]:
         raise TypeError(f"flash_attention: q, k, v must all be float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     return bq_, bk_
+
+
+def byte_strides(t: torch.Tensor, name: str = "x") -> tuple[int, int, int]:
+    """The (batch, head, row) strides in bytes of a [B, H, S, D] operand,
+    as the kernels take them: the last dimension contiguous, the data
+    16-byte aligned, every other stride a positive multiple of 16 bytes.
+    A dimension of size 1 is never stepped, so it gets the contiguous
+    stride whatever its own.  ValueError on anything else: the wrapper
+    copies nothing."""
+    if t.dim() != 4:
+        raise ValueError(f"flash_attention: {name} must be 4-D, got "
+                         f"{tuple(t.shape)}")
+    item = t.element_size()
+    if t.shape[3] > 1 and t.stride(3) != 1:
+        raise ValueError(f"flash_attention: {name}'s last dimension must "
+                         f"be contiguous, got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name}'s data must be 16-byte "
+                         f"aligned")
+    out, dense = [], t.shape[3] * item
+    for dim in (2, 1, 0):
+        size, stride = t.shape[dim], t.stride(dim) * item
+        if size == 1:
+            stride = dense
+        elif stride <= 0 or stride % 16:
+            raise ValueError(f"flash_attention: {name}'s strides "
+                             f"{t.stride()} (elements of {item} bytes) "
+                             f"must be positive multiples of 16 bytes")
+        out.append(stride)
+        dense *= size
+    return out[2], out[1], out[0]
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -109,7 +144,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``bq`` and ``bk`` are the reference's tiles: ``min(bq, Sq)`` must
     divide Sq and ``min(bk, Skv)`` Skv (ValueError otherwise, where the
     reference asserts).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (D in 16, 32, 64, 128, 256).
+    launch the kernel (D in 16, 32, 64, 128, 256; q, k, v as
+    ``byte_strides`` takes them).
     """
     _check(q, k, v, bq, bk)
     if q.device.type == "cpu":
@@ -121,7 +157,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 def _flash_cuda(q, k, v, *, causal, window, logit_softcap, scale):
-    cuda.check_cuda("flash_attention", q=q, k=k, v=v)
+    cuda.check_cuda("flash_attention", contiguous=False, q=q, k=k, v=v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -132,12 +168,16 @@ def _flash_cuda(q, k, v, *, causal, window, logit_softcap, scale):
     if logit_softcap is not None and not logit_softcap > 0:
         raise ValueError(f"flash_attention: logit_softcap must be > 0, got "
                          f"{logit_softcap}")
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    strides = (ctypes.c_longlong * 9)(*byte_strides(q, "q"),
+                                      *byte_strides(k, "k"),
+                                      *byte_strides(v, "v"))
     cuda.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), b, hq, hkv, sq, skv, d, _DTYPES[q.dtype],
                 int(causal), -1 if window is None else int(window),
                 float(logit_softcap or 0.0),
-                float(scale if scale is not None else d ** -0.5))
+                float(scale if scale is not None else d ** -0.5),
+                ctypes.addressof(strides))
     return out

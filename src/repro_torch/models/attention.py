@@ -91,8 +91,9 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
                                 scale=cfg.attn_scale, qpos_start=cache_pos,
                                 valid_len=cache_pos + sq)
     else:
-        out = ops.attention(q, k.contiguous(), v.contiguous(), causal=True,
-                            window=window,
+        # v is a view of [B, S, Hkv, D]: the kernel reads it through its
+        # strides.
+        out = ops.attention(q, k, v, causal=True, window=window,
                             logit_softcap=cfg.attn_logit_softcap,
                             scale=cfg.attn_scale)
     out = out.transpose(1, 2).reshape(b, sq, hq * hd)

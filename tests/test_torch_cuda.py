@@ -226,10 +226,21 @@ def test_ring_on_card_matches_cpu(dev):
     (1, 4, 1, 512, 512, 256, True, 128, None),
     (1, 4, 1, 512, 512, 256, True, None, None),
     (1, 4, 1, 4096, 4096, 256, True, None, None),  # long rows, small values
+    (1, 4, 1, 8192, 8192, 256, True, None, None),  # gemma3-1b, global layer
+    (1, 4, 1, 8192, 8192, 256, True, 512, None),   # gemma3-1b, local layer
     (2, 2, 2, 128, 256, 128, True, None, 30.0),
     (1, 4, 4, 1, 384, 64, True, None, None),
     (1, 2, 1, 128, 128, 32, False, None, None),
     (1, 2, 1, 256, 128, 16, True, None, None),     # rows past the keys
+    # the 128-row q tile and the 64-key kv tile cut short
+    (1, 2, 2, 72, 72, 64, True, None, None),       # GQA group 1
+    (1, 4, 2, 1, 72, 128, True, None, None),       # GQA group 2, Sq = 1
+    (1, 4, 1, 96, 96, 256, True, None, None),      # GQA group 4
+    (1, 2, 1, 64, 96, 128, False, None, None),
+    (1, 2, 1, 256, 256, 64, True, 1, None),        # window 1
+    (1, 4, 2, 512, 512, 128, True, 64, 20.0),      # window on a tile edge
+    (1, 4, 2, 256, 256, 32, True, 48, None),       # 64-byte swizzle
+    (2, 2, 1, 120, 120, 16, True, None, 10.0),     # 32-byte swizzle
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(dev, case, dtype):
@@ -258,6 +269,35 @@ def test_flash_attention_matches_plain(dev, case, dtype):
     assert float(row_rel_err(got, want).max()) <= row_tol
     if skv < sq:
         assert float(got[:, :, :sq - skv].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_strided_views(dev, dtype):
+    """q, k, v as the model hands them over, [B, S, H, D] tensors seen as
+    [B, H, S, D], and k, v as slices of one packed [B, S, 2, Hkv, D]
+    tensor: the kernel reads them through their strides and matches the
+    plain version on contiguous copies, with the tolerances above:
+    elementwise and row by row."""
+    rng = np.random.RandomState(7)
+    b, hq, hkv, s, d = 2, 4, 2, 256, 128
+    q = torch.from_numpy(rng.randn(b, s, hq, d)).to(dev, dtype)
+    kv = torch.from_numpy(rng.randn(b, s, 2, hkv, d)).to(dev, dtype)
+    q, k, v = q.transpose(1, 2), kv[:, :, 0].transpose(1, 2), \
+        kv[:, :, 1].transpose(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    cuda.reset_counts()
+    got = flash_attention(q, k, v, window=96)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), window=96)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == 1
+    assert got.is_contiguous()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-6
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    row_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert float(row_rel_err(got, want).max()) <= row_tol
+    with pytest.raises(ValueError, match="last dimension"):
+        flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
 
 
 def test_lm_on_card_matches_cpu(dev):

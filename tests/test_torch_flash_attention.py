@@ -3,7 +3,9 @@ kernel (``repro.kernels.flash_attention``, run in interpret mode on the
 CPU), on the same inputs made with numpy: the reference's own sweep
 (``tests/test_kernels.py::ATTN_CASES``) in float32 and bfloat16 at its
 tolerances (2e-6 / 2e-2), a gemma3-1b head shape, a query block past the
-keys (fully masked rows give 0), and the shape contract."""
+keys (fully masked rows give 0), and the shape contract; and the strides
+the kernels take (``byte_strides``), with the plain version on strided
+views."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,7 +13,8 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as ref_flash
 from repro_torch.kernels import cuda
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (byte_strides,
+                                                 flash_attention,
                                                  flash_attention_plain)
 
 pytestmark = pytest.mark.tier1
@@ -116,3 +119,64 @@ def test_plain_is_the_online_softmax_of_full_attention():
     want = torch.softmax(s, dim=-1) @ vv
     np.testing.assert_allclose(got.numpy(), want.float().numpy(), atol=2e-6,
                                rtol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["contiguous", "transposed", "packed_kv",
+                                  "one_row"])
+def test_byte_strides_of_the_views_the_kernels_take(view, dtype):
+    """(batch, head, row) strides in bytes: the tensor's own where a
+    dimension is stepped, the contiguous stride where it has size 1."""
+    item = torch.empty((), dtype=dtype).element_size()
+    b, h, s, d = 2, 3, 8, 32
+    if view == "contiguous":
+        x, want = torch.zeros(b, h, s, d, dtype=dtype), (h * s * d, s * d, d)
+    elif view == "transposed":                 # [B, S, H, D] seen as BHSD
+        x = torch.zeros(b, s, h, d, dtype=dtype).transpose(1, 2)
+        want = (s * h * d, d, h * d)
+    elif view == "packed_kv":                  # k of a [B, S, 2, H, D] pack
+        x = torch.zeros(b, s, 2, h, d, dtype=dtype)[:, :, 1].transpose(1, 2)
+        want = (s * 2 * h * d, d, 2 * h * d)
+    else:                                      # B = 1 and one row: size-1
+        x = torch.zeros(1, s, h, d, dtype=dtype).transpose(1, 2)[:, :, 3:4]
+        want = (h * d, d, d)                   # dims take dense strides
+    got = byte_strides(x)
+    assert got == tuple(w * item for w in want)
+    assert all(g % 16 == 0 for g in got)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("last_dim", "last dimension"),
+    ("odd_row", "multiples of 16"),
+    ("misaligned", "16-byte aligned"),
+    ("broadcast", "multiples of 16"),
+    ("three_dims", "4-D"),
+])
+def test_byte_strides_raises_on_views_the_kernels_cannot_read(bad, match):
+    x = torch.zeros(2, 2, 8, 40, dtype=torch.bfloat16)
+    t = {"last_dim": x[..., :16].transpose(2, 3),
+         # rows of 36 bfloat16 values: 72 bytes apart
+         "odd_row": torch.zeros(2, 2, 8, 36, dtype=torch.bfloat16)[..., :32],
+         "misaligned": x.reshape(-1)[1:1 + 2 * 2 * 8 * 16].view(2, 2, 8, 16),
+         "broadcast": x[:, :1].expand(2, 2, 8, 40),
+         "three_dims": x[0]}[bad]
+    with pytest.raises(ValueError, match=match):
+        byte_strides(t)
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (48, None),
+                                        (None, 20.0)])
+def test_plain_on_strided_views_equals_contiguous(window, cap):
+    """The plain version reads [B, S, H, D] tensors seen as [B, H, S, D]
+    (q) and slices of one packed kv tensor (k, v) exactly as it reads
+    their contiguous copies."""
+    rng = np.random.RandomState(8)
+    q = torch.from_numpy(rng.randn(2, 128, 4, 32)).float().transpose(1, 2)
+    kv = torch.from_numpy(rng.randn(2, 128, 2, 2, 32)).float()
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous())
+    got = flash_attention(q, k, v, window=window, logit_softcap=cap)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           window=window, logit_softcap=cap)
+    assert got.is_contiguous()
+    assert torch.equal(got, want)
