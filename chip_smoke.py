@@ -9,12 +9,15 @@ Phases, each timed, each fatal on failure:
      ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card,
      bit for bit, at main-path shapes (4096-key chunks, 16M-slot tables,
-     the parity block): the four OCF kernels, the four adaptive ones on a
-     four-plane state with nonzero selectors, and ``probe_multi`` over
-     K = 1, 2, 4 of four generation tables int32[4, 2^20, 4]; and
+     the parity block): the four OCF kernels (insert and delete also on
+     STAGING_CASES, which stress their rows staged in shared memory), the
+     four adaptive ones on a four-plane state with nonzero selectors, and
+     ``probe_multi`` over K = 1, 2, 4 of four generation tables
+     int32[4, 2^20, 4] and pools of 65 and 130 slots; and
      ``flash_attention`` within a stated tolerance at gemma3-1b's shapes
      (Hq=4, Hkv=1, S=8192, D=256; float32 and bfloat16; window 512 and
-     none), small cases of the reference's sweep and a case with Sq > Skv;
+     none), small cases of the reference's sweep, a case with Sq > Skv and
+     lengths (200, 300) that end in ragged tiles;
   3. run seeded streams through the card and the CPU and require
      identical state and answers after every operation: ~100k-key EOF
      streams through ``OCF`` (with and without a stash), two
@@ -24,8 +27,8 @@ Phases, each timed, each fatal on failure:
      rotate-and-retry) and a ``GenerationalPrefixIndex`` stream; and the
      LM at gemma3-1b's full width and one period's depth (6 layers,
      float32, TF32 off), built on the CPU and copied to the card: forward
-     logits within a stated tolerance, greedy tokens of prefill + 8 decode
-     steps equal;
+     logits within a stated tolerance at S = 512 and 200, greedy tokens of
+     prefill + 8 decode steps equal;
   4. the OCF main path at full size: one node's membership filter of a
      distributed store (capacity 2^22 slots, 8 bursts of 1M inserts, 3M
      verified + 100k blind deletes, lookups of every resident key plus 5M
@@ -124,6 +127,23 @@ FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 # 1e-3 a row); a kernel that dropped one 64-key tile from a row of n keys
 # reads about 8 / sqrt(n), 0.09 at n = 8192 (FlashKernelBench prints it).
 FLASH_ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# Inputs that stress the staged insert and delete kernels (rows staged in
+# shared memory a window of logical blocks at a time; tests/
+# torch_port_util.py has the same table): label -> (buffer, active
+# buckets, bucket size, keys, block, eviction rounds, stash slots, table
+# load, stash load).  A tiny active table shares rows across blocks and
+# windows and runs long chains that roll back into a nearly full stash;
+# 8192 keys at block 128 are three windows, the last one short; blocks
+# 1024 and 8192 take the device-memory lane region (8192 also stages only
+# part of its rows); bucket sizes 2 and 8.
+STAGING_CASES = {
+    "tiny-table": (128, 64, 4, 1024, 128, 8, 16, 0.5, 0.75),
+    "three-windows": (4096, 4000, 4, 8192, 128, 32, 128, 0.8, 0.0),
+    "block-1024": (2048, 2000, 4, 4096, 1024, 16, 32, 0.85, 0.0),
+    "block-8192": (4096, 4000, 4, 8192, 8192, 8, 0, 0.7, 0.0),
+    "bucket-2": (4096, 3000, 2, 2048, 256, 32, 8, 0.8, 0.0),
+    "bucket-8": (1024, 1000, 8, 2048, 128, 32, 0, 0.85, 0.0),
+}
 # The streaming dedup stage of one node: examples/streaming_dedup.py's ring
 # at 2^22 slots a generation (4 x 16 MiB of tables on the card).
 RING = dict(generations=4, capacity=1 << 22, bucket_size=4, fp_bits=16,
@@ -319,6 +339,67 @@ class KernelBench:
         first = slice(0, CHUNK // 2)
         check(bool(okk[first][ins_ok[first]].all()),
               "delete missed a resident key")
+        self.staging()
+
+    def staging(self) -> None:
+        """STAGING_CASES: insert (the first quarter of the keys twice, in
+        other blocks), then delete (the first half, then the first quarter
+        twice more: the k-th repeat clears the k-th copy), kernel against
+        plain version on the same table, stash and keys."""
+        torch = self.torch
+        from repro_torch.core import hashing
+        from repro_torch.kernels.delete import delete_bulk, delete_bulk_plain
+        from repro_torch.kernels.insert import insert_bulk, insert_bulk_plain
+
+        def dev32(a):
+            return torch.from_numpy(a.astype(np.uint32).view(np.int32)
+                                    ).to(self.dev)
+
+        for label, case in STAGING_CASES.items():
+            buf, nb, bsz, n, block, rounds, slots, load, stash_load = case
+            rng = np.random.RandomState(SEED)
+            fill = rng.rand(buf, bsz) < load
+            table = np.where(fill, rng.randint(1, 1 << 16, size=(buf, bsz)),
+                             0)
+            table[nb:] = 0
+            sk = None
+            if slots:
+                stash = np.zeros((2, slots), np.int64)
+                used = rng.rand(slots) < stash_load
+                stash[0, used] = rng.randint(1, 1 << 16, size=used.sum())
+                stash[1, used] = rng.randint(0, nb, size=used.sum())
+                sk = dev32(stash)
+            base = random_keys(rng, n)
+            keys = np.concatenate([base[: n - n // 4], base[: n // 4]])
+            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(keys))
+            valid = torch.from_numpy(rng.rand(n) < 0.95).to(self.dev)
+            tk = dev32(table)
+            tp, sp = tk.clone(), None if sk is None else sk.clone()
+            okk = insert_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb,
+                              valid=valid, evict_rounds=rounds, stash=sk,
+                              block=block)[-1]
+            okp = insert_bulk_plain(tp, hi, lo, valid, fp_bits=16,
+                                    n_buckets=nb, evict_rounds=rounds,
+                                    stash=sp, block=block)
+            pairs = [(tk, tp), (okk, okp)]
+            if sk is not None:
+                pairs.append((sk, sp))
+            self.record("insert_bulk", pairs)
+            dele = np.concatenate([base[: n // 2], base[: n // 4],
+                                   base[: n // 4]])
+            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(dele))
+            every = torch.ones(dele.size, dtype=torch.bool, device=self.dev)
+            _t, dk = delete_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb,
+                                 valid=every, block=block)
+            dp = delete_bulk_plain(tp, hi, lo, every, fp_bits=16,
+                                   n_buckets=nb, block=block)
+            self.record("delete_bulk", [(tk, tp), (dk, dp)])
+            failed = int((valid & ~okp).sum())
+            print(f"   staging {label}: block={block} rounds={rounds} "
+                  f"bucket_size={bsz} keys={n} failed={failed} stashed="
+                  f"{0 if sp is None else int((sp[0] != 0).sum())}/{slots} "
+                  f"deleted={int(dp.sum())} of {dele.size}", flush=True)
+            check(failed > 0, f"staging {label}: no insert failed")
 
 
 class AdaptiveKernelBench(KernelBench):
@@ -561,6 +642,27 @@ class StreamingKernelBench(KernelBench):
                       f"{int(got[:half].sum())} of {half} present, "
                       f"{int(got[half:].sum())} of {half} absent; stash "
                       f"entries {spilled[:k]}", flush=True)
+        # More pool slots than the kernel's 64-bit live mask (one launch per
+        # 64 slots holding a generation to probe): the four generations
+        # repeated into pools of 65 and 130 slots.
+        for k in (65, 130):
+            pick = torch.arange(k, device=self.dev) % 4
+            big, big_st = tables[pick], stashes[pick]
+            hits = []
+            for gens in (None, [0, 63, 64, k - 1]):
+                for st in (None, big_st):
+                    got = probe_multi(big, hi, lo, fp_bits=16, n_buckets=nb,
+                                      stashes=st, gens=gens, block=pblock)
+                    want = probe_multi_plain(big, hi, lo, fp_bits=16,
+                                             n_buckets=nb, stashes=st,
+                                             gens=gens)
+                    self.record("probe_multi", [(got, want)])
+                    hits.append(int(got[:half].sum()))
+            # Every slot live, with the stashes: all four generations.
+            check(hits[1] == half, "probe_multi missed a key")
+            print(f"   probe_multi K={k}: hits of {half} present {hits} "
+                  f"(all slots without / with stashes, then slots 0, 63, "
+                  f"64, K - 1: generations 0 and 3)", flush=True)
 
 
 def row_rel_err(got, want):
@@ -603,6 +705,11 @@ class FlashKernelBench:
         (1, 2, 2, 72, 72, 64, True, None, None),
         (1, 4, 2, 1, 72, 128, True, None, None),
         (1, 4, 1, 96, 96, 256, True, 1, None),
+        # lengths that are no multiple of the tiles: ragged last q and kv
+        # tiles (gemma3-1b heads at S = 200, global and windowed)
+        (1, 4, 1, 200, 200, 256, True, None, None),
+        (1, 4, 1, 200, 200, 256, True, 64, None),
+        (1, 2, 1, 300, 300, 64, True, None, 20.0),
     ]
     STRIDED_CASES = [
         (1, 8, 2, 1024, 1024, 256, True, None, None),
@@ -903,13 +1010,14 @@ def prefix_index_parity(steps: int = 40):
           "the prefix stream never hit or never expired a generation")
 
 
-def lm_parity(seq: int = 512, steps: int = 8):
+def lm_parity(seqs=(512, 200), steps: int = 8):
     """gemma3-1b at full width, one period deep (6 layers), float32, TF32
     off: one seeded init on the CPU, copied to the card.  The cache-less
     forward's logits agree within 1e-3 (float32 sums in other orders on
     the two devices, through 6 layers and a 1152-wide unembedding; logits
-    are O(1)); the greedy tokens of prefill + ``steps`` decode steps are
-    equal."""
+    are O(1)) at each length of ``seqs`` (200 is no multiple of the flash
+    kernel's tiles); the greedy tokens of prefill + ``steps`` decode steps
+    of the first are equal."""
     import copy
     import torch
     from repro_torch.configs import get_config
@@ -921,23 +1029,27 @@ def lm_parity(seq: int = 512, steps: int = 8):
                               dtype="float32")
     cpu = Transformer(cfg, seed=SEED, device="cpu")
     card = copy.deepcopy(cpu).to("cuda")
-    toks = torch.from_numpy(np.random.RandomState(SEED + 10).randint(
-        0, cfg.vocab_size, (1, seq)))
-    cuda.reset_counts()
-    a = card.apply(toks.cuda()).logits
-    torch.cuda.synchronize()
-    check(cuda.LAUNCHES["flash_attention"] == cfg.n_layers,
-          "the card's forward did not launch flash_attention per layer")
-    b = cpu.apply(toks).logits
-    err = float((a.cpu() - b).abs().max())
-    gen = [generate(m, t, steps + 1).tokens.cpu().numpy()
-           for m, t in ((card, toks.cuda()), (cpu, toks))]
-    print(f"   LM {cfg.name} x{cfg.n_layers} layers, float32, S={seq}: "
-          f"logits max_abs_err card vs cpu {err!r} (max |logit| "
-          f"{float(b.abs().max())!r}); greedy tokens {gen[0].tolist()} / "
-          f"{gen[1].tolist()}", flush=True)
-    check(err < 1e-3, f"LM logits differ between devices by {err}")
-    check(np.array_equal(*gen), "greedy tokens differ between devices")
+    for i, seq in enumerate(seqs):
+        toks = torch.from_numpy(np.random.RandomState(SEED + 10).randint(
+            0, cfg.vocab_size, (1, seq)))
+        cuda.reset_counts()
+        a = card.apply(toks.cuda()).logits
+        torch.cuda.synchronize()
+        check(cuda.LAUNCHES["flash_attention"] == cfg.n_layers,
+              "the card's forward did not launch flash_attention per layer")
+        b = cpu.apply(toks).logits
+        err = float((a.cpu() - b).abs().max())
+        print(f"   LM {cfg.name} x{cfg.n_layers} layers, float32, S={seq}: "
+              f"logits max_abs_err card vs cpu {err!r} (max |logit| "
+              f"{float(b.abs().max())!r})", flush=True)
+        check(err < 1e-3, f"LM logits differ between devices by {err}")
+        if i == 0:
+            gen = [generate(m, t, steps + 1).tokens.cpu().numpy()
+                   for m, t in ((card, toks.cuda()), (cpu, toks))]
+            print(f"   greedy tokens {gen[0].tolist()} / "
+                  f"{gen[1].tolist()}", flush=True)
+            check(np.array_equal(*gen), "greedy tokens differ between "
+                                        "devices")
 
 
 # ------------------------------------------------------ phase 4: main path --
@@ -1634,7 +1746,28 @@ def kernel_times(ocf, resident: np.ndarray) -> dict:
                                 second=delete_second),
             "delete_kernel"),
     }
-    return time_rows(rows)
+    out = time_rows(rows)
+    # Where a launch's time goes: one logical block (the fixed cost of a
+    # launch and its staging, plus one block's rounds) and, for insert, the
+    # two placement rounds alone (no eviction rounds).
+    one = slice(0, iblock)
+    parts = {
+        "insert_bulk, one block": (lambda: insert_bulk(
+            work, new_hi[one], new_lo[one], fp_bits=16, n_buckets=nb,
+            valid=valid[one], evict_rounds=rounds, block=iblock),
+            "insert_kernel"),
+        "insert_bulk, no eviction rounds": (lambda: insert_bulk(
+            work, new_hi, new_lo, fp_bits=16, n_buckets=nb, valid=valid,
+            evict_rounds=0, block=iblock), "insert_kernel"),
+        "delete_bulk, one block": (lambda: delete_bulk(
+            work, del_hi[:dblock], del_lo[:dblock], fp_bits=16,
+            n_buckets=nb, valid=valid[:dblock], block=dblock),
+            "delete_kernel"),
+    }
+    for label, (fn, symbol) in parts.items():
+        ms = kernel_device_ms(fn, 20, restore, symbol)
+        print(f"   {label}: kernel {ms!r} ms (device)", flush=True)
+    return out
 
 
 def time_rows(rows: dict, ops_per_s: float = SCALAR_OPS_PER_S) -> dict:
@@ -2082,8 +2215,8 @@ def main() -> int:
     # after; its kernels' "launches" come from that run.
     launches, plain = {}, {}
     with phase("main path at full size"):
-        ocf, resident, counts, plain["main"], _times = main_path("cuda",
-                                                                 card)
+        ocf, resident, counts, plain["main"], main_times = main_path(
+            "cuda", card)
         launches.update({k: counts.get(k, 0) for k in STATIC_KERNELS})
 
     with phase("adaptive path at full size"):
@@ -2114,6 +2247,15 @@ def main() -> int:
         perf.update(streaming_kernel_times(ring, present))
         flash = flash_kernel_times()
         perf["flash_attention"] = flash["global"]
+        # Phase 4's wall time against its kernels' share: launches there
+        # times the device time of one 4096-key launch here.
+        for name, op in (("insert_bulk", "insert_s"),
+                         ("delete_bulk", "delete_s")):
+            k_s = launches[name] * perf[name]["ms"] / 1e3
+            print(f"   main path {name}: {main_times[op]!r} s wall, "
+                  f"{launches[name]} launches x {perf[name]['ms']!r} ms = "
+                  f"{k_s!r} s in the kernel (share "
+                  f"{k_s / main_times[op]!r})", flush=True)
 
     rows = []
     for name, (source, replaces, held_by) in KERNEL_ROWS.items():

@@ -11,6 +11,10 @@
 // (acc / max(l, 1e-30)); the output has q's type (float or bfloat16).
 // q, k and v may be strided views: their last dimension is contiguous and
 // every other stride is a multiple of 16 bytes; the output is contiguous.
+// Any Sq and Skv: the last q and kv tiles may be ragged.  Rows past S
+// load as zero (TMA's out-of-bounds fill; the float32 kernel's staging),
+// keys at or past Skv are masked to -inf on the tiles that reach Skv (a
+// zero key would score 0, not -inf), and no row at or past Sq is stored.
 //
 // The TPU kernel walks a grid (B * Hq, Sq / BQ, Skv / BK) in order and
 // carries its online-softmax state in VMEM scratch across the kv axis.  A

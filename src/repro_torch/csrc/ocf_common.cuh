@@ -3,7 +3,8 @@
 // One spec of the hash family for every kernel: these functions are the
 // uint32 spelling of repro_torch/core/hashing.py (and of the reference's
 // repro/core/hashing.py), bit for bit.  The lane helpers below are the
-// pieces the one-CTA insert and delete kernels share.
+// pieces the one-CTA adaptive insert and delete kernels share (the static
+// ones have staged.cuh).
 //
 // Storage: tables and stashes are int32 tensors holding uint32 bit
 // patterns; the kernels take them as uint32_t pointers.  Bool tensors are
@@ -102,8 +103,8 @@ __host__ __device__ __forceinline__ void fp_family(uint32_t hi, uint32_t lo,
 
 // ------------------------------------------------- one-CTA lane helpers --
 //
-// The insert and delete kernels run ONE thread block that walks the
-// logical blocks of a batch in order (the TPU grid's sequential carry).
+// The adaptive insert and delete kernels run ONE thread block that walks
+// the logical blocks of a batch in order (the TPU grid's sequential carry).
 // A logical block may hold more lanes than the CTA has threads, so every
 // per-lane loop strides by blockDim.x.
 

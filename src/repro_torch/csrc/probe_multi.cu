@@ -17,6 +17,9 @@
 // The K tables and stashes are the generation ring's pool as it stands:
 // bit g of gen_mask says whether slot g holds a live generation.  The
 // answer is an OR over generations, so their order does not change it.
+// A pool of more than 64 slots is probed 64 slots a launch: with
+// ``accumulate`` a launch ORs into ``hit`` and skips the keys already
+// answered.
 #include "ocf_common.cuh"
 
 namespace {
@@ -52,13 +55,14 @@ __global__ void probe_multi_kernel(const uint32_t* __restrict__ tables,
                                    const uint32_t* __restrict__ hi,
                                    const uint32_t* __restrict__ lo,
                                    uint8_t* __restrict__ hit, int n,
-                                   int fp_bits, uint32_t n_buckets) {
+                                   int fp_bits, uint32_t n_buckets,
+                                   int accumulate) {
   __shared__ uint32_t s_fp[kStashTile];
   __shared__ uint32_t s_bkt[kStashTile];
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = k < n;
   uint32_t fp = 0, i1 = 0, i2 = 0;
-  bool h = false;
+  bool h = live && accumulate && hit[k] != 0;
   if (live) {
     fp = ocf::fingerprint(hi[k], lo[k], fp_bits);
     i1 = ocf::index_hash(hi[k], lo[k], n_buckets);
@@ -104,14 +108,14 @@ extern "C" int ocf_probe_multi(const void* tables, int k_gens,
                                const void* stashes, int stash_slots,
                                const void* hi, const void* lo, void* hit,
                                int n, int fp_bits, unsigned int n_buckets,
-                               void* stream) {
+                               int accumulate, void* stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     probe_multi_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)tables, k_gens, gen_mask, buffer_buckets, bucket_size,
         (const uint32_t*)stashes, stashes ? stash_slots : 0,
         (const uint32_t*)hi, (const uint32_t*)lo, (uint8_t*)hit, n, fp_bits,
-        n_buckets);
+        n_buckets, accumulate);
   }
   return (int)cudaGetLastError();
 }

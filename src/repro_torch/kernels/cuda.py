@@ -4,7 +4,8 @@ Each source in ``repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, and
 loaded with ``ctypes``.  Builds happen at first use, from the package's
 sources only, into ``build/`` at the root of the checkout; a library's
-file name carries a hash of its sources, so an edited source is rebuilt.
+file name carries a hash of its source and the shared headers, so an
+edited source is rebuilt.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 
 Every kernel wrapper counts its launches in ``LAUNCHES`` (one per kernel
@@ -26,7 +27,6 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-HEADER = "ocf_common.cuh"
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _U64, _F = ctypes.c_uint64, ctypes.c_float
@@ -38,9 +38,9 @@ KERNELS = {
               [_P, _I, _P, _I, _P, _P, _P, _I, _I, _U, _P]),
     "insert_bulk": ("insert.cu", "ocf_insert_bulk",
                     [_P, _I, _U, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _P, _P, _P, _P, _P]),
+                     _P, _P]),
     "delete_bulk": ("delete.cu", "ocf_delete_bulk",
-                    [_P, _I, _U, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+                    [_P, _I, _U, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "fingerprint_hash_family": ("fingerprint_family.cu",
                                 "ocf_fingerprint_hash_family",
                                 [_P, _P, _P, _I, _I, _U, _P]),
@@ -54,10 +54,16 @@ KERNELS = {
                               _I, _P, _P, _P]),
     "probe_multi": ("probe_multi.cu", "ocf_probe_multi",
                     [_P, _I, _U64, _I, _I, _P, _I, _P, _P, _P, _I, _I, _U,
-                     _P]),
+                     _I, _P]),
     "flash_attention": ("flash_attention.cu", "lm_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P, _P]),
+}
+# kernel name -> (C function, argtypes) giving the bytes of device memory a
+# launch needs beside its shared memory (0 on the main path).
+SPILL_SIZES = {
+    "insert_bulk": ("ocf_insert_bulk_spill_bytes", [_I, _I, _I, _I, _I]),
+    "delete_bulk": ("ocf_delete_bulk_spill_bytes", [_I, _I, _I]),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -85,7 +91,7 @@ def _nvcc() -> str:
 def _lib_path(name: str) -> Path:
     src = KERNELS[name][0]
     digest = hashlib.sha256()
-    for f in (HEADER, src):
+    for f in (*sorted(p.name for p in CSRC.glob("*.cuh")), src):
         digest.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{Path(src).stem}-{digest.hexdigest()[:12]}.so"
 
@@ -125,19 +131,33 @@ def build_all(names=None) -> dict:
     return took
 
 
-def kernel_fn(name: str):
-    """The loaded C entry point of a kernel, building it at first use."""
-    fn = _FUNCS.get(name)
+def _c_function(name: str, symbol: str, argtypes, restype):
+    fn = _FUNCS.get(symbol)
     if fn is None:
         path = _lib_path(name)
         if not path.exists():
             build_all([name])
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, KERNELS[name][1])
-        fn.argtypes = KERNELS[name][2]
-        fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _FUNCS[symbol] = fn
     return fn
+
+
+def kernel_fn(name: str):
+    """The loaded C entry point of a kernel, building it at first use."""
+    _src, symbol, argtypes = KERNELS[name]
+    return _c_function(name, symbol, argtypes, ctypes.c_int)
+
+
+def spill_buffer(name: str, device, *args):
+    """The device-memory buffer a launch of ``name`` needs beside its shared
+    memory (``SPILL_SIZES``), or None when it needs none."""
+    symbol, argtypes = SPILL_SIZES[name]
+    nbytes = _c_function(name, symbol, argtypes, ctypes.c_longlong)(*args)
+    if nbytes == 0:
+        return None
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device)
 
 
 def launch(name: str, *args) -> None:

@@ -10,7 +10,8 @@ All home attempts run before all alternate attempts — the reference's
 order, reproduced as it is.
 
 The CUDA kernel (``csrc/delete.cu``) is one CTA walking the logical blocks
-in order; the plain version below follows the same schedule.  Both update
+in order, with a window's rows staged in shared memory; the plain version
+below follows the same schedule.  Both update
 ``table`` IN PLACE.
 """
 from __future__ import annotations
@@ -64,14 +65,13 @@ def _delete_cuda(table, hi, lo, valid, *, fp_bits, n_buckets, block):
     cuda.check_dtype("delete_bulk", torch.bool, valid=valid)
     cuda.check_table("delete_bulk", table, n_buckets)
     n = hi.shape[0]
-    dev = table.device
-    ok = torch.empty((n,), dtype=torch.bool, device=dev)
-    lane_u32 = torch.empty((4, block), dtype=torch.int32, device=dev)
-    lane_u8 = torch.empty((3, block), dtype=torch.uint8, device=dev)
+    ok = torch.empty((n,), dtype=torch.bool, device=table.device)
+    spill = cuda.spill_buffer("delete_bulk", table.device, table.shape[1], n,
+                              block)
     cuda.launch("delete_bulk", table.data_ptr(), table.shape[1],
                 int(n_buckets), hi.data_ptr(), lo.data_ptr(),
                 valid.data_ptr(), ok.data_ptr(), n, block, fp_bits,
-                lane_u32.data_ptr(), lane_u8.data_ptr())
+                cuda.ptr(spill))
     return ok
 
 

@@ -12,7 +12,9 @@ their strides (``byte_strides``), so transposed views need no copy; the
 output is contiguous.  The plain version below is the
 reference kernel's schedule in torch ops: the same online softmax over the
 same ``bk``-key blocks (a fully masked block is an exact no-op there, so
-all q rows go through each block at once).
+all q rows go through each block at once).  Any Sq and Skv: the last q
+and kv tiles may be ragged; the kernels mask keys at or past Skv (a
+zero-filled key would score 0, not -inf) and store no row at or past Sq.
 
 Both compute, for q [B, Hq, Sq, D] and k, v [B, Hkv, Skv, D] (q head h
 reads kv head h // (Hq / Hkv)): queries right-aligned to keys (query i
@@ -36,7 +38,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(q, k, v, bq: int, bk: int) -> tuple[int, int]:
-    """The reference's shape contract -> (bq_, bk_)."""
+    """The shape contract -> (bq_, bk_).  Unlike the reference kernel's,
+    it takes any Sq and Skv (ragged last tiles)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be [B, Hq, Sq, D] and k, "
                          f"v [B, Hkv, Skv, D], got {tuple(q.shape)}, "
@@ -46,10 +49,7 @@ def _check(q, k, v, bq: int, bk: int) -> tuple[int, int]:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} does not fit "
                          f"q {tuple(q.shape)} (Hq must be a multiple of Hkv)")
     skv = k.shape[2]
-    bq_, bk_ = min(bq, sq), min(bk, skv)
-    if sq % bq_ or skv % bk_:
-        raise ValueError(f"flash_attention: Sq={sq} and Skv={skv} must be "
-                         f"multiples of bq={bq_} and bk={bk_}")
+    bq_, bk_ = max(1, min(bq, sq)), max(1, min(bk, skv))
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must all be float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -110,8 +110,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                    device=dev)
     l = torch.zeros_like(m)
     for j0 in range(0, skv, bk_):
-        kpos = (j0 + torch.arange(bk_, device=dev))[None, :]
-        mask = torch.ones((sq, bk_), dtype=torch.bool, device=dev)
+        width = min(bk_, skv - j0)                   # the last may be ragged
+        kpos = (j0 + torch.arange(width, device=dev))[None, :]
+        mask = torch.ones((sq, width), dtype=torch.bool, device=dev)
         if causal:
             mask &= kpos <= qpos
         if window is not None:
@@ -141,11 +142,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     bk: int = 128) -> torch.Tensor:
     """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Skv, D] -> [B, Hq, Sq, D].
 
-    ``bq`` and ``bk`` are the reference's tiles: ``min(bq, Sq)`` must
-    divide Sq and ``min(bk, Skv)`` Skv (ValueError otherwise, where the
-    reference asserts).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (D in 16, 32, 64, 128, 256; q, k, v as
-    ``byte_strides`` takes them).
+    ``bq`` and ``bk`` are the reference's tiles; the plain version walks
+    ``min(bk, Skv)``-key blocks, the last one ragged where it does not
+    divide Skv (the reference kernel asserts there; its dispatcher sends
+    such lengths elsewhere).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (D in 16, 32, 64, 128, 256; q, k, v as
+    ``byte_strides`` takes them), which takes any Sq and Skv.
     """
     _check(q, k, v, bq, bk)
     if q.device.type == "cpu":

@@ -17,9 +17,11 @@ to block:
   4. lanes that still fail roll their kicks back, newest first.
 
 The CUDA kernel (``csrc/insert.cu``) is one CTA walking the logical blocks
-in order.  The plain version below follows the same block / round / rank
-schedule in int64-masked tensor ops and keeps the reference's table-shaped
-dirty mask.  Both update ``table`` (and ``stash``) IN PLACE.
+in order, with a window's rows staged in shared memory and a block-local
+dirty set on chip.  The plain version below follows the same block /
+round / rank schedule in int64-masked tensor ops and keeps the
+reference's table-shaped dirty mask.  Both update ``table`` (and
+``stash``) IN PLACE.
 """
 from __future__ import annotations
 
@@ -37,9 +39,6 @@ DEFAULT_BLOCK = 1024
 # Bounded eviction budget: 32 rounds drain random batches at the OCF's
 # o_max = 0.85 operating load; the loop exits as soon as every lane lands.
 DEFAULT_EVICT_ROUNDS = 32
-# One zeroed dirty byte array per (device, stream), grown with the table.
-# The kernel leaves it all-zero at exit, so it is cleared once, when made.
-_DIRTY: dict = {}
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -152,16 +151,6 @@ def insert_bulk_plain(table: torch.Tensor, hi: torch.Tensor,
     return torch.cat(ok)
 
 
-def _dirty_mask(table: torch.Tensor) -> torch.Tensor:
-    key = (table.device, torch.cuda.current_stream(table.device).cuda_stream)
-    dirty = _DIRTY.get(key)
-    if dirty is None or dirty.numel() < table.numel():
-        dirty = torch.zeros((table.numel(),), dtype=torch.uint8,
-                            device=table.device)
-        _DIRTY[key] = dirty
-    return dirty
-
-
 def _insert_cuda(table, hi, lo, valid, *, fp_bits, n_buckets, evict_rounds,
                  stash, block):
     cuda.check_cuda("insert_bulk", table=table, hi=hi, lo=lo, valid=valid,
@@ -170,20 +159,20 @@ def _insert_cuda(table, hi, lo, valid, *, fp_bits, n_buckets, evict_rounds,
                      stash=stash)
     cuda.check_dtype("insert_bulk", torch.bool, valid=valid)
     cuda.check_table("insert_bulk", table, n_buckets, stash)
+    if table.shape[1] > 256 or table.numel() >= 2**32 - 1:
+        raise ValueError(f"insert_bulk: the kernel keeps a kicked slot in "
+                         f"one byte and its (bucket, slot) in 32 bits, so "
+                         f"bucket_size <= 256 and fewer than 2^32 - 1 "
+                         f"slots; got {tuple(table.shape)}")
     n = hi.shape[0]
-    dev = table.device
-    ok = torch.empty((n,), dtype=torch.bool, device=dev)
-    lane_u32 = torch.empty((9, block), dtype=torch.int32, device=dev)
-    lane_u8 = torch.empty((5, block), dtype=torch.uint8, device=dev)
-    hist = torch.empty((3, block * max(evict_rounds, 1)), dtype=torch.int32,
-                       device=dev)
-    dirty = _dirty_mask(table)
+    slots = 0 if stash is None else stash.shape[1]
+    ok = torch.empty((n,), dtype=torch.bool, device=table.device)
+    spill = cuda.spill_buffer("insert_bulk", table.device, table.shape[1],
+                              slots, n, block, evict_rounds)
     cuda.launch("insert_bulk", table.data_ptr(), table.shape[1],
-                int(n_buckets), cuda.ptr(stash),
-                0 if stash is None else stash.shape[1], hi.data_ptr(),
+                int(n_buckets), cuda.ptr(stash), slots, hi.data_ptr(),
                 lo.data_ptr(), valid.data_ptr(), ok.data_ptr(), n, block,
-                fp_bits, evict_rounds, lane_u32.data_ptr(),
-                lane_u8.data_ptr(), hist.data_ptr(), dirty.data_ptr())
+                fp_bits, evict_rounds, cuda.ptr(spill))
     return ok
 
 
@@ -405,13 +394,14 @@ def _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
     lane_u8 = torch.empty((5, block), dtype=torch.uint8, device=dev)
     hist = torch.empty((6, block * max(evict_rounds, 1)), dtype=torch.int32,
                        device=dev)
+    # The kernel's table-shaped dirty mask (it leaves the mask all zero).
+    dirty = torch.zeros((table.numel(),), dtype=torch.uint8, device=dev)
     cuda.launch(name, table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
                 klo.data_ptr(), table.shape[1], int(n_buckets),
                 cuda.ptr(stash), 0 if stash is None else stash.shape[1],
                 hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), ok.data_ptr(),
                 n, block, fp_bits, evict_rounds, lane_u32.data_ptr(),
-                lane_u8.data_ptr(), hist.data_ptr(),
-                _dirty_mask(table).data_ptr())
+                lane_u8.data_ptr(), hist.data_ptr(), dirty.data_ptr())
     return ok
 
 

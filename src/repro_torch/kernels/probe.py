@@ -109,8 +109,8 @@ def probe_multi(tables: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
     generation ring's live pool slots), default all K; ``n_buckets``: the
     generations' shared ACTIVE bucket count (a host int, default the whole
     buffer).  N must be a multiple of ``min(block, N)``.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel, which takes at most
-    64 generations.
+    the plain version; CUDA tensors launch the kernel once per 64 pool
+    slots that hold a generation to probe (once for K <= 64).
     """
     n = hi.shape[0]
     if n and n % min(block, n):
@@ -131,8 +131,8 @@ def _probe_multi_cuda(tables, hi, lo, *, fp_bits, n_buckets, stashes,
     cuda.check_cuda(name, tables=tables, hi=hi, lo=lo, stashes=stashes)
     cuda.check_dtype(name, torch.int32, tables=tables, hi=hi, lo=lo,
                      stashes=stashes)
-    if tables.dim() != 3 or not 1 <= tables.shape[0] <= 64:
-        raise ValueError(f"{name}: tables must be [1 <= K <= 64, buffer, "
+    if tables.dim() != 3 or tables.shape[0] < 1:
+        raise ValueError(f"{name}: tables must be [K >= 1, buffer, "
                          f"bucket_size], got {tuple(tables.shape)}")
     if stashes is not None and (stashes.dim() != 3
                                 or stashes.shape[0] != tables.shape[0]):
@@ -141,18 +141,25 @@ def _probe_multi_cuda(tables, hi, lo, *, fp_bits, n_buckets, stashes,
     cuda.check_table(name, tables[0], n_buckets,
                      None if stashes is None else stashes[0])
     k, buf, bucket_size = tables.shape
-    mask = (1 << k) - 1
-    if gens is not None:
-        if any(not 0 <= g < k for g in gens):
-            raise ValueError(f"{name}: gens {list(gens)} must index the "
-                             f"{k} tables")
-        mask = sum(1 << g for g in set(gens))
+    if gens is None:
+        gens = range(k)
+    elif any(not 0 <= g < k for g in gens):
+        raise ValueError(f"{name}: gens {list(gens)} must index the "
+                         f"{k} tables")
+    mask = sum(1 << g for g in set(gens))
+    slots = 0 if stashes is None else stashes.shape[2]
     n = hi.shape[0]
     hit = torch.empty((n,), dtype=torch.bool, device=tables.device)
-    cuda.launch(name, tables.data_ptr(), k, mask, buf, bucket_size,
-                cuda.ptr(stashes), 0 if stashes is None else stashes.shape[2],
-                hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
-                int(n_buckets))
+    # The kernel's live mask is one 64-bit word: 64 pool slots a launch.
+    for c0 in range(0, k, 64):
+        word = (mask >> c0) & ((1 << 64) - 1)
+        if c0 and not word:
+            continue
+        cuda.launch(name, tables[c0].data_ptr(), min(64, k - c0), word, buf,
+                    bucket_size,
+                    None if stashes is None else stashes[c0].data_ptr(),
+                    slots, hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n,
+                    fp_bits, int(n_buckets), int(c0 > 0))
     return hit
 
 

@@ -8,7 +8,9 @@ lanes of one logical block that target the same bucket:
     rank(i) = #active lanes j < i targeting the same bucket (and, for
               deletes, carrying the same fingerprint)
 
-The CUDA kernels compute the same count per lane
+The CUDA kernels compute the same count per lane: the insert and delete
+kernels with two count tables a round (``csrc/staged.cuh::rank_round``),
+the adaptive ones by a loop over earlier lanes
 (``csrc/ocf_common.cuh::rank_among_earlier``).
 """
 from __future__ import annotations

@@ -31,9 +31,9 @@ from repro_torch.models import Transformer
 from repro_torch.serving import engine
 from repro_torch.streaming import GenerationalFilter, GenerationConfig
 
-from torch_port_util import (adaptive_planes, ocf_stream, port_snapshot,
-                             assert_same_state, random_keys, row_rel_err,
-                             split, t32)
+from torch_port_util import (STAGING_CASES, adaptive_planes, ocf_stream,
+                             port_snapshot, assert_same_state, random_keys,
+                             row_rel_err, split, staging_inputs, t32)
 
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
@@ -45,38 +45,66 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("block,rounds,slots", [(128, 32, 0), (128, 4, 16),
-                                                (2048, 8, 0), (256, 0, 32)])
-def test_kernels_match_plain(dev, block, rounds, slots):
+# (block, eviction rounds, stash slots) on an empty 1024 x 4 table.
+LEGACY_KERNEL_CASES = {"block-128": (128, 32, 0),
+                       "block-128-stash": (128, 4, 16),
+                       "block-2048": (2048, 8, 0),
+                       "insert-once-stash": (256, 0, 32)}
+
+
+def _kernel_case(label):
+    if label in STAGING_CASES:
+        return staging_inputs(label)
+    block, rounds, slots = LEGACY_KERNEL_CASES[label]
     rng = np.random.RandomState(block + rounds)
     keys = random_keys(rng, 4096)
-    hi, lo = (t32(x).to(dev) for x in split(keys))
-    valid = torch.from_numpy(rng.rand(4096) < 0.95).to(dev)
-    nb = 1000
+    valid = rng.rand(4096) < 0.95
+    return dict(table=np.zeros((1024, 4), np.uint32),
+                stash=np.zeros((2, slots), np.uint32) if slots else None,
+                keys=keys, valid=valid, delete=keys, delete_valid=valid,
+                n_buckets=1000, block=block, rounds=rounds)
+
+
+@pytest.mark.parametrize("label", [*LEGACY_KERNEL_CASES, *STAGING_CASES])
+def test_kernels_match_plain(dev, label):
+    """The four OCF kernels against their plain versions, bit for bit:
+    tables, stashes, ok masks and answers.  STAGING_CASES stress the
+    insert and delete kernels' staged rows (tiny shared tables, several
+    windows, blocks 1024 and 8192, bucket sizes 2 and 8, a nearly full
+    stash, keys deleted once more than resident)."""
+    c = _kernel_case(label)
+    nb, block, rounds = c["n_buckets"], c["block"], c["rounds"]
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    valid = torch.from_numpy(c["valid"]).to(dev)
     for a, b in zip(fingerprint_hash(hi, lo, fp_bits=16, n_buckets=nb),
                     fingerprint_hash_plain(hi, lo, fp_bits=16, n_buckets=nb)):
         assert torch.equal(a, b)
-    tk = torch.zeros((1024, 4), dtype=torch.int32, device=dev)
+    tk = t32(c["table"]).to(dev)
     tp = tk.clone()
-    sk = (torch.zeros((2, slots), dtype=torch.int32, device=dev)
-          if slots else None)
+    sk = None if c["stash"] is None else t32(c["stash"]).to(dev)
     sp = None if sk is None else sk.clone()
+    cuda.reset_counts()
     ok_k = insert_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb, valid=valid,
                        evict_rounds=rounds, stash=sk, block=block)[-1]
+    assert cuda.LAUNCHES["insert_bulk"] == 1
     ok_p = insert_bulk_plain(tp, hi, lo, valid, fp_bits=16, n_buckets=nb,
                              evict_rounds=rounds, stash=sp, block=block)
     torch.cuda.synchronize()
     assert torch.equal(tk, tp) and torch.equal(ok_k, ok_p)
-    if slots:
+    if sk is not None:
         assert torch.equal(sk, sp)
     assert torch.equal(probe(tk, hi, lo, fp_bits=16, n_buckets=nb, stash=sk),
                        probe_plain(tp, hi, lo, fp_bits=16, n_buckets=nb,
                                    stash=sp))
+    hi, lo = (t32(x).to(dev) for x in split(c["delete"]))
+    valid = torch.from_numpy(c["delete_valid"]).to(dev)
     _t, d_k = delete_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb, valid=valid,
                           block=block)
     d_p = delete_bulk_plain(tp, hi, lo, valid, fp_bits=16, n_buckets=nb,
                             block=block)
+    torch.cuda.synchronize()
     assert torch.equal(tk, tp) and torch.equal(d_k, d_p)
+    assert cuda.LAUNCHES["delete_bulk"] == 1
 
 
 def test_ocf_on_card_matches_cpu(dev):
@@ -194,6 +222,37 @@ def test_probe_multi_matches_plain(dev, k, slots, nb):
         assert torch.equal(got, want), gens
 
 
+@pytest.mark.parametrize("k", [65, 130])
+def test_probe_multi_over_64_generations(dev, k):
+    """More pool slots than the kernel's 64-bit live mask: one launch per
+    64 slots that hold a generation to probe, ORed, against the plain
+    version, for every slot live and for subsets."""
+    rng = np.random.RandomState(k)
+    nb, buf = 900, 1024
+    fill = rng.rand(k, buf, 4) < 0.3
+    tables = torch.from_numpy(np.where(
+        fill, rng.randint(1, 1 << 16, size=(k, buf, 4)), 0
+    ).astype(np.int32)).to(dev)
+    stashes = torch.zeros((k, 2, 8), dtype=torch.int32, device=dev)
+    stashes[:, 0, :3] = torch.from_numpy(
+        rng.randint(1, 1 << 16, size=(k, 3)).astype(np.int32)).to(dev)
+    stashes[:, 1, :3] = torch.from_numpy(
+        rng.randint(0, nb, size=(k, 3)).astype(np.int32)).to(dev)
+    hi, lo = (t32(x).to(dev) for x in split(random_keys(rng, 4096)))
+    for gens in (None, [0, 63, 64, k - 1], [k - 1], []):
+        for st in (None, stashes):
+            cuda.reset_counts()
+            got = probe_multi(tables, hi, lo, fp_bits=16, n_buckets=nb,
+                              stashes=st, gens=gens)
+            want = probe_multi_plain(tables, hi, lo, fp_bits=16,
+                                     n_buckets=nb, stashes=st, gens=gens)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), gens
+            live = range(k) if gens is None else gens
+            groups = {g // 64 for g in live} | {0}
+            assert cuda.LAUNCHES["probe_multi"] == len(groups)
+
+
 def test_ring_on_card_matches_cpu(dev):
     kw = dict(generations=3, capacity=2048, stash_slots=16, evict_rounds=4,
               ttl=4.0)
@@ -241,6 +300,11 @@ def test_ring_on_card_matches_cpu(dev):
     (1, 4, 2, 512, 512, 128, True, 64, 20.0),      # window on a tile edge
     (1, 4, 2, 256, 256, 32, True, 48, None),       # 64-byte swizzle
     (2, 2, 1, 120, 120, 16, True, None, 10.0),     # 32-byte swizzle
+    # lengths that are no multiple of the tiles: ragged last q and kv tiles
+    (1, 4, 1, 200, 200, 256, True, None, None),    # gemma3-1b heads
+    (1, 4, 1, 200, 200, 256, True, 64, None),
+    (1, 2, 1, 300, 300, 64, True, None, 20.0),
+    (1, 2, 2, 77, 200, 128, False, None, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(dev, case, dtype):
@@ -300,17 +364,19 @@ def test_flash_attention_reads_strided_views(dev, dtype):
         flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
 
 
-def test_lm_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("seq", [64, 200])
+def test_lm_on_card_matches_cpu(dev, seq):
     """gemma3-1b smoke weights built on the CPU and copied to the card:
     the flash forward's logits within 1e-4 in float32 (tf32 off), and the
-    greedy tokens of prefill + 8 decode steps equal."""
+    greedy tokens of prefill + 8 decode steps equal; 200 tokens is no
+    multiple of the flash kernel's tiles."""
     import dataclasses
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_smoke_config("gemma3-1b"), dtype="float32")
     cpu = Transformer(cfg, seed=1, device="cpu")
     card = Transformer(cfg, seed=1, device="cpu").to(dev)
     toks = torch.from_numpy(np.random.RandomState(3).randint(
-        0, cfg.vocab_size, (2, 64)))
+        0, cfg.vocab_size, (2, seq)))
     cuda.reset_counts()
     a = card.apply(toks.to(dev)).logits
     assert cuda.LAUNCHES["flash_attention"] == cfg.n_layers

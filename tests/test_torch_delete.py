@@ -12,7 +12,8 @@ from repro.kernels.insert import insert_bulk as ref_insert
 from repro_torch.kernels import ops
 from repro_torch.kernels.delete import delete_bulk
 
-from torch_port_util import random_keys, split, t32, u32
+from torch_port_util import (STAGING_CASES, random_keys, split,
+                             staging_inputs, t32, u32)
 
 pytestmark = pytest.mark.tier1
 
@@ -84,6 +85,25 @@ def test_matches_interpreter():
     table = _table(rng, 120, np.concatenate([keys, keys]), buf=128)
     _both(table, np.concatenate([keys[:64], keys[:64]]), n_buckets=120,
           block=128, interpret=True)
+
+
+@pytest.mark.parametrize("label", list(STAGING_CASES))
+def test_staging_cases_match_reference(label):
+    """The cases that stress the kernel's staged rows: deletes (keys
+    resident twice, repeated across blocks) on the table the case's insert
+    leaves, equal to the reference's."""
+    c = staging_inputs(label)
+    hi, lo = split(c["keys"])
+    table, _ok = ref_insert(jnp.asarray(c["table"]), jnp.asarray(hi),
+                            jnp.asarray(lo), fp_bits=16,
+                            n_buckets=c["n_buckets"],
+                            valid=jnp.asarray(c["valid"]),
+                            evict_rounds=c["rounds"], block=c["block"],
+                            emulate=True)
+    _t, ok = _both(np.asarray(table), c["delete"], n_buckets=c["n_buckets"],
+                   block=c["block"])
+    n = c["keys"].size
+    assert ok[: n // 2].any() and not ok[n // 2:].all()
 
 
 @pytest.mark.parametrize("n", [1, 1000, 5000])

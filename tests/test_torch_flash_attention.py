@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as ref_flash
+from repro.kernels.ref import blockwise_attention as ref_blockwise
 from repro_torch.kernels import cuda
 from repro_torch.kernels.flash_attention import (byte_strides,
                                                  flash_attention,
@@ -88,16 +89,41 @@ def test_rows_past_the_keys_give_zero():
 
 
 def test_shape_contract_raises_in_both():
+    """The reference kernel asserts on Sq = 200 (not a multiple of its
+    128-row tile); the port takes it with a ragged last tile (the next
+    test holds the result), and both refuse a bad head count or type."""
     (q, k, v), (tq, tk, tv) = _inputs(4, 1, 2, 1, 200, 256, 32, "float32")
     with pytest.raises(AssertionError):
         ref_flash(q, k, v, interpret=True)
-    with pytest.raises(ValueError, match="multiples"):
-        flash_attention(tq, tk, tv)
+    assert flash_attention(tq, tk, tv).shape == (1, 2, 200, 32)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash_attention(tq[:, :1, :128].expand(1, 3, 128, 32),
                         tk.expand(1, 2, 256, 32), tv.expand(1, 2, 256, 32))
     with pytest.raises(TypeError):
         flash_attention(tq[:, :, :128].half(), tk.half(), tv.half())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 77, 200, 300])
+@pytest.mark.parametrize("causal,window,cap", [(True, None, None),
+                                               (True, 64, None),
+                                               (True, None, 30.0),
+                                               (False, None, None)])
+def test_ragged_lengths_match_blockwise_reference(s, causal, window, cap,
+                                                  dtype):
+    """Lengths that are no multiple of the 128-row tiles: the plain version
+    (ragged last q and kv tiles) against the reference's
+    ``blockwise_attention``, which the reference's dispatcher takes for
+    them off the TPU."""
+    (q, k, v), (tq, tk, tv) = _inputs(6, 1, 4, 2, s, s, 64, dtype)
+    want = ref_blockwise(q, k, v, causal=causal, window=window,
+                         logit_softcap=cap)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window,
+                          logit_softcap=cap)
+    assert got.dtype == TORCH[dtype] and got.shape == (1, 4, s, 64)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def test_plain_is_the_online_softmax_of_full_attention():

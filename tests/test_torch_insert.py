@@ -13,7 +13,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.insert import insert_bulk, insert_once
 from repro_torch.kernels.probe import probe
 
-from torch_port_util import random_keys, split, t32, u32
+from torch_port_util import (STAGING_CASES, random_keys, split,
+                             staging_inputs, t32, u32)
 
 pytestmark = pytest.mark.tier1
 
@@ -145,6 +146,17 @@ def test_matches_interpreter():
     keys = random_keys(rng, 256)
     _both(np.zeros((64, 4), np.uint32), keys, n_buckets=60, block=128,
           rounds=4, stash=np.zeros((2, 8), np.uint32), interpret=True)
+
+
+@pytest.mark.parametrize("label", list(STAGING_CASES))
+def test_staging_cases_match_reference(label):
+    """The cases that stress the kernel's staged rows, on the plain
+    version: tables, stashes and ok masks equal the reference's."""
+    c = staging_inputs(label)
+    _t, _s, ok = _both(c["table"], c["keys"], n_buckets=c["n_buckets"],
+                       block=c["block"], rounds=c["rounds"], valid=c["valid"],
+                       stash=c["stash"])
+    assert not ok[c["valid"]].all()                 # some lanes failed
 
 
 def test_empty_batch():

@@ -81,6 +81,21 @@ def test_generation_rotation_keeps_last_k_visible(rng):
     assert not r.lookup(batches[0], now=10.0).all()
 
 
+def test_ring_of_more_than_64_generations(rng):
+    """65 generations: more than the probe kernel's one 64-bit live mask
+    holds (the card probes 64 pool slots a launch); the CPU ring answers as
+    the reference does after the pool has filled and wrapped."""
+    r = Rings(generations=65, capacity=256, stash_slots=8, ttl=None)
+    batches = [random_keys(rng, 64) for _ in range(70)]
+    for i, b in enumerate(batches):
+        r.insert(b, now=float(i))
+        if i % 10 == 9:
+            hit = r.lookup(np.concatenate(batches[: i + 1]), now=float(i))
+            assert hit[max(0, i - 64) * 64:].all()
+        r.rotate(now=float(i))
+    assert r.port.live_generations == r.ref.live_generations == 65
+
+
 def test_generation_ttl_lazy_expiry_and_pool_reuse(rng):
     r = Rings(generations=2, capacity=1024, stash_slots=32, ttl=10.0)
     pool = r.port.pool

@@ -61,6 +61,20 @@ def test_apply_logits_match_reference(name, dtype):
             err.max(), err.mean())
 
 
+def test_ragged_length_matches_reference():
+    """S = 200 is no multiple of the flash kernel's 128-row tiles: the
+    cache-less forward stays on the kernel (its plain version here), with
+    ragged last tiles, and matches the reference's apply."""
+    ref, params, model = lm_models("gemma3", "float32")
+    toks = lm_tokens(ref.cfg, (1, 200))
+    want = np.asarray(ref_logits(ref, params, toks))
+    cuda.reset_counts()
+    got = model.apply(torch.from_numpy(toks)).logits
+    assert cuda.PLAIN_CALLS["flash_attention"] == model.cfg.n_layers
+    assert got.shape == want.shape == (1, 200, ref.cfg.vocab_size)
+    assert np.abs(got.numpy() - want).max() < F32_TOL
+
+
 def test_layers_run_slot_major():
     """The reference runs every period of pattern slot 0, then of slot 1,
     ..., then the tail.  Run in the interleaved order (L,L,L,L,L,G, L,...)

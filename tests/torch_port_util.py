@@ -135,6 +135,52 @@ def adaptive_planes(rng, n_buckets, buffer, load, *, fp_bits=16,
 # ------------------------------------------------------------ streaming --
 
 
+# Inputs that stress the staged insert and delete kernels (rows staged in
+# shared memory a window of logical blocks at a time): label -> (buffer,
+# active buckets, bucket size, keys, block, eviction rounds, stash slots,
+# table load, stash load).  A tiny active table shares rows across blocks
+# and windows and runs long chains that roll back into a nearly full
+# stash; 8192 keys at block 128 are three windows, the last one short;
+# blocks 1024 and 8192 take the device-memory lane region (8192 also
+# stages only part of its rows); bucket sizes 2 and 8.
+STAGING_CASES = {
+    "tiny-table": (128, 64, 4, 1024, 128, 8, 16, 0.5, 0.75),
+    "three-windows": (4096, 4000, 4, 8192, 128, 32, 128, 0.8, 0.0),
+    "block-1024": (2048, 2000, 4, 4096, 1024, 16, 32, 0.85, 0.0),
+    "block-8192": (4096, 4000, 4, 8192, 8192, 8, 0, 0.7, 0.0),
+    "bucket-2": (4096, 3000, 2, 2048, 256, 32, 8, 0.8, 0.0),
+    "bucket-8": (1024, 1000, 8, 2048, 128, 32, 0, 0.85, 0.0),
+}
+
+
+def staging_inputs(label, seed=0):
+    """numpy inputs of a STAGING_CASES case: a dict with the uint32 table
+    and stash (None without one), the insert keys (the first quarter twice,
+    in other blocks), their valid mask, and the delete keys (the first
+    half, then the first quarter twice more: the k-th repeat clears the
+    k-th copy, one more than resident reports False)."""
+    buf, nb, bsz, n, block, rounds, slots, load, stash_load = \
+        STAGING_CASES[label]
+    rng = np.random.RandomState(seed)
+    fill = rng.rand(buf, bsz) < load
+    table = np.where(fill, rng.randint(1, 1 << 16, size=(buf, bsz)),
+                     0).astype(np.uint32)
+    table[nb:] = 0
+    stash = None
+    if slots:
+        stash = np.zeros((2, slots), np.uint32)
+        used = rng.rand(slots) < stash_load
+        stash[0, used] = rng.randint(1, 1 << 16, size=used.sum())
+        stash[1, used] = rng.randint(0, nb, size=used.sum())
+    base = random_keys(rng, n)
+    keys = np.concatenate([base[: n - n // 4], base[: n // 4]])
+    delete = np.concatenate([base[: n // 2], base[: n // 4], base[: n // 4]])
+    return dict(table=table, stash=stash, keys=keys,
+                valid=rng.rand(n) < 0.95, delete=delete,
+                delete_valid=np.ones(delete.size, bool), n_buckets=nb,
+                block=block, rounds=rounds)
+
+
 def ref_ring_snapshot(ring):
     """The reference ``GenerationalFilter``'s state in the form of
     ``repro_torch.convert.generational_to_numpy``."""
