@@ -11,7 +11,10 @@ Phases, each timed, each fatal on failure:
      bit for bit, at main-path shapes (4096-key chunks, 16M-slot tables,
      the parity block): the four OCF kernels (insert and delete also on
      STAGING_CASES, which stress their rows staged in shared memory), the
-     four adaptive ones on a four-plane state with nonzero selectors, and
+     four adaptive ones on a four-plane state with nonzero selectors
+     (insert and delete also on ADAPTIVE_STAGING_CASES, and once split
+     into launches of fewer keys than a call; both tables and their inputs
+     come from ``repro_torch.kernels.staging_cases``, as in the tests), and
      ``probe_multi`` over K = 1, 2, 4 of four generation tables
      int32[4, 2^20, 4] and pools of 65 and 130 slots; and
      ``flash_attention`` within a stated tolerance at gemma3-1b's shapes
@@ -127,23 +130,6 @@ FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 # 1e-3 a row); a kernel that dropped one 64-key tile from a row of n keys
 # reads about 8 / sqrt(n), 0.09 at n = 8192 (FlashKernelBench prints it).
 FLASH_ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-# Inputs that stress the staged insert and delete kernels (rows staged in
-# shared memory a window of logical blocks at a time; tests/
-# torch_port_util.py has the same table): label -> (buffer, active
-# buckets, bucket size, keys, block, eviction rounds, stash slots, table
-# load, stash load).  A tiny active table shares rows across blocks and
-# windows and runs long chains that roll back into a nearly full stash;
-# 8192 keys at block 128 are three windows, the last one short; blocks
-# 1024 and 8192 take the device-memory lane region (8192 also stages only
-# part of its rows); bucket sizes 2 and 8.
-STAGING_CASES = {
-    "tiny-table": (128, 64, 4, 1024, 128, 8, 16, 0.5, 0.75),
-    "three-windows": (4096, 4000, 4, 8192, 128, 32, 128, 0.8, 0.0),
-    "block-1024": (2048, 2000, 4, 4096, 1024, 16, 32, 0.85, 0.0),
-    "block-8192": (4096, 4000, 4, 8192, 8192, 8, 0, 0.7, 0.0),
-    "bucket-2": (4096, 3000, 2, 2048, 256, 32, 8, 0.8, 0.0),
-    "bucket-8": (1024, 1000, 8, 2048, 128, 32, 0, 0.85, 0.0),
-}
 # The streaming dedup stage of one node: examples/streaming_dedup.py's ring
 # at 2^22 slots a generation (4 x 16 MiB of tables on the card).
 RING = dict(generations=4, capacity=1 << 22, bucket_size=4, fp_bits=16,
@@ -350,30 +336,21 @@ class KernelBench:
         from repro_torch.core import hashing
         from repro_torch.kernels.delete import delete_bulk, delete_bulk_plain
         from repro_torch.kernels.insert import insert_bulk, insert_bulk_plain
+        from repro_torch.kernels.staging_cases import (STAGING_CASES,
+                                                       staging_inputs)
 
         def dev32(a):
             return torch.from_numpy(a.astype(np.uint32).view(np.int32)
                                     ).to(self.dev)
 
-        for label, case in STAGING_CASES.items():
-            buf, nb, bsz, n, block, rounds, slots, load, stash_load = case
-            rng = np.random.RandomState(SEED)
-            fill = rng.rand(buf, bsz) < load
-            table = np.where(fill, rng.randint(1, 1 << 16, size=(buf, bsz)),
-                             0)
-            table[nb:] = 0
-            sk = None
-            if slots:
-                stash = np.zeros((2, slots), np.int64)
-                used = rng.rand(slots) < stash_load
-                stash[0, used] = rng.randint(1, 1 << 16, size=used.sum())
-                stash[1, used] = rng.randint(0, nb, size=used.sum())
-                sk = dev32(stash)
-            base = random_keys(rng, n)
-            keys = np.concatenate([base[: n - n // 4], base[: n // 4]])
-            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(keys))
-            valid = torch.from_numpy(rng.rand(n) < 0.95).to(self.dev)
-            tk = dev32(table)
+        for label in STAGING_CASES:
+            c = staging_inputs(label, SEED)
+            nb, block, rounds = c["n_buckets"], c["block"], c["rounds"]
+            sk = None if c["stash"] is None else dev32(c["stash"])
+            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(
+                c["keys"]))
+            valid = torch.from_numpy(c["valid"]).to(self.dev)
+            tk = dev32(c["table"])
             tp, sp = tk.clone(), None if sk is None else sk.clone()
             okk = insert_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb,
                               valid=valid, evict_rounds=rounds, stash=sk,
@@ -385,8 +362,7 @@ class KernelBench:
             if sk is not None:
                 pairs.append((sk, sp))
             self.record("insert_bulk", pairs)
-            dele = np.concatenate([base[: n // 2], base[: n // 4],
-                                   base[: n // 4]])
+            dele = c["delete"]
             hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(dele))
             every = torch.ones(dele.size, dtype=torch.bool, device=self.dev)
             _t, dk = delete_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb,
@@ -395,8 +371,10 @@ class KernelBench:
                                    n_buckets=nb, block=block)
             self.record("delete_bulk", [(tk, tp), (dk, dp)])
             failed = int((valid & ~okp).sum())
+            slots = 0 if sp is None else sp.shape[1]
             print(f"   staging {label}: block={block} rounds={rounds} "
-                  f"bucket_size={bsz} keys={n} failed={failed} stashed="
+                  f"bucket_size={tk.shape[1]} keys={c['keys'].size} "
+                  f"failed={failed} stashed="
                   f"{0 if sp is None else int((sp[0] != 0).sum())}/{slots} "
                   f"deleted={int(dp.sum())} of {dele.size}", flush=True)
             check(failed > 0, f"staging {label}: no insert failed")
@@ -441,7 +419,8 @@ class AdaptiveKernelBench(KernelBench):
     @staticmethod
     def adapted_slots(planes) -> int:
         from repro_torch.kernels.selector import sel_unpack
-        return int(((planes[0] != 0) & (sel_unpack(planes[1], 4) != 0)).sum())
+        return int(((planes[0] != 0) &
+                    (sel_unpack(planes[1], planes[0].shape[1]) != 0)).sum())
 
     def run(self) -> None:
         torch = self.torch
@@ -568,6 +547,79 @@ class AdaptiveKernelBench(KernelBench):
         print(f"   delete_adaptive: block={dblock} cleared={int(okd.sum())} "
               f"of {CHUNK} (duplicates past the resident copy miss)",
               flush=True)
+        self.staging()
+
+    def staging(self) -> None:
+        """ADAPTIVE_STAGING_CASES: insert, then delete (with repeats and
+        residents), kernel against plain version on copies of the same
+        planes, stash and keys; then the tiny table again with its calls
+        split into launches of at most 300 keys (two logical blocks)."""
+        torch = self.torch
+        from repro_torch.kernels import cuda
+        from repro_torch.kernels.delete import (delete_bulk_adaptive,
+                                                delete_bulk_adaptive_plain)
+        from repro_torch.kernels.insert import (insert_bulk_adaptive,
+                                                insert_bulk_adaptive_plain)
+        from repro_torch.kernels.staging_cases import (
+            ADAPTIVE_STAGING_CASES, adaptive_staging_inputs)
+        from repro_torch.core import hashing
+
+        def dev32(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.uint32)
+                                    .view(np.int32)).to(self.dev)
+
+        def one(label, split_keys=cuda.SPLIT_KEYS):
+            c = adaptive_staging_inputs(label, SEED)
+            nb, block, rounds = c["n_buckets"], c["block"], c["rounds"]
+            pk = [dev32(p) for p in c["planes"]]
+            pp = [p.clone() for p in pk]
+            sk = None if c["stash"] is None else dev32(c["stash"])
+            sp = None if sk is None else sk.clone()
+            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(c["keys"]))
+            valid = torch.from_numpy(c["valid"]).to(self.dev)
+            before = self.adapted_slots(pk)
+            okk = insert_bulk_adaptive(*pk, hi, lo, fp_bits=16, n_buckets=nb,
+                                       valid=valid, evict_rounds=rounds,
+                                       stash=sk, block=block,
+                                       split_keys=split_keys)[-1]
+            okp = insert_bulk_adaptive_plain(*pp, hi, lo, valid, fp_bits=16,
+                                             n_buckets=nb,
+                                             evict_rounds=rounds, stash=sp,
+                                             block=block)
+            pairs = list(zip(pk, pp)) + [(okk, okp)]
+            if sk is not None:
+                pairs.append((sk, sp))
+            self.record("insert_bulk_adaptive", pairs)
+            failed = int((valid & ~okp).sum())
+            reset = before - self.adapted_slots(pp)
+            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(
+                c["delete"]))
+            every = torch.ones(c["delete"].size, dtype=torch.bool,
+                               device=self.dev)
+            dk = delete_bulk_adaptive(*pk, hi, lo, fp_bits=16, n_buckets=nb,
+                                      valid=every, block=block,
+                                      split_keys=split_keys)[-1]
+            dp = delete_bulk_adaptive_plain(*pp, hi, lo, every, fp_bits=16,
+                                            n_buckets=nb, block=block)
+            self.record("delete_bulk_adaptive",
+                        list(zip(pk, pp)) + [(dk, dp)])
+            return failed, reset, sp, int(dp.sum()), c
+
+        for label in ADAPTIVE_STAGING_CASES:
+            failed, reset, sp, deleted, c = one(label)
+            print(f"   adaptive staging {label}: block={c['block']} rounds="
+                  f"{c['rounds']} bucket_size={c['planes'][0].shape[1]} "
+                  f"keys={c['keys'].size} failed={failed} adapted slots "
+                  f"reset by kept kicks={reset} stashed="
+                  f"{0 if sp is None else int((sp[0] != 0).sum())} "
+                  f"deleted={deleted} of {c['delete'].size}", flush=True)
+            check(failed > 0, f"adaptive staging {label}: no insert failed")
+        before = cuda.LAUNCHES["insert_bulk_adaptive"]
+        one("tiny-table", split_keys=300)
+        n_launch = cuda.LAUNCHES["insert_bulk_adaptive"] - before
+        check(n_launch == 4, f"a split call made {n_launch} launches, not 4")
+        print(f"   adaptive staging tiny-table split into {n_launch} "
+              f"launches: same as the plain version", flush=True)
 
 
 class StreamingKernelBench(KernelBench):
@@ -1578,8 +1630,9 @@ def time_ms(fn, reps: int, setup=None) -> float:
 def kernel_device_ms(fn, reps: int, setup, symbol: str):
     """Mean device time in ms per launch of the kernels named ``symbol``
     that ``fn`` launches, from a ``torch.profiler`` (CUPTI) trace, averaged
-    over the launches the trace holds; None when no window of up to three
-    holds any."""
+    over the launches the trace holds with a device time (a trace now and
+    then holds some launches without one, which would halve a mean over
+    all); None when no window of up to six holds any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -1587,20 +1640,18 @@ def kernel_device_ms(fn, reps: int, setup, symbol: str):
             setup()
         fn()
     torch.cuda.synchronize()
-    for _attempt in range(3):
+    for _attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if setup:
                     setup()
                 fn()
             torch.cuda.synchronize()
-        total_us, calls = 0.0, 0
-        for ev in prof.key_averages():
-            if symbol in ev.key:
-                total_us += getattr(ev, "device_time_total", 0.0) or 0.0
-                calls += ev.count
-        if calls and total_us > 0:
-            return total_us / calls / 1e3
+        spans = [getattr(ev, "device_time_total", 0.0) or 0.0
+                 for ev in prof.events() if symbol in ev.name]
+        spans = [us for us in spans if us > 0]
+        if spans:
+            return sum(spans) / len(spans) / 1e3
     return None
 
 

@@ -84,10 +84,6 @@ struct Lanes {
   uint32_t* freel;    // S: free stash slots in order
 };
 
-__host__ __device__ inline int dirty_cap(int block, int rounds) {
-  return rounds > 0 ? (int)(3 * (long long)block * rounds / 2 + 1) : 1;
-}
-
 // Lay the per-lane region out from ``base`` (null: only count) -> bytes.
 __host__ __device__ inline size_t carve(uint8_t* base, int B, int R, int S,
                                         Lanes* L) {
@@ -103,7 +99,7 @@ __host__ __device__ inline size_t carve(uint8_t* base, int B, int R, int S,
   L->flags = stg::take(base, off, B);
   L->hist = stg::take(base, off, (size_t)B * R);
   L->dirty =
-      (uint32_t*)stg::take(base, off, (size_t)dirty_cap(B, R) * 4);
+      (uint32_t*)stg::take(base, off, (size_t)stg::dirty_cap(B, R) * 4);
   L->stash = (uint32_t*)stg::take(base, off, (size_t)S * 8);
   L->freel = (uint32_t*)stg::take(base, off, (size_t)S * 4);
   return off;
@@ -124,36 +120,12 @@ struct Args {
   uint8_t* spill;
 };
 
-struct Dirty {
-  uint32_t* d;
-  int cap;
-  __device__ bool has(uint32_t key) const {
-    uint32_t p = stg::slot_of(ocf::murmur3_mix(key), cap);
-    for (;;) {
-      const uint32_t k = d[p];
-      if (k == key) return true;
-      if (k == 0u) return false;
-      p = p + 1 == (uint32_t)cap ? 0 : p + 1;
-    }
-  }
-  __device__ void add(uint32_t key) const {
-    uint32_t p = stg::slot_of(ocf::murmur3_mix(key), cap);
-    while (atomicCAS(&d[p], 0u, key) != 0u)
-      p = p + 1 == (uint32_t)cap ? 0 : p + 1;
-  }
-  __device__ void del(uint32_t key) const {  // leaves a tombstone
-    uint32_t p = stg::slot_of(ocf::murmur3_mix(key), cap);
-    while (d[p] != key) p = p + 1 == (uint32_t)cap ? 0 : p + 1;
-    d[p] = stg::kFull;
-  }
-};
-
 struct Block {
   const Args& A;
   const stg::Stage& S;
   const stg::Crowd& C;
   const Lanes& L;
-  const Dirty& D;
+  const stg::Dirty& D;
   uint32_t* n_dirty;  // kicks added to the dirty set in this block
   int nl;             // lanes of the block
   int wb;             // its first lane's index in the window arrays
@@ -264,37 +236,6 @@ struct Block {
     return __syncthreads_or(still);
   }
 
-  // Exhausted lanes, in lane order, take the free stash slots in slot
-  // order (the reference's lane-order prefix sum).  One warp.
-  __device__ void spill() const {
-    if (threadIdx.x >= 32) return;
-    const int ln = threadIdx.x;
-    const uint32_t lt = stg::lanemask_lt();
-    int nfree = 0;
-    for (int s0 = 0; s0 < A.S; s0 += 32) {
-      const int s = s0 + ln;
-      const bool f = s < A.S && L.stash[s] == 0u;
-      const uint32_t m = __ballot_sync(stg::kFull, f);
-      if (f) L.freel[nfree + __popc(m & lt)] = s;
-      nfree += __popc(m);
-    }
-    __syncwarp();
-    int taken = 0;
-    for (int j0 = 0; j0 < nl && taken < nfree; j0 += 32) {
-      const int j = j0 + ln;
-      const bool a = j < nl && (L.flags[j] & kActive);
-      const uint32_t m = __ballot_sync(stg::kFull, a);
-      const int k = taken + __popc(m & lt);
-      if (a && k < nfree) {
-        const uint32_t s = L.freel[k];
-        L.stash[s] = L.carried[j];
-        L.stash[A.S + s] = L.tgt[j];
-        L.flags[j] &= ~kActive;
-      }
-      taken += __popc(m);
-    }
-  }
-
   __device__ void run(int base) const {
     for (int j = threadIdx.x; j < nl; j += blockDim.x) {
       const uint32_t fp = S.wfp[wb + j];
@@ -326,7 +267,8 @@ struct Block {
       any = kick_round();    // phase B
     }
     if (A.stash != nullptr && any) {
-      spill();
+      stg::spill(nl, A.S, L.stash, L.freel, L.flags, kActive, L.carried,
+                 L.tgt);
       __syncthreads();
     }
     // Rollback: lanes still carrying restore their kicks newest first (the
@@ -361,7 +303,7 @@ __global__ void __launch_bounds__(stg::kThreads, 1) insert_kernel(Args A) {
   Lanes L;
   carve(kOnChip ? q : A.spill, A.block, A.rounds, A.S, &L);
   const stg::Crowd& C = L.rank;
-  const Dirty D{L.dirty, dirty_cap(A.block, A.rounds)};
+  const stg::Dirty D{L.dirty, stg::dirty_cap(A.block, A.rounds)};
 
   for (int i = threadIdx.x; i < 2 * C.cap; i += blockDim.x) C.cnt[i] = 0u;
   for (int i = threadIdx.x; i < D.cap; i += blockDim.x) D.d[i] = 0u;

@@ -9,316 +9,454 @@
 // The schedule is insert.cu's, and so are the reasons for it: ONE CTA
 // walks the logical blocks in order with the planes updated in place (the
 // TPU's sequential grid with aliased in->out BlockSpecs); each round is a
-// compute pass, __syncthreads(), a write pass, __syncthreads() (JAX
-// scatter semantics: every read of a round sees the planes as before its
-// writes); ranks are taken within the logical block; the dirty mask is a
-// zeroed byte array kept across calls and cleared from the kick history at
-// the end of each block.  What the adaptive planes add:
+// ranking pass, a decision pass that reads, a barrier, a write pass, a
+// barrier (JAX scatter semantics: every read of a round sees the planes as
+// before its writes); ranks are taken within the logical block; the dirty
+// set is local to a logical block.  What the adaptive planes add:
 //   * Placements and kicks write (fp0 of the carried key, selector 0, the
 //     key into khi/klo).
 //   * Lanes carry the KEY.  A kicked victim's next bucket is the alternate
 //     of its MIRROR key's fp0, never of the stored fingerprint, which may
-//     be an adapted family member.
-//   * The history is six wide per lane and round (bucket, slot, and the
-//     kicked slot's original fp, selector, hi, lo).  A failed lane owns its
-//     kicked slots (they stay dirty), so restoring the originals newest
-//     first is exact.
-//   * Spills park the carried key's fp0, recomputed from the carried key.
+//     be an adapted family member.  Spills park the carried key's fp0.
+//   * A failed lane restores the original four planes of its kicked slots
+//     (it owns them: they stay dirty), newest first.
 //   * The packed selector word is shared by every slot of a bucket, and
 //     one write pass can set different slots of one word from different
 //     threads (placements of different ranks, rollbacks of different
-//     lanes).  Each 2-bit field is therefore written with atomicAnd /
-//     atomicOr (ocf::set_sel): the fields are disjoint, so the order of the
-//     atomics does not matter.  That keeps the plane packed throughout; an
-//     unpacked byte scratch would need a table-sized unpack and repack per
-//     call.  Reads of the word happen only in compute passes, after a
-//     __syncthreads() that makes the atomics visible.
+//     lanes), so each 2-bit field is written with atomicAnd / atomicOr
+//     (ocf::set_sel): the fields are disjoint, so their order does not
+//     matter.  The word is read only for a kicked victim.
 //
-// Bound on the H100: the serialized single-CTA loop, as for insert.cu.
-// Per-lane state and the kick history live in device-memory scratch that
-// the wrapper allocates.
-#include "ocf_common.cuh"
+// Design for the H100: insert.cu's staged design (staged.cuh) over four
+// planes.  The kernel it replaces kept lane state, a six-wide kick history
+// and a table-sized dirty byte array in device memory and took each rank
+// as an O(block) loop over device arrays.
+//   * Rows: a window of logical blocks (1408 lanes at block 128 and bucket
+//     4) has its home and alternate rows' fingerprints staged in shared
+//     memory.  The other three planes stay in device memory, written
+//     straight through (selector fields by atomics that no thread waits
+//     for): a round reads them only for a kicked victim, from L2
+//     (ld.global.cg), which the write pass of the round before warms for
+//     every lane that missed.  Staging the selector words as well (as the
+//     delete does, which reads one a lane) cost more in copies and
+//     write-backs than it saved (PERF.md).  The window is smaller
+//     than insert.cu's (1664) by the wider history.
+//   * Ranks: the two count tables of staged.cuh, keyed by bucket, for the
+//     placement rounds only.  A kick round needs no ranks of its own: a
+//     lane that missed a placement round with rank r against its row's e
+//     empty slots is its bucket's earliest active lane exactly when r ==
+//     e (the lanes of ranks below e took the empties).  Eviction round 0
+//     has no placement round at all: the alternate round before it left
+//     every row a missing lane targets full, so it could place nothing.
+//   * Lane state in shared memory, one lane per thread at a time.
+//   * History: one byte a kick (slot, and the victim's selector in bits
+//     4-5) and the victim's stored fingerprint, 5 bytes against 24.  The
+//     rest is recomputed backwards.  A kicked slot keeps what the lane
+//     wrote (no one else may kick it, placements fill only empty slots):
+//     fp0 of the key c_t carried at step t, and c_t in khi / klo.  The
+//     victim's key is the key carried one step later, c_{t+1}, and the
+//     chain's buckets follow from b_t = alt(b_{t+1}, fp0(c_{t+1})), alt
+//     being an involution.  The victim's fingerprint is kept, not
+//     recomputed from its key and selector: the planes may hold anything,
+//     and rollback restores them verbatim.
+//   * Dirty set: staged.cuh's block-local hash set; no table-sized array.
+//   * The per-lane region (~83 KB at block 128, 32 rounds, 128 stash
+//     slots) is in shared memory; a call whose worst case does not fit
+//     (block 256 at 32 rounds, blocks 1024 and up) gets it in a device
+//     buffer from the wrapper.
+//   * Large calls: the adaptive path inserts 1M keys a call.  The wrapper
+//     splits a call into launches of at most 2^17 keys at logical-block
+//     boundaries (blocks run in order and carry the planes and the stash,
+//     so the result is the same), so that each launch's L2-warming CTAs
+//     bring in no more rows than L2 keeps until CTA 0 reaches them.
+//
+// What it bought, and what bounds it (H100 80GB HBM3, 700 W; PERF.md has
+// the runs): 0.218 ms a 4096-key call at block 128 on chip_smoke.py's
+// phase-6 state against the old kernel's 0.585 in the same run; the
+// adaptive path's 12M inserts 0.705 s of device time against 2.29.  As
+// insert.cu, it is held by the serial walk over the logical blocks on one
+// SM, each round a chain of dependent shared-memory passes
+// (tools/staged_probe.py: ~12200 cycles a logical block at load 0.5, ~7700
+// of them its rounds' passes, against ~3300 for insert.cu's at load 0.3:
+// more lanes reach eviction rounds, and a kick reads its victim's key
+// from L2), not by the bytes (~2e-4 ms).
+#include "staged.cuh"
 
 namespace {
 
-struct Planes {
+enum : uint8_t { kValid = 1, kAct = 2, kActive = 4, kFirst = 8 };
+
+struct Lanes {
+  stg::Crowd rank;    // the rounds' rank tables
+  uint32_t* tgt;      // target bucket of the round (chain's bucket)
+  uint32_t* chi;      // carried key, high half
+  uint32_t* clo;      // carried key, low half
+  uint32_t* cfp;      // fp0 of the carried key: what the lane writes
+  uint32_t* rowi;     // staged row index of the decision (or kNone)
+  uint32_t* steps;    // kicks committed so far
+  int32_t* slot;      // decision of the round (-1: none)
+  uint8_t* flags;
+  uint8_t* hist;      // block x rounds: slot | victim's selector << 4
+  uint32_t* hfp;      // block x rounds: victim's stored fingerprint
+  uint32_t* dirty;    // dirty set
+  uint32_t* stash;    // 2 x S: the stash's staged copy
+  uint32_t* freel;    // S: free stash slots in order
+};
+
+// Lay the per-lane region out from ``base`` (null: only count) -> bytes.
+__host__ __device__ inline size_t carve(uint8_t* base, int B, int R, int S,
+                                        Lanes* L) {
+  size_t off = 0;
+  const size_t w = (size_t)B * 4;
+  L->rank = stg::carve_crowd(base, off, B);
+  L->tgt = (uint32_t*)stg::take(base, off, w);
+  L->chi = (uint32_t*)stg::take(base, off, w);
+  L->clo = (uint32_t*)stg::take(base, off, w);
+  L->cfp = (uint32_t*)stg::take(base, off, w);
+  L->rowi = (uint32_t*)stg::take(base, off, w);
+  L->steps = (uint32_t*)stg::take(base, off, w);
+  L->slot = (int32_t*)stg::take(base, off, w);
+  L->flags = stg::take(base, off, B);
+  L->hist = stg::take(base, off, (size_t)B * R);
+  L->hfp = (uint32_t*)stg::take(base, off, (size_t)B * R * 4);
+  L->dirty =
+      (uint32_t*)stg::take(base, off, (size_t)stg::dirty_cap(B, R) * 4);
+  L->stash = (uint32_t*)stg::take(base, off, (size_t)S * 8);
+  L->freel = (uint32_t*)stg::take(base, off, (size_t)S * 4);
+  return off;
+}
+
+struct Args {
   uint32_t* table;
-  uint32_t* sels;  // one packed word per bucket
+  uint32_t* sels;
   uint32_t* khi;
   uint32_t* klo;
   int bsz;
+  uint32_t nb;
+  uint32_t* stash;
+  int S;
+  const uint32_t* hi;
+  const uint32_t* lo;
+  const uint8_t* valid;
+  uint8_t* ok;
+  int n, block, fp_bits, rounds, copy;
+  stg::Plan plan;
+  uint8_t* spill;
 };
 
-struct Lanes {
-  uint32_t* fp;      // key fingerprint (fp0)
-  uint32_t* i2;      // alternate bucket
-  uint32_t* tgt;     // target bucket of the current round
-  uint32_t* val;     // fingerprint the current round writes
-  uint32_t* chi;     // carried key, high half
-  uint32_t* clo;     // carried key, low half
-  uint32_t* bucket;  // eviction chain: current bucket
-  uint32_t* vfp;     // phase B: the victim's original four planes
-  uint32_t* vsel;
-  uint32_t* vhi;
-  uint32_t* vlo;
-  int32_t* slot;     // decision of the current round (-1: none)
-  int32_t* steps;    // kicks committed so far
-  uint8_t* act;      // lanes taking part in the current round
-  uint8_t* placed;   // result of the current round
-  uint8_t* ok;       // lane has landed (table or stash)
-  uint8_t* active;   // eviction residue still carrying a key
-  uint8_t* valid;    // lane is a real key of this block
-};
+struct Block {
+  const Args& A;
+  const stg::Stage& S;
+  const stg::Crowd& C;
+  const Lanes& L;
+  const stg::Dirty& D;
+  uint32_t* n_dirty;  // kicks added to the dirty set in this block
+  int nl;             // lanes of the block
+  int wb;             // its first lane's index in the window arrays
 
-struct History {     // [lane * rounds + step]
-  int32_t* b;
-  int32_t* s;
-  uint32_t* fp;
-  uint32_t* sel;
-  uint32_t* hi;
-  uint32_t* lo;
-};
+  // Slot s of bucket b (staged index idx) takes lane j's carried key:
+  // fp0, selector 0, the key into khi / klo.
+  __device__ void put(int j, uint32_t b, uint32_t idx, int s) const {
+    stg::row_write(S, stg::row_at(S, idx, b), idx, s, L.cfp[j]);
+    ocf::set_sel(A.sels + b, s, 0u);
+    const size_t at = (size_t)b * A.bsz + s;
+    A.khi[at] = L.chi[j];
+    A.klo[at] = L.clo[j];
+  }
 
-__device__ __forceinline__ void write_slot(const Planes& P, uint32_t b, int s,
-                                           uint32_t fp, uint32_t sel,
-                                           uint32_t hi, uint32_t lo) {
-  const size_t at = (size_t)b * P.bsz + s;
-  P.table[at] = fp;
-  P.khi[at] = hi;
-  P.klo[at] = lo;
-  ocf::set_sel(P.sels + b, s, sel);
-}
-
-// One placement attempt: each act lane writes (val, sel 0, chi/clo) into
-// the rank-th empty slot of its tgt bucket, when there is one.
-__device__ void place_round(const Planes& P, const Lanes& L, int nl) {
-  for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-    int slot = -1;
-    if (L.act[i]) {
-      const int r = ocf::rank_among_earlier(i, L.tgt, L.act, nullptr);
-      slot = ocf::nth_slot_equal(P.table + (size_t)L.tgt[i] * P.bsz, P.bsz,
-                                 0u, r);
+  // Walk lane j's chain back from its current (bucket, carried key);
+  // ``undo`` restores each kicked slot's four planes (rollback), else the
+  // slots leave the dirty set (release after landing).  The fingerprint a
+  // kicked slot holds is fp0 of the key the lane carried there, which
+  // gives the bucket one step further back.
+  __device__ void walk_back(int j, bool undo) const {
+    uint32_t b = L.tgt[j], c = L.cfp[j];
+    uint32_t khi = L.chi[j], klo = L.clo[j];  // the victim's key (undo)
+    const size_t h0 = (size_t)j * A.rounds;
+    for (int t = (int)L.steps[j] - 1; t >= 0; --t) {
+      const uint32_t bt = ocf::alt_index(b, c, A.nb);
+      const uint32_t h = L.hist[h0 + t];
+      const int s = (int)(h & 15u);
+      uint32_t idx;
+      uint32_t* row = stg::row_of(S, bt, idx);
+      const uint32_t w = row[s];
+      if (undo) {
+        const size_t at = (size_t)bt * A.bsz + s;
+        const uint32_t whi = __ldcg(A.khi + at), wlo = __ldcg(A.klo + at);
+        stg::row_write(S, row, idx, s, L.hfp[h0 + t]);
+        ocf::set_sel(A.sels + bt, s, h >> 4);
+        A.khi[at] = khi;
+        A.klo[at] = klo;
+        khi = whi;
+        klo = wlo;
+      } else {
+        D.del(bt * (uint32_t)A.bsz + s + 1u);
+      }
+      c = w;
+      b = bt;
     }
-    L.slot[i] = slot;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-    const int slot = L.slot[i];
-    if (slot >= 0) write_slot(P, L.tgt[i], slot, L.val[i], 0u, L.chi[i],
-                              L.clo[i]);
-    L.placed[i] = slot >= 0 ? 1 : 0;
+
+  // One placement attempt for the lanes with ``bit`` set: each writes its
+  // carried key into the rank-th empty slot of its target.  Lanes that
+  // land lose ``bit``; in an eviction round they also release.  The two
+  // optimistic rounds (bit kAct) find their rows' staged indices in
+  // L.rowi; an eviction round (kActive) looks its rows up.
+  //
+  // A lane that misses had rank r >= e, its row's e empty slots, and the
+  // lanes of ranks below e took them all; so among the lanes still
+  // active, its rank is r - e, and it is its bucket's earliest (the one
+  // that kicks in the phase B that follows) exactly when r == e.  It
+  // notes that in kFirst (ranks are exact up to bsz + 1 for it), and with
+  // ``warm`` brings that bucket's khi / klo rows into L2, where the kick
+  // reads its victim's key.
+  __device__ void place_round(uint8_t bit, bool warm) const {
+    stg::rank_round(
+        C, nl, A.bsz + 1u,
+        [&](int j, uint64_t& k) {
+          k = L.tgt[j];
+          return (L.flags[j] & bit) != 0;
+        },
+        [&](int j, uint32_t r) {
+          uint32_t idx = L.rowi[j];
+          if (bit == kActive) {
+            stg::row_of(S, L.tgt[j], idx);
+            L.rowi[j] = idx;
+          }
+          const uint32_t* row = stg::row_at(S, idx, L.tgt[j]);
+          int slot = -1;
+          uint32_t empty = 0;
+          for (int k = 0; k < A.bsz; ++k)
+            if (row[k] == 0u && empty++ == r) slot = k;
+          L.slot[j] = slot >= 0 ? slot : r == empty ? -2 : -1;
+        });
+    __syncthreads();
+    for (int j = threadIdx.x; j < nl; j += blockDim.x) {
+      if (!(L.flags[j] & bit)) continue;
+      stg::crowd_clear(C, j);
+      const int s = L.slot[j];
+      if (s < 0) {
+        if (s == -2) {
+          L.flags[j] |= kFirst;
+          if (warm) {
+            stg::prefetch_l2(A.khi + (size_t)L.tgt[j] * A.bsz);
+            stg::prefetch_l2(A.klo + (size_t)L.tgt[j] * A.bsz);
+          }
+        } else {
+          L.flags[j] &= ~kFirst;
+        }
+        continue;
+      }
+      put(j, L.tgt[j], L.rowi[j], s);
+      L.flags[j] &= ~bit;
+      if (bit == kActive) walk_back(j, false);
+    }
+    __syncthreads();
   }
-  __syncthreads();
-}
 
-__global__ void insert_adaptive_kernel(Planes P, uint32_t n_buckets,
-                                       uint32_t* stash, int stash_slots,
-                                       const uint32_t* hi, const uint32_t* lo,
-                                       const uint8_t* valid, uint8_t* ok_out,
-                                       int n, int block, int fp_bits,
-                                       int rounds, Lanes L, History H,
-                                       uint8_t* dirty) {
-  const int bsz = P.bsz;
-  for (int base = 0; base < n; base += block) {
-    const int nl = min(block, n - base);
+  // Phase B: the earliest active lane of each bucket (kFirst, from the
+  // placement round before) kicks the first slot not in the dirty set,
+  // rotating from steps % bucket_size, and carries the victim's key on to
+  // the alternate of its fp0.  One lane a bucket kicks, so it reads the
+  // victim's planes in the write pass before it writes them.  -> any lane
+  // still active.
+  __device__ int kick_round() const {
+    for (int j = threadIdx.x; j < nl; j += blockDim.x) {
+      if (!(L.flags[j] & kActive)) continue;
+      int slot = -1;
+      if (L.flags[j] & kFirst) {
+        const uint32_t b = L.tgt[j];
+        const int start = (int)(L.steps[j] % (uint32_t)A.bsz);
+        for (int k = 0; k < A.bsz; ++k) {
+          const int pos = (k + start) % A.bsz;
+          if (*n_dirty == 0u || !D.has(b * (uint32_t)A.bsz + pos + 1u)) {
+            slot = pos;
+            break;
+          }
+        }
+        if (slot >= 0) {
+          uint32_t idx;
+          stg::row_of(S, b, idx);
+          L.rowi[j] = idx;
+        }
+      }
+      L.slot[j] = slot;
+    }
+    __syncthreads();
+    int still = 0;
+    for (int j = threadIdx.x; j < nl; j += blockDim.x) {
+      if (!(L.flags[j] & kActive)) continue;
+      still = 1;
+      const int s = L.slot[j];
+      if (s < 0) continue;
+      const uint32_t b = L.tgt[j], idx = L.rowi[j];
+      const size_t at = (size_t)b * A.bsz + s;
+      const uint32_t vfp = stg::row_at(S, idx, b)[s];
+      const uint32_t vsel = ocf::sel_of(__ldcg(A.sels + b), s);
+      const uint32_t vhi = __ldcg(A.khi + at), vlo = __ldcg(A.klo + at);
+      put(j, b, idx, s);
+      D.add(b * (uint32_t)A.bsz + s + 1u);
+      atomicAdd(n_dirty, 1u);
+      const size_t h = (size_t)j * A.rounds + L.steps[j];
+      L.hist[h] = (uint8_t)(s | (vsel << 4));
+      L.hfp[h] = vfp;
+      L.steps[j] += 1;
+      const uint32_t vfp0 = ocf::fingerprint(vhi, vlo, A.fp_bits);
+      L.chi[j] = vhi;
+      L.clo[j] = vlo;
+      L.cfp[j] = vfp0;
+      L.tgt[j] = ocf::alt_index(b, vfp0, A.nb);
+    }
+    return __syncthreads_or(still);
+  }
 
+  __device__ void run(int base) const {
+    for (int j = threadIdx.x; j < nl; j += blockDim.x) {
+      const uint32_t fp = S.wfp[wb + j];
+      L.tgt[j] = S.wi1[wb + j];
+      L.rowi[j] = S.wr1[wb + j];
+      L.chi[j] = A.hi[base + j];
+      L.clo[j] = A.lo[base + j];
+      L.cfp[j] = fp;
+      L.steps[j] = 0;
+      L.flags[j] = fp ? (kValid | kAct) : 0;
+    }
     // Two optimistic rounds: home bucket, then alternate bucket.
-    for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-      const uint32_t h = hi[base + i], l = lo[base + i];
-      const uint32_t fp = ocf::fingerprint(h, l, fp_bits);
-      const uint32_t i1 = ocf::index_hash(h, l, n_buckets);
-      L.fp[i] = fp;
-      L.i2[i] = ocf::alt_index(i1, fp, n_buckets);
-      L.tgt[i] = i1;
-      L.val[i] = fp;
-      L.chi[i] = h;
-      L.clo[i] = l;
-      L.valid[i] = valid[base + i] ? 1 : 0;
-      L.act[i] = L.valid[i];
+    place_round(kAct, false);
+    for (int j = threadIdx.x; j < nl; j += blockDim.x) {
+      L.tgt[j] = S.wi2[wb + j];
+      L.rowi[j] = S.wr2[wb + j];
     }
-    __syncthreads();
-    place_round(P, L, nl);
-    for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-      L.ok[i] = L.placed[i];
-      L.act[i] = L.valid[i] && !L.placed[i];
-      L.tgt[i] = L.i2[i];
-    }
-    __syncthreads();
-    place_round(P, L, nl);
-
-    // The residue carries its own key from the alternate bucket.
+    place_round(kAct, A.rounds > 0);
+    // The residue carries its own key from the alternate bucket, where
+    // the sequential chain starts.
     int any = 0;
-    for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-      L.ok[i] = L.ok[i] || L.placed[i];
-      L.active[i] = L.valid[i] && !L.ok[i];
-      L.bucket[i] = L.i2[i];
-      L.steps[i] = 0;
-      any |= L.active[i];
+    for (int j = threadIdx.x; j < nl; j += blockDim.x) {
+      if (L.flags[j] & kAct) {
+        L.flags[j] |= kActive;
+        any = 1;
+      }
     }
     any = __syncthreads_or(any);
-
-    for (int r = 0; r < rounds && any; ++r) {
-      // Phase A: the carried key's fp0 into an empty slot of its bucket.
-      for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-        L.tgt[i] = L.bucket[i];
-        L.act[i] = L.active[i];
-        L.val[i] = ocf::fingerprint(L.chi[i], L.clo[i], fp_bits);
-      }
-      __syncthreads();
-      place_round(P, L, nl);
-      // A lane that landed never rolls back: release its kicked slots.
-      for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-        if (!L.placed[i]) continue;
-        L.active[i] = 0;
-        L.act[i] = 0;
-        const size_t h0 = (size_t)i * rounds;
-        for (int t = 0; t < L.steps[i]; ++t)
-          dirty[(size_t)H.b[h0 + t] * bsz + H.s[h0 + t]] = 0;
-      }
-      __syncthreads();
-      // Phase B: the earliest active lane of each bucket kicks the first
-      // non-dirty slot, rotating from steps % bucket_size, and reads the
-      // victim's four planes before any write of the round.
-      for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-        int slot = -1;
-        if (L.act[i] &&
-            ocf::rank_among_earlier(i, L.tgt, L.act, nullptr) == 0) {
-          const uint32_t b = L.bucket[i];
-          const size_t row = (size_t)b * bsz;
-          const int start = L.steps[i] % bsz;
-          for (int k = 0; k < bsz; ++k) {
-            const int pos = (k + start) % bsz;
-            if (!dirty[row + pos]) {
-              slot = pos;
-              break;
-            }
-          }
-          if (slot >= 0) {
-            L.vfp[i] = P.table[row + slot];
-            L.vsel[i] = ocf::sel_of(P.sels[b], slot);
-            L.vhi[i] = P.khi[row + slot];
-            L.vlo[i] = P.klo[row + slot];
-          }
-        }
-        L.slot[i] = slot;
-      }
-      __syncthreads();
-      int still = 0;
-      for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-        const int slot = L.slot[i];
-        if (slot >= 0) {
-          const uint32_t b = L.bucket[i];
-          const size_t h = (size_t)i * rounds + L.steps[i];
-          write_slot(P, b, slot, L.val[i], 0u, L.chi[i], L.clo[i]);
-          dirty[(size_t)b * bsz + slot] = 1;
-          H.b[h] = (int32_t)b;
-          H.s[h] = slot;
-          H.fp[h] = L.vfp[i];
-          H.sel[h] = L.vsel[i];
-          H.hi[h] = L.vhi[i];
-          H.lo[h] = L.vlo[i];
-          // Chase the victim: selector-0 geometry from its mirror key.
-          const uint32_t vfp0 = ocf::fingerprint(L.vhi[i], L.vlo[i], fp_bits);
-          L.chi[i] = L.vhi[i];
-          L.clo[i] = L.vlo[i];
-          L.bucket[i] = ocf::alt_index(b, vfp0, n_buckets);
-          L.steps[i] += 1;
-        }
-        still |= L.active[i];
-      }
-      any = __syncthreads_or(still);
+    // Round 0's phase A could place nothing: the alternate round left
+    // every row a missing lane targets full.  So round 0 only kicks.
+    for (int r = 0; r < A.rounds && any; ++r) {
+      if (r > 0) place_round(kActive, true);  // phase A
+      any = kick_round();                     // phase B
     }
-
-    // Stash spill: exhausted lanes, in lane order, park the carried key's
-    // fp0 in the free stash slots, in slot order.
-    if (stash != nullptr) {
-      if (threadIdx.x == 0) {
-        int s = 0;
-        for (int i = 0; i < nl; ++i) {
-          if (!L.active[i]) continue;
-          while (s < stash_slots && stash[s] != 0u) ++s;
-          if (s == stash_slots) break;
-          stash[s] = ocf::fingerprint(L.chi[i], L.clo[i], fp_bits);
-          stash[stash_slots + s] = L.bucket[i];
-          L.active[i] = 0;
-          ++s;
-        }
-      }
+    if (A.stash != nullptr && any) {
+      stg::spill(nl, A.S, L.stash, L.freel, L.flags, kActive, L.cfp, L.tgt);
       __syncthreads();
     }
-
-    // Rollback: lanes still carrying restore the original four planes of
-    // their kicked slots, newest first.
-    for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-      if (L.active[i]) {
-        const size_t h0 = (size_t)i * rounds;
-        for (int t = L.steps[i] - 1; t >= 0; --t)
-          write_slot(P, (uint32_t)H.b[h0 + t], H.s[h0 + t], H.fp[h0 + t],
-                     H.sel[h0 + t], H.hi[h0 + t], H.lo[h0 + t]);
-      } else if (L.valid[i]) {
-        L.ok[i] = 1;
-      }
-      ok_out[base + i] = L.ok[i];
+    // Rollback: lanes still carrying restore their kicks newest first.
+    for (int j = threadIdx.x; j < nl; j += blockDim.x) {
+      const uint8_t f = L.flags[j];
+      if (f & kActive) walk_back(j, true);
+      A.ok[base + j] = (f & kValid) && !(f & kActive);
     }
+    const bool clear = *n_dirty != 0u;
     __syncthreads();
-    // Leave the dirty mask all-zero for the next block.
-    for (int i = threadIdx.x; i < nl; i += blockDim.x) {
-      const size_t h0 = (size_t)i * rounds;
-      for (int t = 0; t < L.steps[i]; ++t)
-        dirty[(size_t)H.b[h0 + t] * bsz + H.s[h0 + t]] = 0;
-    }
+    if (clear)
+      for (int i = threadIdx.x; i < D.cap; i += blockDim.x) D.d[i] = 0u;
+    if (threadIdx.x == 0) *n_dirty = 0u;
     __syncthreads();
   }
+};
+
+// kOnChip: the per-lane region is in shared memory (the compiler then
+// addresses it as such); else in the device-memory buffer ``A.spill``.
+template <bool kOnChip>
+__global__ void __launch_bounds__(stg::kThreads, 1)
+    insert_adaptive_kernel(Args A) {
+  if (blockIdx.x > 0) {
+    stg::warm_l2(A.table, A.bsz, A.hi, A.lo, A.valid, A.n, A.fp_bits, A.nb);
+    return;
+  }
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ uint32_t s_dirty;
+  const stg::Plan& P = A.plan;
+  stg::Stage S;
+  uint8_t* q = stg::carve_stage(S, smem, P, A.table, A.bsz, A.copy);
+  Lanes L;
+  carve(kOnChip ? q : A.spill, A.block, A.rounds, A.S, &L);
+  const stg::Crowd& C = L.rank;
+  const stg::Dirty D{L.dirty, stg::dirty_cap(A.block, A.rounds)};
+
+  for (int i = threadIdx.x; i < 2 * C.cap; i += blockDim.x) C.cnt[i] = 0u;
+  for (int i = threadIdx.x; i < D.cap; i += blockDim.x) D.d[i] = 0u;
+  for (int i = threadIdx.x; i < 2 * A.S; i += blockDim.x)
+    L.stash[i] = A.stash[i];
+  if (threadIdx.x == 0) s_dirty = 0u;
+  __syncthreads();
+
+  for (int w0 = 0; w0 < A.n; w0 += P.window) {
+    const int w1 = min(A.n, w0 + P.window);
+    stg::stage_window(S, w0, w1, A.hi, A.lo, A.valid, A.fp_bits, A.nb);
+    for (int base = w0; base < w1; base += A.block) {
+      const Block blk{A, S, C, L, D, &s_dirty, min(A.block, w1 - base),
+                      base - w0};
+      blk.run(base);
+    }
+    stg::write_back(S, w1 - w0);
+  }
+  for (int i = threadIdx.x; i < 2 * A.S; i += blockDim.x)
+    A.stash[i] = L.stash[i];
+}
+
+stg::Plan plan_for(int n, int block, int bsz, int stash_slots, int rounds) {
+  Lanes L;
+  return stg::make_plan(n, block, bsz,
+                        carve(nullptr, block, rounds, stash_slots, &L));
 }
 
 }  // namespace
 
-// lane_u32: uint32[13, block]; lane_u8: uint8[5, block];
-// hist: int32[6, block * max(evict_rounds, 1)];
-// dirty: uint8[>= buffer_buckets * bucket_size], all zero (left all zero).
+// Bytes of device memory a launch needs for its per-lane region (0 when
+// that region fits in shared memory, as on the main path).
+extern "C" long long ocf_insert_bulk_adaptive_spill_bytes(int bucket_size,
+                                                          int stash_slots,
+                                                          int n, int block,
+                                                          int evict_rounds) {
+  const stg::Plan p =
+      plan_for(n, block, bucket_size, stash_slots, evict_rounds);
+  return p.lane_smem ? 0 : (long long)p.lane_bytes;
+}
+
+// One launch over n keys (a whole number of logical blocks).
 extern "C" int ocf_insert_bulk_adaptive(
     void* table, void* sels, void* khi, void* klo, int bucket_size,
     unsigned int n_buckets, void* stash, int stash_slots, const void* hi,
     const void* lo, const void* valid, void* ok, int n, int block,
-    int fp_bits, int evict_rounds, void* lane_u32, void* lane_u8, void* hist,
-    void* dirty, void* stream) {
-  if (n > 0) {
-    Planes P{(uint32_t*)table, (uint32_t*)sels, (uint32_t*)khi,
-             (uint32_t*)klo, bucket_size};
-    uint32_t* u = (uint32_t*)lane_u32;
-    uint8_t* b = (uint8_t*)lane_u8;
-    const size_t B = (size_t)block;
-    Lanes L;
-    L.fp = u;
-    L.i2 = u + B;
-    L.tgt = u + 2 * B;
-    L.val = u + 3 * B;
-    L.chi = u + 4 * B;
-    L.clo = u + 5 * B;
-    L.bucket = u + 6 * B;
-    L.vfp = u + 7 * B;
-    L.vsel = u + 8 * B;
-    L.vhi = u + 9 * B;
-    L.vlo = u + 10 * B;
-    L.slot = (int32_t*)(u + 11 * B);
-    L.steps = (int32_t*)(u + 12 * B);
-    L.act = b;
-    L.placed = b + B;
-    L.ok = b + 2 * B;
-    L.active = b + 3 * B;
-    L.valid = b + 4 * B;
-    const size_t width = B * (evict_rounds > 0 ? evict_rounds : 1);
-    int32_t* h = (int32_t*)hist;
-    History H{h, h + width, (uint32_t*)(h + 2 * width),
-              (uint32_t*)(h + 3 * width), (uint32_t*)(h + 4 * width),
-              (uint32_t*)(h + 5 * width)};
-    int threads = ((block + 31) / 32) * 32;
-    if (threads > 1024) threads = 1024;
-    insert_adaptive_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-        P, n_buckets, (uint32_t*)stash, stash ? stash_slots : 0,
-        (const uint32_t*)hi, (const uint32_t*)lo, (const uint8_t*)valid,
-        (uint8_t*)ok, n, block, fp_bits, evict_rounds, L, H,
-        (uint8_t*)dirty);
-  }
+    int fp_bits, int evict_rounds, void* spill, void* stream) {
+  if (n <= 0) return 0;
+  Args A;
+  A.table = (uint32_t*)table;
+  A.sels = (uint32_t*)sels;
+  A.khi = (uint32_t*)khi;
+  A.klo = (uint32_t*)klo;
+  A.bsz = bucket_size;
+  A.nb = n_buckets;
+  A.stash = (uint32_t*)stash;
+  A.S = stash ? stash_slots : 0;
+  A.hi = (const uint32_t*)hi;
+  A.lo = (const uint32_t*)lo;
+  A.valid = (const uint8_t*)valid;
+  A.ok = (uint8_t*)ok;
+  A.n = n;
+  A.block = block;
+  A.fp_bits = fp_bits;
+  A.rounds = evict_rounds;
+  A.copy = stg::copy_size(table, bucket_size);
+  A.plan = plan_for(n, block, bucket_size, A.S, evict_rounds);
+  A.spill = (uint8_t*)spill;
+  if (!A.plan.lane_smem && spill == nullptr) return (int)cudaErrorInvalidValue;
+  auto kernel = A.plan.lane_smem ? insert_adaptive_kernel<true>
+                                 : insert_adaptive_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)stg::kSmemMax);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<stg::launch_ctas(n), stg::kThreads, A.plan.smem,
+           (cudaStream_t)stream>>>(A);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,8 @@
 //
 // One spec of the hash family for every kernel: these functions are the
 // uint32 spelling of repro_torch/core/hashing.py (and of the reference's
-// repro/core/hashing.py), bit for bit.  The lane helpers below are the
-// pieces the one-CTA adaptive insert and delete kernels share (the static
-// ones have staged.cuh).
+// repro/core/hashing.py), bit for bit.  The machinery of the staged insert
+// and delete kernels is in staged.cuh.
 //
 // Storage: tables and stashes are int32 tensors holding uint32 bit
 // patterns; the kernels take them as uint32_t pointers.  Bool tensors are
@@ -101,50 +100,14 @@ __host__ __device__ __forceinline__ void fp_family(uint32_t hi, uint32_t lo,
   for (uint32_t s = 0; s < 4u; ++s) fam[s] = fingerprint_sel(hi, lo, s, fp_bits);
 }
 
-// ------------------------------------------------- one-CTA lane helpers --
-//
-// The adaptive insert and delete kernels run ONE thread block that walks
-// the logical blocks of a batch in order (the TPU grid's sequential carry).
-// A logical block may hold more lanes than the CTA has threads, so every
-// per-lane loop strides by blockDim.x.
-
-// #earlier active lanes of the block whose target (and, with a non-null
-// ``key``, whose key as well) equals lane i's: the reference's
-// rank_among_earlier, an O(block) count per lane.
-__device__ __forceinline__ int rank_among_earlier(int i, const uint32_t* tgt,
-                                                  const uint8_t* act,
-                                                  const uint32_t* key) {
-  const uint32_t t = tgt[i];
-  int r = 0;
-  if (key == nullptr) {
-    for (int j = 0; j < i; ++j) r += (act[j] && tgt[j] == t) ? 1 : 0;
-  } else {
-    const uint32_t k = key[i];
-    for (int j = 0; j < i; ++j)
-      r += (act[j] && tgt[j] == t && key[j] == k) ? 1 : 0;
-  }
-  return r;
-}
-
-// Position of the rank-th slot of ``row`` equal to ``value`` (or -1).
-__device__ __forceinline__ int nth_slot_equal(const uint32_t* row,
-                                              int bucket_size,
-                                              uint32_t value, int rank) {
-  int seen = 0;
-  for (int s = 0; s < bucket_size; ++s) {
-    if (row[s] == value) {
-      if (seen == rank) return s;
-      ++seen;
-    }
-  }
-  return -1;
-}
-
-// Set slot s's 2-bit field of a packed selector word.  In one write pass
-// several lanes may set DIFFERENT fields of one word (placements of
-// different ranks, rollbacks of different lanes); the fields are disjoint,
-// so two atomics per field (clear, then set) keep every other field
-// intact in any order, where a plain read-modify-write would lose bits.
+// Set slot s's 2-bit field of a packed selector word (in shared or device
+// memory).  In one write pass several lanes may set DIFFERENT fields of
+// one word (placements of different ranks, rollbacks of different lanes);
+// the fields are disjoint, so two atomics per field (clear, then set) keep
+// every other field intact in any order, where a plain read-modify-write
+// would lose bits.  Their results are unused, so they issue as reductions
+// that no thread waits for (reading the field first to skip them made the
+// staged insert's write passes slower: tools/staged_probe.py).
 __device__ __forceinline__ void set_sel(uint32_t* word, int s, uint32_t v) {
   atomicAnd(word, ~(3u << (2 * s)));
   if (v & 3u) atomicOr(word, (v & 3u) << (2 * s));

@@ -1,6 +1,8 @@
-// Shared machinery of the staged insert and delete kernels (sm_90a).
+// Shared machinery of the staged insert and delete kernels (sm_90a): the
+// static ones (insert.cu, delete.cu) and the adaptive ones over four
+// planes (insert_adaptive.cu, delete_adaptive.cu).
 //
-// Both kernels run ONE CTA that walks the logical blocks of a call in
+// Every kernel runs ONE CTA that walks the logical blocks of a call in
 // order (the TPU grid's sequential carry).  What they share:
 //
 //   * A staging area in shared memory.  A window of whole logical blocks
@@ -14,12 +16,24 @@
 //     fit) is read and written in device memory.  Membership is fixed for
 //     the window, so each row has one authoritative copy, and the staged
 //     rows that were written go back at the end of the window.
+//   * Four planes (the adaptive kernels): the delete, which reads a
+//     selector word for every lane, stages each row's ``bsz``
+//     fingerprints plus, in a parallel array (``sels`` given), its packed
+//     selector word, kept apart so that the fingerprints stay 16-byte
+//     aligned for cp.async; its 2-bit fields are set with shared-memory
+//     atomics (ocf::set_sel).  The insert reads a selector only for a
+//     kicked victim and stages fingerprints alone.  The mirror key planes
+//     khi / klo are never staged: they are read only for a kicked victim
+//     and in rollback, and are written straight through to device memory.
 //   * The launch's other CTAs (one a 256 keys, up to 131) only hash the
-//     call's keys and prefetch their two rows into L2, so that the
-//     staging copies of CTA 0, which does all the work, hit L2.
+//     call's keys and prefetch their two rows (and selector words) into
+//     L2, so that the staging copies of CTA 0, which does all the work,
+//     hit L2.
 //   * The conflict ranks of a round (``rank_round``): two count tables
 //     find the lanes whose key no other lane has (rank 0) with one
 //     barrier; only the rest count their earlier lanes.
+//   * The inserts' dirty set (kicked slots, local to a logical block) and
+//     stash spill.
 //   * The per-call plan: window, capacities, and whether the per-lane
 //     region (lane state, rank tables, kick history, dirty set, stash
 //     copy) fits in shared memory beside the staging area.  It does on
@@ -67,16 +81,18 @@ struct Plan {
 };
 
 // Staged bytes per lane: its hash and row indices (20 bytes), two rows
-// with their bucket and written flag, six map entries (key, 16-bit value)
-// per two rows (load <= 1/3: a warp waits for its longest linear probe,
-// so the tail matters, not the mean).
-inline Plan make_plan(int n, int block, int bsz, size_t lane_bytes) {
+// with their bucket and written flag (and selector word, ``sel_rows``),
+// six map entries (key, 16-bit value) per two rows (load <= 1/3: a warp
+// waits for its longest linear probe, so the tail matters, not the mean).
+inline Plan make_plan(int n, int block, int bsz, size_t lane_bytes,
+                      bool sel_rows = false) {
   Plan p;
   p.lane_bytes = align16(lane_bytes);
   p.lane_smem = p.lane_bytes <= kLaneSmemMax;
   const size_t avail = kSmemMax - (p.lane_smem ? p.lane_bytes : 0) - 64;
   const size_t row_bytes = (size_t)bsz * 4;
-  const size_t per_lane = 20 + 2 * (row_bytes + 5) + 6 * 6;
+  const size_t sel_bytes = sel_rows ? 4 : 0;
+  const size_t per_lane = 20 + 2 * (row_bytes + sel_bytes + 5) + 6 * 6;
   size_t fit = avail / per_lane / (size_t)block * (size_t)block;
   if (fit >= (size_t)block) {
     p.window = (int)(fit < (size_t)n ? fit : (size_t)n);
@@ -88,13 +104,15 @@ inline Plan make_plan(int n, int block, int bsz, size_t lane_bytes) {
     p.window = block;
     const size_t rest = avail - 5 * align16((size_t)block * 4);
     p.cap_m = (int)(rest / 3 / 6);
-    p.row_cap = (int)((rest - (size_t)p.cap_m * 6) / (row_bytes + 5) - 8);
+    p.row_cap = (int)((rest - (size_t)p.cap_m * 6) /
+                      (row_bytes + sel_bytes + 5) - 8);
     if (p.row_cap > 65535) p.row_cap = 65535;
   }
   p.smem = 5 * align16((size_t)p.window * 4) +
            align16((size_t)p.row_cap * row_bytes) + align16(p.row_cap) +
            align16((size_t)p.row_cap * 4) + align16((size_t)p.cap_m * 4) +
            align16((size_t)p.cap_m * 2) +
+           (sel_rows ? align16((size_t)p.row_cap * 4) : 0) +
            (p.lane_smem ? p.lane_bytes : 0);
   return p;
 }
@@ -113,8 +131,10 @@ __device__ __forceinline__ uint32_t slot_of(uint32_t h, int cap) {
 
 struct Stage {
   uint32_t* table;   // device memory, [buffer, bsz]
+  uint32_t* sels;    // device memory, [buffer]: packed selectors (or null)
   int bsz;
   uint32_t* rows;    // shared: row_cap x bsz
+  uint32_t* rsel;    // shared: each staged row's selector word (with sels)
   uint8_t* mod;      // shared: row written since staged
   uint32_t* rb;      // shared: bucket of each staged row
   uint32_t* keys;    // shared: bucket + 1, 0 = empty
@@ -131,9 +151,11 @@ struct Stage {
 // The staging area at the start of dynamic shared memory -> the per-lane
 // region's place there (used when the plan keeps it on chip).
 __device__ inline uint8_t* carve_stage(Stage& S, uint8_t* smem, const Plan& P,
-                                       uint32_t* table, int bsz, int copy) {
+                                       uint32_t* table, int bsz, int copy,
+                                       uint32_t* sels = nullptr) {
   size_t off = 0;
   S.table = table;
+  S.sels = sels;
   S.bsz = bsz;
   S.cap_m = P.cap_m;
   S.row_cap = P.row_cap;
@@ -148,6 +170,7 @@ __device__ inline uint8_t* carve_stage(Stage& S, uint8_t* smem, const Plan& P,
   S.rb = (uint32_t*)take(smem, off, (size_t)P.row_cap * 4);
   S.keys = (uint32_t*)take(smem, off, (size_t)P.cap_m * 4);
   S.vals = (uint16_t*)take(smem, off, (size_t)P.cap_m * 2);
+  S.rsel = sels ? (uint32_t*)take(smem, off, (size_t)P.row_cap * 4) : nullptr;
   return smem + off;
 }
 
@@ -227,6 +250,20 @@ __device__ __forceinline__ void row_write(const Stage& S, uint32_t* row,
   if (idx != kNone) S.mod[idx] = 1;
 }
 
+// Row b's packed selector word, beside the copy that row_at gives.
+__device__ __forceinline__ uint32_t* sel_at(const Stage& S, uint32_t idx,
+                                            uint32_t b) {
+  return idx == kNone ? S.sels + b : S.rsel + idx;
+}
+
+// ... its value.  A word in device memory is read from L2 (ld.global.cg):
+// its fields are set with atomics, which L2 performs, so an L1 line
+// loaded before them would be stale.
+__device__ __forceinline__ uint32_t sel_read(const Stage& S, uint32_t idx,
+                                             uint32_t b) {
+  return idx == kNone ? __ldcg(S.sels + b) : S.rsel[idx];
+}
+
 // Start a window of lanes [w0, w1): hash each lane once into the window
 // arrays, claim the distinct home and alternate rows of the valid lanes
 // (lane w's h-th row, when it claims it, takes staged row 2 w + h: no
@@ -285,6 +322,8 @@ __device__ void stage_window(const Stage& S, int w0, int w1,
           S.table + (size_t)(h ? S.wi2[w] : S.wi1[w]) * S.bsz);
       for (int o = 0; o < S.bsz * 4; o += S.copy)
         cp_async(dst + o, src + o, S.copy);
+      if (S.sels)
+        cp_async(S.rsel + idx, S.sels + (h ? S.wi2[w] : S.wi1[w]), 4);
     }
   }
   cp_async_wait_all();
@@ -305,11 +344,13 @@ __device__ void stage_window(const Stage& S, int w0, int w1,
 }
 
 // CTAs 1.. of the launch: warm L2 with the keys and the home and
-// alternate rows of the call's valid lanes, in lane order, so that CTA 0's
-// staging copies hit L2 instead of device memory.  They write nothing.
+// alternate rows (and selector words, with ``sels``) of the call's valid
+// lanes, in lane order, so that CTA 0's staging copies hit L2 instead of
+// device memory.  They write nothing.
 __device__ void warm_l2(const uint32_t* table, int bsz, const uint32_t* hi,
                         const uint32_t* lo, const uint8_t* valid, int n,
-                        int fp_bits, uint32_t nb) {
+                        int fp_bits, uint32_t nb,
+                        const uint32_t* sels = nullptr) {
   const int stride = (gridDim.x - 1) * blockDim.x;
   for (int i = (blockIdx.x - 1) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
@@ -319,6 +360,10 @@ __device__ void warm_l2(const uint32_t* table, int bsz, const uint32_t* hi,
     const uint32_t b2 = ocf::alt_index(b1, fp, nb);
     prefetch_l2(table + (size_t)b1 * bsz);
     prefetch_l2(table + (size_t)b2 * bsz);
+    if (sels) {
+      prefetch_l2(sels + b1);
+      prefetch_l2(sels + b2);
+    }
   }
 }
 
@@ -340,6 +385,7 @@ __device__ void write_back(const Stage& S, int nw) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
     else
       for (int s = 0; s < S.bsz; ++s) dst[s] = src[s];
+    if (S.sels) S.sels[S.rb[r]] = S.rsel[r];
   }
   __syncthreads();
 }
@@ -439,6 +485,77 @@ __device__ __forceinline__ int nth_equal(const uint32_t* row, int bsz,
   for (int s = 0; s < bsz; ++s)
     if (row[s] == value && seen++ == rank) return s;
   return -1;
+}
+
+// ------------------------------------------- inserts: dirty set, spill --
+//
+// The dirty set holds the kicked slots of a logical block, (bucket *
+// bsz + slot + 1), 0 empty, kFull a tombstone: kicks add to it, a lane
+// that lands releases its chain, and it is cleared when a block that
+// kicked ends.  At most block x rounds kicks a block: capacity 3/2 of it.
+
+__host__ __device__ inline int dirty_cap(int block, int rounds) {
+  return rounds > 0 ? (int)(3 * (long long)block * rounds / 2 + 1) : 1;
+}
+
+struct Dirty {
+  uint32_t* d;
+  int cap;
+  __device__ bool has(uint32_t key) const {
+    uint32_t p = slot_of(ocf::murmur3_mix(key), cap);
+    for (;;) {
+      const uint32_t k = d[p];
+      if (k == key) return true;
+      if (k == 0u) return false;
+      p = p + 1 == (uint32_t)cap ? 0 : p + 1;
+    }
+  }
+  __device__ void add(uint32_t key) const {
+    uint32_t p = slot_of(ocf::murmur3_mix(key), cap);
+    while (atomicCAS(&d[p], 0u, key) != 0u)
+      p = p + 1 == (uint32_t)cap ? 0 : p + 1;
+  }
+  __device__ void del(uint32_t key) const {  // leaves a tombstone
+    uint32_t p = slot_of(ocf::murmur3_mix(key), cap);
+    while (d[p] != key) p = p + 1 == (uint32_t)cap ? 0 : p + 1;
+    d[p] = kFull;
+  }
+};
+
+// Exhausted lanes (``bit`` set in ``flags``), in lane order, take the
+// free slots of the stash's staged copy (2 x S) in slot order (the
+// reference's lane-order prefix sum): lane j parks (fp[j], tgt[j]) and
+// loses ``bit``.  Two ballot scans of one warp (free slots into
+// ``freel``, then lanes); the other warps return at once.
+__device__ void spill(int nl, int S, uint32_t* stash, uint32_t* freel,
+                      uint8_t* flags, uint8_t bit, const uint32_t* fp,
+                      const uint32_t* tgt) {
+  if (threadIdx.x >= 32) return;
+  const int ln = threadIdx.x;
+  const uint32_t lt = lanemask_lt();
+  int nfree = 0;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + ln;
+    const bool f = s < S && stash[s] == 0u;
+    const uint32_t m = __ballot_sync(kFull, f);
+    if (f) freel[nfree + __popc(m & lt)] = s;
+    nfree += __popc(m);
+  }
+  __syncwarp();
+  int taken = 0;
+  for (int j0 = 0; j0 < nl && taken < nfree; j0 += 32) {
+    const int j = j0 + ln;
+    const bool a = j < nl && (flags[j] & bit);
+    const uint32_t m = __ballot_sync(kFull, a);
+    const int k = taken + __popc(m & lt);
+    if (a && k < nfree) {
+      const uint32_t s = freel[k];
+      stash[s] = fp[j];
+      stash[S + s] = tgt[j];
+      flags[j] &= ~bit;
+    }
+    taken += __popc(m);
+  }
 }
 
 }  // namespace stg

@@ -48,10 +48,10 @@ KERNELS = {
                        [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _U, _P]),
     "insert_bulk_adaptive": ("insert_adaptive.cu", "ocf_insert_bulk_adaptive",
                              [_P, _P, _P, _P, _I, _U, _P, _I, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                              _I, _I, _I, _I, _P, _P]),
     "delete_bulk_adaptive": ("delete_adaptive.cu", "ocf_delete_bulk_adaptive",
                              [_P, _P, _P, _P, _I, _U, _P, _P, _P, _P, _I, _I,
-                              _I, _P, _P, _P]),
+                              _I, _P, _P]),
     "probe_multi": ("probe_multi.cu", "ocf_probe_multi",
                     [_P, _I, _U64, _I, _I, _P, _I, _P, _P, _P, _I, _I, _U,
                      _I, _P]),
@@ -64,7 +64,19 @@ KERNELS = {
 SPILL_SIZES = {
     "insert_bulk": ("ocf_insert_bulk_spill_bytes", [_I, _I, _I, _I, _I]),
     "delete_bulk": ("ocf_delete_bulk_spill_bytes", [_I, _I, _I]),
+    "insert_bulk_adaptive": ("ocf_insert_bulk_adaptive_spill_bytes",
+                             [_I, _I, _I, _I, _I]),
+    "delete_bulk_adaptive": ("ocf_delete_bulk_adaptive_spill_bytes",
+                             [_I, _I, _I]),
 }
+# Keys a launch of the adaptive insert and delete takes at most, unless
+# the caller passes another ``split_keys`` to their wrappers: a larger
+# call is split at logical-block boundaries into launches in order (the
+# same result, since the blocks run in order and carry the planes and the
+# stash).  Each launch's L2-warming CTAs prefetch its keys' rows at once:
+# 2^17 keys bring ~9 MB of row and selector sectors into the 50 MB L2, so
+# they are still there when the one working CTA reaches them.
+SPLIT_KEYS = 1 << 17
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -158,6 +170,13 @@ def spill_buffer(name: str, device, *args):
     if nbytes == 0:
         return None
     return torch.empty((nbytes,), dtype=torch.uint8, device=device)
+
+
+def spans(n: int, block: int, split_keys: int = SPLIT_KEYS):
+    """(start, stop) of each launch of a call over ``n`` keys: at most
+    ``split_keys`` keys (at least one block), at block boundaries."""
+    step = max(block, split_keys // block * block)
+    return [(s, min(n, s + step)) for s in range(0, n, step)]
 
 
 def launch(name: str, *args) -> None:

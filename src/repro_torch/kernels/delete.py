@@ -151,7 +151,7 @@ def delete_bulk_adaptive_plain(table, sels, khi, klo, hi, lo, valid, *,
 
 
 def _delete_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
-                          n_buckets, block):
+                          n_buckets, block, split_keys=cuda.SPLIT_KEYS):
     name = "delete_bulk_adaptive"
     cuda.check_cuda(name, table=table, sels=sels, khi=khi, klo=klo, hi=hi,
                     lo=lo, valid=valid)
@@ -160,14 +160,15 @@ def _delete_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
     cuda.check_dtype(name, torch.bool, valid=valid)
     cuda.check_table(name, table, n_buckets, sels=sels, khi=khi, klo=klo)
     n = hi.shape[0]
-    dev = table.device
-    ok = torch.empty((n,), dtype=torch.bool, device=dev)
-    lane_u32 = torch.empty((7, block), dtype=torch.int32, device=dev)
-    lane_u8 = torch.empty((3, block), dtype=torch.uint8, device=dev)
-    cuda.launch(name, table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
-                klo.data_ptr(), table.shape[1], int(n_buckets),
-                hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), ok.data_ptr(),
-                n, block, fp_bits, lane_u32.data_ptr(), lane_u8.data_ptr())
+    ok = torch.empty((n,), dtype=torch.bool, device=table.device)
+    spill = cuda.spill_buffer(name, table.device, table.shape[1],
+                              min(n, split_keys), block)
+    for s, e in cuda.spans(n, block, split_keys):
+        cuda.launch(name, table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
+                    klo.data_ptr(), table.shape[1], int(n_buckets),
+                    hi[s:e].data_ptr(), lo[s:e].data_ptr(),
+                    valid[s:e].data_ptr(), ok[s:e].data_ptr(), e - s, block,
+                    fp_bits, cuda.ptr(spill))
     return ok
 
 
@@ -176,14 +177,17 @@ def delete_bulk_adaptive(table: torch.Tensor, sels: torch.Tensor,
                          hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
                          n_buckets: int | None = None,
                          valid: torch.Tensor | None = None,
-                         block: int = DEFAULT_BLOCK):
+                         block: int = DEFAULT_BLOCK,
+                         split_keys: int = cuda.SPLIT_KEYS):
     """Selector-aware bulk delete, clearing all four planes IN PLACE
     -> (table, sels, khi, klo, ok[N]).
 
     Same contract as ``delete_bulk``; a slot matches under ITS selector, so
     an adapted resident stays deletable by its key.  Stash entries are
     the caller's (``kernels.stash.stash_delete_ref``).  CPU tensors take
-    the plain version; CUDA tensors launch the kernel.
+    the plain version; CUDA tensors launch the kernel, as launches of at
+    most ``split_keys`` keys at logical-block boundaries (the same result:
+    the blocks run in order).
     """
     n = hi.shape[0]
     block = min(block, n) if n else block
@@ -197,7 +201,11 @@ def delete_bulk_adaptive(table: torch.Tensor, sels: torch.Tensor,
     if n == 0:
         return (*planes, torch.zeros((0,), dtype=torch.bool,
                                      device=table.device))
-    run = (delete_bulk_adaptive_plain if table.device.type == "cpu"
-           else _delete_adaptive_cuda)
-    return (*planes, run(table, sels, khi, klo, hi, lo, valid,
-                         fp_bits=fp_bits, n_buckets=n_buckets, block=block))
+    kw = dict(fp_bits=fp_bits, n_buckets=n_buckets, block=block)
+    if table.device.type == "cpu":
+        ok = delete_bulk_adaptive_plain(table, sels, khi, klo, hi, lo, valid,
+                                        **kw)
+    else:
+        ok = _delete_adaptive_cuda(table, sels, khi, klo, hi, lo, valid,
+                                   split_keys=split_keys, **kw)
+    return (*planes, ok)

@@ -242,8 +242,12 @@ def insert_once(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
 # them newest first; a failed lane owns its kicked slots (they stay
 # dirty), so that is exact.  The plain version unpacks the selector plane
 # once per call and packs it back at the end (pack and unpack are
-# inverses); the kernel (``csrc/insert_adaptive.cu``) edits the 2-bit
-# fields of the packed words with atomics.
+# inverses).  The kernel (``csrc/insert_adaptive.cu``, staged like
+# ``insert.cu``) stages only the rows' fingerprints in shared memory; it
+# keeps the selector words and khi / klo in device memory, reads them from
+# L2 for a kicked victim and sets the 2-bit selector fields with global
+# atomics.  (``csrc/delete_adaptive.cu`` stages each row's selector word
+# beside its fingerprints.)
 
 
 def _place_round_adaptive(planes, target, active, fp32, khi32, klo32):
@@ -378,7 +382,8 @@ def insert_bulk_adaptive_plain(table, sels, khi, klo, hi, lo, valid, *,
 
 
 def _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
-                          n_buckets, evict_rounds, stash, block):
+                          n_buckets, evict_rounds, stash, block,
+                          split_keys=cuda.SPLIT_KEYS):
     name = "insert_bulk_adaptive"
     cuda.check_cuda(name, table=table, sels=sels, khi=khi, klo=klo, hi=hi,
                     lo=lo, valid=valid, stash=stash)
@@ -387,21 +392,25 @@ def _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
     cuda.check_dtype(name, torch.bool, valid=valid)
     cuda.check_table(name, table, n_buckets, stash, sels=sels, khi=khi,
                      klo=klo)
+    if table.numel() >= 2**32 - 1:
+        raise ValueError(f"{name}: the kernel keeps a kicked slot's (bucket, "
+                         f"slot) in 32 bits, so fewer than 2^32 - 1 slots; "
+                         f"got {tuple(table.shape)}")
     n = hi.shape[0]
-    dev = table.device
-    ok = torch.empty((n,), dtype=torch.bool, device=dev)
-    lane_u32 = torch.empty((13, block), dtype=torch.int32, device=dev)
-    lane_u8 = torch.empty((5, block), dtype=torch.uint8, device=dev)
-    hist = torch.empty((6, block * max(evict_rounds, 1)), dtype=torch.int32,
-                       device=dev)
-    # The kernel's table-shaped dirty mask (it leaves the mask all zero).
-    dirty = torch.zeros((table.numel(),), dtype=torch.uint8, device=dev)
-    cuda.launch(name, table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
-                klo.data_ptr(), table.shape[1], int(n_buckets),
-                cuda.ptr(stash), 0 if stash is None else stash.shape[1],
-                hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), ok.data_ptr(),
-                n, block, fp_bits, evict_rounds, lane_u32.data_ptr(),
-                lane_u8.data_ptr(), hist.data_ptr(), dirty.data_ptr())
+    slots = 0 if stash is None else stash.shape[1]
+    ok = torch.empty((n,), dtype=torch.bool, device=table.device)
+    # The dirty set and the kick history live in the per-lane region: in
+    # shared memory on the main path (no buffer), else in this buffer,
+    # which the call's launches share in turn.
+    spill = cuda.spill_buffer(name, table.device, table.shape[1], slots,
+                              min(n, split_keys), block, evict_rounds)
+    for s, e in cuda.spans(n, block, split_keys):
+        cuda.launch(name, table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
+                    klo.data_ptr(), table.shape[1], int(n_buckets),
+                    cuda.ptr(stash), slots, hi[s:e].data_ptr(),
+                    lo[s:e].data_ptr(), valid[s:e].data_ptr(),
+                    ok[s:e].data_ptr(), e - s, block, fp_bits, evict_rounds,
+                    cuda.ptr(spill))
     return ok
 
 
@@ -412,14 +421,16 @@ def insert_bulk_adaptive(table: torch.Tensor, sels: torch.Tensor,
                          valid: torch.Tensor | None = None,
                          evict_rounds: int = DEFAULT_EVICT_ROUNDS,
                          stash: torch.Tensor | None = None,
-                         block: int = DEFAULT_BLOCK, schedule: bool = False):
+                         block: int = DEFAULT_BLOCK, schedule: bool = False,
+                         split_keys: int = cuda.SPLIT_KEYS):
     """Selector-aware bulk insert over the four adaptive planes, IN PLACE
     -> (table, sels, khi, klo, ok) or (table, sels, khi, klo, stash, ok).
 
     ``sels``: the packed selector plane int32[buffer, 1]; ``khi``/``klo``:
     mirror key planes of the table's shape.  Otherwise the contract of
     ``insert_bulk``.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel.
+    launch the kernel, as launches of at most ``split_keys`` keys at
+    logical-block boundaries (the same result: the blocks run in order).
     """
     n = hi.shape[0]
     block = min(block, n) if n else block
@@ -439,11 +450,14 @@ def insert_bulk_adaptive(table: torch.Tensor, sels: torch.Tensor,
                                         n_buckets=n_buckets, block=block)
         perm, inv = dispatch_order_from_buckets(i1, valid)
         hi, lo, valid = hi[perm], lo[perm], valid[perm]
-    run = (insert_bulk_adaptive_plain if table.device.type == "cpu"
-           else _insert_adaptive_cuda)
-    ok = run(table, sels, khi, klo, hi, lo, valid, fp_bits=fp_bits,
-             n_buckets=n_buckets, evict_rounds=evict_rounds, stash=stash,
-             block=block)
+    kw = dict(fp_bits=fp_bits, n_buckets=n_buckets,
+              evict_rounds=evict_rounds, stash=stash, block=block)
+    if table.device.type == "cpu":
+        ok = insert_bulk_adaptive_plain(table, sels, khi, klo, hi, lo, valid,
+                                        **kw)
+    else:
+        ok = _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid,
+                                   split_keys=split_keys, **kw)
     if schedule:
         ok = ok[inv]
     return (*planes, ok) if stash is None else (*planes, stash, ok)

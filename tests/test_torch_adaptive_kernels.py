@@ -21,7 +21,9 @@ from repro_torch.kernels.fingerprint import (fingerprint_hash,
 from repro_torch.kernels.insert import insert_bulk, insert_bulk_adaptive
 from repro_torch.kernels.probe import probe, probe_adaptive
 
-from torch_port_util import adaptive_planes, random_keys, split, t32, u32
+from torch_port_util import (ADAPTIVE_STAGING_CASES, adaptive_planes,
+                             adaptive_staging_inputs, random_keys, split,
+                             t32, u32)
 
 pytestmark = pytest.mark.tier1
 
@@ -151,6 +153,42 @@ def test_plain_versions_match_reference(case):
     _planes, d_ok = _delete_both(planes, gone, d_valid, nb=nb, block=block,
                                  fp_bits=fp_bits)
     assert d_ok[:96][d_valid[:96] & in_table[:96]].all()
+
+
+def _adapted_slots(planes):
+    return int((planes[0] != 0).sum()) - _sel0_slots(planes)
+
+
+@pytest.mark.parametrize("label", list(ADAPTIVE_STAGING_CASES))
+def test_staging_cases_match_reference(label):
+    """ADAPTIVE_STAGING_CASES (the shapes that stress the kernels' staged
+    rows, over four planes with adapted and scrambled slots): insert, then
+    delete with repeats and residents, plain versions against the
+    reference, bit for bit (all four planes, the stash, the ok masks)."""
+    c = adaptive_staging_inputs(label)
+    kw = dict(nb=c["n_buckets"], block=c["block"], fp_bits=16)
+    before = _adapted_slots(c["planes"])
+    assert before > 0, "the case needs nonzero selectors"
+    planes, stash, ok = _insert_both(c["planes"], c["stash"], c["keys"],
+                                     c["valid"], rounds=c["rounds"], **kw)
+    assert not ok[c["valid"]].all(), "no insert failed"
+    after = _adapted_slots(planes)
+    planes, d_ok = _delete_both(planes, c["delete"], c["delete_valid"], **kw)
+    assert d_ok.any() and not d_ok.all()
+    if label == "tiny-rollback":
+        # Without a stash every failed chain rolls back and every adapted
+        # slot it kicked comes back; a stash that takes every failed chain
+        # keeps the same kicks, and they reset adapted selectors.
+        assert after == before
+        ports = [t32(p) for p in c["planes"]]
+        big = torch.zeros((2, 1024), dtype=torch.int32)
+        hi, lo = split(c["keys"])
+        insert_bulk_adaptive(*ports, t32(hi), t32(lo), fp_bits=16,
+                             n_buckets=kw["nb"],
+                             valid=torch.from_numpy(c["valid"]),
+                             evict_rounds=c["rounds"], stash=big,
+                             block=kw["block"])
+        assert _adapted_slots([u32(p) for p in ports]) < before
 
 
 def test_family_matches_reference_and_static_hash():

@@ -31,9 +31,11 @@ from repro_torch.models import Transformer
 from repro_torch.serving import engine
 from repro_torch.streaming import GenerationalFilter, GenerationConfig
 
-from torch_port_util import (STAGING_CASES, adaptive_planes, ocf_stream,
-                             port_snapshot, assert_same_state, random_keys,
-                             row_rel_err, split, staging_inputs, t32)
+from torch_port_util import (ADAPTIVE_STAGING_CASES, STAGING_CASES,
+                             adaptive_planes, adaptive_staging_inputs,
+                             ocf_stream, port_snapshot, assert_same_state,
+                             random_keys, row_rel_err, split, staging_inputs,
+                             t32)
 
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
@@ -121,47 +123,94 @@ def test_ocf_on_card_matches_cpu(dev):
                                               "insert_bulk", "delete_bulk"))
 
 
-@pytest.mark.parametrize("block,rounds,slots", [(128, 32, 0), (128, 8, 16),
-                                                (256, 0, 16)])
-def test_adaptive_kernels_match_plain(dev, block, rounds, slots):
+# (block, eviction rounds, stash slots) on a 1000-bucket state at load 0.6.
+LEGACY_ADAPTIVE_CASES = {"block-128": (128, 32, 0),
+                         "block-128-stash": (128, 8, 16),
+                         "block-256-once-stash": (256, 0, 16)}
+
+
+def _adaptive_case(label):
+    if label in ADAPTIVE_STAGING_CASES:
+        return dict(adaptive_staging_inputs(label), fp_bits=16)
+    block, rounds, slots = LEGACY_ADAPTIVE_CASES[label]
     rng = np.random.RandomState(block + rounds + slots)
-    nb, fp_bits = 1000, 12
-    *planes, members = adaptive_planes(rng, nb, 1024, 0.6, fp_bits=fp_bits)
+    *planes, _members = adaptive_planes(rng, 1000, 1024, 0.6, fp_bits=12)
     keys = random_keys(rng, 2048)
-    hi, lo = (t32(x).to(dev) for x in split(keys))
-    valid = torch.from_numpy(rng.rand(2048) < 0.95).to(dev)
+    valid = rng.rand(2048) < 0.95
+    return dict(planes=planes,
+                stash=np.zeros((2, slots), np.uint32) if slots else None,
+                keys=keys, valid=valid, delete=keys, delete_valid=valid,
+                n_buckets=1000, block=block, rounds=rounds, fp_bits=12)
+
+
+def _adaptive_kernels_vs_plain(dev, c, split_keys=cuda.SPLIT_KEYS):
+    """Family hash, insert, probe and delete of case ``c``, kernel against
+    plain version on copies of the same planes -> the insert's launch
+    count."""
+    nb, block, fp_bits = c["n_buckets"], c["block"], c["fp_bits"]
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    valid = torch.from_numpy(c["valid"]).to(dev)
     fam_k = fingerprint_hash_family(hi, lo, fp_bits=fp_bits, n_buckets=nb)
     fam_p = fingerprint_hash_family_plain(hi, lo, fp_bits=fp_bits,
                                           n_buckets=nb)
     for a, b in zip((*fam_k[0], *fam_k[1:]), (*fam_p[0], *fam_p[1:])):
         assert torch.equal(a, b)
-    pk = [t32(p).to(dev) for p in planes]
+    pk = [t32(p).to(dev) for p in c["planes"]]
     pp = [p.clone() for p in pk]
-    sk = (torch.zeros((2, slots), dtype=torch.int32, device=dev)
-          if slots else None)
+    sk = None if c["stash"] is None else t32(c["stash"]).to(dev)
     sp = None if sk is None else sk.clone()
+    cuda.reset_counts()
     ok_k = insert_bulk_adaptive(*pk, hi, lo, fp_bits=fp_bits, n_buckets=nb,
-                                valid=valid, evict_rounds=rounds, stash=sk,
-                                block=block)[-1]
+                                valid=valid, evict_rounds=c["rounds"],
+                                stash=sk, block=block,
+                                split_keys=split_keys)[-1]
+    launches = cuda.LAUNCHES["insert_bulk_adaptive"]
     ok_p = insert_bulk_adaptive_plain(*pp, hi, lo, valid, fp_bits=fp_bits,
-                                      n_buckets=nb, evict_rounds=rounds,
+                                      n_buckets=nb, evict_rounds=c["rounds"],
                                       stash=sp, block=block)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(pk, pp))
     assert torch.equal(ok_k, ok_p) and not ok_k[valid].all()
-    if slots:
+    if sk is not None:
         assert torch.equal(sk, sp)
     assert torch.equal(
         probe_adaptive(pk[0], pk[1], hi, lo, fp_bits=fp_bits, n_buckets=nb,
                        stash=sk),
         probe_adaptive_plain(pp[0], pp[1], hi, lo, fp_bits=fp_bits,
                              n_buckets=nb, stash=sp))
+    hi, lo = (t32(x).to(dev) for x in split(c["delete"]))
+    valid = torch.from_numpy(c["delete_valid"]).to(dev)
     d_k = delete_bulk_adaptive(*pk, hi, lo, fp_bits=fp_bits, n_buckets=nb,
-                               valid=valid, block=block)[-1]
+                               valid=valid, block=block,
+                               split_keys=split_keys)[-1]
     d_p = delete_bulk_adaptive_plain(*pp, hi, lo, valid, fp_bits=fp_bits,
                                      n_buckets=nb, block=block)
+    torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(pk, pp))
     assert torch.equal(d_k, d_p)
+    return launches
+
+
+@pytest.mark.parametrize("label", [*LEGACY_ADAPTIVE_CASES,
+                                   *ADAPTIVE_STAGING_CASES])
+def test_adaptive_kernels_match_plain(dev, label):
+    """The adaptive kernels against their plain versions, bit for bit: the
+    family hash's fingerprints and buckets, all four planes, the stash, the
+    ok masks and the probe's answers.
+    ADAPTIVE_STAGING_CASES stress the insert and delete kernels' staged
+    rows and selector words (tiny shared tables, several windows, blocks
+    1024 and 8192, bucket sizes 2 and 8, adapted and scrambled slots that
+    chains kick and roll back)."""
+    assert _adaptive_kernels_vs_plain(dev, _adaptive_case(label)) == 1
+
+
+def test_adaptive_calls_split_into_launches(dev):
+    """A call longer than ``split_keys`` runs as launches in order at
+    logical-block boundaries, with the one launch's result."""
+    c = _adaptive_case("three-windows")
+    spans = cuda.spans(len(c["keys"]), c["block"], 1000)
+    assert len(spans) == 10 and spans[1] == (896, 1792)
+    assert _adaptive_kernels_vs_plain(dev, c, split_keys=1000) == len(spans)
 
 
 def test_adaptive_membership_on_card_matches_cpu(dev):

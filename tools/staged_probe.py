@@ -12,21 +12,33 @@ It prints the card's name and power limit, then:
      keys, a 64-bit CAS plus an add on a 24-byte-strided hash map, a
      32-bit CAS on a dense array, and plain loads and stores (cycles an
      iteration, barrier included);
-  2. a copy of ``src/repro_torch/csrc/insert.cu`` with its sections timed
-     by ``clock64()`` on thread 0 after a barrier, for one 4096-key call at
-     block 128 on a 2^22-bucket table filled to load 0.3 (seeded): cycles
-     a logical block per section.  Every mark adds a barrier, so the
-     sections add up to more than the uninstrumented kernel takes;
-  3. the uninstrumented kernels (``insert_bulk``, ``delete_bulk``) on the
-     same call: the median of 30 launches by CUDA events, launch included.
+  2. copies of ``src/repro_torch/csrc/insert.cu``,
+     ``insert_adaptive.cu`` and ``delete_adaptive.cu`` with their sections
+     timed by ``clock64()`` on thread 0 after a barrier, for one 4096-key
+     call at block 128 and 32 eviction rounds on 2^22 buckets of 4 (seeded;
+     the static table at load 0.3, the adaptive planes at load 0.5 with one
+     slot in 10^4 on a nonzero selector, the order of the adaptive path's
+     852 adapted slots in ~9M, the deletes of keys the planes hold): cycles
+     a logical block per section.  Every mark adds a
+     barrier, so the sections add up to more than the uninstrumented
+     kernel takes;
+  3. the uninstrumented kernels (``insert_bulk``, ``delete_bulk``,
+     ``insert_bulk_adaptive``, ``delete_bulk_adaptive``) on the same
+     calls: the median of 30 launches by CUDA events, launch included;
+  4. the adaptive path's large calls on planes at load 0.5 plus 3M resident
+     keys (load ~0.68): one 1M-key insert and one delete of the 3M keys,
+     each split into launches of ``cuda.SPLIT_KEYS`` keys (the wrappers'
+     default ``split_keys``) and as one launch, in turns (split, one, one,
+     split), by CUDA events.
 
-Everything is built into ``build/probe/`` (ignored by git).  The copy in
-step 2 is made by inserting timing marks at fixed places of the sources;
+Everything is built into ``build/probe/`` (ignored by git).  The copies in
+step 2 are made by inserting timing marks at fixed places of the sources;
 the script stops if a place is not found.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -100,10 +112,15 @@ int main() {
 MARK = ("#define MARK(i) do { __syncthreads(); if (threadIdx.x == 0) { "
         "long long t_ = clock64(); s_prof[i] += t_ - s_t0; s_t0 = t_; } "
         "} while (0)")
+HEADER = ("__shared__ long long s_prof[24];\n__shared__ long long s_t0;\n" +
+          MARK + '\n#include "staged_probe.cuh"\n'
+          "__device__ unsigned long long g_prof[24];")
+INIT = ("  if (threadIdx.x == 0) { for (int i = 0; i < 24; ++i) s_prof[i] = 0; "
+        "s_t0 = clock64(); }\n")
+SAVE = "  if (threadIdx.x == 0) for (int i = 0; i < 24; ++i) g_prof[i] = s_prof[i];\n"
+# The static insert's marks; insert_adaptive.cu has the same anchors.
 PATCHES = [
-    ("insert.cu", '#include "staged.cuh"',
-     "__shared__ long long s_prof[24];\n__shared__ long long s_t0;\n" + MARK +
-     '\n#include "staged_probe.cuh"\n__device__ unsigned long long g_prof[24];'),
+    ("insert.cu", '#include "staged.cuh"', HEADER),
     ("insert.cu", "    place_round(kAct);\n    for",
      "    MARK(0);\n    place_round(kAct);\n    MARK(1);\n    for"),
     ("insert.cu", "    any = __syncthreads_or(any);\n    for (int r = 0;",
@@ -117,16 +134,14 @@ PATCHES = [
     ("insert.cu", "walk_back(j, false);\n    }\n    __syncthreads();",
      "walk_back(j, false);\n    }\n    MARK(6);"),
     ("insert.cu", "  for (int i = threadIdx.x; i < 2 * C.cap;",
-     "  if (threadIdx.x == 0) { for (int i = 0; i < 24; ++i) s_prof[i] = 0; "
-     "s_t0 = clock64(); }\n  for (int i = threadIdx.x; i < 2 * C.cap;"),
+     INIT + "  for (int i = threadIdx.x; i < 2 * C.cap;"),
     ("insert.cu", "    stg::stage_window(", "    MARK(7);\n    stg::stage_window("),
     ("insert.cu", "    for (int base = w0; base < w1; base += A.block) {",
      "    MARK(8);\n    for (int base = w0; base < w1; base += A.block) {"),
     ("insert.cu", "    stg::write_back(S, w1 - w0);",
      "    MARK(9);\n    stg::write_back(S, w1 - w0);\n    MARK(10);"),
     ("insert.cu", "    A.stash[i] = L.stash[i];\n}",
-     "    A.stash[i] = L.stash[i];\n  if (threadIdx.x == 0) "
-     "for (int i = 0; i < 24; ++i) g_prof[i] = s_prof[i];\n}"),
+     "    A.stash[i] = L.stash[i];\n" + SAVE + "}"),
     ("staged.cuh", "    atomicAdd(&C.cnt[s1], 1u);\n  }\n  __syncthreads();",
      "    atomicAdd(&C.cnt[s1], 1u);\n  }\n  MARK(11);"),
     ("staged.cuh", "    then(j, r);\n  }\n}", "    then(j, r);\n  }\n  MARK(12);\n}"),
@@ -136,6 +151,56 @@ PATCHES = [
      "  MARK(14);\n  // The claimed rows' copies"),
     ("staged.cuh", "  cp_async_wait_all();\n  __syncthreads();\n  // Lanes whose",
      "  MARK(15);\n  cp_async_wait_all();\n  MARK(16);\n  // Lanes whose"),
+]
+# The adaptive insert's: the same places (their text as it stands there),
+# and the kick's decide pass (phase B takes no ranks there).
+TO_ADAPTIVE = [
+    ("place_round(kAct);", "place_round(kAct, false);"),
+    ("A.bsz, 0u, r);", "L.slot[j] = slot >= 0 ? slot : r == empty ? -2 : -1;"),
+    ("any = __syncthreads_or(any);\n    for (int r = 0;",
+     "any = __syncthreads_or(any);\n    // Round 0's"),
+    ("MARK(2);\n    for (int r = 0;", "MARK(2);\n    // Round 0's")]
+
+
+def to_adaptive(text: str) -> str:
+    for old, new in TO_ADAPTIVE:
+        text = text.replace(old, new)
+    return text
+
+
+ADAPTIVE_PATCHES = [(f, to_adaptive(a), to_adaptive(n))
+                    for f, a, n in PATCHES] + [
+    ("insert_adaptive.cu", "    __syncthreads();\n    int still = 0;",
+     "    MARK(17);\n    int still = 0;")]
+# The adaptive delete's marks (clear_round's two barriers are marks 5, 6).
+DELETE_PATCHES = [
+    ("delete_adaptive.cu", '#include "staged.cuh"', HEADER),
+    ("delete_adaptive.cu", "  for (int i = threadIdx.x; i < 2 * C.cap;",
+     INIT + "  for (int i = threadIdx.x; i < 2 * C.cap;"),
+    ("delete_adaptive.cu", "    stg::stage_window(",
+     "    MARK(7);\n    stg::stage_window("),
+    ("delete_adaptive.cu",
+     "    for (int base = w0; base < w1; base += A.block) {",
+     "    MARK(8);\n    for (int base = w0; base < w1; base += A.block) {"),
+    ("delete_adaptive.cu",
+     "      clear_round(A, S, C, L, nl, base, wb);\n      for (int j = "
+     "threadIdx.x; j < nl; j += blockDim.x) {",
+     "      MARK(0);\n      clear_round(A, S, C, L, nl, base, wb);\n      "
+     "MARK(1);\n      for (int j = threadIdx.x; j < nl; j += blockDim.x) {"),
+    ("delete_adaptive.cu",
+     "      clear_round(A, S, C, L, nl, base, wb);\n      for (int j = "
+     "threadIdx.x; j < nl; j += blockDim.x)\n        A.ok[base + j] = "
+     "(L.flags[j] & kOk) ? 1 : 0;\n",
+     "      clear_round(A, S, C, L, nl, base, wb);\n      MARK(2);\n      "
+     "for (int j = threadIdx.x; j < nl; j += blockDim.x)\n        "
+     "A.ok[base + j] = (L.flags[j] & kOk) ? 1 : 0;\n      MARK(3);\n"),
+    ("delete_adaptive.cu", "    L.slot[j] = s;\n  });\n  __syncthreads();",
+     "    L.slot[j] = s;\n  });\n  MARK(5);"),
+    ("delete_adaptive.cu", "    L.flags[j] = kOk;\n  }\n  __syncthreads();",
+     "    L.flags[j] = kOk;\n  }\n  MARK(6);"),
+    ("delete_adaptive.cu", "    stg::write_back(S, w1 - w0);\n  }\n}",
+     "    MARK(9);\n    stg::write_back(S, w1 - w0);\n    MARK(10);\n  }\n"
+     + SAVE + "}"),
 ]
 SECTIONS = [
     "block: lane init", "block: home round", "block: alternate round, "
@@ -147,23 +212,48 @@ SECTIONS = [
     "window: issue copies", "window: wait for copies"]
 
 
-def build_probe(nvcc: list) -> Path:
+ADAPTIVE_SECTIONS = [*SECTIONS, "kick: decide"]
+DELETE_SECTIONS = [
+    "block: lane init", "block: home round",
+    "block: alternate round", "block: ok", "-", "round: decide -> barrier",
+    "round: write pass", *SECTIONS[7:]]
+STAGED = [x for x in PATCHES if x[0] == "staged.cuh"]
+
+
+def build_probe(nvcc: list, src: str, patches: list) -> Path:
+    """A copy of ``src`` (and staged.cuh) with timing marks, built into a
+    library that also exports ``ocf_prof`` (the marks' cycle sums)."""
     OUT.mkdir(parents=True, exist_ok=True)
-    text = {f: (CSRC / f).read_text() for f in ("insert.cu", "staged.cuh")}
-    for f, anchor, new in PATCHES:
+    text = {src: (CSRC / src).read_text(),
+            "staged.cuh": (CSRC / "staged.cuh").read_text()}
+    for f, anchor, new in patches:
+        f = src if f != "staged.cuh" else f
         if anchor not in text[f]:
             raise SystemExit(f"staged_probe: {f} has no {anchor!r}")
         text[f] = text[f].replace(anchor, new, 1)
-    text["insert.cu"] += (
+    stem = src.removesuffix(".cu")
+    text[src] += (
         '\nextern "C" int ocf_prof(unsigned long long* out) {\n'
         "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n}\n")
-    (OUT / "insert_probe.cu").write_text(text["insert.cu"])
+    (OUT / f"{stem}_probe.cu").write_text(text[src])
     (OUT / "staged_probe.cuh").write_text(text["staged.cuh"])
     (OUT / "ocf_common.cuh").write_text((CSRC / "ocf_common.cuh").read_text())
-    lib = OUT / "libinsert_probe.so"
+    lib = OUT / f"lib{stem}_probe.so"
     subprocess.run([*nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(lib),
-                    str(OUT / "insert_probe.cu")], check=True)
+                    str(OUT / f"{stem}_probe.cu")], check=True)
     return lib
+
+
+def report(lib, what: str, sections: list, blocks: int) -> None:
+    """Print the cycle sums of a probed launch, a logical block each."""
+    prof = (ctypes.c_ulonglong * 24)()
+    lib.ocf_prof(prof)
+    print(f"2. {what}: {sum(prof)} cycles, {sum(prof) // blocks} a block",
+          flush=True)
+    for i, name in enumerate(sections):
+        if name != "-":
+            print(f"   {name:34s} {prof[i]:9d} cycles, "
+                  f"{prof[i] / blocks:8.1f} a block", flush=True)
 
 
 def main() -> int:
@@ -174,8 +264,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import hashing
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.delete import delete_bulk
-    from repro_torch.kernels.insert import insert_bulk
+    from repro_torch.kernels.delete import delete_bulk, delete_bulk_adaptive
+    from repro_torch.kernels.insert import insert_bulk, insert_bulk_adaptive
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -196,44 +286,79 @@ def main() -> int:
     table = torch.from_numpy(np.where(
         fill, rng.randint(1, 1 << 16, (nb, 4)), 0).astype(np.int32)).cuda()
 
-    def keys():
-        k = rng.randint(0, 2**63, n, dtype=np.int64).astype(np.uint64)
+    def keys(count=n):
+        k = rng.randint(0, 2**63, count, dtype=np.int64).astype(np.uint64)
         return (torch.from_numpy(x.view(np.int32)).cuda()
                 for x in hashing.key_to_u32_pair_np(k))
 
     hi, lo = keys()
+    dhi, dlo = keys()
     valid = torch.ones(n, dtype=torch.bool, device="cuda")
-    lib = ctypes.CDLL(str(build_probe(nvcc)))
-    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.ocf_insert_bulk.argtypes = [P, I, U, P, I, P, P, P, P, I, I, I, I,
-                                    P, P]
-    lib.ocf_prof.argtypes = [P]
     ok = torch.empty(n, dtype=torch.bool, device="cuda")
-    work = table.clone()
-    err = lib.ocf_insert_bulk(work.data_ptr(), 4, nb, None, 0, hi.data_ptr(),
-                              lo.data_ptr(), valid.data_ptr(), ok.data_ptr(),
-                              n, block, 16, 32, None, None)
-    torch.cuda.synchronize()
-    if err:
-        raise SystemExit(f"staged_probe: launch failed (cudaError {err})")
-    prof = (ctypes.c_ulonglong * 24)()
-    lib.ocf_prof(prof)
     blocks = n // block
-    print(f"2. insert_bulk sections, {n} keys, block {block}, load 0.3: "
-          f"{sum(prof)} cycles, {sum(prof) // blocks} a block", flush=True)
-    for i, name in enumerate(SECTIONS):
-        print(f"   {name:34s} {prof[i]:9d} cycles, "
-              f"{prof[i] / blocks:8.1f} a block", flush=True)
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+
+    # Adaptive planes at load 0.5, one slot in 10^4 adapted.
+    fill = rng.rand(nb, 4) < 0.5
+    sel = np.where(fill & (rng.rand(nb, 4) < 1e-4), rng.randint(1, 4, (nb, 4)),
+                   0).astype(np.uint32)
+    planes = [np.where(fill, rng.randint(1, 1 << 16, (nb, 4)), 0),
+              (sel << np.arange(0, 8, 2, dtype=np.uint32)).sum(
+                  axis=1, keepdims=True, dtype=np.uint32),
+              np.where(fill, rng.randint(-2**31, 2**31, (nb, 4)), 0),
+              np.where(fill, rng.randint(-2**31, 2**31, (nb, 4)), 0)]
+    planes = [torch.from_numpy(np.ascontiguousarray(x).astype(np.uint32)
+                               .view(np.int32)).cuda() for x in planes]
+    a_base = [x.clone() for x in planes]
+    insert_bulk_adaptive(*a_base, dhi, dlo, fp_bits=16, n_buckets=nb,
+                         block=block)
+    a_work = [x.clone() for x in planes]
+
+    def probe(src, patches, symbol, argtypes, args, what, sections):
+        lib = ctypes.CDLL(str(build_probe(nvcc, src, patches)))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        lib.ocf_prof.argtypes = [P]
+        err = fn(*args)
+        torch.cuda.synchronize()
+        if err:
+            raise SystemExit(f"staged_probe: {src} failed to launch "
+                             f"(cudaError {err})")
+        report(lib, what, sections, blocks)
+
+    work = table.clone()
+    probe("insert.cu", PATCHES, "ocf_insert_bulk",
+          [P, I, U, P, I, P, P, P, P, I, I, I, I, P, P],
+          (work.data_ptr(), 4, nb, None, 0, hi.data_ptr(), lo.data_ptr(),
+           valid.data_ptr(), ok.data_ptr(), n, block, 16, 32, None, None),
+          f"insert_bulk sections, {n} keys, block {block}, load 0.3",
+          SECTIONS)
+    ptrs = [x.data_ptr() for x in a_work]
+    probe("insert_adaptive.cu", ADAPTIVE_PATCHES, "ocf_insert_bulk_adaptive",
+          [P, P, P, P, I, U, P, I, P, P, P, P, I, I, I, I, P, P],
+          (*ptrs, 4, nb, None, 0, hi.data_ptr(), lo.data_ptr(),
+           valid.data_ptr(), ok.data_ptr(), n, block, 16, 32, None, None),
+          f"insert_bulk_adaptive sections, {n} keys, block {block}, "
+          f"load 0.5", ADAPTIVE_SECTIONS)
+    for w, b in zip(a_work, a_base):
+        w.copy_(b)
+    probe("delete_adaptive.cu", DELETE_PATCHES + STAGED,
+          "ocf_delete_bulk_adaptive",
+          [P, P, P, P, I, U, P, P, P, P, I, I, I, P, P],
+          (*ptrs, 4, nb, dhi.data_ptr(), dlo.data_ptr(), valid.data_ptr(),
+           ok.data_ptr(), n, block, 16, None, None),
+          f"delete_bulk_adaptive sections, {n} resident keys, block "
+          f"{block}", DELETE_SECTIONS)
 
     # Deletes of keys that the table holds.
     base = table.clone()
-    dhi, dlo = keys()
     insert_bulk(base, dhi, dlo, fp_bits=16, n_buckets=nb, block=block)
 
-    def median_ms(fn, reps=30):
+    def median_ms(fn, pairs, reps=30):
         spans = []
         for _ in range(reps + 3):
-            work.copy_(base)
+            for w, b in pairs:
+                w.copy_(b)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -243,12 +368,45 @@ def main() -> int:
         torch.cuda.synchronize()
         return sorted(a.elapsed_time(b) for a, b in spans[3:])[reps // 2]
 
-    ins = median_ms(lambda: insert_bulk(work, hi, lo, fp_bits=16,
-                                        n_buckets=nb, block=block))
-    dele = median_ms(lambda: delete_bulk(work, dhi, dlo, fp_bits=16,
-                                         n_buckets=nb, block=block))
+    static = [(work, base)]
+    adaptive = list(zip(a_work, a_base))
+    times = {
+        "insert_bulk": median_ms(lambda: insert_bulk(
+            work, hi, lo, fp_bits=16, n_buckets=nb, block=block), static),
+        "delete_bulk": median_ms(lambda: delete_bulk(
+            work, dhi, dlo, fp_bits=16, n_buckets=nb, block=block), static),
+        "insert_bulk_adaptive": median_ms(lambda: insert_bulk_adaptive(
+            *a_work, hi, lo, fp_bits=16, n_buckets=nb, block=block),
+            adaptive),
+        "delete_bulk_adaptive": median_ms(lambda: delete_bulk_adaptive(
+            *a_work, dhi, dlo, fp_bits=16, n_buckets=nb, block=block),
+            adaptive)}
     print(f"3. {n} keys, block {block}, median of 30 launches (CUDA events): "
-          f"insert_bulk {ins!r} ms, delete_bulk {dele!r} ms", flush=True)
+          + ", ".join(f"{k} {v!r} ms" for k, v in times.items()), flush=True)
+
+    big_hi, big_lo = keys(1 << 20)
+    res_hi, res_lo = keys(3 << 20)
+    big = [x.clone() for x in planes]
+    insert_bulk_adaptive(*big, res_hi, res_lo, fp_bits=16, n_buckets=nb,
+                         block=block, stash=torch.zeros(
+                             (2, 128), dtype=torch.int32, device="cuda"))
+    pairs = list(zip(a_work, big))
+    calls = {
+        "insert 1M": lambda k: insert_bulk_adaptive(
+            *a_work, big_hi, big_lo, fp_bits=16, n_buckets=nb, block=block,
+            split_keys=k),
+        "delete 3M": lambda k: delete_bulk_adaptive(
+            *a_work, res_hi, res_lo, fp_bits=16, n_buckets=nb, block=block,
+            split_keys=k)}
+    split = cuda.SPLIT_KEYS
+    for what, fn in calls.items():
+        got = {}
+        for keys_per_launch in (split, 1 << 30, 1 << 30, split):
+            got.setdefault(keys_per_launch, []).append(median_ms(
+                functools.partial(fn, keys_per_launch), pairs, reps=3))
+        print(f"4. adaptive {what}, block {block}: launches of {split} keys "
+              f"{got[split]!r} ms; one launch {got[1 << 30]!r} ms",
+              flush=True)
     return 0
 
 
