@@ -16,7 +16,9 @@ Phases, each timed, each fatal on failure:
      into launches of fewer keys than a call; both tables and their inputs
      come from ``repro_torch.kernels.staging_cases``, as in the tests), and
      ``probe_multi`` over K = 1, 2, 4 of four generation tables
-     int32[4, 2^20, 4] and pools of 65 and 130 slots; and
+     int32[4, 2^20, 4], pools of 65 and 130 slots, and PROBE_MULTI_CASES
+     (full stashes, fingerprints that share a key's 16-bit fold, fp_bits 32
+     and 8, live slots in any order, ragged n, bucket sizes 2 and 8); and
      ``flash_attention`` within a stated tolerance at gemma3-1b's shapes
      (Hq=4, Hkv=1, S=8192, D=256; float32 and bfloat16; window 512 and
      none), small cases of the reference's sweep, a case with Sq > Skv and
@@ -52,7 +54,9 @@ Phases, each timed, each fatal on failure:
      16 requests; launch counts read around it;
   6. time each kernel, its plain version and its bound (and, for flash
      attention, one ``scaled_dot_product_attention`` call as the library's
-     yardstick), and print them as one JSON line.
+     yardstick), and print them as one JSON line; beside them the launch
+     floor (the device time of a one-element add) and, for
+     ``probe_multi``, the timed call's live stash entries.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -108,7 +112,8 @@ KERNEL_ROWS = {
                              "src/repro/kernels/delete.py:245",
                              "serial_cta_loop"),
     "probe_multi": ("src/repro_torch/csrc/probe_multi.cu",
-                    "src/repro/kernels/probe.py:403", "stash_scan"),
+                    "src/repro/kernels/probe.py:403",
+                    "bucket_and_stash_latency"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113",
                         "not measured"),
@@ -715,6 +720,42 @@ class StreamingKernelBench(KernelBench):
             print(f"   probe_multi K={k}: hits of {half} present {hits} "
                   f"(all slots without / with stashes, then slots 0, 63, "
                   f"64, K - 1: generations 0 and 3)", flush=True)
+        self.cases()
+
+    def cases(self) -> None:
+        """PROBE_MULTI_CASES, with and without the stashes: kernel against
+        plain version on the same tables, stashes, live slots and keys."""
+        torch = self.torch
+        from repro_torch.core import hashing
+        from repro_torch.kernels.probe import probe_multi, probe_multi_plain
+        from repro_torch.kernels.staging_cases import (PROBE_MULTI_CASES,
+                                                       probe_multi_inputs)
+
+        def dev32(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.uint32)
+                                    .view(np.int32)).to(self.dev)
+
+        for label in PROBE_MULTI_CASES:
+            c = probe_multi_inputs(label, SEED)
+            tables = dev32(c["tables"])
+            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(c["keys"]))
+            sts = [None] + ([] if c["stashes"] is None
+                            else [dev32(c["stashes"])])
+            for st in sts:
+                kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"],
+                          stashes=st, gens=c["gens"])
+                got = probe_multi(tables, hi, lo, block=c["block"], **kw)
+                want = probe_multi_plain(tables, hi, lo, **kw)
+                self.record("probe_multi", [(got, want)])
+            live = (range(c["tables"].shape[0]) if c["gens"] is None
+                    else c["gens"])
+            entries = (0 if c["stashes"] is None
+                       else int((c["stashes"][list(live), 0] != 0).sum()))
+            print(f"   probe_multi case {label}: K={c['tables'].shape[0]} "
+                  f"live={len(live)} bucket_size={c['tables'].shape[2]} "
+                  f"fp_bits={c['fp_bits']} n={c['keys'].size} live stash "
+                  f"entries={entries} hits={int(got.sum())}: same as the "
+                  f"plain version", flush=True)
 
 
 def row_rel_err(got, want):
@@ -2051,6 +2092,10 @@ def streaming_kernel_times(snap, present: np.ndarray) -> dict:
         compares += 2 * b * (int(pending.sum()) + int(again.sum()))
         pending &= ~(home | alt)
     k = len(gens)
+    entries = sum(int((stashes[g][0] != 0).sum()) for g in gens)
+    print(f"   probe_multi timed call: K={k} live generations, {entries} "
+          f"live stash entries of {k * slots} slots, {int(pending.sum())} "
+          f"of {CHUNK} keys no table answers", flush=True)
     nbytes = CHUNK * (8 + 1) + SECTOR * reads + k * 2 * slots * 4
     ops = CHUNK * HASH_OPS + compares + 3 * k * slots * int(pending.sum())
     rows = {"probe_multi": (
@@ -2298,6 +2343,20 @@ def main() -> int:
         perf.update(streaming_kernel_times(ring, present))
         flash = flash_kernel_times()
         perf["flash_attention"] = flash["global"]
+        # The launch floor: a one-element add's device time, beside the
+        # kernels whose launches take about that long.
+        one = torch.zeros(1, device="cuda")
+        floor = kernel_device_ms(lambda: one.add_(1), 20, None,
+                                 "elementwise_kernel")
+        check(floor is not None, "the profiler trace holds no device time "
+                                 "for a one-element add")
+        print(f"   launch floor (one-element torch add): {floor!r} ms "
+              f"(device)", flush=True)
+        for name in ("fingerprint_hash", "probe", "fingerprint_hash_family",
+                     "probe_adaptive", "probe_multi"):
+            print(f"   {name}: {perf[name]['ms']!r} ms (device), "
+                  f"{perf[name]['ms'] / floor!r} x the launch floor",
+                  flush=True)
         # Phase 4's wall time against its kernels' share: launches there
         # times the device time of one 4096-key launch here.
         for name, op in (("insert_bulk", "insert_s"),

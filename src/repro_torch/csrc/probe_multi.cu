@@ -4,15 +4,30 @@
 // Replaces the TPU kernel repro/kernels/probe.py::probe_multi
 // (_probe_multi_kernel, _probe_multi_stash_kernel).  The TPU version runs
 // a (blocks, K) grid and ORs each generation's whole-table probe into a
-// revisited output block; here one thread per key hashes once and walks
-// the K generations itself, so nothing carries between thread blocks.
+// revisited output block; here a thread hashes its key once and walks the
+// K generations itself, so nothing carries between thread blocks.
 //
 // Bound on the H100: bytes, and those are random.  A key reads 8 B of key
-// and writes 1 B of answer; per generation, in order, it reads its home
-// bucket's 32-byte sector and the alternate bucket's only where the home
-// misses, and stops at the first hit.  The K stashes (a few KB) are staged
-// through shared memory in tiles, each generation's (fp, bucket) rows in
-// turn, and scanned by every key the tables did not answer.
+// and writes 1 B of answer, and per live generation its home and alternate
+// buckets, each in its own 32-byte sector.  The design serves that:
+//
+// * Tables: one memory round trip.  A thread issues the home and the
+//   alternate 16-byte bucket loads of up to kGroup live generations before
+//   it compares any of them, so an absent key waits for one random read,
+//   not 2 K dependent ones.  More live generations are taken kGroup at a
+//   time, skipping the keys already answered.  Bucket sizes other than 4
+//   take a row loop.
+// * Stashes: a prefilter in shared memory.  Each CTA stages the live
+//   stashes once, dropping the empty entries as it goes (warp ballots and
+//   one atomic a warp append the live ones to a compact list), and sets one
+//   bit a staged entry in a 2^16-bit map indexed by the fingerprint's
+//   16-bit fold.  A key the tables did not answer reads its bit; only if
+//   the bit is set is the list walked, by the key's whole warp, comparing
+//   fingerprint and buckets exactly.  So the answer is exact, and most keys
+//   pay one shared load instead of a scan of every stash slot.  The
+//   staging's L2 reads are issued after the bucket loads and overlap them.
+//   A launch admits 64 slots x S entries; more than kList source entries
+//   are staged kList at a time, each pass with a fresh map.
 //
 // The K tables and stashes are the generation ring's pool as it stands:
 // bit g of gen_mask says whether slot g holds a live generation.  The
@@ -24,80 +39,268 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStashTile = 1024;  // entries staged per pass: 8 KB of shared
+// The CTA and keys a thread: 128 x 1 is the fastest on the H100 of the
+// shapes tools/probe_multi_probe.py builds (64, 128, 256 threads x 1, 2).
+constexpr int kThreads = 128;
+constexpr int kKeys = 1;
+static_assert(kThreads >= 64 && kThreads % 32 == 0,
+              "a CTA fills the 64-entry slot table and runs whole warps");
+static_assert(kKeys == 1 || kKeys == 2, "1 or 2 keys a thread");
+// Live generations whose bucket loads a thread has in flight at once.
+constexpr int kGroup = 8 / kKeys;
+constexpr int kList = 1024;         // stash source entries staged a pass
+constexpr int kMapWords = 65536 / 32;
+constexpr int kBatch = 4;           // stash entries a thread loads at once
+// Dynamic shared memory of a launch with stashes: the map, then the
+// compact list's fingerprints and buckets.
+constexpr int kSmemBytes = (kMapWords + 2 * kList) * 4;
 
-__device__ __forceinline__ bool bucket_has(const uint32_t* table,
-                                           int bucket_size, uint32_t b,
-                                           uint32_t fp) {
-  if (bucket_size == 4) {
-    const uint4 v = reinterpret_cast<const uint4*>(table)[b];
-    return v.x == fp || v.y == fp || v.z == fp || v.w == fp;
-  }
-  const uint32_t* row = table + (size_t)b * bucket_size;
+__device__ __forceinline__ uint32_t fold16(uint32_t fp) {
+  return (fp ^ (fp >> 16)) & 0xFFFFu;
+}
+
+__device__ __forceinline__ bool has4(uint4 v, uint32_t fp) {
+  return v.x == fp || v.y == fp || v.z == fp || v.w == fp;
+}
+
+__device__ __forceinline__ bool row_has(const uint32_t* row, int bucket_size,
+                                        uint32_t fp) {
   for (int s = 0; s < bucket_size; ++s)
     if (row[s] == fp) return true;
   return false;
 }
 
-// Slot of the r-th live generation (the r-th set bit of mask).
-__device__ __forceinline__ int nth_gen(unsigned long long mask, int r) {
-  for (int g = 0;; ++g)
-    if (((mask >> g) & 1ull) && r-- == 0) return g;
+// A thread's keys: lane q holds key (block base + q * blockDim + thread).
+struct Keys {
+  uint32_t fp[kKeys], i1[kKeys], i2[kKeys];
+  bool live[kKeys], h[kKeys];
+};
+
+// One group of up to kGroup live generations: their tables and, on the
+// bucket-size-4 path, both buckets of every key, loaded before any compare.
+struct Group {
+  int cnt;
+  const uint32_t* tab[kGroup];
+  uint4 a[kKeys][kGroup], b[kKeys][kGroup];
+};
+
+// Take the next kGroup live slots from ``rest``; with kVec, issue the
+// loads of both buckets of every key still unanswered.
+template <bool kVec>
+__device__ __forceinline__ void issue(Group& gr, unsigned long long& rest,
+                                      const uint32_t* tables, size_t stride,
+                                      const Keys& ks) {
+  gr.cnt = 0;
+#pragma unroll
+  for (int t = 0; t < kGroup; ++t) {
+    if (rest) {
+      gr.tab[t] = tables + (size_t)(__ffsll((long long)rest) - 1) * stride;
+      rest &= rest - 1;
+      gr.cnt = t + 1;
+    }
+  }
+  if (!kVec) return;
+#pragma unroll
+  for (int q = 0; q < kKeys; ++q) {
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) {
+      if (t < gr.cnt && ks.live[q] && !ks.h[q]) {
+        const uint4* rows = reinterpret_cast<const uint4*>(gr.tab[t]);
+        gr.a[q][t] = __ldg(rows + ks.i1[q]);
+        gr.b[q][t] = __ldg(rows + ks.i2[q]);
+      }
+    }
+  }
 }
 
-__global__ void probe_multi_kernel(const uint32_t* __restrict__ tables,
-                                   int k_gens, unsigned long long gen_mask,
-                                   int buffer_buckets,
-                                   int bucket_size,
-                                   const uint32_t* __restrict__ stashes,
-                                   int stash_slots,
-                                   const uint32_t* __restrict__ hi,
-                                   const uint32_t* __restrict__ lo,
-                                   uint8_t* __restrict__ hit, int n,
-                                   int fp_bits, uint32_t n_buckets,
-                                   int accumulate) {
-  __shared__ uint32_t s_fp[kStashTile];
-  __shared__ uint32_t s_bkt[kStashTile];
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = k < n;
-  uint32_t fp = 0, i1 = 0, i2 = 0;
-  bool h = live && accumulate && hit[k] != 0;
-  if (live) {
-    fp = ocf::fingerprint(hi[k], lo[k], fp_bits);
-    i1 = ocf::index_hash(hi[k], lo[k], n_buckets);
-    i2 = ocf::alt_index(i1, fp, n_buckets);
-    const size_t stride = (size_t)buffer_buckets * bucket_size;
-    for (int g = 0; g < k_gens && !h; ++g) {
-      if (!((gen_mask >> g) & 1ull)) continue;
-      const uint32_t* table = tables + g * stride;
-      h = bucket_has(table, bucket_size, i1, fp) ||
-          bucket_has(table, bucket_size, i2, fp);
+template <bool kVec>
+__device__ __forceinline__ void compare(const Group& gr, int bucket_size,
+                                        Keys& ks) {
+#pragma unroll
+  for (int q = 0; q < kKeys; ++q) {
+    if (!ks.live[q] || ks.h[q]) continue;
+    bool h = false;
+#pragma unroll
+    for (int t = 0; t < kGroup; ++t) {
+      if (t >= gr.cnt) break;
+      if (kVec) {
+        h |= has4(gr.a[q][t], ks.fp[q]) | has4(gr.b[q][t], ks.fp[q]);
+      } else if (!h) {
+        h = row_has(gr.tab[t] + (size_t)ks.i1[q] * bucket_size, bucket_size,
+                    ks.fp[q]) ||
+            row_has(gr.tab[t] + (size_t)ks.i2[q] * bucket_size, bucket_size,
+                    ks.fp[q]);
+      }
+    }
+    ks.h[q] = h;
+  }
+}
+
+// Stage source entries [base, end) of the live stashes (entry e is slot
+// e % S of the (e / S)-th live generation, ``slot[e / S]``): append the
+// live ones to the list and set their bits in the map.  The map and count
+// are cleared, and ``slot`` filled, by the caller before a barrier.
+__device__ __forceinline__ void stage(const uint32_t* __restrict__ stashes,
+                                      int stash_slots, const uint8_t* slot,
+                                      int base, int end, uint32_t* map,
+                                      uint32_t* list_fp, uint32_t* list_bkt,
+                                      int* count) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t lt = (1u << lane) - 1u;
+  for (int e0 = base; e0 < end; e0 += kBatch * blockDim.x) {
+    uint32_t f[kBatch], b[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = e0 + i * blockDim.x + threadIdx.x;
+      f[i] = b[i] = 0;
+      if (e < end) {
+        const int r = e / stash_slots;
+        const int j = e - r * stash_slots;
+        const uint32_t* st = stashes + (size_t)slot[r] * 2 * stash_slots;
+        f[i] = __ldg(st + j);
+        b[i] = __ldg(st + stash_slots + j);
+      }
+    }
+    // One atomic a warp and batch reserves the list positions of all its
+    // live entries (an atomic an entry is a chain of kBatch round trips).
+    uint32_t live[kBatch];
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      live[i] = __ballot_sync(~0u, f[i] != 0);
+      total += __popc(live[i]);
+    }
+    int at = 0;
+    if (lane == 0 && total) at = atomicAdd(count, total);
+    at = __shfl_sync(~0u, at, 0);
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (f[i]) {
+        const int p = at + __popc(live[i] & lt);
+        list_fp[p] = f[i];
+        list_bkt[p] = b[i];
+        const uint32_t w = fold16(f[i]);
+        atomicOr(map + (w >> 5), 1u << (w & 31));
+      }
+      at += __popc(live[i]);
     }
   }
-  // The live stashes as one run of L * S entries: entry e is slot e % S
-  // of the (e / S)-th live generation g, whose fp row starts at
-  // stashes + g * 2S and bucket row at + S.  Every thread of the CTA loads
-  // the tiles, so the loop runs to the end even for threads past n.
+}
+
+__device__ __forceinline__ void clear_map(uint32_t* map, int* count) {
+  uint4* m4 = reinterpret_cast<uint4*>(map);
+  for (int i = threadIdx.x; i < kMapWords / 4; i += blockDim.x)
+    m4[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) *count = 0;
+}
+
+// A key the tables did not answer reads its bit in the map; the warp then
+// walks the list for each of its lanes whose bit is set, 32 entries a step
+// (a lane walking alone would be the launch's tail: ~80 cycles an entry).
+__device__ __forceinline__ void probe_list(const uint32_t* map,
+                                           const uint32_t* list_fp,
+                                           const uint32_t* list_bkt,
+                                           int count, Keys& ks) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < kKeys; ++q) {
+    bool want = false;
+    if (ks.live[q] && !ks.h[q]) {
+      const uint32_t w = fold16(ks.fp[q]);
+      want = (map[w >> 5] >> (w & 31)) & 1u;
+    }
+    for (uint32_t walkers = __ballot_sync(~0u, want); walkers;
+         walkers &= walkers - 1) {
+      const int src = __ffs(walkers) - 1;
+      const uint32_t f = __shfl_sync(~0u, ks.fp[q], src);
+      const uint32_t a = __shfl_sync(~0u, ks.i1[q], src);
+      const uint32_t b = __shfl_sync(~0u, ks.i2[q], src);
+      bool m = false;
+#pragma unroll 4
+      for (int s = lane; s < count; s += 32)
+        m |= (list_fp[s] == f) & ((list_bkt[s] == a) | (list_bkt[s] == b));
+      if (__any_sync(~0u, m) && lane == src) ks.h[q] = true;
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    probe_multi_kernel(const uint32_t* __restrict__ tables,
+                       unsigned long long gen_mask, int buffer_buckets,
+                       int bucket_size,
+                       const uint32_t* __restrict__ stashes, int stash_slots,
+                       const uint32_t* __restrict__ hi,
+                       const uint32_t* __restrict__ lo,
+                       uint8_t* __restrict__ hit, int n, int fp_bits,
+                       uint32_t n_buckets, int accumulate) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ uint8_t s_slot[64];
+  __shared__ int s_count;
+  uint32_t* map = smem;
+  uint32_t* list_fp = smem + kMapWords;
+  uint32_t* list_bkt = list_fp + kList;
+
+  Keys ks;
+  const int k0 = blockIdx.x * (kKeys * kThreads) + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < kKeys; ++q) {
+    const int k = k0 + q * kThreads;
+    ks.live[q] = k < n;
+    ks.h[q] = ks.live[q] && accumulate && hit[k] != 0;
+    ks.fp[q] = ks.i1[q] = ks.i2[q] = 0;
+    if (ks.live[q]) {
+      const uint32_t h32 = hi[k], l32 = lo[k];
+      ks.fp[q] = ocf::fingerprint(h32, l32, fp_bits);
+      ks.i1[q] = ocf::index_hash(h32, l32, n_buckets);
+      ks.i2[q] = ocf::alt_index(ks.i1[q], ks.fp[q], n_buckets);
+    }
+  }
+  const size_t stride = (size_t)buffer_buckets * bucket_size;
+  unsigned long long rest = gen_mask;
+  Group gr;
+  issue<kVec>(gr, rest, tables, stride, ks);
+
+  // Stage the first pass of the stashes while the bucket loads are out.
+  // Every thread of the CTA stages, so this runs for threads past n too.
   const int total = __popcll(gen_mask) * stash_slots;
-  for (int base = 0; base < total; base += kStashTile) {
-    const int m = min(kStashTile, total - base);
+  if (total > 0) {
+    clear_map(map, &s_count);
+    if (threadIdx.x < 64 && ((gen_mask >> threadIdx.x) & 1ull))
+      s_slot[__popcll(gen_mask & ((1ull << threadIdx.x) - 1ull))] =
+          (uint8_t)threadIdx.x;
     __syncthreads();
-    for (int s = threadIdx.x; s < m; s += blockDim.x) {
-      const int r = (base + s) / stash_slots;
-      const int j = (base + s) - r * stash_slots;
-      const int g = nth_gen(gen_mask, r);
-      const uint32_t* st = stashes + (size_t)g * 2 * stash_slots;
-      s_fp[s] = st[j];
-      s_bkt[s] = st[stash_slots + j];
-    }
+    stage(stashes, stash_slots, s_slot, 0, min(kList, total), map, list_fp,
+          list_bkt, &s_count);
     __syncthreads();
-    if (live && !h) {
-      for (int s = 0; s < m; ++s)
-        h = h || (s_fp[s] == fp && (s_bkt[s] == i1 || s_bkt[s] == i2));
-    }
   }
-  if (live) hit[k] = h ? 1 : 0;
+
+  compare<kVec>(gr, bucket_size, ks);
+  for (;;) {
+    bool todo = false;
+#pragma unroll
+    for (int q = 0; q < kKeys; ++q) todo |= ks.live[q] && !ks.h[q];
+    if (!rest || !todo) break;
+    issue<kVec>(gr, rest, tables, stride, ks);
+    compare<kVec>(gr, bucket_size, ks);
+  }
+
+  for (int base = 0; base < total; base += kList) {
+    if (base > 0) {
+      __syncthreads();
+      clear_map(map, &s_count);
+      __syncthreads();
+      stage(stashes, stash_slots, s_slot, base, min(base + kList, total), map,
+            list_fp, list_bkt, &s_count);
+      __syncthreads();
+    }
+    const int count = s_count;
+    if (count > 0) probe_list(map, list_fp, list_bkt, count, ks);
+  }
+
+#pragma unroll
+  for (int q = 0; q < kKeys; ++q)
+    if (ks.live[q]) hit[k0 + q * kThreads] = ks.h[q] ? 1 : 0;
 }
 
 }  // namespace
@@ -109,13 +312,24 @@ extern "C" int ocf_probe_multi(const void* tables, int k_gens,
                                const void* hi, const void* lo, void* hit,
                                int n, int fp_bits, unsigned int n_buckets,
                                int accumulate, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    probe_multi_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)tables, k_gens, gen_mask, buffer_buckets, bucket_size,
-        (const uint32_t*)stashes, stashes ? stash_slots : 0,
-        (const uint32_t*)hi, (const uint32_t*)lo, (uint8_t*)hit, n, fp_bits,
-        n_buckets, accumulate);
+  if (n <= 0) return (int)cudaGetLastError();
+  if (k_gens < 64) gen_mask &= (1ull << k_gens) - 1ull;
+  if (!stashes) stash_slots = 0;
+  const int blocks = (n + kKeys * kThreads - 1) / (kKeys * kThreads);
+  const int smem = (gen_mask && stash_slots > 0) ? kSmemBytes : 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bucket_size == 4) {
+    probe_multi_kernel<true><<<blocks, kThreads, smem, st>>>(
+        (const uint32_t*)tables, gen_mask, buffer_buckets, bucket_size,
+        (const uint32_t*)stashes, stash_slots, (const uint32_t*)hi,
+        (const uint32_t*)lo, (uint8_t*)hit, n, fp_bits, n_buckets,
+        accumulate);
+  } else {
+    probe_multi_kernel<false><<<blocks, kThreads, smem, st>>>(
+        (const uint32_t*)tables, gen_mask, buffer_buckets, bucket_size,
+        (const uint32_t*)stashes, stash_slots, (const uint32_t*)hi,
+        (const uint32_t*)lo, (uint8_t*)hit, n, fp_bits, n_buckets,
+        accumulate);
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,13 @@
-"""Seeded inputs that stress the staged filter kernels, as numpy arrays.
+"""Seeded inputs that stress the filter kernels, as numpy arrays.
 
 ``STAGING_CASES`` and ``ADAPTIVE_STAGING_CASES`` name shapes that drive the
 insert and delete kernels (``csrc/insert*.cu``, ``csrc/delete*.cu``)
 through what their shared-memory staging makes hard: tiny tables whose
 rows many blocks share, calls of several windows, blocks whose lane region
 is in device memory, bucket sizes 2 and 8, and (for the four adaptive
-planes) adapted and scrambled slots that chains kick and roll back.  The
+planes) adapted and scrambled slots that chains kick and roll back.
+``PROBE_MULTI_CASES`` do the same for ``csrc/probe_multi.cu``'s stash
+prefilter, its batched bucket loads and its launches of 64 pool slots.  The
 tests hold the kernels against their plain versions on these inputs, and
 so does ``chip_smoke.py`` on the card: one source, so that both see the
 same arrays for a label and seed.
@@ -140,3 +142,104 @@ def adaptive_staging_inputs(label, seed=0):
                 keys=keys, valid=rng.rand(n) < 0.95, delete=delete,
                 delete_valid=np.ones(delete.size, bool), n_buckets=nb,
                 block=block, rounds=rounds)
+
+
+# Inputs that stress probe_multi (``csrc/probe_multi.cu``): its stash
+# prefilter (a compact list of the live entries and a map of their 16-bit
+# fingerprint folds), its bucket loads issued for all live generations at
+# once, and its launches of 64 pool slots: label -> (pool slots, live
+# slots, buffer, active buckets, bucket size, fp_bits, stash slots, keys,
+# table load, stash load, stash mix).  Live slots fewer than the pool are
+# a random subset in random order.  The mix shares the filled stash
+# entries between (exact: a probe key's fingerprint and one of its
+# buckets; same fingerprint, another bucket; another fingerprint of the
+# same 16-bit fold, a right bucket; random).  A quarter of the keys are
+# also planted in a random slot's table, live or not.
+PROBE_MULTI_MIX = (0.25, 0.25, 0.25, 0.25)
+PROBE_MULTI_CASES = {
+    # every live stash full: 512 entries, one staging pass
+    "full-stashes": (4, 4, 4096, 4000, 4, 16, 128, 4096, 0.8, 1.0,
+                     PROBE_MULTI_MIX),
+    # 64 live slots of full stashes: 8192 entries, eight staging passes
+    "full-64-slots": (64, 64, 256, 250, 4, 16, 128, 4096, 0.5, 1.0,
+                      PROBE_MULTI_MIX),
+    # the map's bit set, the exact compare misses
+    "same-fp-other-bucket": (4, 4, 2048, 2000, 4, 16, 64, 4096, 0.8, 0.8,
+                             (0.1, 0.9, 0.0, 0.0)),
+    # 32-bit fingerprints whose folds collide but whose values differ
+    "fp32-folds": (4, 4, 2048, 2000, 4, 32, 128, 4096, 0.8, 0.9,
+                   (0.2, 0.2, 0.5, 0.1)),
+    # 8-bit fingerprints: 512 entries over 255 values, a dense map
+    "fp8-dense": (4, 4, 2048, 2000, 4, 8, 128, 4096, 0.8, 1.0,
+                  PROBE_MULTI_MIX),
+    "all-empty": (4, 4, 2048, 2000, 4, 16, 128, 4096, 0.8, 0.0,
+                  PROBE_MULTI_MIX),
+    "pool-5": (5, 3, 1024, 1000, 4, 16, 32, 4096, 0.7, 0.5,
+               PROBE_MULTI_MIX),
+    "pool-65": (65, 40, 256, 250, 4, 16, 32, 4096, 0.5, 0.5,
+                PROBE_MULTI_MIX),
+    "pool-130": (130, 100, 256, 250, 4, 16, 32, 4096, 0.5, 0.5,
+                 PROBE_MULTI_MIX),
+    "n-1": (3, 3, 1024, 1000, 4, 16, 32, 1, 0.8, 0.5, PROBE_MULTI_MIX),
+    "n-1000": (3, 3, 1024, 1000, 4, 16, 32, 1000, 0.8, 0.5,
+               PROBE_MULTI_MIX),
+    "n-5000": (3, 3, 1024, 1000, 4, 16, 32, 5000, 0.8, 0.5,
+               PROBE_MULTI_MIX),
+    "bucket-2": (4, 4, 2048, 2000, 2, 16, 64, 4096, 0.8, 0.5,
+                 PROBE_MULTI_MIX),
+    "bucket-8": (4, 4, 1024, 1000, 8, 16, 64, 4096, 0.8, 0.5,
+                 PROBE_MULTI_MIX),
+}
+
+
+def probe_multi_inputs(label, seed=0):
+    """numpy inputs of a PROBE_MULTI_CASES case: a dict with the uint32
+    tables [K, buffer, bucket size] and stashes [K, 2, S] (None without
+    stash slots), ``gens`` (the live slots; None when all K are live), the
+    uint64 keys, fp_bits, n_buckets and the block the reference takes
+    (128, or the key count where that is no multiple of it)."""
+    (k, live, buf, nb, bsz, fp_bits, slots, n, load, stash_load,
+     mix) = PROBE_MULTI_CASES[label]
+    rng = np.random.RandomState(seed)
+    top = 1 << fp_bits
+    fill = rng.rand(k, buf, bsz) < load
+    tables = np.where(fill, rng.randint(1, top, size=(k, buf, bsz),
+                                        dtype=np.int64), 0).astype(np.uint32)
+    tables[:, nb:] = 0
+    keys = random_keys(rng, n)
+    hi, lo = hashing.key_to_u32_pair_np(keys)
+    fp = hashing.fingerprint_np(hi, lo, fp_bits)
+    i1 = hashing.index_hash_np(hi, lo, nb)
+    i2 = hashing.alt_index_np(i1, fp, nb)
+    plant = np.nonzero(rng.rand(n) < 0.25)[0]
+    home = rng.rand(plant.size) < 0.5
+    tables[rng.randint(0, k, plant.size),
+           np.where(home, i1[plant], i2[plant]),
+           rng.randint(0, bsz, plant.size)] = fp[plant]
+    stashes = None
+    if slots:
+        stashes = np.zeros((k, 2, slots), np.uint32)
+        used = np.nonzero(rng.rand(k * slots) < stash_load)[0]
+        j = rng.randint(0, n, used.size)
+        kind = rng.choice(4, size=used.size, p=mix)
+        right = np.where(rng.rand(used.size) < 0.5, i1[j], i2[j])
+        other = (i1[j] + 1 + rng.randint(0, max(nb - 2, 1), used.size)) % nb
+        bad = (other == i1[j]) | (other == i2[j])
+        while bad.any():
+            other[bad] = rng.randint(0, nb, int(bad.sum()))
+            bad = (nb > 2) & ((other == i1[j]) | (other == i2[j]))
+        flip = np.uint32(0x10001 if fp_bits > 16 else 1)
+        folded = fp[j] ^ flip
+        folded = np.where(folded == 0, np.uint32(1), folded)
+        e_fp = np.select([kind == 0, kind == 1, kind == 2],
+                         [fp[j], fp[j], folded],
+                         rng.randint(1, top, used.size, dtype=np.int64))
+        e_bkt = np.select([kind == 0, kind == 1, kind == 2],
+                          [right, other, right],
+                          rng.randint(0, nb, used.size))
+        stashes[used // slots, 0, used % slots] = e_fp.astype(np.uint32)
+        stashes[used // slots, 1, used % slots] = e_bkt.astype(np.uint32)
+    gens = None if live == k else rng.permutation(k)[:live].tolist()
+    return dict(tables=tables, stashes=stashes, gens=gens, keys=keys,
+                fp_bits=fp_bits, n_buckets=nb,
+                block=128 if n % 128 == 0 else n)

@@ -27,6 +27,8 @@ from repro_torch.kernels.insert import (insert_bulk, insert_bulk_adaptive,
 from repro_torch.kernels.probe import (probe, probe_adaptive,
                                        probe_adaptive_plain, probe_multi,
                                        probe_multi_plain, probe_plain)
+from repro_torch.kernels.staging_cases import (PROBE_MULTI_CASES,
+                                               probe_multi_inputs)
 from repro_torch.models import Transformer
 from repro_torch.serving import engine
 from repro_torch.streaming import GenerationalFilter, GenerationConfig
@@ -269,6 +271,32 @@ def test_probe_multi_matches_plain(dev, k, slots, nb):
                                  stashes=stashes, gens=gens)
         torch.cuda.synchronize()
         assert torch.equal(got, want), gens
+
+
+@pytest.mark.parametrize("label", PROBE_MULTI_CASES)
+def test_probe_multi_cases_match_plain(dev, label):
+    """PROBE_MULTI_CASES, with and without the stashes: the kernel's stash
+    prefilter (full stashes, several staging passes, entries that share a
+    key's fingerprint or its 16-bit fold but not its buckets, fp_bits 32
+    and 8), its batched bucket loads (bucket sizes 2 and 8, pools of 5, 65
+    and 130 slots with live slots in any order) and n not a multiple of
+    the CTA, against the plain version bit for bit."""
+    c = probe_multi_inputs(label)
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    tables = t32(c["tables"]).to(dev)
+    sts = [None]
+    if c["stashes"] is not None:
+        sts.append(t32(c["stashes"]).to(dev))
+    for st in sts:
+        kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"], stashes=st,
+                  gens=c["gens"])
+        cuda.reset_counts()
+        got = probe_multi(tables, hi, lo, block=c["block"], **kw)
+        assert cuda.LAUNCHES["probe_multi"] >= 1
+        want = probe_multi_plain(tables, hi, lo, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (c["keys"].size,)
+        assert torch.equal(got, want), (label, st is None)
 
 
 @pytest.mark.parametrize("k", [65, 130])

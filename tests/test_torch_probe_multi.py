@@ -15,6 +15,8 @@ from repro.kernels.probe import probe_multi as ref_probe_multi
 from repro_torch.core.filter_ops import FilterOps
 from repro_torch.kernels import cuda, ops
 from repro_torch.kernels.probe import probe_multi
+from repro_torch.kernels.staging_cases import (PROBE_MULTI_CASES,
+                                               probe_multi_inputs)
 
 from torch_port_util import random_keys, split, t32
 
@@ -94,6 +96,33 @@ def test_probe_multi_live_slots_match_emulation(gens):
     prober = FilterOps(fp_bits=16, backend="cuda").fanout_prober(
         t32(tables), t32(stashes), n_buckets=900, gens=gens)
     np.testing.assert_array_equal(prober(t32(hi), t32(lo)).numpy(), want)
+
+
+@pytest.mark.parametrize("label", PROBE_MULTI_CASES)
+def test_probe_multi_cases_match_reference(label):
+    """PROBE_MULTI_CASES (full stashes, entries that share a key's
+    fingerprint or its 16-bit fold but not its buckets, fp_bits 32 and 8,
+    empty stashes, live slots in any order in pools of 5, 65 and 130, n of
+    1, 1000 and 5000, bucket sizes 2 and 8): the port on the CPU against
+    the reference's emulation over the live generations stacked."""
+    c = probe_multi_inputs(label)
+    tables, stashes, gens = c["tables"], c["stashes"], c["gens"]
+    hi, lo = split(c["keys"])
+    kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"],
+              block=c["block"])
+    got = probe_multi(t32(tables), t32(hi), t32(lo),
+                      stashes=None if stashes is None else t32(stashes),
+                      gens=gens, **kw)
+    if gens is not None:
+        tables = tables[gens]
+        stashes = None if stashes is None else stashes[gens]
+    want = np.asarray(ref_probe_multi(
+        jnp.asarray(tables), jnp.asarray(hi), jnp.asarray(lo),
+        stashes=None if stashes is None else jnp.asarray(stashes),
+        emulate=True, **kw))
+    assert got.shape == (c["keys"].size,) and got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < want.size or want.size == 1
 
 
 def test_probe_multi_heavy_contention_matches_interpreter():
