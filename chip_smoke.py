@@ -13,7 +13,11 @@ Phases, each timed, each fatal on failure:
      STAGING_CASES, which stress their rows staged in shared memory), the
      four adaptive ones on a four-plane state with nonzero selectors
      (insert and delete also on ADAPTIVE_STAGING_CASES, and once split
-     into launches of fewer keys than a call; both tables and their inputs
+     into launches of fewer keys than a call; probe_adaptive also on
+     PROBE_ADAPTIVE_CASES: full, empty and multi-pass stashes, entries
+     that share a key's fingerprint or fold but not its buckets, fp_bits
+     32 and 8, slots holding a family fingerprint under another selector,
+     bucket sizes 1, 2 and 8, 1 to 1.1M keys; the tables and their inputs
      come from ``repro_torch.kernels.staging_cases``, as in the tests), and
      ``probe_multi`` over K = 1, 2, 4 of four generation tables
      int32[4, 2^20, 4], pools of 65 and 130 slots, and PROBE_MULTI_CASES
@@ -55,8 +59,12 @@ Phases, each timed, each fatal on failure:
   6. time each kernel, its plain version and its bound (and, for flash
      attention, one ``scaled_dot_product_attention`` call as the library's
      yardstick), and print them as one JSON line; beside them the launch
-     floor (the device time of a one-element add) and, for
-     ``probe_multi``, the timed call's live stash entries.
+     floor (the device time of a one-element add), for ``probe_multi``
+     the timed call's live stash entries, and ``probe_adaptive`` at the
+     adaptive path's launch size too (its 10M benign keys with its stash,
+     the same with 128 live stash entries, its remaining members; each
+     held against the plain version bit for bit first, then timed by CUDA
+     events with L2 flushed before each launch).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -104,7 +112,8 @@ KERNEL_ROWS = {
                                 "src/repro/kernels/fingerprint.py:119",
                                 "not measured"),
     "probe_adaptive": ("src/repro_torch/csrc/probe_adaptive.cu",
-                       "src/repro/kernels/probe.py:264", "not measured"),
+                       "src/repro/kernels/probe.py:264",
+                       "random_sector_fetches"),
     "insert_bulk_adaptive": ("src/repro_torch/csrc/insert_adaptive.cu",
                              "src/repro/kernels/insert.py:929",
                              "serial_cta_loop"),
@@ -553,6 +562,7 @@ class AdaptiveKernelBench(KernelBench):
               f"of {CHUNK} (duplicates past the resident copy miss)",
               flush=True)
         self.staging()
+        self.cases()
 
     def staging(self) -> None:
         """ADAPTIVE_STAGING_CASES: insert, then delete (with repeats and
@@ -625,6 +635,39 @@ class AdaptiveKernelBench(KernelBench):
         check(n_launch == 4, f"a split call made {n_launch} launches, not 4")
         print(f"   adaptive staging tiny-table split into {n_launch} "
               f"launches: same as the plain version", flush=True)
+
+    def cases(self) -> None:
+        """PROBE_ADAPTIVE_CASES, with and without the stash: kernel against
+        plain version on the same planes, stash and keys."""
+        torch = self.torch
+        from repro_torch.core import hashing
+        from repro_torch.kernels.probe import (probe_adaptive,
+                                               probe_adaptive_plain)
+        from repro_torch.kernels.staging_cases import (
+            PROBE_ADAPTIVE_CASES, probe_adaptive_inputs)
+
+        def dev32(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.uint32)
+                                    .view(np.int32)).to(self.dev)
+
+        for label in PROBE_ADAPTIVE_CASES:
+            c = probe_adaptive_inputs(label, SEED)
+            table, sels = dev32(c["table"]), dev32(c["sels"])
+            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(c["keys"]))
+            hits = []
+            for st in (None, dev32(c["stash"])):
+                kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"],
+                          stash=st)
+                got = probe_adaptive(table, sels, hi, lo, block=c["block"],
+                                     **kw)
+                want = probe_adaptive_plain(table, sels, hi, lo, **kw)
+                self.record("probe_adaptive", [(got, want)])
+                hits.append(int(got.sum()))
+            print(f"   probe_adaptive case {label}: bucket_size="
+                  f"{c['table'].shape[1]} fp_bits={c['fp_bits']} n="
+                  f"{c['keys'].size} stash slots={c['stash'].shape[1]} live="
+                  f"{int((c['stash'][0] != 0).sum())} hits without / with "
+                  f"the stash={hits}: same as the plain version", flush=True)
 
 
 class StreamingKernelBench(KernelBench):
@@ -1327,7 +1370,7 @@ def adaptive_path(card: str, *, n_buckets=1 << 22, bursts=12,
           f"{fp_rounds[0][0]} false positives")
     return m, remaining, launches, plain, {
         "load": load, "fp_rounds": fp_rounds, "times": times,
-        "device_s": device_s}
+        "device_s": device_s, "benign": benign}
 
 
 # --------------------------------------------- phase 5b: the streaming path --
@@ -1895,15 +1938,19 @@ def sectors_of(index, per_sector: int) -> int:
 
 
 def adaptive_work(before, after, hi, lo, valid, nb, *, lane_bytes: int,
-                  second, reads_sels: bool, key_ops: int, slot_ops: int):
+                  second, sel_rows: str, key_ops: int, slot_ops: int):
     """(bytes, ops) of one call on the four adaptive planes, for this run's
-    data: keys and masks once; the home bucket's table sector (and, where
-    the kernel reads it, its selector-word sector) of every valid lane; the
-    alternate's for the lanes ``second(i1)`` says the home cannot answer;
-    every changed sector of each of the four planes, written once.
-    Distinct sectors are counted once."""
+    data: keys and masks once; the home bucket's table sector of every
+    valid lane and the alternate's for the lanes ``second(i1)`` says the
+    home cannot answer; the selector-word sectors of those rows that the
+    call must read (``sel_rows``: "none"; "all"; "matching", only the rows
+    in which some slot holds one of the key's four family fingerprints,
+    the least an exact lookup reads, since no other row can hit whatever
+    its selectors); every changed sector of each of the four planes,
+    written once.  Distinct sectors are counted once."""
     import torch
     from repro_torch.core import hashing
+    from repro_torch.kernels.selector import fp_family
     fp = hashing.fingerprint(hi, lo, 16)
     i1 = hashing.index_hash(hi, lo, nb)
     i2 = hashing.alt_index(i1, fp, nb)
@@ -1911,8 +1958,20 @@ def adaptive_work(before, after, hi, lo, valid, nb, *, lane_bytes: int,
     looked = torch.cat([i1[valid], i2[again]])
     bucket_row = SECTOR // (4 * before[0].shape[1])      # buckets / sector
     reads = sectors_of(looked, bucket_row)
-    if reads_sels:
+    if sel_rows == "all":
         reads += sectors_of(looked, SECTOR // 4)
+    elif sel_rows == "matching":
+        fam = [hashing.to_i32(f) for f in fp_family(hi, lo, 16)]
+
+        def matching(rows, lanes):
+            row = before[0][rows[lanes]]
+            hit = torch.zeros(row.shape[0], dtype=torch.bool,
+                              device=row.device)
+            for f in fam:
+                hit |= (row == f[lanes][:, None]).any(dim=1)
+            return rows[lanes][hit]
+        reads += sectors_of(torch.cat([matching(i1, valid),
+                                       matching(i2, again)]), SECTOR // 4)
     writes = 0
     for plane, old, new in zip(("table", "sels", "khi", "klo"), before,
                                after):
@@ -1946,6 +2005,7 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
     st = m.filt.state
     nb, dev = st.n_buckets, st.table.device
     base = [st.table, st.sels, st.khi, st.klo]
+    stash = m.filt.stash
     work = [p.clone() for p in base]
     rng = np.random.RandomState(SEED + 5)
 
@@ -1998,9 +2058,17 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
     def delete_second(i1):
         return rank_among_earlier(i1, valid, del_fp0) >= del_home
 
-    def probe_k():
+    # The path's lookups always pass its stash (128 slots, empty there).
+    def probe_k(st=stash):
         return probe_adaptive(base[0], base[1], look_hi, look_lo, fp_bits=16,
-                              n_buckets=nb, block=pblock)
+                              n_buckets=nb, stash=st, block=pblock)
+
+    def probe_work(sel_rows):
+        nbytes, ops = adaptive_work(base, base, look_hi, look_lo, valid, nb,
+                                    lane_bytes=8 + 1, second=probe_second,
+                                    sel_rows=sel_rows, key_ops=FAMILY_OPS,
+                                    slot_ops=3)
+        return nbytes + stash.numel() * 4, ops
 
     def insert_k():
         return insert_bulk_adaptive(*work, new_hi, new_lo, fp_bits=16,
@@ -2022,12 +2090,9 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
         "probe_adaptive": (
             probe_k,
             lambda: probe_adaptive_plain(base[0], base[1], look_hi, look_lo,
-                                         fp_bits=16, n_buckets=nb),
-            None, adaptive_work(base, base, look_hi, look_lo, valid, nb,
-                                lane_bytes=8 + 1, second=probe_second,
-                                reads_sels=True, key_ops=FAMILY_OPS,
-                                slot_ops=3),
-            "probe_adaptive_kernel"),
+                                         fp_bits=16, n_buckets=nb,
+                                         stash=stash),
+            None, probe_work("matching"), "probe_adaptive_kernel"),
         "insert_bulk_adaptive": (
             insert_k,
             lambda: insert_bulk_adaptive_plain(
@@ -2035,7 +2100,7 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
                 evict_rounds=rounds, stash=None, block=iblock),
             restore, adaptive_work(base, after(insert_k), new_hi, new_lo,
                                    valid, nb, lane_bytes=8 + 1 + 1,
-                                   second=insert_second, reads_sels=False,
+                                   second=insert_second, sel_rows="none",
                                    key_ops=HASH_OPS, slot_ops=2),
             "insert_adaptive_kernel"),
         "delete_bulk_adaptive": (
@@ -2045,11 +2110,141 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
                 block=dblock),
             restore, adaptive_work(base, after(delete_k), del_hi, del_lo,
                                    valid, nb, lane_bytes=8 + 1 + 1,
-                                   second=delete_second, reads_sels=True,
+                                   second=delete_second, sel_rows="all",
                                    key_ops=FAMILY_OPS, slot_ops=3),
             "delete_adaptive_kernel"),
     }
-    return time_rows(rows)
+    out = time_rows(rows)
+    old_bytes, old_ops = probe_work("all")
+    print(f"   probe_adaptive bound, a selector sector for every row looked "
+          f"at (the earlier count): {least_ms(old_bytes, old_ops)[0]!r} ms "
+          f"({old_bytes} B)", flush=True)
+    ms = kernel_device_ms(lambda: probe_k(None), 20, None,
+                          "probe_adaptive_kernel")
+    print(f"   probe_adaptive, {CHUNK} keys without a stash: {ms!r} ms "
+          f"(device)", flush=True)
+    out["probe_adaptive"]["no_stash_ms"] = ms
+    return out
+
+
+def flushed_event_ms(fn, reps: int, flush) -> float | None:
+    """Mean device ms of ``fn``'s launches by CUDA events around each, with
+    ``flush`` (a write larger than the L2) before each.  A spin kernel
+    enqueued first keeps the device behind the host, so no host time falls
+    inside a span; None when the host took longer to enqueue the launches
+    than the spin lasted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s0.record()
+    torch.cuda._sleep(400_000_000)      # ~0.2 s at the H100's clocks
+    s1.record()
+    t0 = time.perf_counter()
+    spans = []
+    for _ in range(reps):
+        flush()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        spans.append((a, b))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms >= s0.elapsed_time(s1):
+        print(f"   the host took {host_ms!r} ms to enqueue, longer than the "
+              f"spin: the spans may hold host time", flush=True)
+        return None
+    return sum(a.elapsed_time(b) for a, b in spans) / reps
+
+
+def probe_adaptive_path_times(m, remaining: np.ndarray,
+                              benign: np.ndarray) -> dict:
+    """probe_adaptive at the launch size of the adaptive path's lookups, on
+    its final state with its stash: the 10M benign keys (the path's stash,
+    empty there; then a copy with all 128 slots live) and the remaining
+    members.  Each launch is first held against the plain version on the
+    same inputs, bit for bit (fatal), outside the timed spans.  Device ms
+    by CUDA events with L2 flushed before each launch (and by the profiler
+    beside them), with the bound of each launch's data; a reading under
+    its bound is a wrong timing, printed as such and not kept."""
+    import torch
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.probe import probe_adaptive, probe_adaptive_plain
+    from repro_torch.kernels.selector import fp_family, sel_unpack, select_fp
+
+    st = m.filt.state
+    nb, dev = st.n_buckets, st.table.device
+    table, sels, stash = st.table, st.sels, m.filt.stash
+    planted = stash.clone()
+    rng = np.random.RandomState(SEED + 11)
+    slots = stash.shape[1]
+    planted[0] = torch.from_numpy(rng.randint(1, 1 << 16, slots)
+                                  .astype(np.int32)).to(dev)
+    planted[1] = torch.from_numpy(rng.randint(0, nb, slots)
+                                  .astype(np.int32)).to(dev)
+    flush_buf = torch.empty(1 << 25, dtype=torch.int32, device=dev)  # 128 MB
+
+    def pair(keys):
+        hi, lo = hashing.key_to_u32_pair_np(keys)
+        return (torch.from_numpy(hi.view(np.int32)).to(dev),
+                torch.from_numpy(lo.view(np.int32)).to(dev))
+
+    out = {}
+    for label, keys, st_ in (("benign", benign, stash),
+                             ("benign, 128 live stash entries", benign,
+                              planted),
+                             ("members", remaining, stash)):
+        # Padded to the logical block, as the path's lookups pad them.
+        block = min(kops.autotune_block(
+            "probe", table_bytes=kops._adaptive_plane_bytes(table),
+            stash_slots=slots), keys.size)
+        hi, lo = (kops._pad_to(x, block)[0] for x in pair(keys))
+        valid = torch.ones(hi.numel(), dtype=torch.bool, device=dev)
+        i1 = hashing.index_hash(hi, lo, nb)
+        exp = hashing.to_i32(select_fp(fp_family(hi, lo, 16),
+                                       sel_unpack(sels[i1], 4)))
+        home_miss = ~(table[i1] == exp).any(dim=1)
+        del exp
+        bounds = {}
+        for sel_rows in ("all", "matching"):
+            nbytes, ops = adaptive_work(
+                [table], [table], hi, lo, valid, nb, lane_bytes=8 + 1,
+                second=lambda _i1: home_miss, sel_rows=sel_rows,
+                key_ops=FAMILY_OPS, slot_ops=3)
+            bounds[sel_rows] = least_ms(nbytes + st_.numel() * 4, ops)
+
+        def call(hi=hi, lo=lo, st_=st_, block=block):
+            return probe_adaptive(table, sels, hi, lo, fp_bits=16,
+                                  n_buckets=nb, stash=st_, block=block)
+        got = call()
+        want = probe_adaptive_plain(table, sels, hi, lo, fp_bits=16,
+                                    n_buckets=nb, stash=st_)
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"probe_adaptive at the path's size, {label}: kernel differs "
+              f"from its plain version ({int((got != want).sum())} keys)")
+        n_hits = int(got.sum())
+        del got, want
+        ms = flushed_event_ms(call, 20, flush_buf.zero_)
+        prof = kernel_device_ms(call, 10, flush_buf.zero_,
+                                "probe_adaptive_kernel")
+        bound, by = bounds["matching"]
+        print(f"   probe_adaptive at the path's size, {label}: "
+              f"{hi.numel()} keys, {int(home_miss.sum())} home misses, "
+              f"{n_hits} hits, same as the plain version, {ms!r} ms "
+              f"(device, CUDA events, L2 flushed), profiler {prof!r} ms, "
+              f"bound {bound!r} ms ({by}; with a selector "
+              f"sector for every row looked at: {bounds['all'][0]!r} ms)",
+              flush=True)
+        if ms is not None and ms < bound:
+            print(f"   probe_adaptive {label}: {ms!r} ms is under its bound "
+                  f"{bound!r} ms: the timing is wrong, not kept", flush=True)
+            ms = None
+        out[label] = {"keys": hi.numel(), "ms": ms, "bound_ms": bound,
+                      "profiler_ms": prof}
+        del hi, lo, valid, i1, home_miss
+    return out
 
 
 def streaming_kernel_times(snap, present: np.ndarray) -> dict:
@@ -2213,8 +2408,9 @@ def ptxas_summary(log: str) -> list[str]:
                 pos += len(k.group()) + int(k.group())
                 ident = name[pos - int(k.group()):pos]
             if ident:
-                t = re.match(r"ILi(\d+)E", name[pos:])
-                name = ident + (f"<{t.group(1)}>" if t else "")
+                t = re.match(r"I((?:L[a-z]+\d+E)+)E", name[pos:])
+                args = re.findall(r"L[a-z]+(\d+)E", t.group(1)) if t else []
+                name = ident + (f"<{','.join(args)}>" if args else "")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -2316,7 +2512,8 @@ def main() -> int:
         launches.update({k: counts.get(k, 0) for k in STATIC_KERNELS})
 
     with phase("adaptive path at full size"):
-        m, remaining, counts, plain["adaptive"], _stats = adaptive_path(card)
+        m, remaining, counts, plain["adaptive"], adaptive_stats = \
+            adaptive_path(card)
         launches.update({k: counts.get(k, 0) for k in ADAPTIVE_KERNELS})
 
     with phase("streaming path at full size"):
@@ -2340,6 +2537,11 @@ def main() -> int:
     with phase("kernel times"):
         perf = kernel_times(ocf, resident)
         perf.update(adaptive_kernel_times(m, remaining))
+        path = probe_adaptive_path_times(m, remaining,
+                                         adaptive_stats.pop("benign"))
+        perf["probe_adaptive"].update(
+            path_keys=path["benign"]["keys"], path_ms=path["benign"]["ms"],
+            path_bound_ms=path["benign"]["bound_ms"])
         perf.update(streaming_kernel_times(ring, present))
         flash = flash_kernel_times()
         perf["flash_attention"] = flash["global"]
@@ -2357,6 +2559,10 @@ def main() -> int:
             print(f"   {name}: {perf[name]['ms']!r} ms (device), "
                   f"{perf[name]['ms'] / floor!r} x the launch floor",
                   flush=True)
+        print(f"   probe_adaptive without a stash: "
+              f"{perf['probe_adaptive']['no_stash_ms']!r} ms (device), "
+              f"{perf['probe_adaptive']['no_stash_ms'] / floor!r} x the "
+              f"launch floor", flush=True)
         # Phase 4's wall time against its kernels' share: launches there
         # times the device time of one 4096-key launch here.
         for name, op in (("insert_bulk", "insert_s"),
@@ -2376,7 +2582,9 @@ def main() -> int:
                      "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "held_by": held_by,
-                     "library_ms": t.get("library_ms")})
+                     "library_ms": t.get("library_ms"),
+                     **{k: t[k] for k in ("path_keys", "path_ms",
+                                          "path_bound_ms") if k in t}})
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,82 +4,182 @@
 // Replaces the TPU kernel repro/kernels/probe.py::probe_adaptive
 // (_probe_adaptive_kernel, _probe_adaptive_stash_kernel; body
 // _probe_adaptive_body).  The TPU version pins the table and the packed
-// selector plane in VMEM; here both stay in device memory and each key
-// gathers its two candidate buckets and their two selector words.
+// selector plane in VMEM; here both stay in device memory.
 //
 // A slot hits when it equals the key's family fingerprint under the
 // slot's own selector: row[s] == fam[(word >> 2s) & 3].  Stash entries hold
-// selector-0 fingerprints and match on fp0 and either candidate bucket.
+// selector-0 fingerprints and match on fam[0] and either candidate bucket.
 // With an all-zero selector plane this is probe.cu's answer.
 //
-// Bound on the H100: bytes, and those are random: a key reads 8 B of key
-// and writes 1 B, and each of its two bucket reads and two selector-word
-// reads lands in its own 32-byte sector.  One thread per key hashes the
-// four family members once; a bucket of four slots is one 16-byte load.
-// No carry between keys, so the whole grid runs in parallel.  The stash
-// is staged through shared memory in tiles, as in probe.cu.
+// Bound on the H100: bytes, and those are random.  The adaptive path calls
+// it with 9-12M keys a launch on a 2^22-bucket table (64 MB), a 16 MB
+// selector plane and a 128-slot stash.  A key reads 8 B of key and writes
+// 1 B, and its rows and selector words, each in its own 32-byte sector.
+// At that size the launch is held by the number of random sectors it
+// fetches (~45-50G a second on the H100, tools/probe_adaptive_probe.py),
+// not by their latency: enough keys are in flight at full occupancy.  So
+// the kernel fetches as few sectors a key as an exact answer allows:
+//
+// * Selector words only where they can matter.  Each row's slots are first
+//   compared against all four family fingerprints (a 4-bit mask a slot).
+//   A slot can hit only where it equals some fam[j], so a row with an
+//   empty mask misses whatever its word says: nearly every row of an
+//   absent key at fp_bits 16.  Only rows with a nonzero mask load their
+//   selector word, and a slot hits where its mask has the bit of its
+//   selector.  Loading every row's word cost 1.75x on absent keys.
+// * The alternate row only for keys the home row did not answer: a member
+//   found at home fetches two sectors (its row and its word), not three,
+//   and an absent key two either way.  Issuing both rows before any
+//   compare was as fast for absent keys and 1.6x slower for members.
+//
+// Bucket sizes other than 4 take a row loop.  The stash goes through the
+// prefilter of stash_prefilter.cuh: no thread scans slots.  A key the
+// buckets did not answer reads one bit of a map of the live entries'
+// fingerprint folds; an empty stash costs each CTA one staging pass and no
+// walk.  One CTA a tile of kThreads keys: a persistent grid of SMs x
+// resident CTAs, each staging the stash once, was 3-4% slower at 10M keys
+// (the hardware balances the SMs, and the staging it saves cost nothing
+// visible: an empty stash skips the map).
+//
+// No carry between keys: the answer is per key, and the logical block of
+// the reference only shapes the call.
 #include "ocf_common.cuh"
+#include "stash_prefilter.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStashTile = 1024;  // slots staged per pass: 8 KB of shared
+// Threads a CTA, one key each (tools/probe_adaptive_probe.py builds the
+// other sizes).
+constexpr int kThreads = 128;
+static_assert(kThreads % 32 == 0, "a CTA runs whole warps");
+using Keys = stash_pf::Keys<1>;
 
-__device__ __forceinline__ bool row_hits(const uint32_t* __restrict__ table,
-                                         const uint32_t* __restrict__ sels,
-                                         int bucket_size, uint32_t b,
-                                         const uint32_t fam[4]) {
-  const uint32_t w = sels[b];
-  if (bucket_size == 4) {
-    const uint4 r = reinterpret_cast<const uint4*>(table)[b];
-    return r.x == fam[ocf::sel_of(w, 0)] || r.y == fam[ocf::sel_of(w, 1)] ||
-           r.z == fam[ocf::sel_of(w, 2)] || r.w == fam[ocf::sel_of(w, 3)];
-  }
+// Bit 4 s + j: slot s of the row equals fam[j].
+__device__ __forceinline__ uint32_t match4(uint4 r, const uint32_t fam[4]) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    m |= (uint32_t)(r.x == fam[j]) << j |
+         (uint32_t)(r.y == fam[j]) << (4 + j) |
+         (uint32_t)(r.z == fam[j]) << (8 + j) |
+         (uint32_t)(r.w == fam[j]) << (12 + j);
+  return m;
+}
+
+// The same for a row of bucket_size <= 16 slots.
+__device__ __forceinline__ unsigned long long match_row(
+    const uint32_t* __restrict__ table, int bucket_size, uint32_t b,
+    const uint32_t fam[4]) {
   const uint32_t* row = table + (size_t)b * bucket_size;
+  unsigned long long m = 0;
+  for (int s = 0; s < bucket_size; ++s) {
+    const uint32_t v = __ldg(row + s);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      m |= (unsigned long long)(v == fam[j]) << (4 * s + j);
+  }
+  return m;
+}
+
+// Some slot s holds fam[sel(w, s)].
+template <typename M>
+__device__ __forceinline__ bool resolve(M m, uint32_t w, int bucket_size) {
   bool h = false;
-  for (int s = 0; s < bucket_size; ++s) h = h || row[s] == fam[ocf::sel_of(w, s)];
+  for (int s = 0; s < bucket_size; ++s)
+    h |= (m >> (4 * s + ocf::sel_of(w, s))) & 1u;
   return h;
 }
 
-__global__ void probe_adaptive_kernel(const uint32_t* __restrict__ table,
-                                      const uint32_t* __restrict__ sels,
-                                      int bucket_size,
-                                      const uint32_t* __restrict__ stash,
-                                      int stash_slots,
-                                      const uint32_t* __restrict__ hi,
-                                      const uint32_t* __restrict__ lo,
-                                      uint8_t* __restrict__ hit, int n,
-                                      int fp_bits, uint32_t n_buckets) {
-  __shared__ uint32_t s_fp[kStashTile];
-  __shared__ uint32_t s_bkt[kStashTile];
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = k < n;
+// Whether row b holds the key: its selector word is loaded only if some
+// slot equals a family fingerprint.
+__device__ __forceinline__ bool in_row4(uint4 r,
+                                        const uint32_t* __restrict__ sels,
+                                        uint32_t b, const uint32_t fam[4]) {
+  const uint32_t m = match4(r, fam);
+  return m != 0 && resolve(m, __ldg(sels + b), 4);
+}
+
+__device__ __forceinline__ bool in_row(const uint32_t* __restrict__ table,
+                                       const uint32_t* __restrict__ sels,
+                                       int bucket_size, uint32_t b,
+                                       const uint32_t fam[4]) {
+  const unsigned long long m = match_row(table, bucket_size, b, fam);
+  return m != 0 && resolve(m, __ldg(sels + b), bucket_size);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    probe_adaptive_kernel(const uint32_t* __restrict__ table,
+                          const uint32_t* __restrict__ sels, int bucket_size,
+                          const uint32_t* __restrict__ stash, int stash_slots,
+                          const uint32_t* __restrict__ hi,
+                          const uint32_t* __restrict__ lo,
+                          uint8_t* __restrict__ hit, int n, int fp_bits,
+                          uint32_t n_buckets, int list_cap) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ uint8_t s_slot[1];
+  __shared__ int s_counts[2];
+  if (threadIdx.x == 0) {
+    s_slot[0] = 0;
+    s_counts[0] = 0;
+  }
+  const uint4* rows = reinterpret_cast<const uint4*>(table);
+  int count = 0, pass = 0;
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  Keys ks;
   uint32_t fam[4] = {0u, 0u, 0u, 0u};
-  uint32_t i1 = 0, i2 = 0;
-  bool h = false;
-  if (live) {
-    ocf::fp_family(hi[k], lo[k], fp_bits, fam);
-    i1 = ocf::index_hash(hi[k], lo[k], n_buckets);
-    i2 = ocf::alt_index(i1, fam[0], n_buckets);
-    h = row_hits(table, sels, bucket_size, i1, fam) ||
-        row_hits(table, sels, bucket_size, i2, fam);
+  uint4 home = make_uint4(0u, 0u, 0u, 0u);
+  ks.live[0] = k < n;
+  ks.h[0] = false;
+  ks.i1[0] = ks.i2[0] = 0;
+  if (ks.live[0]) {
+    const uint32_t h32 = __ldg(hi + k), l32 = __ldg(lo + k);
+    ocf::fp_family(h32, l32, fp_bits, fam);
+    ks.i1[0] = ocf::index_hash(h32, l32, n_buckets);
+    ks.i2[0] = ocf::alt_index(ks.i1[0], fam[0], n_buckets);
+    // The home row's load is out while the stash is staged.
+    if (kVec) home = __ldg(rows + ks.i1[0]);
   }
-  // Every thread of the CTA loads the stash tiles, so the loop runs to the
-  // end even for threads past n.
-  for (int base = 0; base < stash_slots; base += kStashTile) {
-    const int m = min(kStashTile, stash_slots - base);
-    __syncthreads();
-    for (int s = threadIdx.x; s < m; s += blockDim.x) {
-      s_fp[s] = stash[base + s];
-      s_bkt[s] = stash[stash_slots + base + s];
-    }
-    __syncthreads();
-    if (live && !h) {
-      for (int s = 0; s < m; ++s)
-        h = h || (s_fp[s] == fam[0] && (s_bkt[s] == i1 || s_bkt[s] == i2));
+  ks.fp[0] = fam[0];
+  // Every thread of the CTA stages and walks, live key or not: the
+  // staging's barriers and the walk's warp votes need them all.
+  if (stash_slots > 0)
+    count = stash_pf::stage_pass(stash, stash_slots, s_slot, 0, list_cap,
+                                 smem, list_cap, s_counts, pass++ & 1);
+  if (ks.live[0]) {
+    const uint32_t i1 = ks.i1[0], i2 = ks.i2[0];
+    if (kVec)
+      ks.h[0] = in_row4(home, sels, i1, fam) ||
+                in_row4(__ldg(rows + i2), sels, i2, fam);
+    else
+      ks.h[0] = in_row(table, sels, bucket_size, i1, fam) ||
+                in_row(table, sels, bucket_size, i2, fam);
+  }
+  if (stash_slots > 0) {
+    if (count > 0) stash_pf::probe_list(smem, list_cap, count, ks);
+    // More slots than one pass holds: the rest, a pass at a time.
+    for (int base = list_cap; base < stash_slots; base += list_cap) {
+      count = stash_pf::stage_pass(stash, stash_slots, s_slot, base,
+                                   min(base + list_cap, stash_slots), smem,
+                                   list_cap, s_counts, pass++ & 1);
+      if (count > 0) stash_pf::probe_list(smem, list_cap, count, ks);
     }
   }
-  if (live) hit[k] = h ? 1 : 0;
+  if (ks.live[0]) hit[k] = ks.h[0] ? 1 : 0;
+}
+
+template <bool kVec>
+void launch(const void* table, const void* sels, int bucket_size,
+            const void* stash, int stash_slots, const void* hi,
+            const void* lo, void* hit, int n, int fp_bits,
+            unsigned int n_buckets, cudaStream_t stream) {
+  const int list_cap = min(stash_slots, stash_pf::kList);
+  const int smem = stash_slots > 0 ? stash_pf::smem_bytes(list_cap) : 0;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  probe_adaptive_kernel<kVec><<<blocks, kThreads, smem, stream>>>(
+      (const uint32_t*)table, (const uint32_t*)sels, bucket_size,
+      (const uint32_t*)stash, stash_slots, (const uint32_t*)hi,
+      (const uint32_t*)lo, (uint8_t*)hit, n, fp_bits, n_buckets, list_cap);
 }
 
 }  // namespace
@@ -90,12 +190,9 @@ extern "C" int ocf_probe_adaptive(const void* table, const void* sels,
                                   const void* lo, void* hit, int n,
                                   int fp_bits, unsigned int n_buckets,
                                   void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    probe_adaptive_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)table, (const uint32_t*)sels, bucket_size,
-        (const uint32_t*)stash, stash ? stash_slots : 0, (const uint32_t*)hi,
-        (const uint32_t*)lo, (uint8_t*)hit, n, fp_bits, n_buckets);
-  }
+  if (n > 0)
+    (bucket_size == 4 ? &launch<true> : &launch<false>)(
+        table, sels, bucket_size, stash, stash ? stash_slots : 0, hi, lo, hit,
+        n, fp_bits, n_buckets, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

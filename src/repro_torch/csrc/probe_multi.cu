@@ -17,17 +17,14 @@
 //   not 2 K dependent ones.  More live generations are taken kGroup at a
 //   time, skipping the keys already answered.  Bucket sizes other than 4
 //   take a row loop.
-// * Stashes: a prefilter in shared memory.  Each CTA stages the live
-//   stashes once, dropping the empty entries as it goes (warp ballots and
-//   one atomic a warp append the live ones to a compact list), and sets one
-//   bit a staged entry in a 2^16-bit map indexed by the fingerprint's
-//   16-bit fold.  A key the tables did not answer reads its bit; only if
-//   the bit is set is the list walked, by the key's whole warp, comparing
-//   fingerprint and buckets exactly.  So the answer is exact, and most keys
-//   pay one shared load instead of a scan of every stash slot.  The
-//   staging's L2 reads are issued after the bucket loads and overlap them.
-//   A launch admits 64 slots x S entries; more than kList source entries
-//   are staged kList at a time, each pass with a fresh map.
+// * Stashes: the prefilter of stash_prefilter.cuh.  Each CTA stages the
+//   live stashes once into a compact list of their live entries and a map
+//   of their fingerprints' 16-bit folds; a key the tables did not answer
+//   reads its bit, and only if it is set does its warp walk the list.  So
+//   most keys pay one shared load instead of a scan of every stash slot.
+//   The staging's L2 reads are issued after the bucket loads and overlap
+//   them.  A launch admits 64 slots x S entries; more than kList source
+//   entries are staged kList at a time, each pass with a fresh map.
 //
 // The K tables and stashes are the generation ring's pool as it stands:
 // bit g of gen_mask says whether slot g holds a live generation.  The
@@ -36,6 +33,7 @@
 // ``accumulate`` a launch ORs into ``hit`` and skips the keys already
 // answered.
 #include "ocf_common.cuh"
+#include "stash_prefilter.cuh"
 
 namespace {
 
@@ -48,16 +46,8 @@ static_assert(kThreads >= 64 && kThreads % 32 == 0,
 static_assert(kKeys == 1 || kKeys == 2, "1 or 2 keys a thread");
 // Live generations whose bucket loads a thread has in flight at once.
 constexpr int kGroup = 8 / kKeys;
-constexpr int kList = 1024;         // stash source entries staged a pass
-constexpr int kMapWords = 65536 / 32;
-constexpr int kBatch = 4;           // stash entries a thread loads at once
-// Dynamic shared memory of a launch with stashes: the map, then the
-// compact list's fingerprints and buckets.
-constexpr int kSmemBytes = (kMapWords + 2 * kList) * 4;
-
-__device__ __forceinline__ uint32_t fold16(uint32_t fp) {
-  return (fp ^ (fp >> 16)) & 0xFFFFu;
-}
+constexpr int kList = stash_pf::kList;
+using Keys = stash_pf::Keys<kKeys>;
 
 __device__ __forceinline__ bool has4(uint4 v, uint32_t fp) {
   return v.x == fp || v.y == fp || v.z == fp || v.w == fp;
@@ -69,12 +59,6 @@ __device__ __forceinline__ bool row_has(const uint32_t* row, int bucket_size,
     if (row[s] == fp) return true;
   return false;
 }
-
-// A thread's keys: lane q holds key (block base + q * blockDim + thread).
-struct Keys {
-  uint32_t fp[kKeys], i1[kKeys], i2[kKeys];
-  bool live[kKeys], h[kKeys];
-};
 
 // One group of up to kGroup live generations: their tables and, on the
 // bucket-size-4 path, both buckets of every key, loaded before any compare.
@@ -136,94 +120,6 @@ __device__ __forceinline__ void compare(const Group& gr, int bucket_size,
   }
 }
 
-// Stage source entries [base, end) of the live stashes (entry e is slot
-// e % S of the (e / S)-th live generation, ``slot[e / S]``): append the
-// live ones to the list and set their bits in the map.  The map and count
-// are cleared, and ``slot`` filled, by the caller before a barrier.
-__device__ __forceinline__ void stage(const uint32_t* __restrict__ stashes,
-                                      int stash_slots, const uint8_t* slot,
-                                      int base, int end, uint32_t* map,
-                                      uint32_t* list_fp, uint32_t* list_bkt,
-                                      int* count) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t lt = (1u << lane) - 1u;
-  for (int e0 = base; e0 < end; e0 += kBatch * blockDim.x) {
-    uint32_t f[kBatch], b[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int e = e0 + i * blockDim.x + threadIdx.x;
-      f[i] = b[i] = 0;
-      if (e < end) {
-        const int r = e / stash_slots;
-        const int j = e - r * stash_slots;
-        const uint32_t* st = stashes + (size_t)slot[r] * 2 * stash_slots;
-        f[i] = __ldg(st + j);
-        b[i] = __ldg(st + stash_slots + j);
-      }
-    }
-    // One atomic a warp and batch reserves the list positions of all its
-    // live entries (an atomic an entry is a chain of kBatch round trips).
-    uint32_t live[kBatch];
-    int total = 0;
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      live[i] = __ballot_sync(~0u, f[i] != 0);
-      total += __popc(live[i]);
-    }
-    int at = 0;
-    if (lane == 0 && total) at = atomicAdd(count, total);
-    at = __shfl_sync(~0u, at, 0);
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      if (f[i]) {
-        const int p = at + __popc(live[i] & lt);
-        list_fp[p] = f[i];
-        list_bkt[p] = b[i];
-        const uint32_t w = fold16(f[i]);
-        atomicOr(map + (w >> 5), 1u << (w & 31));
-      }
-      at += __popc(live[i]);
-    }
-  }
-}
-
-__device__ __forceinline__ void clear_map(uint32_t* map, int* count) {
-  uint4* m4 = reinterpret_cast<uint4*>(map);
-  for (int i = threadIdx.x; i < kMapWords / 4; i += blockDim.x)
-    m4[i] = make_uint4(0u, 0u, 0u, 0u);
-  if (threadIdx.x == 0) *count = 0;
-}
-
-// A key the tables did not answer reads its bit in the map; the warp then
-// walks the list for each of its lanes whose bit is set, 32 entries a step
-// (a lane walking alone would be the launch's tail: ~80 cycles an entry).
-__device__ __forceinline__ void probe_list(const uint32_t* map,
-                                           const uint32_t* list_fp,
-                                           const uint32_t* list_bkt,
-                                           int count, Keys& ks) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int q = 0; q < kKeys; ++q) {
-    bool want = false;
-    if (ks.live[q] && !ks.h[q]) {
-      const uint32_t w = fold16(ks.fp[q]);
-      want = (map[w >> 5] >> (w & 31)) & 1u;
-    }
-    for (uint32_t walkers = __ballot_sync(~0u, want); walkers;
-         walkers &= walkers - 1) {
-      const int src = __ffs(walkers) - 1;
-      const uint32_t f = __shfl_sync(~0u, ks.fp[q], src);
-      const uint32_t a = __shfl_sync(~0u, ks.i1[q], src);
-      const uint32_t b = __shfl_sync(~0u, ks.i2[q], src);
-      bool m = false;
-#pragma unroll 4
-      for (int s = lane; s < count; s += 32)
-        m |= (list_fp[s] == f) & ((list_bkt[s] == a) | (list_bkt[s] == b));
-      if (__any_sync(~0u, m) && lane == src) ks.h[q] = true;
-    }
-  }
-}
-
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
     probe_multi_kernel(const uint32_t* __restrict__ tables,
@@ -236,10 +132,7 @@ __global__ void __launch_bounds__(kThreads)
                        uint32_t n_buckets, int accumulate) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ uint8_t s_slot[64];
-  __shared__ int s_count;
-  uint32_t* map = smem;
-  uint32_t* list_fp = smem + kMapWords;
-  uint32_t* list_bkt = list_fp + kList;
+  __shared__ int s_counts[2];
 
   Keys ks;
   const int k0 = blockIdx.x * (kKeys * kThreads) + threadIdx.x;
@@ -264,15 +157,14 @@ __global__ void __launch_bounds__(kThreads)
   // Stage the first pass of the stashes while the bucket loads are out.
   // Every thread of the CTA stages, so this runs for threads past n too.
   const int total = __popcll(gen_mask) * stash_slots;
+  int count = 0;
   if (total > 0) {
-    clear_map(map, &s_count);
     if (threadIdx.x < 64 && ((gen_mask >> threadIdx.x) & 1ull))
       s_slot[__popcll(gen_mask & ((1ull << threadIdx.x) - 1ull))] =
           (uint8_t)threadIdx.x;
-    __syncthreads();
-    stage(stashes, stash_slots, s_slot, 0, min(kList, total), map, list_fp,
-          list_bkt, &s_count);
-    __syncthreads();
+    if (threadIdx.x == 0) s_counts[0] = 0;
+    count = stash_pf::stage_pass(stashes, stash_slots, s_slot, 0,
+                                 min(kList, total), smem, kList, s_counts, 0);
   }
 
   compare<kVec>(gr, bucket_size, ks);
@@ -285,17 +177,12 @@ __global__ void __launch_bounds__(kThreads)
     compare<kVec>(gr, bucket_size, ks);
   }
 
-  for (int base = 0; base < total; base += kList) {
-    if (base > 0) {
-      __syncthreads();
-      clear_map(map, &s_count);
-      __syncthreads();
-      stage(stashes, stash_slots, s_slot, base, min(base + kList, total), map,
-            list_fp, list_bkt, &s_count);
-      __syncthreads();
-    }
-    const int count = s_count;
-    if (count > 0) probe_list(map, list_fp, list_bkt, count, ks);
+  for (int base = 0, pass = 0; base < total; base += kList, ++pass) {
+    if (pass > 0)
+      count = stash_pf::stage_pass(stashes, stash_slots, s_slot, base,
+                                   min(base + kList, total), smem, kList,
+                                   s_counts, pass & 1);
+    if (count > 0) stash_pf::probe_list(smem, kList, count, ks);
   }
 
 #pragma unroll
@@ -316,7 +203,8 @@ extern "C" int ocf_probe_multi(const void* tables, int k_gens,
   if (k_gens < 64) gen_mask &= (1ull << k_gens) - 1ull;
   if (!stashes) stash_slots = 0;
   const int blocks = (n + kKeys * kThreads - 1) / (kKeys * kThreads);
-  const int smem = (gen_mask && stash_slots > 0) ? kSmemBytes : 0;
+  const int smem =
+      (gen_mask && stash_slots > 0) ? stash_pf::smem_bytes(kList) : 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (bucket_size == 4) {
     probe_multi_kernel<true><<<blocks, kThreads, smem, st>>>(

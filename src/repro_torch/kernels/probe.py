@@ -4,14 +4,16 @@
 Counterpart of ``repro.kernels.probe.probe``, ``probe_multi`` and
 ``probe_adaptive``.  The CUDA kernels (``csrc/probe.cu``,
 ``csrc/probe_multi.cu``, ``csrc/probe_adaptive.cu``) run one thread per
-key: hash, two 16-byte bucket loads (and, adaptive, the two packed
-selector words), compare; with a stash, a scan of the stash staged in
-shared memory.  ``probe_multi`` issues the bucket loads of every live
-generation (up to eight at once) before it compares any, and checks the
-stashes through a prefilter: each CTA stages their live entries into a
-compact list and a bitmap of fingerprint folds, and a key walks the list
-only where its bit is set.  The plain versions below gather both buckets
-with tensor indexing.
+key: hash, two 16-byte bucket loads, compare; ``probe`` scans its stash
+staged in shared memory.  ``probe_multi`` issues the bucket loads of every
+live generation (up to eight at once) before it compares any;
+``probe_adaptive`` loads a row's packed selector word only where a slot
+holds one of the key's family fingerprints, and the alternate row only
+where the home row missed.  Both check
+their stashes through a prefilter (``csrc/stash_prefilter.cuh``): each CTA
+stages the live entries into a compact list and a bitmap of fingerprint
+folds, and a key walks the list only where its bit is set.  The plain
+versions below gather both buckets with tensor indexing.
 """
 from __future__ import annotations
 

@@ -2,15 +2,18 @@
 
 ``STAGING_CASES`` and ``ADAPTIVE_STAGING_CASES`` name shapes that drive the
 insert and delete kernels (``csrc/insert*.cu``, ``csrc/delete*.cu``)
-through what their shared-memory staging makes hard: tiny tables whose
-rows many blocks share, calls of several windows, blocks whose lane region
-is in device memory, bucket sizes 2 and 8, and (for the four adaptive
-planes) adapted and scrambled slots that chains kick and roll back.
+through what their shared-memory staging makes hard: tiny tables whose rows
+many blocks share, calls of several windows, blocks whose lane region is in
+device memory, bucket sizes 2 and 8, and (for the four adaptive planes)
+adapted and scrambled slots that chains kick and roll back.
 ``PROBE_MULTI_CASES`` do the same for ``csrc/probe_multi.cu``'s stash
-prefilter, its batched bucket loads and its launches of 64 pool slots.  The
-tests hold the kernels against their plain versions on these inputs, and
-so does ``chip_smoke.py`` on the card: one source, so that both see the
-same arrays for a label and seed.
+prefilter, its batched bucket loads and its launches of 64 pool slots, and
+``PROBE_ADAPTIVE_CASES`` for ``csrc/probe_adaptive.cu``'s (the same
+prefilter over one stash, selector words read only for rows that match a
+family fingerprint, the alternate row only where the home row missed). The
+tests hold the kernels against their plain versions on these inputs, and so
+does ``chip_smoke.py`` on the card: one source, so that both see the same
+arrays for a label and seed.
 """
 from __future__ import annotations
 
@@ -241,5 +244,119 @@ def probe_multi_inputs(label, seed=0):
         stashes[used // slots, 1, used % slots] = e_bkt.astype(np.uint32)
     gens = None if live == k else rng.permutation(k)[:live].tolist()
     return dict(tables=tables, stashes=stashes, gens=gens, keys=keys,
+                fp_bits=fp_bits, n_buckets=nb,
+                block=128 if n % 128 == 0 else n)
+
+
+# Inputs that stress probe_adaptive (``csrc/probe_adaptive.cu``): its stash
+# prefilter over one stash, its selector words read only for rows in which
+# some slot equals one of the key's four family fingerprints, and its
+# alternate row loaded only for keys the home row did not answer (every
+# case, small or large, runs the code of the adaptive path's 10M-key
+# launches): label -> (buffer, active buckets, bucket size, fp_bits, stash
+# slots, keys, table load, selector share, stash load, stash mix, decoy
+# share).  The planes come from ``adaptive_planes`` (residents in their
+# home buckets, a selector share of them adapted).  Half the probe keys are
+# residents, half random.  The mix shares the filled stash entries as in
+# PROBE_MULTI_MIX, against the probe keys' selector-0 fingerprints.  A
+# decoy share of the random keys gets a slot of its home or alternate row
+# rewritten to its family fingerprint fam[j] under a selector other than
+# j, which must miss.
+PROBE_ADAPTIVE_MIX = PROBE_MULTI_MIX
+PROBE_ADAPTIVE_CASES = {
+    # the adaptive path's stash, full: 128 entries
+    "stash-128-full": (4096, 4000, 4, 16, 128, 4096, 0.8, 0.25, 1.0,
+                       PROBE_ADAPTIVE_MIX, 0.1),
+    # 512 entries, one staging pass
+    "stash-512-full": (4096, 4000, 4, 16, 512, 4096, 0.8, 0.25, 1.0,
+                       PROBE_ADAPTIVE_MIX, 0.1),
+    # the path's stash as it is there: empty (no map, no walk)
+    "stash-empty": (4096, 4000, 4, 16, 128, 4096, 0.8, 0.25, 0.0,
+                    PROBE_ADAPTIVE_MIX, 0.1),
+    # 2500 slots: three staging passes in every CTA
+    "stash-2500": (2048, 2000, 4, 16, 2500, 5000, 0.8, 0.25, 0.9,
+                   PROBE_ADAPTIVE_MIX, 0.1),
+    # the map's bit set, the exact compare misses
+    "same-fp-other-bucket": (4096, 4000, 4, 16, 128, 4096, 0.8, 0.25, 0.8,
+                             (0.1, 0.9, 0.0, 0.0), 0.1),
+    # 32-bit fingerprints whose folds collide but whose values differ
+    "fp32-folds": (4096, 4000, 4, 32, 128, 4096, 0.8, 0.25, 0.9,
+                   (0.2, 0.2, 0.5, 0.1), 0.1),
+    # 8-bit fingerprints: a dense map, and many rows that match a family
+    # fingerprint, so selector words are read
+    "fp8-dense": (2048, 2000, 4, 8, 128, 4096, 0.8, 0.25, 1.0,
+                  PROBE_ADAPTIVE_MIX, 0.1),
+    # slots holding fam[j] under a selector other than j
+    "wrong-selector": (2048, 2000, 4, 16, 128, 4096, 0.8, 0.5, 0.5,
+                       PROBE_ADAPTIVE_MIX, 0.6),
+    # most resident slots adapted, the whole buffer active
+    "adapted-rows": (2048, 2048, 4, 16, 128, 4096, 0.9, 0.9, 0.5,
+                     PROBE_ADAPTIVE_MIX, 0.1),
+    "bucket-1": (4096, 4000, 1, 16, 64, 4096, 0.8, 0.3, 0.5,
+                 PROBE_ADAPTIVE_MIX, 0.1),
+    "bucket-2": (4096, 4000, 2, 16, 64, 4096, 0.8, 0.3, 0.5,
+                 PROBE_ADAPTIVE_MIX, 0.1),
+    "bucket-8": (1024, 1000, 8, 16, 64, 4096, 0.8, 0.3, 0.5,
+                 PROBE_ADAPTIVE_MIX, 0.1),
+    "n-1": (1024, 1000, 4, 16, 32, 1, 0.8, 0.25, 0.5, PROBE_ADAPTIVE_MIX,
+            0.1),
+    "n-1000": (1024, 1000, 4, 16, 32, 1000, 0.8, 0.25, 0.5,
+               PROBE_ADAPTIVE_MIX, 0.1),
+    "n-5000": (1024, 1000, 4, 16, 32, 5000, 0.8, 0.25, 0.5,
+               PROBE_ADAPTIVE_MIX, 0.1),
+    # more keys than one wave of resident CTAs, on a 2^16-bucket table
+    "n-1.1M": (1 << 16, (1 << 16) - 100, 4, 16, 128, 1_100_032, 0.8, 0.25,
+               0.5, PROBE_ADAPTIVE_MIX, 0.05),
+}
+
+
+def probe_adaptive_inputs(label, seed=0):
+    """numpy inputs of a PROBE_ADAPTIVE_CASES case: a dict with the uint32
+    table [buffer, bucket size], packed selector plane [buffer, 1] and
+    stash [2, S], the uint64 probe keys, fp_bits, n_buckets and the block
+    the reference takes (128, or the key count where that is no multiple
+    of it)."""
+    (buf, nb, bsz, fp_bits, slots, n, load, share, stash_load, mix,
+     decoy) = PROBE_ADAPTIVE_CASES[label]
+    rng = np.random.RandomState(seed)
+    table, sels, _khi, _klo, members = adaptive_planes(
+        rng, nb, buf, load, fp_bits=fp_bits, bucket_size=bsz,
+        sel_share=share)
+    half = n // 2
+    keys = np.concatenate([members[rng.randint(0, members.size, half)],
+                           random_keys(rng, n - half)])
+    hi, lo = hashing.key_to_u32_pair_np(keys)
+    fam = np.stack([hashing.fingerprint_sel_np(hi, lo, j, fp_bits)
+                    for j in range(4)])
+    i1 = hashing.index_hash_np(hi, lo, nb)
+    i2 = hashing.alt_index_np(i1, fam[0], nb)
+    k = half + np.nonzero(rng.rand(n - half) < decoy)[0]
+    row = np.where(rng.rand(k.size) < 0.5, i1[k], i2[k])
+    slot = rng.randint(0, bsz, k.size)
+    sel = rng.randint(0, 4, k.size).astype(np.uint32)
+    j = (sel + rng.randint(1, 4, k.size)) % 4
+    table[row, slot] = fam[j, k]
+    shift = (2 * slot).astype(np.uint32)
+    sels[row, 0] = (sels[row, 0] & ~(np.uint32(3) << shift)) | (sel << shift)
+    stash = np.zeros((2, slots), np.uint32)
+    used = np.nonzero(rng.rand(slots) < stash_load)[0]
+    e = rng.randint(0, n, used.size)
+    kind = rng.choice(4, size=used.size, p=mix)
+    right = np.where(rng.rand(used.size) < 0.5, i1[e], i2[e])
+    other = (i1[e] + 1 + rng.randint(0, max(nb - 2, 1), used.size)) % nb
+    bad = (other == i1[e]) | (other == i2[e])
+    while bad.any():
+        other[bad] = rng.randint(0, nb, int(bad.sum()))
+        bad = (nb > 2) & ((other == i1[e]) | (other == i2[e]))
+    flip = np.uint32(0x10001 if fp_bits > 16 else 1)
+    folded = fam[0, e] ^ flip
+    folded = np.where(folded == 0, np.uint32(1), folded)
+    stash[0, used] = np.select(
+        [kind == 0, kind == 1, kind == 2], [fam[0, e], fam[0, e], folded],
+        rng.randint(1, 1 << fp_bits, used.size, dtype=np.int64))
+    stash[1, used] = np.select([kind == 0, kind == 1, kind == 2],
+                               [right, other, right],
+                               rng.randint(0, nb, used.size))
+    return dict(table=table, sels=sels, stash=stash, keys=keys,
                 fp_bits=fp_bits, n_buckets=nb,
                 block=128 if n % 128 == 0 else n)

@@ -27,7 +27,9 @@ from repro_torch.kernels.insert import (insert_bulk, insert_bulk_adaptive,
 from repro_torch.kernels.probe import (probe, probe_adaptive,
                                        probe_adaptive_plain, probe_multi,
                                        probe_multi_plain, probe_plain)
-from repro_torch.kernels.staging_cases import (PROBE_MULTI_CASES,
+from repro_torch.kernels.staging_cases import (PROBE_ADAPTIVE_CASES,
+                                               PROBE_MULTI_CASES,
+                                               probe_adaptive_inputs,
                                                probe_multi_inputs)
 from repro_torch.models import Transformer
 from repro_torch.serving import engine
@@ -294,6 +296,30 @@ def test_probe_multi_cases_match_plain(dev, label):
         got = probe_multi(tables, hi, lo, block=c["block"], **kw)
         assert cuda.LAUNCHES["probe_multi"] >= 1
         want = probe_multi_plain(tables, hi, lo, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (c["keys"].size,)
+        assert torch.equal(got, want), (label, st is None)
+
+
+@pytest.mark.parametrize("label", PROBE_ADAPTIVE_CASES)
+def test_probe_adaptive_cases_match_plain(dev, label):
+    """PROBE_ADAPTIVE_CASES, with and without the stash: the kernel's stash
+    prefilter (full, empty, three staging passes, entries that share a
+    key's fingerprint or its 16-bit fold but not its buckets, fp_bits 32
+    and 8), its selector words read only for rows that match a family
+    fingerprint (slots holding fam[j] under a selector other than j,
+    adapted rows), its alternate row loaded only where the home row
+    missed, bucket sizes 1, 2 and 8, and n from 1 to past 2^20, against
+    the plain version bit for bit; each call one launch."""
+    c = probe_adaptive_inputs(label)
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    table, sels = t32(c["table"]).to(dev), t32(c["sels"]).to(dev)
+    for st in (None, t32(c["stash"]).to(dev)):
+        kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"], stash=st)
+        cuda.reset_counts()
+        got = probe_adaptive(table, sels, hi, lo, block=c["block"], **kw)
+        assert cuda.LAUNCHES["probe_adaptive"] == 1
+        want = probe_adaptive_plain(table, sels, hi, lo, **kw)
         torch.cuda.synchronize()
         assert got.shape == (c["keys"].size,)
         assert torch.equal(got, want), (label, st is None)

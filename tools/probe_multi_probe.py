@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc.
 It prints the card's name and power limit, then builds
 ``src/repro_torch/csrc/probe_multi.cu`` once for each CTA size (its
 ``kThreads``: 64, 128, 256) and keys a thread (``kKeys``: 1, 2), and once
-for each design in ``ALTERNATIVES`` (an edit of the source, at its own
-shape), all in parallel, into
+for each design in ``ALTERNATIVES`` (an edit of the source with
+``stash_prefilter.cuh`` inlined, at its own shape), all in parallel, into
 ``build/probe/`` (ignored by git).  For each build it prints its ptxas
 registers and spills, checks that it answers as ``probe_multi_plain`` does,
 and times 4096-key calls on a seeded ring like the streaming path's at its
@@ -40,16 +40,15 @@ BUF = 1 << 20
 SHAPES = [(t, k) for t in (64, 128, 256) for k in (1, 2)]
 # Designs that lost, as edits of the source: name -> [(text of the source,
 # text put in its place)].  A lane that walks the list alone (the first
-# version) keeps the rest of the kernel; the warp's walk is compiled out.
-LONE_WALK = """    if (!want) continue;
-    bool h = false;
-    for (int s = 0; s < count && !h; ++s)
-      h = list_fp[s] == ks.fp[q] &&
-          (list_bkt[s] == ks.i1[q] || list_bkt[s] == ks.i2[q]);
-    ks.h[q] = h;
-  }
-}
-#if 0
+# version) keeps the rest of the kernel; the warp's walk never runs.
+LONE_WALK = """    if (want) {
+      bool h = false;
+      for (int s = 0; s < count && !h; ++s)
+        h = list_fp[s] == ks.fp[q] &&
+            (list_bkt[s] == ks.i1[q] || list_bkt[s] == ks.i2[q]);
+      ks.h[q] = h;
+    }
+    for (uint32_t walkers = 0u; walkers;
 """
 ALTERNATIVES = {
     "an atomic a staged entry": [(
@@ -67,8 +66,6 @@ ALTERNATIVES = {
         const int p = at + __popc(live & lt);
         list_fp[p] = f[i];
         list_bkt[p] = b[i];
-        const uint32_t w = fold16(f[i]);
-        atomicOr(map + (w >> 5), 1u << (w & 31));
       }
     }
 """)],
@@ -79,9 +76,8 @@ ALTERNATIVES = {
          "  }\n\n  issue<kVec>(gr, rest, tables, stride, ks);\n"
          "  compare<kVec>(gr, bucket_size, ks);\n")],
     "each lane walks the list alone": [
-        ("    for (uint32_t walkers", LONE_WALK + "    for (uint32_t walkers"),
-        ("\ntemplate <bool kVec>\n__global__",
-         "#endif\n\ntemplate <bool kVec>\n__global__")],
+        ("    for (uint32_t walkers = __ballot_sync(~0u, want); walkers;\n",
+         LONE_WALK)],
 }
 
 
@@ -90,7 +86,11 @@ def build() -> dict:
     each, all at once."""
     from repro_torch.kernels import cuda
     OUT.mkdir(parents=True, exist_ok=True)
-    src = (cuda.CSRC / "probe_multi.cu").read_text()
+    # The prefilter's header inlined, so that the designs can edit it too.
+    header = (cuda.CSRC / "stash_prefilter.cuh").read_text().replace(
+        "#pragma once\n", "")
+    src = (cuda.CSRC / "probe_multi.cu").read_text().replace(
+        '#include "stash_prefilter.cuh"\n', header)
 
     def edit(name, text, edits):
         for old, new in edits:
