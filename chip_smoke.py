@@ -22,7 +22,13 @@ Phases, each timed, each fatal on failure:
      ``probe_multi`` over K = 1, 2, 4 of four generation tables
      int32[4, 2^20, 4], pools of 65 and 130 slots, and PROBE_MULTI_CASES
      (full stashes, fingerprints that share a key's 16-bit fold, fp_bits 32
-     and 8, live slots in any order, ragged n, bucket sizes 2 and 8); and
+     and 8, live slots in any order, ragged n, bucket sizes 2 and 8); the
+     four telemetry instantiations (``probe_tm``, ``insert_bulk_tm``,
+     ``probe_adaptive_tm``, ``insert_bulk_adaptive_tm``) against their
+     plain versions with stats (answers, tables and counter planes) and
+     against the flag-off kernels, on the same cases and on PROBE_CASES
+     (with and without a stash, padding lanes that hit and must not count,
+     n no multiple of 256); and
      ``flash_attention`` within a stated tolerance at gemma3-1b's shapes
      (Hq=4, Hkv=1, S=8192, D=256; float32 and bfloat16; window 512 and
      none), small cases of the reference's sweep, a case with Sq > Skv and
@@ -33,7 +39,10 @@ Phases, each timed, each fatal on failure:
      ``AdaptiveMembership`` streams (inserts, lookups, reports, deletes;
      one at load ~0.95 with kicks of adapted slots), a ~100k-event
      ``GenerationalFilter`` stream (rotations, TTL expiries, spills, a
-     rotate-and-retry) and a ``GenerationalPrefixIndex`` stream; and the
+     rotate-and-retry), a ``GenerationalPrefixIndex`` stream, two
+     ``FilterOpBatcher`` wave streams with telemetry on (a static filter
+     with an 8-slot stash, an adaptive one with report waves: waves,
+     states and every counter of the registry equal); and the
      LM at gemma3-1b's full width and one period's depth (6 layers,
      float32, TF32 off), built on the CPU and copied to the card: forward
      logits within a stated tolerance at S = 512 and 200, greedy tokens of
@@ -50,13 +59,24 @@ Phases, each timed, each fatal on failure:
      (``examples/streaming_dedup.py`` at scale: a ring of 4 generations
      of 2^22 slots, 32 ticks of 600k events with a 4x burst, 40% repeats),
      then the TTL step; launch counts read around it;
+  5d. filter-op waves at full size: the filter's serving front
+     (``FilterOpBatcher``, 4096-key waves, double-buffered) over 2^20
+     buckets of 4 with a 128-slot stash: inserts to load 0.85, lookups of
+     every acknowledged key and as many absent ones, deletes of half;
+     the same over the adaptive planes with report waves; each with
+     telemetry off and on in turns (off, on, on, off, off, on: equal
+     results and states, the counter sums checked, no telemetry launch in
+     the off arm, the median walls), then each under a trace for the
+     device's idle share;
   5c. the LM serving path at full size: gemma3-1b (26 layers, full width,
      bfloat16 activations, float32 weights from SEED): a cache-less
      forward over 8192 tokens (prompt scoring, the flash kernel), the
      flash forward against the cached prefill + decode of the same prompt
      (float32, 1024 tokens, log-softmax within 1e-3), and ``serve()`` of
      16 requests; launch counts read around it;
-  6. time each kernel, its plain version and its bound (and, for flash
+  6. hold each kernel against its plain version at the paths' full size,
+     bit for bit, then time it, its plain version and its bound (the
+     telemetry instantiations beside their flag-off kernels; for flash
      attention, one ``scaled_dot_product_attention`` call as the library's
      yardstick), and print them as one JSON line; beside them the launch
      floor (the device time of a one-element add), for ``probe_multi``
@@ -71,7 +91,9 @@ device the script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -126,6 +148,18 @@ KERNEL_ROWS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113",
                         "not measured"),
+    # The telemetry instantiations, in place of the reference's twins (its
+    # XLA emulations with want_stats, not pallas_call sites).
+    "probe_tm": ("src/repro_torch/csrc/probe.cu",
+                 "src/repro/kernels/probe.py:156", "not measured"),
+    "insert_bulk_tm": ("src/repro_torch/csrc/insert.cu",
+                       "src/repro/kernels/insert.py:531", "serial_cta_loop"),
+    "probe_adaptive_tm": ("src/repro_torch/csrc/probe_adaptive.cu",
+                          "src/repro/kernels/probe.py:296",
+                          "random_sector_fetches"),
+    "insert_bulk_adaptive_tm": ("src/repro_torch/csrc/insert_adaptive.cu",
+                                "src/repro/kernels/insert.py:995",
+                                "serial_cta_loop"),
 }
 STATIC_KERNELS = ("fingerprint_hash", "probe", "insert_bulk", "delete_bulk")
 ADAPTIVE_KERNELS = ("fingerprint_hash_family", "probe_adaptive",
@@ -221,19 +255,30 @@ class KernelBench:
 
     def plain_insert(self, table, hi, lo, valid, *, stash, rounds, block,
                      schedule):
+        """The plain insert with stats -> (ok, counter plane)."""
         from repro_torch.core.scheduling import dispatch_order_from_buckets
         from repro_torch.kernels.fingerprint import fingerprint_hash_plain
         from repro_torch.kernels.insert import insert_bulk_plain
+        from repro_torch.kernels.telemetry import insert_plane
         inv = None
         if schedule and hi.shape[0] > block:
             _fp, i1, _i2 = fingerprint_hash_plain(
                 hi, lo, fp_bits=16, n_buckets=self.n_buckets)
             perm, inv = dispatch_order_from_buckets(i1, valid)
             hi, lo, valid = hi[perm], lo[perm], valid[perm]
-        ok = insert_bulk_plain(table, hi, lo, valid, fp_bits=16,
-                               n_buckets=self.n_buckets, evict_rounds=rounds,
-                               stash=stash, block=block)
-        return ok if inv is None else ok[inv]
+        ok, stats = insert_bulk_plain(table, hi, lo, valid, fp_bits=16,
+                                      n_buckets=self.n_buckets,
+                                      evict_rounds=rounds, stash=stash,
+                                      block=block, want_stats=True)
+        plane = insert_plane(*stats, valid)
+        return (ok if inv is None else ok[inv]), plane
+
+    def hold_tm(self, name: str, got, want, off_pairs) -> None:
+        """A telemetry instantiation against its plain version with stats
+        (``got`` and ``want``: (outputs, plane)) and against the flag-off
+        kernel (``off_pairs``: its outputs beside the twin's)."""
+        self.record(name, [*zip(got[0], want[0]), (got[1], want[1]),
+                           *off_pairs])
 
     def run(self) -> None:
         torch = self.torch
@@ -242,8 +287,8 @@ class KernelBench:
         from repro_torch.kernels.delete import delete_bulk, delete_bulk_plain
         from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                                      fingerprint_hash_plain)
-        from repro_torch.kernels.insert import insert_bulk
-        from repro_torch.kernels.probe import probe, probe_plain
+        from repro_torch.kernels.insert import insert_bulk, insert_bulk_tm
+        from repro_torch.kernels.probe import probe, probe_plain, probe_tm
 
         nb = self.n_buckets
         # fingerprint_hash at a chunk, non-pow2 active count.
@@ -274,6 +319,10 @@ class KernelBench:
             want = probe_plain(table, hi, lo, fp_bits=16, n_buckets=nb,
                                stash=st)
             self.record("probe", [(got, want)])
+            # the telemetry twin, the last 100 lanes uncounted
+            self.hold_probe_tm("probe_tm", probe_tm, probe_plain, got,
+                               (table, hi, lo), CHUNK - 100, pblock,
+                               dict(fp_bits=16, n_buckets=nb, stash=st))
             _u, inv, cnt = np.unique(i1, return_inverse=True,
                                      return_counts=True)
             sole = torch.from_numpy(cnt[inv] == 1).to(self.dev)
@@ -294,20 +343,26 @@ class KernelBench:
             block = min(kops.autotune_block(
                 "insert", table_bytes=base.numel() * 4, evict_rounds=rounds,
                 stash_slots=128 if with_stash else 0, n_keys=CHUNK), CHUNK)
-            tk, tp = base.clone(), base.clone()
+            tk, tp, tt = base.clone(), base.clone(), base.clone()
             sk = (torch.zeros((2, 128), dtype=torch.int32, device=self.dev)
                   if with_stash else None)
             sp = None if sk is None else sk.clone()
-            out = insert_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb,
-                              valid=valid, evict_rounds=rounds, stash=sk,
-                              block=block, schedule=schedule)
-            okp = self.plain_insert(tp, hi, lo, valid, stash=sp,
-                                    rounds=rounds, block=block,
-                                    schedule=schedule)
+            st = None if sk is None else sk.clone()
+            kw = dict(fp_bits=16, n_buckets=nb, valid=valid,
+                      evict_rounds=rounds, block=block, schedule=schedule)
+            out = insert_bulk(tk, hi, lo, stash=sk, **kw)
+            okp, plane = self.plain_insert(tp, hi, lo, valid, stash=sp,
+                                           rounds=rounds, block=block,
+                                           schedule=schedule)
             pairs = [(tk, tp), (out[-1], okp)]
             if sk is not None:
                 pairs.append((sk, sp))
             self.record("insert_bulk", pairs)
+            tm = insert_bulk_tm(tt, hi, lo, stash=st, **kw)
+            self.hold_tm("insert_bulk_tm", ([tt, tm[-2]], tm[-1]),
+                         ([tp, okp], plane),
+                         [(tt, tk), (tm[-2], out[-1])]
+                         + ([] if sk is None else [(st, sk)]))
             failed = int((valid & ~okp).sum())
             spilled = 0 if sp is None else int((sp[0] != 0).sum())
             print(f"   insert {label}: block={block} rounds={rounds} "
@@ -340,6 +395,56 @@ class KernelBench:
         check(bool(okk[first][ins_ok[first]].all()),
               "delete missed a resident key")
         self.staging()
+        self.probe_cases()
+
+    def hold_probe_tm(self, name, kern_tm, plain, off, args, counted, block,
+                      kw) -> list:
+        """A probe's telemetry twin against the plain version with stats
+        (answers and the depth plane of the first ``counted`` lanes) and
+        against the flag-off kernel's answers ``off`` -> the plane."""
+        torch = self.torch
+        from repro_torch.kernels.telemetry import probe_depth_counts
+        hit, plane = kern_tm(*args, n_valid=counted, block=block, **kw)
+        want, hs = plain(*args, want_stats=True, **kw)
+        n = want.shape[0]
+        mask = torch.arange(n, device=self.dev) < counted
+        self.record(name, [(hit, want), (plane, probe_depth_counts(*hs,
+                                                                   mask)),
+                           (hit, off)])
+        return plane.tolist()
+
+    def probe_cases(self) -> None:
+        """PROBE_CASES, with and without their stash: probe's telemetry
+        twin against the plain version with stats and the flag-off
+        kernel (padding key 0 planted after the counted lanes)."""
+        from repro_torch.core import hashing
+        from repro_torch.kernels.probe import probe, probe_plain, probe_tm
+        from repro_torch.kernels.staging_cases import (PROBE_CASES,
+                                                       probe_inputs)
+        torch = self.torch
+
+        def dev32(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.uint32)
+                                    .view(np.int32)).to(self.dev)
+
+        for label in PROBE_CASES:
+            c = probe_inputs(label, SEED)
+            table = dev32(c["table"])
+            hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(c["keys"]))
+            planes = []
+            for st in (None, None if c["stash"] is None
+                       else dev32(c["stash"])):
+                kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"],
+                          stash=st)
+                off = probe(table, hi, lo, block=c["block"], **kw)
+                self.record("probe", [(off, probe_plain(table, hi, lo,
+                                                        **kw))])
+                planes.append(self.hold_probe_tm(
+                    "probe_tm", probe_tm, probe_plain, off, (table, hi, lo),
+                    c["counted"], c["block"], kw))
+            print(f"   probe case {label}: n={c['keys'].size} counted="
+                  f"{c['counted']} depth planes without / with the stash="
+                  f"{planes}: same as the plain version", flush=True)
 
     def staging(self) -> None:
         """STAGING_CASES: insert (the first quarter of the keys twice, in
@@ -349,9 +454,12 @@ class KernelBench:
         torch = self.torch
         from repro_torch.core import hashing
         from repro_torch.kernels.delete import delete_bulk, delete_bulk_plain
-        from repro_torch.kernels.insert import insert_bulk, insert_bulk_plain
+        from repro_torch.kernels.insert import (insert_bulk,
+                                                insert_bulk_plain,
+                                                insert_bulk_tm)
         from repro_torch.kernels.staging_cases import (STAGING_CASES,
                                                        staging_inputs)
+        from repro_torch.kernels.telemetry import insert_plane
 
         def dev32(a):
             return torch.from_numpy(a.astype(np.uint32).view(np.int32)
@@ -366,16 +474,26 @@ class KernelBench:
             valid = torch.from_numpy(c["valid"]).to(self.dev)
             tk = dev32(c["table"])
             tp, sp = tk.clone(), None if sk is None else sk.clone()
+            tt, st = tk.clone(), None if sk is None else sk.clone()
             okk = insert_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb,
                               valid=valid, evict_rounds=rounds, stash=sk,
                               block=block)[-1]
-            okp = insert_bulk_plain(tp, hi, lo, valid, fp_bits=16,
-                                    n_buckets=nb, evict_rounds=rounds,
-                                    stash=sp, block=block)
+            okp, stats = insert_bulk_plain(tp, hi, lo, valid, fp_bits=16,
+                                           n_buckets=nb, evict_rounds=rounds,
+                                           stash=sp, block=block,
+                                           want_stats=True)
             pairs = [(tk, tp), (okk, okp)]
             if sk is not None:
                 pairs.append((sk, sp))
             self.record("insert_bulk", pairs)
+            tm = insert_bulk_tm(tt, hi, lo, fp_bits=16, n_buckets=nb,
+                                valid=valid, evict_rounds=rounds, stash=st,
+                                block=block)
+            plane = insert_plane(*stats, valid)
+            self.hold_tm("insert_bulk_tm", ([tt, tm[-2]], tm[-1]),
+                         ([tp, okp], plane),
+                         [(tt, tk), (tm[-2], okk)]
+                         + ([] if sk is None else [(st, sk)]))
             dele = c["delete"]
             hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(dele))
             every = torch.ones(dele.size, dtype=torch.bool, device=self.dev)
@@ -390,7 +508,9 @@ class KernelBench:
                   f"bucket_size={tk.shape[1]} keys={c['keys'].size} "
                   f"failed={failed} stashed="
                   f"{0 if sp is None else int((sp[0] != 0).sum())}/{slots} "
-                  f"deleted={int(dp.sum())} of {dele.size}", flush=True)
+                  f"deleted={int(dp.sum())} of {dele.size}; telemetry "
+                  f"twin's plane {plane.tolist()} same as the plain "
+                  f"version's", flush=True)
             check(failed > 0, f"staging {label}: no insert failed")
 
 
@@ -574,9 +694,11 @@ class AdaptiveKernelBench(KernelBench):
         from repro_torch.kernels.delete import (delete_bulk_adaptive,
                                                 delete_bulk_adaptive_plain)
         from repro_torch.kernels.insert import (insert_bulk_adaptive,
-                                                insert_bulk_adaptive_plain)
+                                                insert_bulk_adaptive_plain,
+                                                insert_bulk_adaptive_tm)
         from repro_torch.kernels.staging_cases import (
             ADAPTIVE_STAGING_CASES, adaptive_staging_inputs)
+        from repro_torch.kernels.telemetry import insert_plane
         from repro_torch.core import hashing
 
         def dev32(a):
@@ -588,8 +710,10 @@ class AdaptiveKernelBench(KernelBench):
             nb, block, rounds = c["n_buckets"], c["block"], c["rounds"]
             pk = [dev32(p) for p in c["planes"]]
             pp = [p.clone() for p in pk]
+            pt = [p.clone() for p in pk]
             sk = None if c["stash"] is None else dev32(c["stash"])
             sp = None if sk is None else sk.clone()
+            st = None if sk is None else sk.clone()
             hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(c["keys"]))
             valid = torch.from_numpy(c["valid"]).to(self.dev)
             before = self.adapted_slots(pk)
@@ -597,14 +721,22 @@ class AdaptiveKernelBench(KernelBench):
                                        valid=valid, evict_rounds=rounds,
                                        stash=sk, block=block,
                                        split_keys=split_keys)[-1]
-            okp = insert_bulk_adaptive_plain(*pp, hi, lo, valid, fp_bits=16,
-                                             n_buckets=nb,
-                                             evict_rounds=rounds, stash=sp,
-                                             block=block)
+            okp, stats = insert_bulk_adaptive_plain(
+                *pp, hi, lo, valid, fp_bits=16, n_buckets=nb,
+                evict_rounds=rounds, stash=sp, block=block, want_stats=True)
             pairs = list(zip(pk, pp)) + [(okk, okp)]
             if sk is not None:
                 pairs.append((sk, sp))
             self.record("insert_bulk_adaptive", pairs)
+            tm = insert_bulk_adaptive_tm(*pt, hi, lo, fp_bits=16,
+                                         n_buckets=nb, valid=valid,
+                                         evict_rounds=rounds, stash=st,
+                                         block=block, split_keys=split_keys)
+            self.hold_tm("insert_bulk_adaptive_tm",
+                         ([*pt, tm[-2]], tm[-1]),
+                         ([*pp, okp], insert_plane(*stats, valid)),
+                         [*zip(pt, pk), (tm[-2], okk)]
+                         + ([] if sk is None else [(st, sk)]))
             failed = int((valid & ~okp).sum())
             reset = before - self.adapted_slots(pp)
             hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(
@@ -642,7 +774,8 @@ class AdaptiveKernelBench(KernelBench):
         torch = self.torch
         from repro_torch.core import hashing
         from repro_torch.kernels.probe import (probe_adaptive,
-                                               probe_adaptive_plain)
+                                               probe_adaptive_plain,
+                                               probe_adaptive_tm)
         from repro_torch.kernels.staging_cases import (
             PROBE_ADAPTIVE_CASES, probe_adaptive_inputs)
 
@@ -654,7 +787,7 @@ class AdaptiveKernelBench(KernelBench):
             c = probe_adaptive_inputs(label, SEED)
             table, sels = dev32(c["table"]), dev32(c["sels"])
             hi, lo = (dev32(x) for x in hashing.key_to_u32_pair_np(c["keys"]))
-            hits = []
+            hits, planes = [], []
             for st in (None, dev32(c["stash"])):
                 kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"],
                           stash=st)
@@ -663,11 +796,17 @@ class AdaptiveKernelBench(KernelBench):
                 want = probe_adaptive_plain(table, sels, hi, lo, **kw)
                 self.record("probe_adaptive", [(got, want)])
                 hits.append(int(got.sum()))
+                # the telemetry twin, the last 7 lanes uncounted
+                planes.append(self.hold_probe_tm(
+                    "probe_adaptive_tm", probe_adaptive_tm,
+                    probe_adaptive_plain, got, (table, sels, hi, lo),
+                    max(0, c["keys"].size - 7), c["block"], kw))
             print(f"   probe_adaptive case {label}: bucket_size="
                   f"{c['table'].shape[1]} fp_bits={c['fp_bits']} n="
                   f"{c['keys'].size} stash slots={c['stash'].shape[1]} live="
                   f"{int((c['stash'][0] != 0).sum())} hits without / with "
-                  f"the stash={hits}: same as the plain version", flush=True)
+                  f"the stash={hits}, depth planes={planes}: same as the "
+                  f"plain version", flush=True)
 
 
 class StreamingKernelBench(KernelBench):
@@ -1114,6 +1253,96 @@ def ring_parity(n_events: int = 100_000):
           "the ring stream missed a rotation, expiry, spill or retry")
 
 
+def batcher_stream(device: str, *, adaptive: bool, telemetry: bool,
+                   n_buckets: int = 1024, wave: int = 1024):
+    """A seeded wave stream through a ``FilterOpBatcher`` over a 8-slot
+    stash on ``device``: insert waves to load ~0.95 (kicks, spills,
+    rollbacks), lookups with repeats (dedup) and absent keys, for the
+    adaptive filter reports of the false positives, then deletes of the
+    acknowledged keys, the last ones twice -> (batcher, wave results,
+    registry snapshot without the host's latencies)."""
+    from repro_torch.adaptive.state import make_adaptive_state
+    from repro_torch.core.filter import make_state
+    from repro_torch.core.filter_ops import FilterOps
+    from repro_torch.kernels.stash import make_stash
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import FilterOpBatcher
+
+    rng = np.random.RandomState(SEED + 17)
+    state = (make_adaptive_state(n_buckets, device=device) if adaptive
+             else make_state(n_buckets, device=device))
+    m = MetricsRegistry()
+    b = FilterOpBatcher(FilterOps(fp_bits=8 if adaptive else 12,
+                                  evict_rounds=4),
+                        state, stash=make_stash(8, device=device),
+                        wave_slots=wave, double_buffer=True,
+                        telemetry=telemetry, metrics=m)
+    members = random_keys(rng, 4 * wave)
+    benign = random_keys(rng, wave)
+    waves = [b.submit("insert", members[i:i + wave])
+             for i in range(0, members.size, wave)]
+    b.flush()
+    taken = members[np.concatenate([w.results for w in waves])]
+    waves.append(b.submit("lookup", np.concatenate(
+        [taken[:wave // 2], taken[:wave // 8], benign[:wave // 4]])))
+    if adaptive:
+        b.flush()
+        waves.append(b.submit("report", benign[:wave // 4][waves[-1].results[
+            -(wave // 4):]]))
+    waves.append(b.submit("lookup", benign))
+    for i in range(0, taken.size, wave):
+        waves.append(b.submit("delete", taken[i:i + wave]))
+    waves.append(b.submit("delete", taken[-wave // 8:]))
+    b.flush()
+    snap = {k: v for k, v in m.snapshot().items() if "latency" not in k}
+    return b, [w.results for w in waves], snap
+
+
+def batcher_parity(adaptive: bool) -> None:
+    """The filter's serving front (``FilterOpBatcher``) with telemetry on,
+    card against CPU on one seeded stream: every wave's results, the
+    table (and the adaptive planes), the stash, the count and every
+    counter of the registry equal."""
+    import torch
+    from repro_torch.kernels import cuda
+    cuda.reset_counts()
+    card, card_res, card_snap = batcher_stream("cuda", adaptive=adaptive,
+                                               telemetry=True)
+    tm_launches = {k: cuda.LAUNCHES[k] for k in cuda.TM_KERNELS
+                   if cuda.LAUNCHES[k]}
+    cpu, cpu_res, cpu_snap = batcher_stream("cpu", adaptive=adaptive,
+                                            telemetry=True)
+    label = "adaptive" if adaptive else "static"
+    check(len(card_res) == len(cpu_res) and all(
+        np.array_equal(a, b) for a, b in zip(card_res, cpu_res)),
+        f"batcher stream ({label}): a wave's results differ, card vs CPU")
+    planes = ("table", "sels", "khi", "klo") if adaptive else ("table",)
+    for plane in planes:
+        check(torch.equal(getattr(card.state, plane).cpu(),
+                          getattr(cpu.state, plane)),
+              f"batcher stream ({label}): {plane} differs, card vs CPU")
+    check(torch.equal(card.stash.cpu(), cpu.stash)
+          and int(card.state.count) == int(cpu.state.count),
+          f"batcher stream ({label}): stash or count differs")
+    check(card_snap == cpu_snap,
+          f"batcher stream ({label}): counters differ, card {card_snap} vs "
+          f"CPU {cpu_snap}")
+    want = ["filter_stash_spills", "filter_rollback_lanes",
+            "filter_stash_deletes", "filter_table_deletes"]
+    if adaptive:
+        want.append("filter_selector_bumps")
+    zero = [k for k in want if not card_snap.get(k)]
+    check(not zero, f"batcher stream ({label}): counters never moved: {zero}")
+    counters = {k: v for k, v in card_snap.items()
+                if k.startswith(("filter_stash", "filter_rollback",
+                                 "filter_selector", "filter_table",
+                                 "filter_probe"))}
+    print(f"   batcher stream ({label}, telemetry on): {len(card_res)} waves, "
+          f"tm launches {tm_launches}, kick depth "
+          f"{card_snap['filter_kick_depth']['counts']}, {counters}: same "
+          f"as the CPU", flush=True)
+
+
 def prefix_index_parity(steps: int = 40):
     """One seeded GenerationalPrefixIndex stream (shared system prompts,
     varied user turns, a TTL on a logical clock) on the card and the CPU:
@@ -1371,6 +1600,199 @@ def adaptive_path(card: str, *, n_buckets=1 << 22, bursts=12,
     return m, remaining, launches, plain, {
         "load": load, "fp_rounds": fp_rounds, "times": times,
         "device_s": device_s, "benign": benign}
+
+
+# ------------------------------- phase 5d: filter-op waves at full size --
+
+
+def filter_wave_run(keys: np.ndarray, absent: np.ndarray, *,
+                    adaptive: bool, telemetry: bool, n_buckets: int,
+                    wave: int, stash_slots: int, load: float) -> dict:
+    """One arm of phase 5d: a ``FilterOpBatcher`` over a fresh state and
+    stash on the card; insert waves of ``keys``, lookup waves over every
+    acknowledged key and as many of ``absent``, for the adaptive filter
+    report waves of the absent keys that hit, then delete waves over the
+    first half of the acknowledged keys."""
+    import torch
+    from repro_torch.adaptive.state import make_adaptive_state
+    from repro_torch.core.filter import make_state
+    from repro_torch.core.filter_ops import FilterOps, evict_rounds_for_load
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.stash import make_stash
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import FilterOpBatcher
+
+    m = MetricsRegistry()
+    b = FilterOpBatcher(
+        FilterOps(fp_bits=16, evict_rounds=evict_rounds_for_load(load),
+                  donate=True),
+        (make_adaptive_state if adaptive else make_state)(n_buckets, 4),
+        stash=make_stash(stash_slots), wave_slots=wave, double_buffer=True,
+        telemetry=telemetry, metrics=m)
+
+    def waves(kind, k):
+        return [b.submit(kind, k[i:i + wave]) for i in range(0, k.size, wave)]
+
+    gc.collect()      # the earlier arms' garbage, outside the timed span
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    ins = waves("insert", keys)
+    b.flush()
+    acked = keys[np.concatenate([w.results for w in ins])]
+    look = waves("lookup", np.concatenate([acked, absent[:acked.size]]))
+    reps = []
+    if adaptive:
+        b.flush()
+        hit = np.concatenate([w.results for w in look])[acked.size:]
+        reps = waves("report", absent[:acked.size][hit])
+    dels = waves("delete", acked[: acked.size // 2])
+    b.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    every = ins + look + reps + dels
+    return {"wall": wall, "waves": len(every),
+            "keys": sum(w.n for w in every), "acked": acked.size,
+            "hits": np.concatenate([w.results for w in look]),
+            "reported": sum(w.n for w in reps),
+            "deleted": np.concatenate([w.results for w in dels]),
+            "results": [w.results for w in every],
+            "probed": sum(w._n_probe for w in look),
+            "planes": [p.cpu() for p in b.state[:-2]],
+            "stash": b.stash.cpu(), "count": int(b.state.count),
+            "launches": launches, "plain": plain, "snapshot": m.snapshot()}
+
+
+def filter_wave_family(card: str, adaptive: bool, keys, absent,
+                       **kw) -> dict:
+    """Phase 5d for one state family: telemetry off, on, on, off, off, on
+    from the same seed (walls in turns, the median of three an arm), then
+    each once more under a CUDA-activity trace; checks the arms equal and
+    the counters' sums."""
+    import torch
+    from repro_torch.kernels import cuda
+    from torch.profiler import ProfilerActivity, profile
+
+    label = "adaptive" if adaptive else "static"
+    for tm in (False, True):        # warm-up: the first waves' set-up
+        filter_wave_run(keys[: 16 * kw["wave"]], absent, adaptive=adaptive,
+                        telemetry=tm, **kw)
+    arms = {"off": filter_wave_run(keys, absent, adaptive=adaptive,
+                                   telemetry=False, **kw),
+            "on": filter_wave_run(keys, absent, adaptive=adaptive,
+                                  telemetry=True, **kw)}
+    off, on = arms["off"], arms["on"]
+    walls = {"off": [off["wall"]], "on": [on["wall"]]}
+    plain = collections.Counter(off["plain"]) + collections.Counter(
+        on["plain"])
+    for name in ("on", "off", "off", "on"):
+        t = filter_wave_run(keys, absent, adaptive=adaptive,
+                            telemetry=name == "on", **kw)
+        check(t["count"] == off["count"],
+              f"filter-op waves ({label}): a repeated arm left another "
+              f"count")
+        walls[name].append(t["wall"])
+        plain.update(t["plain"])         # Counter.update adds
+        del t
+    busy = {}
+    for name, tm in (("off", False), ("on", True)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = filter_wave_run(keys, absent, adaptive=adaptive,
+                                     telemetry=tm, **kw)
+        busy[name] = (sum((getattr(ev, "device_time_total", 0.0) or 0.0)
+                          for ev in prof.key_averages()) / 1e6,
+                      traced["wall"])
+        check(traced["count"] == arms[name]["count"],
+              f"filter-op waves ({label}): the traced {name} arm left "
+              f"another count")
+
+    check(len(off["results"]) == len(on["results"]) and all(
+        np.array_equal(a, b) for a, b in zip(off["results"], on["results"])),
+        f"filter-op waves ({label}): a wave's results differ with "
+        f"telemetry on")
+    check(all(torch.equal(a, b) for a, b in zip(off["planes"], on["planes"]))
+          and torch.equal(off["stash"], on["stash"])
+          and off["count"] == on["count"],
+          f"filter-op waves ({label}): the state differs with telemetry on")
+    fn = int((~on["hits"][: on["acked"]]).sum())
+    check(fn == 0, f"filter-op waves ({label}): {fn} false negatives")
+    tm_off = {k: v for k, v in off["launches"].items()
+              if k in cuda.TM_KERNELS}
+    check(not tm_off, f"the telemetry-off arm ({label}) launched {tm_off}")
+    snap = on["snapshot"]
+    kicks = sum(snap["filter_kick_depth"]["counts"])
+    depth = sum(v for k, v in snap.items()
+                if k.startswith("filter_probe_depth"))
+    deletes = snap.get("filter_table_deletes", 0) + snap.get(
+        "filter_stash_deletes", 0)
+    n_del = int(on["deleted"].sum())
+    check(kicks == keys.size, f"{label}: kick_hist sums to {kicks}, not the "
+                              f"{keys.size} insert lanes offered")
+    check(depth == on["probed"], f"{label}: probe_depth sums to {depth}, "
+                                 f"not the {on['probed']} lanes probed")
+    check(deletes == n_del, f"{label}: table + stash deletes {deletes} != "
+                            f"{n_del} acknowledged deletes")
+    if adaptive:
+        check(snap.get("filter_selector_bumps", 0) > 0,
+              "adaptive: the report waves bumped no selector")
+    n_slots = kw["n_buckets"] * 4
+    print(f"   {label}: {keys.size} insert lanes, {on['acked']} acknowledged "
+          f"(load {on['acked'] / n_slots!r}), false positives "
+          f"{int(on['hits'][on['acked']:].sum())} of {on['acked']} absent "
+          f"({on['reported']} reported), {n_del} of {on['acked'] // 2} "
+          f"deletes acknowledged, no false negatives", flush=True)
+    print(f"   {label} counters: kick depth "
+          f"{snap['filter_kick_depth']['counts']}, "
+          + ", ".join(f"{k} {v}" for k, v in sorted(snap.items())
+                      if k.startswith(("filter_probe_depth", "filter_stash",
+                                       "filter_rollback", "filter_table",
+                                       "filter_selector"))), flush=True)
+    print(f"   {label} launches: off {off['launches']}, on {on['launches']}",
+          flush=True)
+    wall = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    for name, arm in arms.items():
+        dev_s, t_wall = busy[name]
+        print(f"   [{card}] {label}, telemetry {name}: "
+              f"{' / '.join(repr(w) for w in walls[name])} s wall, "
+              f"{arm['waves'] / wall[name]!r} waves/s, "
+              f"{arm['keys'] / wall[name]!r} keys/s (the median); traced "
+              f"run: "
+              f"device busy {dev_s!r} s of {t_wall!r} s (idle share "
+              f"{1 - dev_s / t_wall!r})", flush=True)
+    overhead = (wall["on"] - wall["off"]) / wall["off"] * 100
+    dev_over = ((busy["on"][0] - busy["off"][0]) / busy["off"][0] * 100
+                if busy["off"][0] > 0 else None)
+    print(f"   [{card}] {label} telemetry overhead: {overhead!r} % of the "
+          f"wall, {dev_over!r} % of the device's busy time", flush=True)
+    return {"launches": on["launches"],
+            "plain": dict(plain),
+            "overhead_pct": overhead, "busy": busy, "wall": walls}
+
+
+def filter_wave_path(card: str, *, n_buckets=1 << 20, wave=4096,
+                     stash_slots=128, load=0.85) -> dict:
+    """The filter's serving front at full size: one node's membership
+    filter (2^20 buckets of 4, the 16 MB table of phase 4's 2^22 slots,
+    fp_bits 16, a 128-slot stash, the eviction budget of load 0.85) behind
+    ``FilterOpBatcher`` (4096-key waves, double-buffered): seeded insert
+    waves up to load 0.85, lookups of every acknowledged key and as many
+    absent ones, deletes of half the acknowledged keys; the same over the
+    four adaptive planes with report waves of the false positives
+    (``filter_wave_family``)."""
+    rng = np.random.RandomState(SEED + 19)
+    keys = random_keys(rng, int(load * n_buckets * 4))
+    absent = random_keys(rng, keys.size)
+    kw = dict(n_buckets=n_buckets, wave=wave, stash_slots=stash_slots,
+              load=load)
+    out = {"launches": {}, "plain": {}, "families": {}}
+    for adaptive in (False, True):
+        fam = filter_wave_family(card, adaptive, keys, absent, **kw)
+        out["launches"].update(fam["launches"])
+        for k, v in fam["plain"].items():
+            out["plain"][k] = out["plain"].get(k, 0) + v
+        out["families"]["adaptive" if adaptive else "static"] = fam
+    return out
 
 
 # --------------------------------------------- phase 5b: the streaming path --
@@ -1731,8 +2153,10 @@ def kernel_device_ms(fn, reps: int, setup, symbol: str):
                     setup()
                 fn()
             torch.cuda.synchronize()
+        names = (symbol,) if isinstance(symbol, str) else symbol
         spans = [getattr(ev, "device_time_total", 0.0) or 0.0
-                 for ev in prof.events() if symbol in ev.name]
+                 for ev in prof.events()
+                 if any(n in ev.name for n in names)]
         spans = [us for us in spans if us > 0]
         if spans:
             return sum(spans) / len(spans) / 1e3
@@ -1783,9 +2207,11 @@ def kernel_times(ocf, resident: np.ndarray) -> dict:
     from repro_torch.kernels.delete import delete_bulk, delete_bulk_plain
     from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                                  fingerprint_hash_plain)
-    from repro_torch.kernels.insert import insert_bulk, insert_bulk_plain
-    from repro_torch.kernels.probe import probe, probe_plain
+    from repro_torch.kernels.insert import (insert_bulk, insert_bulk_plain,
+                                            insert_bulk_tm)
+    from repro_torch.kernels.probe import probe, probe_plain, probe_tm
     from repro_torch.kernels.rank import rank_among_earlier
+    from repro_torch.kernels.telemetry import insert_plane
 
     dev = ocf.state.table.device
     nb = ocf.state.n_buckets
@@ -1847,7 +2273,21 @@ def kernel_times(ocf, resident: np.ndarray) -> dict:
         return delete_bulk(work, del_hi, del_lo, fp_bits=16, n_buckets=nb,
                            valid=valid, block=dblock)
 
+    def insert_tm_plain():
+        ok, stats = insert_bulk_plain(work, new_hi, new_lo, valid, fp_bits=16,
+                                      n_buckets=nb, evict_rounds=rounds,
+                                      stash=None, block=iblock,
+                                      want_stats=True)
+        return work, ok, insert_plane(*stats, valid)
+
     n = CHUNK
+    probe_bytes, probe_ops = table_work(base, base, look_hi, look_lo, valid,
+                                        nb, lane_bytes=8 + 1,
+                                        second=probe_second)
+    insert_bytes, insert_ops = table_work(base, after(insert_k), new_hi,
+                                          new_lo, valid, nb,
+                                          lane_bytes=8 + 1 + 1,
+                                          second=insert_second)
     rows = {
         "fingerprint_hash": (
             lambda: fingerprint_hash(new_hi, new_lo, fp_bits=16, n_buckets=nb),
@@ -1858,24 +2298,33 @@ def kernel_times(ocf, resident: np.ndarray) -> dict:
             probe_k,
             lambda: probe_plain(base, look_hi, look_lo, fp_bits=16,
                                 n_buckets=nb),
-            None, table_work(base, base, look_hi, look_lo, valid, nb,
-                             lane_bytes=8 + 1, second=probe_second),
-            "probe_kernel"),
+            None, (probe_bytes, probe_ops), "probe_kernel"),
+        # The telemetry twins: the same work and a 16- or 40-byte plane.
+        "probe_tm": (
+            lambda: probe_tm(base, look_hi, look_lo, fp_bits=16,
+                             n_buckets=nb, block=pblock),
+            lambda: probe_stats_plane(probe_plain(
+                base, look_hi, look_lo, fp_bits=16, n_buckets=nb,
+                want_stats=True)),
+            None, (probe_bytes + 16, probe_ops), "probe_kernel"),
+        "insert_bulk_tm": (
+            lambda: insert_bulk_tm(work, new_hi, new_lo, fp_bits=16,
+                                   n_buckets=nb, valid=valid,
+                                   evict_rounds=rounds, block=iblock),
+            insert_tm_plain, restore, (insert_bytes + 40, insert_ops),
+            "insert_kernel"),
         "insert_bulk": (
             insert_k,
-            lambda: insert_bulk_plain(work, new_hi, new_lo, valid,
-                                      fp_bits=16, n_buckets=nb,
-                                      evict_rounds=rounds, stash=None,
-                                      block=iblock),
-            restore, table_work(base, after(insert_k), new_hi, new_lo, valid,
-                                nb, lane_bytes=8 + 1 + 1,
-                                second=insert_second),
-            "insert_kernel"),
+            lambda: (work, insert_bulk_plain(work, new_hi, new_lo, valid,
+                                             fp_bits=16, n_buckets=nb,
+                                             evict_rounds=rounds, stash=None,
+                                             block=iblock)),
+            restore, (insert_bytes, insert_ops), "insert_kernel"),
         "delete_bulk": (
             delete_k,
-            lambda: delete_bulk_plain(work, del_hi, del_lo, valid,
-                                      fp_bits=16, n_buckets=nb,
-                                      block=dblock),
+            lambda: (work, delete_bulk_plain(work, del_hi, del_lo, valid,
+                                             fp_bits=16, n_buckets=nb,
+                                             block=dblock)),
             restore, table_work(base, after(delete_k), del_hi, del_lo, valid,
                                 nb, lane_bytes=8 + 1 + 1,
                                 second=delete_second),
@@ -1905,11 +2354,58 @@ def kernel_times(ocf, resident: np.ndarray) -> dict:
     return out
 
 
-def time_rows(rows: dict, ops_per_s: float = SCALAR_OPS_PER_S) -> dict:
+def flat_tensors(out) -> list:
+    """The tensors of a (nested) kernel or plain result, in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for x in out for t in flat_tensors(x)]
+    return [out]
+
+
+def hold_row(name: str, kern, plain, setup) -> None:
+    """Run ``kern`` and ``plain`` once each from the same ``setup``,
+    outside any timed span, and require every output (the tables they
+    update in place among them) equal bit for bit (fatal)."""
+    import torch
+    if setup:
+        setup()
+    got = [t.clone() for t in flat_tensors(kern())]
+    if setup:
+        setup()
+    want = [t.clone() for t in flat_tensors(plain())]
+    check(len(got) == len(want), f"{name}: the kernel gives {len(got)} "
+                                 f"outputs, the plain version {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape and a.dtype == b.dtype
+              and torch.equal(a, b),
+              f"{name} at full size: output {i} of the kernel differs from "
+              f"the plain version's")
+    print(f"   {name}: held at full size, {len(got)} outputs "
+          f"({', '.join('x'.join(map(str, t.shape)) or '1' for t in got)}) "
+          f"equal to the plain version's bit for bit", flush=True)
+
+
+def probe_stats_plane(out):
+    """(hit, (h1, h2, hs)) of a plain probe with stats -> (hit, the
+    depth plane of every lane)."""
+    from repro_torch.kernels.telemetry import probe_depth_counts
+    hit, hs = out
+    return hit, probe_depth_counts(*hs, hit | ~hit)
+
+
+def time_rows(rows: dict, ops_per_s: float = SCALAR_OPS_PER_S, *,
+              hold: bool = True) -> dict:
     """Device, wrapper, plain and bound times of each row
-    ``name: (kernel call, plain call, setup, (bytes, ops), symbol)``."""
+    ``name: (kernel call, plain call, setup, (bytes, ops), symbol)``, each
+    held first against its plain version bit for bit (``hold_row``) unless
+    ``hold`` is False (flash attention, which phase 2 holds within its
+    tolerance at gemma3-1b's shapes).  The plain call returns what the
+    kernel call does (the tables the calls update in place among them);
+    ``symbol`` is a substring of the kernel's name in the profiler trace,
+    or a tuple of them."""
     out = {}
     for name, (kern, plain, setup, (nbytes, ops), symbol) in rows.items():
+        if hold:
+            hold_row(name, kern, plain, setup)
         bound_ms, bound_by = least_ms(nbytes, ops, ops_per_s)
         # plain, kernel, kernel, plain: compare within one call, in turns.
         p1 = time_ms(plain, 3, setup)
@@ -1995,12 +2491,15 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
     from repro_torch.kernels.fingerprint import (
         fingerprint_hash_family, fingerprint_hash_family_plain)
     from repro_torch.kernels.insert import (insert_bulk_adaptive,
-                                            insert_bulk_adaptive_plain)
+                                            insert_bulk_adaptive_plain,
+                                            insert_bulk_adaptive_tm)
     from repro_torch.kernels.probe import (probe_adaptive,
-                                           probe_adaptive_plain)
+                                           probe_adaptive_plain,
+                                           probe_adaptive_tm)
     from repro_torch.kernels.rank import rank_among_earlier
     from repro_torch.kernels.selector import (fp_family, sel_unpack,
                                               select_fp)
+    from repro_torch.kernels.telemetry import insert_plane
 
     st = m.filt.state
     nb, dev = st.n_buckets, st.table.device
@@ -2079,7 +2578,18 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
         return delete_bulk_adaptive(*work, del_hi, del_lo, fp_bits=16,
                                     n_buckets=nb, valid=valid, block=dblock)
 
+    def insert_tm_plain():
+        ok, stats = insert_bulk_adaptive_plain(
+            *work, new_hi, new_lo, valid, fp_bits=16, n_buckets=nb,
+            evict_rounds=rounds, stash=None, block=iblock, want_stats=True)
+        return (*work, ok, insert_plane(*stats, valid))
+
     n = CHUNK
+    insert_bytes, insert_ops = adaptive_work(
+        base, after(insert_k), new_hi, new_lo, valid, nb,
+        lane_bytes=8 + 1 + 1, second=insert_second, sel_rows="none",
+        key_ops=HASH_OPS, slot_ops=2)
+    p_bytes, p_ops = probe_work("matching")
     rows = {
         "fingerprint_hash_family": (
             lambda: fingerprint_hash_family(new_hi, new_lo, fp_bits=16,
@@ -2092,22 +2602,33 @@ def adaptive_kernel_times(m, remaining: np.ndarray) -> dict:
             lambda: probe_adaptive_plain(base[0], base[1], look_hi, look_lo,
                                          fp_bits=16, n_buckets=nb,
                                          stash=stash),
-            None, probe_work("matching"), "probe_adaptive_kernel"),
+            None, (p_bytes, p_ops), "probe_adaptive_kernel"),
+        # The telemetry twins: the same work and a 16- or 40-byte plane.
+        "probe_adaptive_tm": (
+            lambda: probe_adaptive_tm(base[0], base[1], look_hi, look_lo,
+                                      fp_bits=16, n_buckets=nb, stash=stash,
+                                      block=pblock),
+            lambda: probe_stats_plane(probe_adaptive_plain(
+                base[0], base[1], look_hi, look_lo, fp_bits=16,
+                n_buckets=nb, stash=stash, want_stats=True)),
+            None, (p_bytes + 16, p_ops), "probe_adaptive_kernel"),
+        "insert_bulk_adaptive_tm": (
+            lambda: insert_bulk_adaptive_tm(
+                *work, new_hi, new_lo, fp_bits=16, n_buckets=nb,
+                valid=valid, evict_rounds=rounds, block=iblock),
+            insert_tm_plain, restore, (insert_bytes + 40, insert_ops),
+            "insert_adaptive_kernel"),
         "insert_bulk_adaptive": (
             insert_k,
-            lambda: insert_bulk_adaptive_plain(
+            lambda: (*work, insert_bulk_adaptive_plain(
                 *work, new_hi, new_lo, valid, fp_bits=16, n_buckets=nb,
-                evict_rounds=rounds, stash=None, block=iblock),
-            restore, adaptive_work(base, after(insert_k), new_hi, new_lo,
-                                   valid, nb, lane_bytes=8 + 1 + 1,
-                                   second=insert_second, sel_rows="none",
-                                   key_ops=HASH_OPS, slot_ops=2),
-            "insert_adaptive_kernel"),
+                evict_rounds=rounds, stash=None, block=iblock)),
+            restore, (insert_bytes, insert_ops), "insert_adaptive_kernel"),
         "delete_bulk_adaptive": (
             delete_k,
-            lambda: delete_bulk_adaptive_plain(
+            lambda: (*work, delete_bulk_adaptive_plain(
                 *work, del_hi, del_lo, valid, fp_bits=16, n_buckets=nb,
-                block=dblock),
+                block=dblock)),
             restore, adaptive_work(base, after(delete_k), del_hi, del_lo,
                                    valid, nb, lane_bytes=8 + 1 + 1,
                                    second=delete_second, sel_rows="all",
@@ -2171,8 +2692,11 @@ def probe_adaptive_path_times(m, remaining: np.ndarray,
     import torch
     from repro_torch.core import hashing
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels.probe import probe_adaptive, probe_adaptive_plain
+    from repro_torch.kernels.probe import (probe_adaptive,
+                                           probe_adaptive_plain,
+                                           probe_adaptive_tm)
     from repro_torch.kernels.selector import fp_family, sel_unpack, select_fp
+    from repro_torch.kernels.telemetry import probe_depth_counts
 
     st = m.filt.state
     nb, dev = st.n_buckets, st.table.device
@@ -2218,15 +2742,31 @@ def probe_adaptive_path_times(m, remaining: np.ndarray,
         def call(hi=hi, lo=lo, st_=st_, block=block):
             return probe_adaptive(table, sels, hi, lo, fp_bits=16,
                                   n_buckets=nb, stash=st_, block=block)
+        def call_tm(hi=hi, lo=lo, st_=st_, block=block, n=keys.size):
+            return probe_adaptive_tm(table, sels, hi, lo, fp_bits=16,
+                                     n_buckets=nb, stash=st_, n_valid=n,
+                                     block=block)
         got = call()
-        want = probe_adaptive_plain(table, sels, hi, lo, fp_bits=16,
-                                    n_buckets=nb, stash=st_)
+        want, hs = probe_adaptive_plain(table, sels, hi, lo, fp_bits=16,
+                                        n_buckets=nb, stash=st_,
+                                        want_stats=True)
         check(got.shape == want.shape and torch.equal(got, want),
               f"probe_adaptive at the path's size, {label}: kernel differs "
               f"from its plain version ({int((got != want).sum())} keys)")
+        # The telemetry twin: the flag-off answers and the plain version's
+        # depth plane of the path's keys (the padding uncounted).
+        hit_tm, plane = call_tm()
+        want_plane = probe_depth_counts(
+            *hs, torch.arange(hi.numel(), device=dev) < keys.size)
+        check(torch.equal(hit_tm, got) and torch.equal(plane, want_plane),
+              f"probe_adaptive_tm at the path's size, {label}: differs from "
+              f"the plain version with stats ({plane.tolist()} vs "
+              f"{want_plane.tolist()})")
         n_hits = int(got.sum())
-        del got, want
+        del got, want, hs, hit_tm
         ms = flushed_event_ms(call, 20, flush_buf.zero_)
+        tm_ms = flushed_event_ms(call_tm, 20, flush_buf.zero_)
+        ms2 = flushed_event_ms(call, 20, flush_buf.zero_)
         prof = kernel_device_ms(call, 10, flush_buf.zero_,
                                 "probe_adaptive_kernel")
         bound, by = bounds["matching"]
@@ -2237,12 +2777,18 @@ def probe_adaptive_path_times(m, remaining: np.ndarray,
               f"bound {bound!r} ms ({by}; with a selector "
               f"sector for every row looked at: {bounds['all'][0]!r} ms)",
               flush=True)
+        print(f"   probe_adaptive_tm at the path's size, {label}: depth "
+              f"plane {plane.tolist()} (home, alternate, stash, miss), same "
+              f"as the plain version; {tm_ms!r} ms against the flag-off "
+              f"kernel's {ms!r} / {ms2!r} ms (device, CUDA events, L2 "
+              f"flushed; the twin's span holds its plane's zeroing)",
+              flush=True)
         if ms is not None and ms < bound:
             print(f"   probe_adaptive {label}: {ms!r} ms is under its bound "
                   f"{bound!r} ms: the timing is wrong, not kept", flush=True)
             ms = None
         out[label] = {"keys": hi.numel(), "ms": ms, "bound_ms": bound,
-                      "profiler_ms": prof}
+                      "profiler_ms": prof, "tm_ms": tm_ms, "off_ms_2": ms2}
         del hi, lo, valid, i1, home_miss
     return out
 
@@ -2355,8 +2901,8 @@ def flash_kernel_times() -> dict:
             lambda w=window: flash_attention(q, k, v, window=w),
             lambda w=window: flash_attention_plain(q, k, v, window=w),
             None, (nbytes, ops), "flash_wgmma_kernel")}
-        row = time_rows(rows, TENSOR_OPS_PER_S)[f"flash_attention "
-                                                f"({label})"]
+        row = time_rows(rows, TENSOR_OPS_PER_S, hold=False)[
+            f"flash_attention ({label})"]
         mask = (dict(is_causal=True) if window is None
                 else dict(attn_mask=band))
 
@@ -2383,7 +2929,7 @@ def flash_kernel_times() -> dict:
         out[name] = time_rows({name: (
             lambda w=window: flash_attention(q, k, v, window=w),
             lambda w=window: flash_attention_plain(q, k, v, window=w),
-            None, (nbytes, ops), "flash_f32_kernel")})[name]
+            None, (nbytes, ops), "flash_f32_kernel")}, hold=False)[name]
     return out
 
 
@@ -2467,9 +3013,11 @@ def main() -> int:
         took = cuda.build_all()
         for name, secs in took.items():
             print(f"   nvcc {name}: {secs:.2f} s", flush=True)
+        logs = set()
         for name in cuda.KERNELS:
             log = cuda._lib_path(name).with_suffix(".log")
-            if log.exists():
+            if log.exists() and log not in logs:
+                logs.add(log)
                 summary = ptxas_summary(log.read_text())
                 for line in summary:
                     print(f"   {name}: {line}", flush=True)
@@ -2501,6 +3049,8 @@ def main() -> int:
                         late=int(0.95 * (1 << 14)) - 12 * 1024)
         ring_parity()
         prefix_index_parity()
+        for adaptive in (False, True):
+            batcher_parity(adaptive)
         lm_parity()
 
     # Each path runs with the counts set to 0 just before it and read just
@@ -2523,6 +3073,12 @@ def main() -> int:
         check(counts.get("insert_bulk", 0) > 0,
               "insert_bulk was never launched on the streaming path")
 
+    with phase("filter-op waves at full size"):
+        waves = filter_wave_path(card)
+        launches.update({k: waves["launches"].get(k, 0)
+                         for k in cuda.TM_KERNELS})
+        plain["waves"] = waves["plain"]
+
     with phase("LM serving path at full size"):
         counts, plain["lm"], _lm = lm_path(card)
         launches.update({k: counts.get(k, 0) for k in LM_KERNELS})
@@ -2541,6 +3097,10 @@ def main() -> int:
                                          adaptive_stats.pop("benign"))
         perf["probe_adaptive"].update(
             path_keys=path["benign"]["keys"], path_ms=path["benign"]["ms"],
+            path_bound_ms=path["benign"]["bound_ms"])
+        perf["probe_adaptive_tm"].update(
+            path_keys=path["benign"]["keys"],
+            path_ms=path["benign"]["tm_ms"],
             path_bound_ms=path["benign"]["bound_ms"])
         perf.update(streaming_kernel_times(ring, present))
         flash = flash_kernel_times()
@@ -2563,6 +3123,12 @@ def main() -> int:
               f"{perf['probe_adaptive']['no_stash_ms']!r} ms (device), "
               f"{perf['probe_adaptive']['no_stash_ms'] / floor!r} x the "
               f"launch floor", flush=True)
+        # The telemetry instantiations beside their flag-off kernels.
+        for name, off in cuda.TM_KERNELS.items():
+            print(f"   {name}: {perf[name]['ms']!r} ms (device) against "
+                  f"{off}'s {perf[off]['ms']!r} ms: "
+                  f"{(perf[name]['ms'] / perf[off]['ms'] - 1) * 100!r} % "
+                  f"more", flush=True)
         # Phase 4's wall time against its kernels' share: launches there
         # times the device time of one 4096-key launch here.
         for name, op in (("insert_bulk", "insert_s"),

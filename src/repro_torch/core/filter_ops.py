@@ -267,7 +267,133 @@ class FilterOps:
 
     def delete_table(self, table: torch.Tensor, hi: torch.Tensor,
                      lo: torch.Tensor, *, n_buckets: Optional[int] = None,
-                     valid: Optional[torch.Tensor] = None):
-        """Bare-table verified delete on a copy -> (table, ok[N])."""
+                     valid: Optional[torch.Tensor] = None,
+                     stash: Optional[torch.Tensor] = None):
+        """Bare-table verified delete on copies -> (table, ok[N]), or
+        (table, stash, ok[N]) with a ``stash``: lanes that miss the table
+        clear their stash entry (table copies first)."""
         return kops.filter_delete(table, hi, lo, fp_bits=self.fp_bits,
-                                  n_buckets=n_buckets, valid=valid)
+                                  n_buckets=n_buckets, valid=valid,
+                                  stash=stash)
+
+    # --------------------------------------------------- telemetry twins --
+    #
+    # Each ``*_tm`` method is the op above plus a device-computed
+    # ``kernels.telemetry.FilterTelemetry`` (kick-depth histogram, probe
+    # hit depth, spill / rollback / delete counters, stash high-water), with
+    # the same ``count`` bookkeeping.  On the card the insert and lookup
+    # twins launch the kernels' telemetry instantiations; the methods above
+    # never do, so answers do not depend on whether counters are on and the
+    # telemetry-off path launches what it always did.
+
+    def lookup_tm(self, state: FilterState, hi: torch.Tensor,
+                  lo: torch.Tensor):
+        """``lookup`` + telemetry -> (hit[N], FilterTelemetry)."""
+        return kops.probe_dispatch_tm(state.table, hi, lo,
+                                      fp_bits=self.fp_bits,
+                                      n_buckets=state.n_buckets)
+
+    def lookup_with_stash_tm(self, state: FilterState, stash: torch.Tensor,
+                             hi: torch.Tensor, lo: torch.Tensor):
+        """``lookup_with_stash`` + telemetry -> (hit[N], FilterTelemetry)."""
+        return kops.probe_dispatch_tm(state.table, hi, lo,
+                                      fp_bits=self.fp_bits,
+                                      n_buckets=state.n_buckets, stash=stash)
+
+    def insert_tm(self, state: FilterState, hi: torch.Tensor,
+                  lo: torch.Tensor, valid: Optional[torch.Tensor] = None):
+        """``insert`` + telemetry -> (state, ok[N], FilterTelemetry)."""
+        table, ok, tm = kops.filter_insert_tm(
+            state.table, hi, lo, fp_bits=self.fp_bits,
+            n_buckets=state.n_buckets, valid=valid,
+            evict_rounds=self.evict_rounds, schedule=self.schedule,
+            donate=self.donate)
+        return FilterState(table, state.count + ok.sum(),
+                           state.n_buckets), ok, tm
+
+    def insert_spill_tm(self, state: FilterState, stash: torch.Tensor,
+                        hi: torch.Tensor, lo: torch.Tensor,
+                        valid: Optional[torch.Tensor] = None):
+        """``insert_spill`` + telemetry -> (state, stash, ok[N], tm)."""
+        spilled_before = stash_occupancy(stash)
+        table, new_stash, ok, tm = kops.filter_insert_tm(
+            state.table, hi, lo, fp_bits=self.fp_bits,
+            n_buckets=state.n_buckets, valid=valid,
+            evict_rounds=self.evict_rounds, stash=stash,
+            schedule=self.schedule, donate=self.donate)
+        newly_stashed = stash_occupancy(new_stash) - spilled_before
+        count = state.count + ok.sum() - newly_stashed
+        return FilterState(table, count, state.n_buckets), new_stash, ok, tm
+
+    def delete_tm(self, state: FilterState, hi: torch.Tensor,
+                  lo: torch.Tensor, valid: Optional[torch.Tensor] = None):
+        """``delete`` + telemetry -> (state, ok[N], FilterTelemetry)."""
+        table, ok, tm = kops.filter_delete_tm(
+            state.table, hi, lo, fp_bits=self.fp_bits,
+            n_buckets=state.n_buckets, valid=valid, donate=self.donate)
+        return FilterState(table, state.count - ok.sum(),
+                           state.n_buckets), ok, tm
+
+    def lookup_adaptive_tm(self, state, hi: torch.Tensor, lo: torch.Tensor,
+                           stash: Optional[torch.Tensor] = None):
+        """``lookup_adaptive`` + telemetry -> (hit[N], FilterTelemetry)."""
+        return kops.adaptive_lookup_tm(state.table, state.sels, hi, lo,
+                                       fp_bits=self.fp_bits,
+                                       n_buckets=state.n_buckets,
+                                       stash=stash)
+
+    def insert_adaptive_tm(self, state, hi: torch.Tensor, lo: torch.Tensor,
+                           valid: Optional[torch.Tensor] = None,
+                           stash: Optional[torch.Tensor] = None):
+        """``insert_adaptive`` + telemetry -> (state, ok[N], tm) or
+        (state, stash, ok[N], tm)."""
+        if stash is not None:
+            spilled_before = stash_occupancy(stash)
+        out = kops.adaptive_insert_tm(
+            state.table, state.sels, state.khi, state.klo, hi, lo,
+            fp_bits=self.fp_bits, n_buckets=state.n_buckets, valid=valid,
+            evict_rounds=self.evict_rounds, stash=stash,
+            schedule=self.schedule, donate=self.donate)
+        ok, tm = out[-2], out[-1]
+        count = state.count + ok.sum()
+        table, sels, khi, klo = out[:4]
+        if stash is None:
+            return state._replace(table=table, sels=sels, khi=khi, klo=klo,
+                                  count=count), ok, tm
+        new_stash = out[4]
+        count = count - (stash_occupancy(new_stash) - spilled_before)
+        return state._replace(table=table, sels=sels, khi=khi, klo=klo,
+                              count=count), new_stash, ok, tm
+
+    def delete_adaptive_tm(self, state, hi: torch.Tensor, lo: torch.Tensor,
+                           valid: Optional[torch.Tensor] = None,
+                           stash: Optional[torch.Tensor] = None):
+        """``delete_adaptive`` + telemetry -> (state, ok[N], tm) or
+        (state, stash, ok[N], tm)."""
+        if stash is not None:
+            stash_before = stash_occupancy(stash)
+        out = kops.adaptive_delete_tm(
+            state.table, state.sels, state.khi, state.klo, hi, lo,
+            fp_bits=self.fp_bits, n_buckets=state.n_buckets, valid=valid,
+            stash=stash, donate=self.donate)
+        ok, tm = out[-2], out[-1]
+        table, sels, khi, klo = out[:4]
+        count = state.count - ok.sum()
+        if stash is None:
+            return state._replace(table=table, sels=sels, khi=khi, klo=klo,
+                                  count=count), ok, tm
+        new_stash = out[4]
+        count = count + (stash_before - stash_occupancy(new_stash))
+        return state._replace(table=table, sels=sels, khi=khi, klo=klo,
+                              count=count), new_stash, ok, tm
+
+    def report_false_positive_tm(self, state, hi: torch.Tensor,
+                                 lo: torch.Tensor,
+                                 valid: Optional[torch.Tensor] = None):
+        """``report_false_positive`` + telemetry (``selector_bumps``)
+        -> (state, adapted[N], resident[N], tm)."""
+        table, sels, adapted, resident, tm = kops.adaptive_report_tm(
+            state.table, state.sels, state.khi, state.klo, hi, lo,
+            fp_bits=self.fp_bits, n_buckets=state.n_buckets, valid=valid,
+            donate=self.donate)
+        return state._replace(table=table, sels=sels), adapted, resident, tm

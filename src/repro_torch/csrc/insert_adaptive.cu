@@ -80,11 +80,21 @@
 // of them its rounds' passes, against ~3300 for insert.cu's at load 0.3:
 // more lanes reach eviction rounds, and a kick reads its victim's key
 // from L2), not by the bytes (~2e-4 ms).
+//
+// Telemetry (kTm, the twin ocf_insert_bulk_adaptive_tm): counted as in
+// insert.cu; every launch of a split call adds to the caller's one plane.
 #include "staged.cuh"
 
 namespace {
 
-enum : uint8_t { kValid = 1, kAct = 2, kActive = 4, kFirst = 8 };
+// kSpilled: a lane that took a stash slot (telemetry instantiation).
+enum : uint8_t {
+  kValid = 1,
+  kAct = 2,
+  kActive = 4,
+  kFirst = 8,
+  kSpilled = 16
+};
 
 struct Lanes {
   stg::Crowd rank;    // the rounds' rank tables
@@ -144,6 +154,7 @@ struct Args {
   uint8_t* spill;
 };
 
+template <bool kTm>
 struct Block {
   const Args& A;
   const stg::Stage& S;
@@ -153,6 +164,7 @@ struct Block {
   uint32_t* n_dirty;  // kicks added to the dirty set in this block
   int nl;             // lanes of the block
   int wb;             // its first lane's index in the window arrays
+  uint32_t* tm;       // kTm: the shared counters (stg::count_lanes)
 
   // Slot s of bucket b (staged index idx) takes lane j's carried key:
   // fp0, selector 0, the key into khi / klo.
@@ -345,9 +357,13 @@ struct Block {
       any = kick_round();                     // phase B
     }
     if (A.stash != nullptr && any) {
-      stg::spill(nl, A.S, L.stash, L.freel, L.flags, kActive, L.cfp, L.tgt);
+      stg::spill<kTm ? kSpilled : 0>(nl, A.S, L.stash, L.freel, L.flags,
+                                     kActive, L.cfp, L.tgt);
       __syncthreads();
     }
+    if constexpr (kTm)
+      stg::count_lanes<kValid, kActive, kSpilled>(nl, L.flags, L.steps,
+                                                  A.rounds > 0, tm);
     // Rollback: lanes still carrying restore their kicks newest first.
     for (int j = threadIdx.x; j < nl; j += blockDim.x) {
       const uint8_t f = L.flags[j];
@@ -365,9 +381,11 @@ struct Block {
 
 // kOnChip: the per-lane region is in shared memory (the compiler then
 // addresses it as such); else in the device-memory buffer ``A.spill``.
-template <bool kOnChip>
+// kTm: the telemetry instantiation; it adds its stg::kTmCounters counts
+// to ``plane`` (unused otherwise).
+template <bool kOnChip, bool kTm>
 __global__ void __launch_bounds__(stg::kThreads, 1)
-    insert_adaptive_kernel(Args A) {
+    insert_adaptive_kernel(Args A, uint32_t* plane) {
   if (blockIdx.x > 0) {
     stg::warm_l2(A.table, A.bsz, A.hi, A.lo, A.valid, A.n, A.fp_bits, A.nb);
     return;
@@ -387,20 +405,31 @@ __global__ void __launch_bounds__(stg::kThreads, 1)
   for (int i = threadIdx.x; i < 2 * A.S; i += blockDim.x)
     L.stash[i] = A.stash[i];
   if (threadIdx.x == 0) s_dirty = 0u;
+  uint32_t* s_tm = nullptr;
+  if constexpr (kTm) {
+    __shared__ uint32_t tm_counts[stg::kTmCounters];
+    s_tm = tm_counts;
+    if (threadIdx.x < stg::kTmCounters) s_tm[threadIdx.x] = 0u;
+  }
   __syncthreads();
 
   for (int w0 = 0; w0 < A.n; w0 += P.window) {
     const int w1 = min(A.n, w0 + P.window);
     stg::stage_window(S, w0, w1, A.hi, A.lo, A.valid, A.fp_bits, A.nb);
     for (int base = w0; base < w1; base += A.block) {
-      const Block blk{A, S, C, L, D, &s_dirty, min(A.block, w1 - base),
-                      base - w0};
+      const Block<kTm> blk{A,       S,   C, L, D, &s_dirty,
+                           min(A.block, w1 - base), base - w0, s_tm};
       blk.run(base);
     }
     stg::write_back(S, w1 - w0);
   }
   for (int i = threadIdx.x; i < 2 * A.S; i += blockDim.x)
     A.stash[i] = L.stash[i];
+  if constexpr (kTm) {
+    __syncthreads();
+    if (threadIdx.x < stg::kTmCounters && s_tm[threadIdx.x])
+      atomicAdd(&plane[threadIdx.x], s_tm[threadIdx.x]);
+  }
 }
 
 stg::Plan plan_for(int n, int block, int bsz, int stash_slots, int rounds) {
@@ -422,12 +451,14 @@ extern "C" long long ocf_insert_bulk_adaptive_spill_bytes(int bucket_size,
   return p.lane_smem ? 0 : (long long)p.lane_bytes;
 }
 
-// One launch over n keys (a whole number of logical blocks).
-extern "C" int ocf_insert_bulk_adaptive(
-    void* table, void* sels, void* khi, void* klo, int bucket_size,
-    unsigned int n_buckets, void* stash, int stash_slots, const void* hi,
-    const void* lo, const void* valid, void* ok, int n, int block,
-    int fp_bits, int evict_rounds, void* spill, void* stream) {
+namespace {
+
+template <bool kTm>
+int insert_launch(void* table, void* sels, void* khi, void* klo,
+                  int bucket_size, unsigned int n_buckets, void* stash,
+                  int stash_slots, const void* hi, const void* lo,
+                  const void* valid, void* ok, int n, int block, int fp_bits,
+                  int evict_rounds, void* spill, void* plane, void* stream) {
   if (n <= 0) return 0;
   Args A;
   A.table = (uint32_t*)table;
@@ -450,13 +481,38 @@ extern "C" int ocf_insert_bulk_adaptive(
   A.plan = plan_for(n, block, bucket_size, A.S, evict_rounds);
   A.spill = (uint8_t*)spill;
   if (!A.plan.lane_smem && spill == nullptr) return (int)cudaErrorInvalidValue;
-  auto kernel = A.plan.lane_smem ? insert_adaptive_kernel<true>
-                                 : insert_adaptive_kernel<false>;
+  auto kernel = A.plan.lane_smem ? insert_adaptive_kernel<true, kTm>
+                                 : insert_adaptive_kernel<false, kTm>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)stg::kSmemMax);
   if (err != cudaSuccess) return (int)err;
   kernel<<<stg::launch_ctas(n), stg::kThreads, A.plan.smem,
-           (cudaStream_t)stream>>>(A);
+           (cudaStream_t)stream>>>(A, (uint32_t*)plane);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One launch over n keys (a whole number of logical blocks).
+extern "C" int ocf_insert_bulk_adaptive(
+    void* table, void* sels, void* khi, void* klo, int bucket_size,
+    unsigned int n_buckets, void* stash, int stash_slots, const void* hi,
+    const void* lo, const void* valid, void* ok, int n, int block,
+    int fp_bits, int evict_rounds, void* spill, void* stream) {
+  return insert_launch<false>(table, sels, khi, klo, bucket_size, n_buckets,
+                              stash, stash_slots, hi, lo, valid, ok, n, block,
+                              fp_bits, evict_rounds, spill, nullptr, stream);
+}
+
+// The telemetry twin: ``plane`` is stg::kTmCounters uint32 counters (the
+// kick histogram's 8 bins, spills, rollbacks) that the launch adds to.
+extern "C" int ocf_insert_bulk_adaptive_tm(
+    void* table, void* sels, void* khi, void* klo, int bucket_size,
+    unsigned int n_buckets, void* stash, int stash_slots, const void* hi,
+    const void* lo, const void* valid, void* ok, int n, int block,
+    int fp_bits, int evict_rounds, void* spill, void* plane, void* stream) {
+  return insert_launch<true>(table, sels, khi, klo, bucket_size, n_buckets,
+                             stash, stash_slots, hi, lo, valid, ok, n, block,
+                             fp_bits, evict_rounds, spill, plane, stream);
 }

@@ -43,6 +43,13 @@
 //
 // No carry between keys: the answer is per key, and the logical block of
 // the reference only shapes the call.
+//
+// Telemetry (kTm, the twin ocf_probe_adaptive_tm): the lazy order above
+// already shows which stage answered a key (home row, alternate row, the
+// stash prefilter, or none), so each of the first n_count keys is counted
+// there, summed per warp by ballots, per CTA in shared memory, and added
+// to the four-counter plane with one atomicAdd a CTA and counter.  The
+// flag-off instantiation is the kernel without telemetry.
 #include "ocf_common.cuh"
 #include "stash_prefilter.cuh"
 
@@ -107,7 +114,7 @@ __device__ __forceinline__ bool in_row(const uint32_t* __restrict__ table,
   return m != 0 && resolve(m, __ldg(sels + b), bucket_size);
 }
 
-template <bool kVec>
+template <bool kVec, bool kTm>
 __global__ void __launch_bounds__(kThreads)
     probe_adaptive_kernel(const uint32_t* __restrict__ table,
                           const uint32_t* __restrict__ sels, int bucket_size,
@@ -115,7 +122,8 @@ __global__ void __launch_bounds__(kThreads)
                           const uint32_t* __restrict__ hi,
                           const uint32_t* __restrict__ lo,
                           uint8_t* __restrict__ hit, int n, int fp_bits,
-                          uint32_t n_buckets, int list_cap) {
+                          uint32_t n_buckets, int list_cap,
+                          uint32_t* __restrict__ plane, int n_count) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ uint8_t s_slot[1];
   __shared__ int s_counts[2];
@@ -146,15 +154,23 @@ __global__ void __launch_bounds__(kThreads)
   if (stash_slots > 0)
     count = stash_pf::stage_pass(stash, stash_slots, s_slot, 0, list_cap,
                                  smem, list_cap, s_counts, pass++ & 1);
+  bool h1 = false;  // answered by the home row (telemetry only)
   if (ks.live[0]) {
     const uint32_t i1 = ks.i1[0], i2 = ks.i2[0];
-    if (kVec)
+    if constexpr (kTm) {
+      h1 = kVec ? in_row4(home, sels, i1, fam)
+                : in_row(table, sels, bucket_size, i1, fam);
+      ks.h[0] = h1 || (kVec ? in_row4(__ldg(rows + i2), sels, i2, fam)
+                            : in_row(table, sels, bucket_size, i2, fam));
+    } else if (kVec) {
       ks.h[0] = in_row4(home, sels, i1, fam) ||
                 in_row4(__ldg(rows + i2), sels, i2, fam);
-    else
+    } else {
       ks.h[0] = in_row(table, sels, bucket_size, i1, fam) ||
                 in_row(table, sels, bucket_size, i2, fam);
+    }
   }
+  const bool hb = ks.h[0];  // answered by a row
   if (stash_slots > 0) {
     if (count > 0) stash_pf::probe_list(smem, list_cap, count, ks);
     // More slots than one pass holds: the rest, a pass at a time.
@@ -166,20 +182,38 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (ks.live[0]) hit[k] = ks.h[0] ? 1 : 0;
+  if constexpr (kTm) {
+    // Depth d of this key: 0 home, 1 alternate, 2 stash, 3 miss.
+    __shared__ uint32_t s_depth[4];
+    if (threadIdx.x < 4) s_depth[threadIdx.x] = 0u;
+    __syncthreads();
+    const bool counted = k < n_count;
+    const int d = h1 ? 0 : hb ? 1 : ks.h[0] ? 2 : 3;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t m = __ballot_sync(0xFFFFFFFFu, counted && d == j);
+      if ((threadIdx.x & 31) == 0 && m) atomicAdd(&s_depth[j], __popc(m));
+    }
+    __syncthreads();
+    if (threadIdx.x < 4 && s_depth[threadIdx.x])
+      atomicAdd(&plane[threadIdx.x], s_depth[threadIdx.x]);
+  }
 }
 
-template <bool kVec>
+template <bool kVec, bool kTm>
 void launch(const void* table, const void* sels, int bucket_size,
             const void* stash, int stash_slots, const void* hi,
             const void* lo, void* hit, int n, int fp_bits,
-            unsigned int n_buckets, cudaStream_t stream) {
+            unsigned int n_buckets, void* plane, int n_count,
+            cudaStream_t stream) {
   const int list_cap = min(stash_slots, stash_pf::kList);
   const int smem = stash_slots > 0 ? stash_pf::smem_bytes(list_cap) : 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  probe_adaptive_kernel<kVec><<<blocks, kThreads, smem, stream>>>(
+  probe_adaptive_kernel<kVec, kTm><<<blocks, kThreads, smem, stream>>>(
       (const uint32_t*)table, (const uint32_t*)sels, bucket_size,
       (const uint32_t*)stash, stash_slots, (const uint32_t*)hi,
-      (const uint32_t*)lo, (uint8_t*)hit, n, fp_bits, n_buckets, list_cap);
+      (const uint32_t*)lo, (uint8_t*)hit, n, fp_bits, n_buckets, list_cap,
+      (uint32_t*)plane, n_count);
 }
 
 }  // namespace
@@ -191,8 +225,24 @@ extern "C" int ocf_probe_adaptive(const void* table, const void* sels,
                                   int fp_bits, unsigned int n_buckets,
                                   void* stream) {
   if (n > 0)
-    (bucket_size == 4 ? &launch<true> : &launch<false>)(
+    (bucket_size == 4 ? &launch<true, false> : &launch<false, false>)(
         table, sels, bucket_size, stash, stash ? stash_slots : 0, hi, lo, hit,
-        n, fp_bits, n_buckets, (cudaStream_t)stream);
+        n, fp_bits, n_buckets, nullptr, 0, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// The telemetry twin: ``plane`` is four zeroed uint32 counters (home,
+// alternate, stash, miss) that the launch adds the first n_count keys to.
+extern "C" int ocf_probe_adaptive_tm(const void* table, const void* sels,
+                                     int bucket_size, const void* stash,
+                                     int stash_slots, const void* hi,
+                                     const void* lo, void* hit, int n,
+                                     int fp_bits, unsigned int n_buckets,
+                                     void* plane, int n_count,
+                                     void* stream) {
+  if (n > 0)
+    (bucket_size == 4 ? &launch<true, true> : &launch<false, true>)(
+        table, sels, bucket_size, stash, stash ? stash_slots : 0, hi, lo, hit,
+        n, fp_bits, n_buckets, plane, n_count, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

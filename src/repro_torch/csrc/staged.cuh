@@ -524,9 +524,11 @@ struct Dirty {
 
 // Exhausted lanes (``bit`` set in ``flags``), in lane order, take the
 // free slots of the stash's staged copy (2 x S) in slot order (the
-// reference's lane-order prefix sum): lane j parks (fp[j], tgt[j]) and
-// loses ``bit``.  Two ballot scans of one warp (free slots into
+// reference's lane-order prefix sum): lane j parks (fp[j], tgt[j]), loses
+// ``bit`` and gains ``kMark`` (a telemetry instantiation's spill mark; 0
+// leaves no trace).  Two ballot scans of one warp (free slots into
 // ``freel``, then lanes); the other warps return at once.
+template <uint8_t kMark = 0>
 __device__ void spill(int nl, int S, uint32_t* stash, uint32_t* freel,
                       uint8_t* flags, uint8_t bit, const uint32_t* fp,
                       const uint32_t* tgt) {
@@ -552,9 +554,48 @@ __device__ void spill(int nl, int S, uint32_t* stash, uint32_t* freel,
       const uint32_t s = freel[k];
       stash[s] = fp[j];
       stash[S + s] = tgt[j];
-      flags[j] &= ~bit;
+      flags[j] = (flags[j] & ~bit) | kMark;
     }
     taken += __popc(m);
+  }
+}
+
+// ------------------------------------------------- inserts: telemetry --
+//
+// An insert's telemetry instantiation counts, per logical block, into
+// kTmCounters shared counters that last across the serial walk: the
+// kick-depth histogram of the valid lanes (bins of the chain's kicks:
+// 0, 1, 2, 3-4, 5-8, 9-16, 17-32, 33+), the lanes that spilled to the
+// stash, the lanes that rolled back.  CTA 0 adds them to the launch's
+// plane once, after the walk.  Sums do not depend on thread order.
+
+constexpr int kTmCounters = 10;
+
+__device__ __forceinline__ int kick_bin(uint32_t steps) {
+  return steps <= 2u ? (int)steps : min(7, 33 - __clz(steps - 1u));
+}
+
+// Count the block's nl lanes, after the spill and before the rollback:
+// lanes with ``kValidBit`` by kicks, lanes with ``kSpillBit``, and, when
+// the call has eviction rounds, lanes still carrying (``kActiveBit``: the
+// reference counts no rollback without rounds).  Lane j is read by the
+// thread that owns it in the walk's loops.  Most valid lanes place without
+// a kick: one ballot a warp counts those; the few others add one apiece.
+template <uint8_t kValidBit, uint8_t kActiveBit, uint8_t kSpillBit>
+__device__ void count_lanes(int nl, const uint8_t* flags,
+                            const uint32_t* steps, bool rollbacks,
+                            uint32_t* tm) {
+  const int nw = (nl + 31) & ~31;  // whole warps run the ballot
+  for (int j = threadIdx.x; j < nw; j += blockDim.x) {
+    const bool in = j < nl;
+    const uint8_t f = in ? flags[j] : 0;
+    const uint32_t st = in ? steps[j] : 0u;
+    const bool valid = (f & kValidBit) != 0;
+    const uint32_t m = __ballot_sync(kFull, valid && st == 0u);
+    if ((threadIdx.x & 31) == 0 && m) atomicAdd(&tm[0], (uint32_t)__popc(m));
+    if (valid && st != 0u) atomicAdd(&tm[kick_bin(st)], 1u);
+    if (f & kSpillBit) atomicAdd(&tm[8], 1u);
+    if (rollbacks && (f & kActiveBit)) atomicAdd(&tm[9], 1u);
   }
 }
 

@@ -10,7 +10,10 @@ edited source is rebuilt.
 
 Every kernel wrapper counts its launches in ``LAUNCHES`` (one per kernel
 launch, nowhere else), and every plain PyTorch version counts its calls in
-``PLAIN_CALLS``, so a run can show which path it went through.
+``PLAIN_CALLS``, so a run can show which path it went through.  The
+telemetry instantiations (``TM_KERNELS``) are entries of their own, with
+the sources of their kernels: ``LAUNCHES`` counts them under their own
+names, so a run shows which of the two arms it took.
 """
 from __future__ import annotations
 
@@ -36,9 +39,14 @@ KERNELS = {
                          [_P, _P, _P, _P, _P, _I, _I, _U, _P]),
     "probe": ("probe.cu", "ocf_probe",
               [_P, _I, _P, _I, _P, _P, _P, _I, _I, _U, _P]),
+    "probe_tm": ("probe.cu", "ocf_probe_tm",
+                 [_P, _I, _P, _I, _P, _P, _P, _I, _I, _U, _P, _I, _P]),
     "insert_bulk": ("insert.cu", "ocf_insert_bulk",
                     [_P, _I, _U, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                      _P, _P]),
+    "insert_bulk_tm": ("insert.cu", "ocf_insert_bulk_tm",
+                       [_P, _I, _U, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P, _P, _P]),
     "delete_bulk": ("delete.cu", "ocf_delete_bulk",
                     [_P, _I, _U, _P, _P, _P, _P, _I, _I, _I, _P, _P]),
     "fingerprint_hash_family": ("fingerprint_family.cu",
@@ -46,9 +54,16 @@ KERNELS = {
                                 [_P, _P, _P, _I, _I, _U, _P]),
     "probe_adaptive": ("probe_adaptive.cu", "ocf_probe_adaptive",
                        [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _U, _P]),
+    "probe_adaptive_tm": ("probe_adaptive.cu", "ocf_probe_adaptive_tm",
+                          [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _U, _P,
+                           _I, _P]),
     "insert_bulk_adaptive": ("insert_adaptive.cu", "ocf_insert_bulk_adaptive",
                              [_P, _P, _P, _P, _I, _U, _P, _I, _P, _P, _P, _P,
                               _I, _I, _I, _I, _P, _P]),
+    "insert_bulk_adaptive_tm": ("insert_adaptive.cu",
+                                "ocf_insert_bulk_adaptive_tm",
+                                [_P, _P, _P, _P, _I, _U, _P, _I, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _P, _P, _P]),
     "delete_bulk_adaptive": ("delete_adaptive.cu", "ocf_delete_bulk_adaptive",
                              [_P, _P, _P, _P, _I, _U, _P, _P, _P, _P, _I, _I,
                               _I, _P, _P]),
@@ -59,13 +74,20 @@ KERNELS = {
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P, _P]),
 }
+# The telemetry twins: kernel name -> the kernel they instantiate.
+TM_KERNELS = {"probe_tm": "probe", "insert_bulk_tm": "insert_bulk",
+              "probe_adaptive_tm": "probe_adaptive",
+              "insert_bulk_adaptive_tm": "insert_bulk_adaptive"}
 # kernel name -> (C function, argtypes) giving the bytes of device memory a
 # launch needs beside its shared memory (0 on the main path).
 SPILL_SIZES = {
     "insert_bulk": ("ocf_insert_bulk_spill_bytes", [_I, _I, _I, _I, _I]),
+    "insert_bulk_tm": ("ocf_insert_bulk_spill_bytes", [_I, _I, _I, _I, _I]),
     "delete_bulk": ("ocf_delete_bulk_spill_bytes", [_I, _I, _I]),
     "insert_bulk_adaptive": ("ocf_insert_bulk_adaptive_spill_bytes",
                              [_I, _I, _I, _I, _I]),
+    "insert_bulk_adaptive_tm": ("ocf_insert_bulk_adaptive_spill_bytes",
+                                [_I, _I, _I, _I, _I]),
     "delete_bulk_adaptive": ("ocf_delete_bulk_adaptive_spill_bytes",
                              [_I, _I, _I]),
 }
@@ -118,11 +140,12 @@ def build_all(names=None) -> dict:
     """
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, outs = {}, set()
     for name in names:
         out = _lib_path(name)
-        if out.exists():
+        if out.exists() or out in outs:   # a twin shares its source
             continue
+        outs.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / KERNELS[name][0])]

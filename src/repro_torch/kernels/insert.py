@@ -34,6 +34,7 @@ from repro_torch.kernels.fingerprint import fingerprint_hash
 from repro_torch.kernels.rank import rank_among_earlier
 from repro_torch.kernels.selector import sel_pack, sel_unpack
 from repro_torch.kernels.stash import stash_spill
+from repro_torch.kernels.telemetry import KICK_BINS, insert_plane
 
 DEFAULT_BLOCK = 1024
 # Bounded eviction budget: 32 rounds drain random batches at the OCF's
@@ -59,9 +60,11 @@ def _place_round(table, target, active, value):
 
 
 def _evict_rounds(table, stash, fp, start_bucket, residue, n_buckets,
-                  rounds: int):
+                  rounds: int, want_stats: bool = False):
     """Bounded eviction rounds, stash spill and rollback for the residue
-    -> completed bool[N]."""
+    -> completed bool[N]; with ``want_stats`` also the per-lane
+    (steps, spilled, failed): kicks of the lane's chain, whether it
+    spilled to the stash, whether it rolled back."""
     buf, bucket_size = table.shape
     n = fp.shape[0]
     dev = table.device
@@ -103,8 +106,10 @@ def _evict_rounds(table, stash, fp, start_bucket, residue, n_buckets,
         bucket = torch.where(kick, nxt, bucket)
         steps = steps + kick.to(torch.int64)
         r += 1
+    spilled = torch.zeros_like(active)
     if stash is not None:
-        active = active & ~stash_spill(stash, carried, bucket, active)
+        spilled = stash_spill(stash, carried, bucket, active)
+        active = active & ~spilled
     failed = active
     if bool(failed.any()):
         cur = carried
@@ -118,41 +123,67 @@ def _evict_rounds(table, stash, fp, start_bucket, residue, n_buckets,
             s = torch.gather(hs, 1, tc)[:, 0]
             table[b[do], s[do]] = hashing.to_i32(cur[do])
             cur = torch.where(do, torch.gather(hw, 1, tc)[:, 0], cur)
+    if want_stats:
+        return residue & ~failed, (steps, spilled, failed)
     return residue & ~failed
 
 
+def _no_stats(n: int, device):
+    """Per-lane (steps, spilled, failed) of lanes that never kicked."""
+    zero = torch.zeros((n,), dtype=torch.bool, device=device)
+    return torch.zeros((n,), dtype=torch.int64, device=device), zero, zero
+
+
 def _insert_block(table, stash, hi, lo, valid, n_buckets, *, fp_bits: int,
-                  evict_rounds: int):
+                  evict_rounds: int, want_stats: bool = False):
+    """One logical block -> ok, or (ok, (steps, spilled, failed)) with
+    ``want_stats``: lanes placed without a kick have 0 steps; with no
+    eviction rounds no lane rolls back, and with a stash the optimistic
+    residue spills straight away (the reference's accounting)."""
     fp = hashing.fingerprint(hi, lo, fp_bits)
     i1 = hashing.index_hash(hi, lo, n_buckets)
     i2 = hashing.alt_index(i1, fp, n_buckets)
     fp32 = hashing.to_i32(fp)
     ok = _place_round(table, i1, valid, fp32)
     ok = ok | _place_round(table, i2, valid & ~ok, fp32)
+    stats = _no_stats(hi.shape[0], hi.device)
     if evict_rounds > 0:
         # Chains start at the alternate bucket, like the sequential path.
-        ok = ok | _evict_rounds(table, stash, fp, i2, valid & ~ok, n_buckets,
-                                evict_rounds)
+        done = _evict_rounds(table, stash, fp, i2, valid & ~ok, n_buckets,
+                             evict_rounds, want_stats=want_stats)
+        if want_stats:
+            done, stats = done
+        ok = ok | done
     elif stash is not None:
-        ok = ok | stash_spill(stash, fp, i2, valid & ~ok)
-    return ok
+        spilled = stash_spill(stash, fp, i2, valid & ~ok)
+        ok = ok | spilled
+        stats = (stats[0], spilled, stats[2])
+    return (ok, stats) if want_stats else ok
+
+
+def _cat_stats(outs):
+    """Concatenate per-block (ok, stats) -> (ok, (steps, spilled, failed))."""
+    ok = torch.cat([o for o, _ in outs])
+    return ok, tuple(torch.cat(parts) for parts in zip(*(s for _, s in outs)))
 
 
 def insert_bulk_plain(table: torch.Tensor, hi: torch.Tensor,
                       lo: torch.Tensor, valid: torch.Tensor, *, fp_bits: int,
                       n_buckets: int, evict_rounds: int,
-                      stash: torch.Tensor | None, block: int) -> torch.Tensor:
-    """Plain PyTorch version: logical blocks in order, IN PLACE -> ok."""
+                      stash: torch.Tensor | None, block: int,
+                      want_stats: bool = False):
+    """Plain PyTorch version: logical blocks in order, IN PLACE -> ok; with
+    ``want_stats`` (ok, (steps, spilled, failed)) per lane."""
     cuda.PLAIN_CALLS["insert_bulk"] += 1
     ok = [_insert_block(table, stash, hi[s:s + block], lo[s:s + block],
                         valid[s:s + block], n_buckets, fp_bits=fp_bits,
-                        evict_rounds=evict_rounds)
+                        evict_rounds=evict_rounds, want_stats=want_stats)
           for s in range(0, hi.shape[0], block)]
-    return torch.cat(ok)
+    return _cat_stats(ok) if want_stats else torch.cat(ok)
 
 
 def _insert_cuda(table, hi, lo, valid, *, fp_bits, n_buckets, evict_rounds,
-                 stash, block):
+                 stash, block, plane=None):
     cuda.check_cuda("insert_bulk", table=table, hi=hi, lo=lo, valid=valid,
                     stash=stash)
     cuda.check_dtype("insert_bulk", torch.int32, table=table, hi=hi, lo=lo,
@@ -169,11 +200,20 @@ def _insert_cuda(table, hi, lo, valid, *, fp_bits, n_buckets, evict_rounds,
     ok = torch.empty((n,), dtype=torch.bool, device=table.device)
     spill = cuda.spill_buffer("insert_bulk", table.device, table.shape[1],
                               slots, n, block, evict_rounds)
-    cuda.launch("insert_bulk", table.data_ptr(), table.shape[1],
-                int(n_buckets), cuda.ptr(stash), slots, hi.data_ptr(),
-                lo.data_ptr(), valid.data_ptr(), ok.data_ptr(), n, block,
-                fp_bits, evict_rounds, cuda.ptr(spill))
+    args = (table.data_ptr(), table.shape[1], int(n_buckets),
+            cuda.ptr(stash), slots, hi.data_ptr(), lo.data_ptr(),
+            valid.data_ptr(), ok.data_ptr(), n, block, fp_bits, evict_rounds,
+            cuda.ptr(spill))
+    if plane is None:
+        cuda.launch("insert_bulk", *args)
+    else:
+        cuda.launch("insert_bulk_tm", *args, plane.data_ptr())
     return ok
+
+
+def _insert_plane(device) -> torch.Tensor:
+    """The zeroed uint32 plane a telemetry launch adds its counts to."""
+    return torch.zeros((KICK_BINS + 2,), dtype=torch.int32, device=device)
 
 
 def insert_bulk(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
@@ -194,6 +234,35 @@ def insert_bulk(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
     home buckets from ``fingerprint_hash``) and scatters ``ok`` back.  CPU tensors take the plain version; CUDA tensors
     launch the kernel.
     """
+    ok, _plane = _insert_bulk(table, hi, lo, fp_bits=fp_bits,
+                              n_buckets=n_buckets, valid=valid,
+                              evict_rounds=evict_rounds, stash=stash,
+                              block=block, schedule=schedule, tm=False)
+    return (table, ok) if stash is None else (table, stash, ok)
+
+
+def insert_bulk_tm(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                   *, fp_bits: int, n_buckets: int | None = None,
+                   valid: torch.Tensor | None = None,
+                   evict_rounds: int = DEFAULT_EVICT_ROUNDS,
+                   stash: torch.Tensor | None = None,
+                   block: int = DEFAULT_BLOCK, schedule: bool = False):
+    """``insert_bulk`` plus its counter plane -> (table, ok, plane) or
+    (table, stash, ok, plane).  ``plane`` is int64[KICK_BINS + 2]: the
+    kick-depth histogram of the valid lanes, then the lanes spilled to the
+    stash, then the lanes rolled back (``telemetry.insert_plane``).  CPU
+    tensors take the plain version with stats; CUDA tensors launch the
+    kernel's telemetry instantiation, which counts while it walks."""
+    ok, plane = _insert_bulk(table, hi, lo, fp_bits=fp_bits,
+                             n_buckets=n_buckets, valid=valid,
+                             evict_rounds=evict_rounds, stash=stash,
+                             block=block, schedule=schedule, tm=True)
+    return ((table, ok, plane) if stash is None
+            else (table, stash, ok, plane))
+
+
+def _insert_bulk(table, hi, lo, *, fp_bits, n_buckets, valid, evict_rounds,
+                 stash, block, schedule, tm):
     n = hi.shape[0]
     block = min(block, n) if n else block
     if n and n % block:
@@ -202,9 +271,12 @@ def insert_bulk(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
         n_buckets = table.shape[0]
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=hi.device)
+    plane = None
+    if tm:
+        plane = torch.zeros((KICK_BINS + 2,), dtype=torch.int64,
+                            device=table.device)
     if n == 0:
-        ok = torch.zeros((0,), dtype=torch.bool, device=table.device)
-        return (table, ok) if stash is None else (table, stash, ok)
+        return torch.zeros((0,), dtype=torch.bool, device=table.device), plane
     # A single-block batch gains nothing from the pre-pass (the stable
     # permutation keeps same-bucket lane order, so ranks are unchanged).
     schedule = schedule and n > block
@@ -214,12 +286,22 @@ def insert_bulk(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
                                         n_buckets=n_buckets, block=block)
         perm, inv = dispatch_order_from_buckets(i1, valid)
         hi, lo, valid = hi[perm], lo[perm], valid[perm]
-    run = insert_bulk_plain if table.device.type == "cpu" else _insert_cuda
-    ok = run(table, hi, lo, valid, fp_bits=fp_bits, n_buckets=n_buckets,
-             evict_rounds=evict_rounds, stash=stash, block=block)
+    kw = dict(fp_bits=fp_bits, n_buckets=n_buckets,
+              evict_rounds=evict_rounds, stash=stash, block=block)
+    if table.device.type == "cpu":
+        ok = insert_bulk_plain(table, hi, lo, valid, want_stats=tm, **kw)
+        if tm:
+            ok, stats = ok
+            plane = insert_plane(*stats, valid)
+    elif tm:
+        raw = _insert_plane(table.device)
+        ok = _insert_cuda(table, hi, lo, valid, plane=raw, **kw)
+        plane = raw.to(torch.int64)
+    else:
+        ok = _insert_cuda(table, hi, lo, valid, **kw)
     if schedule:
         ok = ok[inv]
-    return (table, ok) if stash is None else (table, stash, ok)
+    return ok, plane
 
 
 def insert_once(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
@@ -268,9 +350,11 @@ def _place_round_adaptive(planes, target, active, fp32, khi32, klo32):
 
 
 def _evict_rounds_adaptive(planes, stash, hi, lo, start_bucket, residue,
-                           n_buckets, rounds: int, *, fp_bits: int):
+                           n_buckets, rounds: int, *, fp_bits: int,
+                           want_stats: bool = False):
     """Bounded eviction rounds, stash spill and rollback over the four
-    planes -> completed bool[N]."""
+    planes -> completed bool[N]; with ``want_stats`` also the per-lane
+    (steps, spilled, failed), as ``_evict_rounds``."""
     table, sel_tbl, khi_t, klo_t = planes
     buf, bucket_size = table.shape
     n = hi.shape[0]
@@ -325,10 +409,12 @@ def _evict_rounds_adaptive(planes, stash, hi, lo, start_bucket, residue,
         bucket = torch.where(kick, nxt, bucket)
         steps = steps + kick.to(torch.int64)
         r += 1
+    spilled = torch.zeros_like(active)
     if stash is not None:
         # Spills park the carried key's fp0.
         cfp = hashing.fingerprint(chi, clo, fp_bits)
-        active = active & ~stash_spill(stash, cfp, bucket, active)
+        spilled = stash_spill(stash, cfp, bucket, active)
+        active = active & ~spilled
     failed = active
     if bool(failed.any()):
         for k in range(rounds):
@@ -342,48 +428,61 @@ def _evict_rounds_adaptive(planes, stash, hi, lo, start_bucket, residue,
             for plane, hist in ((table, hfp), (sel_tbl, hsel), (khi_t, hhi),
                                 (klo_t, hlo)):
                 plane[b, s] = torch.gather(hist, 1, tc)[:, 0][do]
+    if want_stats:
+        return residue & ~failed, (steps, spilled, failed)
     return residue & ~failed
 
 
 def _insert_adaptive_block(planes, stash, hi, lo, valid, n_buckets, *,
-                           fp_bits: int, evict_rounds: int):
+                           fp_bits: int, evict_rounds: int,
+                           want_stats: bool = False):
+    """One logical block -> ok, or (ok, (steps, spilled, failed)), with
+    ``_insert_block``'s accounting."""
     fp = hashing.fingerprint(hi, lo, fp_bits)
     i1 = hashing.index_hash(hi, lo, n_buckets)
     i2 = hashing.alt_index(i1, fp, n_buckets)
     fp32 = hashing.to_i32(fp)
     ok = _place_round_adaptive(planes, i1, valid, fp32, hi, lo)
     ok = ok | _place_round_adaptive(planes, i2, valid & ~ok, fp32, hi, lo)
+    stats = _no_stats(hi.shape[0], hi.device)
     if evict_rounds > 0:
         # Chains start at the alternate bucket, like the static path.
-        ok = ok | _evict_rounds_adaptive(planes, stash, hi, lo, i2,
-                                         valid & ~ok, n_buckets,
-                                         evict_rounds, fp_bits=fp_bits)
+        done = _evict_rounds_adaptive(planes, stash, hi, lo, i2,
+                                      valid & ~ok, n_buckets, evict_rounds,
+                                      fp_bits=fp_bits, want_stats=want_stats)
+        if want_stats:
+            done, stats = done
+        ok = ok | done
     elif stash is not None:
-        ok = ok | stash_spill(stash, fp, i2, valid & ~ok)
-    return ok
+        spilled = stash_spill(stash, fp, i2, valid & ~ok)
+        ok = ok | spilled
+        stats = (stats[0], spilled, stats[2])
+    return (ok, stats) if want_stats else ok
 
 
 def insert_bulk_adaptive_plain(table, sels, khi, klo, hi, lo, valid, *,
                                fp_bits: int, n_buckets: int,
-                               evict_rounds: int, stash, block: int
-                               ) -> torch.Tensor:
+                               evict_rounds: int, stash, block: int,
+                               want_stats: bool = False):
     """Plain PyTorch version: logical blocks in order, all four planes
-    (and the stash) updated IN PLACE -> ok."""
+    (and the stash) updated IN PLACE -> ok; with ``want_stats``
+    (ok, (steps, spilled, failed)) per lane."""
     cuda.PLAIN_CALLS["insert_bulk_adaptive"] += 1
     sel_tbl = sel_unpack(sels, table.shape[1])
     planes = (table, sel_tbl, khi, klo)
     ok = [_insert_adaptive_block(planes, stash, hi[s:s + block],
                                  lo[s:s + block], valid[s:s + block],
                                  n_buckets, fp_bits=fp_bits,
-                                 evict_rounds=evict_rounds)
+                                 evict_rounds=evict_rounds,
+                                 want_stats=want_stats)
           for s in range(0, hi.shape[0], block)]
     sels.copy_(sel_pack(sel_tbl))
-    return torch.cat(ok)
+    return _cat_stats(ok) if want_stats else torch.cat(ok)
 
 
 def _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
                           n_buckets, evict_rounds, stash, block,
-                          split_keys=cuda.SPLIT_KEYS):
+                          split_keys=cuda.SPLIT_KEYS, plane=None):
     name = "insert_bulk_adaptive"
     cuda.check_cuda(name, table=table, sels=sels, khi=khi, klo=klo, hi=hi,
                     lo=lo, valid=valid, stash=stash)
@@ -404,13 +503,18 @@ def _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
     # which the call's launches share in turn.
     spill = cuda.spill_buffer(name, table.device, table.shape[1], slots,
                               min(n, split_keys), block, evict_rounds)
+    # The telemetry launches of one call add their counts to one plane.
     for s, e in cuda.spans(n, block, split_keys):
-        cuda.launch(name, table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
-                    klo.data_ptr(), table.shape[1], int(n_buckets),
-                    cuda.ptr(stash), slots, hi[s:e].data_ptr(),
-                    lo[s:e].data_ptr(), valid[s:e].data_ptr(),
-                    ok[s:e].data_ptr(), e - s, block, fp_bits, evict_rounds,
-                    cuda.ptr(spill))
+        args = (table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
+                klo.data_ptr(), table.shape[1], int(n_buckets),
+                cuda.ptr(stash), slots, hi[s:e].data_ptr(),
+                lo[s:e].data_ptr(), valid[s:e].data_ptr(),
+                ok[s:e].data_ptr(), e - s, block, fp_bits, evict_rounds,
+                cuda.ptr(spill))
+        if plane is None:
+            cuda.launch(name, *args)
+        else:
+            cuda.launch(name + "_tm", *args, plane.data_ptr())
     return ok
 
 
@@ -432,6 +536,43 @@ def insert_bulk_adaptive(table: torch.Tensor, sels: torch.Tensor,
     launch the kernel, as launches of at most ``split_keys`` keys at
     logical-block boundaries (the same result: the blocks run in order).
     """
+    ok, _plane = _insert_adaptive(table, sels, khi, klo, hi, lo,
+                                  fp_bits=fp_bits, n_buckets=n_buckets,
+                                  valid=valid, evict_rounds=evict_rounds,
+                                  stash=stash, block=block,
+                                  schedule=schedule, split_keys=split_keys,
+                                  tm=False)
+    planes = (table, sels, khi, klo)
+    return (*planes, ok) if stash is None else (*planes, stash, ok)
+
+
+def insert_bulk_adaptive_tm(table: torch.Tensor, sels: torch.Tensor,
+                            khi: torch.Tensor, klo: torch.Tensor,
+                            hi: torch.Tensor, lo: torch.Tensor, *,
+                            fp_bits: int, n_buckets: int | None = None,
+                            valid: torch.Tensor | None = None,
+                            evict_rounds: int = DEFAULT_EVICT_ROUNDS,
+                            stash: torch.Tensor | None = None,
+                            block: int = DEFAULT_BLOCK,
+                            schedule: bool = False,
+                            split_keys: int = cuda.SPLIT_KEYS):
+    """``insert_bulk_adaptive`` plus its counter plane (``insert_bulk_tm``'s
+    layout) -> (table, sels, khi, klo, ok, plane) or (..., stash, ok,
+    plane).  On the card every launch of the call adds its counts to the
+    one plane."""
+    ok, plane = _insert_adaptive(table, sels, khi, klo, hi, lo,
+                                 fp_bits=fp_bits, n_buckets=n_buckets,
+                                 valid=valid, evict_rounds=evict_rounds,
+                                 stash=stash, block=block, schedule=schedule,
+                                 split_keys=split_keys, tm=True)
+    planes = (table, sels, khi, klo)
+    return ((*planes, ok, plane) if stash is None
+            else (*planes, stash, ok, plane))
+
+
+def _insert_adaptive(table, sels, khi, klo, hi, lo, *, fp_bits, n_buckets,
+                     valid, evict_rounds, stash, block, schedule, split_keys,
+                     tm):
     n = hi.shape[0]
     block = min(block, n) if n else block
     if n and n % block:
@@ -440,10 +581,12 @@ def insert_bulk_adaptive(table: torch.Tensor, sels: torch.Tensor,
         n_buckets = table.shape[0]
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=hi.device)
-    planes = (table, sels, khi, klo)
+    plane = None
+    if tm:
+        plane = torch.zeros((KICK_BINS + 2,), dtype=torch.int64,
+                            device=table.device)
     if n == 0:
-        ok = torch.zeros((0,), dtype=torch.bool, device=table.device)
-        return (*planes, ok) if stash is None else (*planes, stash, ok)
+        return torch.zeros((0,), dtype=torch.bool, device=table.device), plane
     schedule = schedule and n > block
     if schedule:
         _fp, i1, _i2 = fingerprint_hash(hi, lo, fp_bits=fp_bits,
@@ -454,10 +597,18 @@ def insert_bulk_adaptive(table: torch.Tensor, sels: torch.Tensor,
               evict_rounds=evict_rounds, stash=stash, block=block)
     if table.device.type == "cpu":
         ok = insert_bulk_adaptive_plain(table, sels, khi, klo, hi, lo, valid,
-                                        **kw)
+                                        want_stats=tm, **kw)
+        if tm:
+            ok, stats = ok
+            plane = insert_plane(*stats, valid)
+    elif tm:
+        raw = _insert_plane(table.device)
+        ok = _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid,
+                                   split_keys=split_keys, plane=raw, **kw)
+        plane = raw.to(torch.int64)
     else:
         ok = _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid,
                                    split_keys=split_keys, **kw)
     if schedule:
         ok = ok[inv]
-    return (*planes, ok) if stash is None else (*planes, stash, ok)
+    return ok, plane

@@ -1,13 +1,23 @@
 """Public wrappers around the filter kernels: padding, block rule, copies.
 
 Counterpart of ``repro.kernels.ops`` for the main path (``hash_keys``,
-``probe_dispatch``, ``filter_insert``, ``filter_delete``), the streaming
-ring's fan-out (``filter_lookup_multi``, ``multi_prober``) and the
-adaptive filter (``adaptive_lookup``, ``adaptive_insert``,
-``adaptive_delete``, ``adaptive_report``), and the LM stack's attention
+``probe_dispatch``, ``filter_lookup``, ``filter_insert``,
+``filter_delete``), the streaming ring's fan-out (``filter_lookup_multi``,
+``multi_prober``) and the adaptive filter (``adaptive_lookup``,
+``adaptive_insert``, ``adaptive_delete``, ``adaptive_report``), their
+telemetry twins (``*_tm``: the same results plus a
+``kernels.telemetry.FilterTelemetry``), and the LM stack's attention
 dispatcher (``attention``).  Every wrapper
 goes to its kernel; a kernel module takes its plain version only for CPU
 tensors, so there is no fallback arm here.
+
+**Telemetry twins.**  The insert and lookup twins launch the kernels'
+telemetry instantiations (``probe_tm``, ``insert_bulk_tm``, ...), which
+count inside the kernel; their answers are the telemetry-off kernels'.
+The delete and report twins run the same kernels as their off twins and
+add one reduction each on the device, as the reference does.  No twin
+syncs with the host.  Padding lanes are never counted: inserts and
+deletes pad with ``valid=False``, lookups pass the caller's lane count.
 
 **The parity block rule.**  Insert and delete rank lanes within a logical
 block, so the block size is part of their result.  To leave the same
@@ -30,11 +40,17 @@ from repro_torch.kernels.delete import delete_bulk, delete_bulk_adaptive
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                              fingerprint_hash_family)
-from repro_torch.kernels.insert import insert_bulk, insert_bulk_adaptive
-from repro_torch.kernels.probe import probe, probe_adaptive, probe_multi
+from repro_torch.kernels.insert import (insert_bulk, insert_bulk_adaptive,
+                                        insert_bulk_adaptive_tm,
+                                        insert_bulk_tm)
+from repro_torch.kernels.probe import (probe, probe_adaptive,
+                                       probe_adaptive_tm, probe_multi,
+                                       probe_tm)
 from repro_torch.kernels.ref import blockwise_attention
 from repro_torch.kernels.selector import report_adapt
-from repro_torch.kernels.stash import stash_delete_ref
+from repro_torch.kernels.stash import stash_delete_ref, stash_occupancy
+from repro_torch.kernels.telemetry import (empty_telemetry, from_counts,
+                                           from_insert_plane)
 
 # Parity constants: the reference's VMEM footprint model and candidates.
 PARITY_VMEM_TABLE_BUDGET = 12 * 2**20
@@ -116,16 +132,50 @@ def probe_dispatch(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                    *, fp_bits: int, n_buckets: int | None = None,
                    stash: torch.Tensor | None = None) -> torch.Tensor:
     """Bulk membership through the probe kernel -> bool[N]."""
+    return _lookup(probe, (table,), hi, lo, table.numel() * 4,
+                   fp_bits=fp_bits, n_buckets=n_buckets, stash=stash)
+
+
+def filter_lookup(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                  *, fp_bits: int, n_buckets: int | None = None,
+                  stash: torch.Tensor | None = None) -> torch.Tensor:
+    """Bulk membership through the probe kernel -> bool[N]; ``stash`` is
+    checked in the same pass.  The reference's entry point with a
+    non-kernel arm; the port has a kernel on every device, so this is
+    ``probe_dispatch``."""
+    return probe_dispatch(table, hi, lo, fp_bits=fp_bits,
+                          n_buckets=n_buckets, stash=stash)
+
+
+def probe_dispatch_tm(table: torch.Tensor, hi: torch.Tensor,
+                      lo: torch.Tensor, *, fp_bits: int,
+                      n_buckets: int | None = None,
+                      stash: torch.Tensor | None = None):
+    """Telemetry twin of ``probe_dispatch`` -> (hit[N], FilterTelemetry)
+    with the probe-depth plane of the caller's N lanes."""
+    return _lookup(probe_tm, (table,), hi, lo, table.numel() * 4,
+                   fp_bits=fp_bits, n_buckets=n_buckets, stash=stash)
+
+
+def _lookup(kernel, planes, hi, lo, table_bytes: int, *, stash, **kw):
+    """Pad to the parity block and call a probe ``kernel`` over ``planes``
+    -> bool[N], or (bool[N], FilterTelemetry) for a telemetry twin
+    (``probe_tm``, ``probe_adaptive_tm``), which counts the N lanes."""
+    tm = kernel in (probe_tm, probe_adaptive_tm)
     if hi.shape[0] == 0:
-        return torch.zeros((0,), dtype=torch.bool, device=table.device)
+        hit = torch.zeros((0,), dtype=torch.bool, device=planes[0].device)
+        return (hit, empty_telemetry(hit.device)) if tm else hit
     stash_slots = 0 if stash is None else stash.shape[1]
-    block = min(autotune_block("probe", table_bytes=table.numel() * 4,
+    block = min(autotune_block("probe", table_bytes=table_bytes,
                                stash_slots=stash_slots), hi.shape[0])
     hi_p, n = _pad_to(hi, block)
     lo_p, _ = _pad_to(lo, block)
-    hit = probe(table, hi_p, lo_p, fp_bits=fp_bits, n_buckets=n_buckets,
-                stash=stash, block=block)
-    return _unpad(hit, n)
+    if not tm:
+        return _unpad(kernel(*planes, hi_p, lo_p, stash=stash, block=block,
+                             **kw), n)
+    hit, plane = kernel(*planes, hi_p, lo_p, stash=stash, n_valid=n,
+                        block=block, **kw)
+    return _unpad(hit, n), from_counts(hit.device, probe_depth=plane)
 
 
 def filter_lookup_multi(tables: torch.Tensor, hi: torch.Tensor,
@@ -183,51 +233,140 @@ def filter_insert(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
     ``donate=True`` updates the caller's ``table`` (and ``stash``) in
     place; otherwise they are copied first and the copies are returned.
     """
+    return _insert(insert_bulk, (table,), hi, lo, table.numel() * 4,
+                   evict_rounds=evict_rounds, fp_bits=fp_bits,
+                   n_buckets=n_buckets, valid=valid, stash=stash,
+                   schedule=schedule, donate=donate)
+
+
+def filter_insert_tm(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                     *, fp_bits: int, n_buckets: int | None = None,
+                     valid: torch.Tensor | None = None,
+                     evict_rounds: int = 0,
+                     stash: torch.Tensor | None = None,
+                     schedule: bool = False, donate: bool = False):
+    """Telemetry twin of ``filter_insert`` -> its results plus a
+    ``FilterTelemetry``: the kick-depth histogram of the valid lanes,
+    spills, rollbacks and the stash's occupancy after the call."""
+    return _insert(insert_bulk_tm, (table,), hi, lo, table.numel() * 4,
+                   evict_rounds=evict_rounds, fp_bits=fp_bits,
+                   n_buckets=n_buckets, valid=valid, stash=stash,
+                   schedule=schedule, donate=donate)
+
+
+def _insert(kernel, planes, hi, lo, table_bytes: int, *, evict_rounds,
+            valid, stash, donate, **kw):
+    """Copy (unless donated), pad to the parity block and call an insert
+    ``kernel`` over ``planes`` -> (*planes, ok) or (*planes, stash, ok),
+    plus a ``FilterTelemetry`` for a telemetry twin (``insert_bulk_tm``,
+    ``insert_bulk_adaptive_tm``).  Padding lanes are ``valid=False``: they
+    never touch the planes and are never counted."""
+    tm = kernel in (insert_bulk_tm, insert_bulk_adaptive_tm)
     if not donate:
-        table = table.clone()
+        planes = tuple(p.clone() for p in planes)
         stash = None if stash is None else stash.clone()
+    kept = planes if stash is None else (*planes, stash)
     if hi.shape[0] == 0:
-        ok = torch.zeros((0,), dtype=torch.bool, device=table.device)
-        return (table, ok) if stash is None else (table, stash, ok)
+        ok = torch.zeros((0,), dtype=torch.bool, device=planes[0].device)
+        return (*kept, ok, empty_telemetry(ok.device)) if tm else (*kept, ok)
     if valid is None:
         valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
     stash_slots = 0 if stash is None else stash.shape[1]
-    block = min(autotune_block("insert", table_bytes=table.numel() * 4,
-                               evict_rounds=evict_rounds,
+    # The adaptive parity rule counts twice the rounds (its chain history is
+    # six arrays wide, not three).
+    parity_rounds = evict_rounds * (1 if len(planes) == 1 else 2)
+    block = min(autotune_block("insert", table_bytes=table_bytes,
+                               evict_rounds=parity_rounds,
                                stash_slots=stash_slots,
                                n_keys=hi.shape[0]), hi.shape[0])
     hi_p, n = _pad_to(hi, block)
     lo_p, _ = _pad_to(lo, block)
-    valid_p, _ = _pad_to(valid, block)   # pads False: never touches the table
-    out = insert_bulk(table, hi_p, lo_p, fp_bits=fp_bits,
-                      n_buckets=n_buckets, valid=valid_p,
-                      evict_rounds=evict_rounds, stash=stash, block=block,
-                      schedule=schedule)
-    return (*out[:-1], _unpad(out[-1], n))
+    valid_p, _ = _pad_to(valid, block)   # pads False: never touches planes
+    out = kernel(*planes, hi_p, lo_p, valid=valid_p,
+                 evict_rounds=evict_rounds, stash=stash, block=block, **kw)
+    if not tm:
+        return (*kept, _unpad(out[-1], n))
+    fill = None if stash is None else stash_occupancy(stash)
+    return (*kept, _unpad(out[-2], n), from_insert_plane(out[-1], fill))
 
 
 def filter_delete(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                   *, fp_bits: int, n_buckets: int | None = None,
-                  valid: torch.Tensor | None = None, donate: bool = False):
-    """Bulk delete through the delete kernel -> (table, ok[N]).
+                  valid: torch.Tensor | None = None,
+                  stash: torch.Tensor | None = None, donate: bool = False):
+    """Bulk delete through the delete kernel -> (table, ok[N]), or
+    (table, stash, ok[N]) with an overflow ``stash``.
 
-    ``donate=True`` clears the caller's ``table`` in place; otherwise it is
-    copied first.  Callers verify membership first (the OCF keystore does).
+    With a stash, the lanes that missed the table then clear their stash
+    entry (``stash_delete_ref``, the reference's order: table copies
+    first), and ``ok`` reports either.  ``donate=True`` clears the
+    caller's ``table`` (and ``stash``) in place; otherwise they are copied
+    first.  Callers verify membership first (the OCF keystore does).
     """
+    return _delete(delete_bulk, (table,), hi, lo, table.numel() * 4,
+                   fp_bits=fp_bits, n_buckets=n_buckets, valid=valid,
+                   stash=stash, donate=donate, tm=False)
+
+
+def filter_delete_tm(table: torch.Tensor, hi: torch.Tensor,
+                     lo: torch.Tensor, *, fp_bits: int,
+                     n_buckets: int | None = None,
+                     valid: torch.Tensor | None = None,
+                     stash: torch.Tensor | None = None,
+                     donate: bool = False):
+    """Telemetry twin of ``filter_delete`` -> its results plus a
+    ``FilterTelemetry`` of table- and stash-resolved deletes (and, with a
+    stash, its occupancy after the call as the high-water mark): the same
+    kernel and one reduction each, as in the reference."""
+    return _delete(delete_bulk, (table,), hi, lo, table.numel() * 4,
+                   fp_bits=fp_bits, n_buckets=n_buckets, valid=valid,
+                   stash=stash, donate=donate, tm=True)
+
+
+def _delete(kernel, planes, hi, lo, table_bytes: int, *, fp_bits, n_buckets,
+            valid, stash, donate, tm):
+    """Copy (unless donated), pad to the parity block and call a delete
+    ``kernel`` over ``planes``; then the lanes that missed the table clear
+    their stash entry -> (*planes, ok) or (*planes, stash, ok), plus a
+    ``FilterTelemetry`` when ``tm``."""
     if not donate:
-        table = table.clone()
+        planes = tuple(p.clone() for p in planes)
+        stash = None if stash is None else stash.clone()
+    kept = planes if stash is None else (*planes, stash)
     if hi.shape[0] == 0:
-        return table, torch.zeros((0,), dtype=torch.bool, device=table.device)
+        ok = torch.zeros((0,), dtype=torch.bool, device=planes[0].device)
+        return (*kept, ok, empty_telemetry(ok.device)) if tm else (*kept, ok)
     if valid is None:
         valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
-    block = min(autotune_block("delete", table_bytes=table.numel() * 4,
+    block = min(autotune_block("delete", table_bytes=table_bytes,
                                n_keys=hi.shape[0]), hi.shape[0])
     hi_p, n = _pad_to(hi, block)
     lo_p, _ = _pad_to(lo, block)
     valid_p, _ = _pad_to(valid, block)
-    table, ok = delete_bulk(table, hi_p, lo_p, fp_bits=fp_bits,
-                            n_buckets=n_buckets, valid=valid_p, block=block)
-    return table, _unpad(ok, n)
+    out = kernel(*planes, hi_p, lo_p, fp_bits=fp_bits, n_buckets=n_buckets,
+                 valid=valid_p, block=block)
+    ok = _unpad(out[-1], n)
+    if stash is None:
+        return (*kept, ok, _delete_tm_plane(ok)) if tm else (*kept, ok)
+    nb = planes[0].shape[0] if n_buckets is None else n_buckets
+    cleared = stash_delete_ref(stash, hi, lo, valid & ~ok, fp_bits=fp_bits,
+                               n_buckets=nb)
+    if not tm:
+        return (*kept, ok | cleared)
+    return (*kept, ok | cleared, _delete_tm_plane_stash(ok, cleared, stash))
+
+
+def _delete_tm_plane(ok: torch.Tensor):
+    """Counter plane of a stashless delete: one reduction on the device."""
+    return from_counts(ok.device, table_deletes=ok.sum())
+
+
+def _delete_tm_plane_stash(ok: torch.Tensor, cleared: torch.Tensor,
+                           stash: torch.Tensor):
+    """... and of a delete with a stash (``stash`` after the call)."""
+    return from_counts(ok.device, table_deletes=ok.sum(),
+                       stash_deletes=cleared.sum(),
+                       stash_fill_hw=stash_occupancy(stash))
 
 
 # ------------------------------------------------- adaptive dispatch -------
@@ -263,17 +402,9 @@ def adaptive_lookup(table: torch.Tensor, sels: torch.Tensor,
                     n_buckets: int | None = None,
                     stash: torch.Tensor | None = None) -> torch.Tensor:
     """Selector-aware bulk membership through the kernel -> bool[N]."""
-    if hi.shape[0] == 0:
-        return torch.zeros((0,), dtype=torch.bool, device=table.device)
-    stash_slots = 0 if stash is None else stash.shape[1]
-    block = min(autotune_block("probe",
-                               table_bytes=_adaptive_plane_bytes(table),
-                               stash_slots=stash_slots), hi.shape[0])
-    hi_p, n = _pad_to(hi, block)
-    lo_p, _ = _pad_to(lo, block)
-    hit = probe_adaptive(table, sels, hi_p, lo_p, fp_bits=fp_bits,
-                         n_buckets=n_buckets, stash=stash, block=block)
-    return _unpad(hit, n)
+    return _lookup(probe_adaptive, (table, sels), hi, lo,
+                   _adaptive_plane_bytes(table), fp_bits=fp_bits,
+                   n_buckets=n_buckets, stash=stash)
 
 
 def adaptive_insert(table: torch.Tensor, sels: torch.Tensor,
@@ -289,29 +420,10 @@ def adaptive_insert(table: torch.Tensor, sels: torch.Tensor,
     ``donate=True`` updates the caller's planes (and stash) in place;
     otherwise they are copied first and the copies are returned.
     """
-    planes = (table, sels, khi, klo)
-    if not donate:
-        planes = tuple(p.clone() for p in planes)
-        stash = None if stash is None else stash.clone()
-    if hi.shape[0] == 0:
-        ok = torch.zeros((0,), dtype=torch.bool, device=table.device)
-        return (*planes, ok) if stash is None else (*planes, stash, ok)
-    if valid is None:
-        valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
-    stash_slots = 0 if stash is None else stash.shape[1]
-    block = min(autotune_block("insert",
-                               table_bytes=_adaptive_plane_bytes(table),
-                               evict_rounds=2 * evict_rounds,
-                               stash_slots=stash_slots,
-                               n_keys=hi.shape[0]), hi.shape[0])
-    hi_p, n = _pad_to(hi, block)
-    lo_p, _ = _pad_to(lo, block)
-    valid_p, _ = _pad_to(valid, block)   # pads False: never touches planes
-    out = insert_bulk_adaptive(*planes, hi_p, lo_p, fp_bits=fp_bits,
-                               n_buckets=n_buckets, valid=valid_p,
-                               evict_rounds=evict_rounds, stash=stash,
-                               block=block, schedule=schedule)
-    return (*out[:-1], _unpad(out[-1], n))
+    return _insert(insert_bulk_adaptive, (table, sels, khi, klo), hi, lo,
+                   _adaptive_plane_bytes(table), evict_rounds=evict_rounds,
+                   fp_bits=fp_bits, n_buckets=n_buckets, valid=valid,
+                   stash=stash, schedule=schedule, donate=donate)
 
 
 def adaptive_delete(table: torch.Tensor, sels: torch.Tensor,
@@ -327,31 +439,10 @@ def adaptive_delete(table: torch.Tensor, sels: torch.Tensor,
     composed ``stash_delete_ref`` pass (unpadded lanes), as in the
     reference.
     """
-    planes = (table, sels, khi, klo)
-    if not donate:
-        planes = tuple(p.clone() for p in planes)
-        stash = None if stash is None else stash.clone()
-    if hi.shape[0] == 0:
-        ok = torch.zeros((0,), dtype=torch.bool, device=table.device)
-        return (*planes, ok) if stash is None else (*planes, stash, ok)
-    if valid is None:
-        valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
-    block = min(autotune_block("delete",
-                               table_bytes=_adaptive_plane_bytes(table),
-                               n_keys=hi.shape[0]), hi.shape[0])
-    hi_p, n = _pad_to(hi, block)
-    lo_p, _ = _pad_to(lo, block)
-    valid_p, _ = _pad_to(valid, block)
-    out = delete_bulk_adaptive(*planes, hi_p, lo_p, fp_bits=fp_bits,
-                               n_buckets=n_buckets, valid=valid_p,
-                               block=block)
-    ok = _unpad(out[-1], n)
-    if stash is None:
-        return (*planes, ok)
-    nb = table.shape[0] if n_buckets is None else n_buckets
-    cleared = stash_delete_ref(stash, hi, lo, valid & ~ok, fp_bits=fp_bits,
-                               n_buckets=nb)
-    return (*planes, stash, ok | cleared)
+    return _delete(delete_bulk_adaptive, (table, sels, khi, klo), hi, lo,
+                   _adaptive_plane_bytes(table), fp_bits=fp_bits,
+                   n_buckets=n_buckets, valid=valid, stash=stash,
+                   donate=donate, tm=False)
 
 
 def adaptive_report(table: torch.Tensor, sels: torch.Tensor,
@@ -371,6 +462,63 @@ def adaptive_report(table: torch.Tensor, sels: torch.Tensor,
     family = hash_family(hi, lo, fp_bits=fp_bits, n_buckets=n_buckets)
     return report_adapt(table, sels, khi, klo, hi, lo, valid,
                         fp_bits=fp_bits, n_buckets=n_buckets, family=family)
+
+
+def adaptive_lookup_tm(table: torch.Tensor, sels: torch.Tensor,
+                       hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
+                       n_buckets: int | None = None,
+                       stash: torch.Tensor | None = None):
+    """Telemetry twin of ``adaptive_lookup`` -> (hit[N], FilterTelemetry)
+    with the probe-depth plane of the caller's N lanes."""
+    return _lookup(probe_adaptive_tm, (table, sels), hi, lo,
+                   _adaptive_plane_bytes(table), fp_bits=fp_bits,
+                   n_buckets=n_buckets, stash=stash)
+
+
+def adaptive_insert_tm(table: torch.Tensor, sels: torch.Tensor,
+                       khi: torch.Tensor, klo: torch.Tensor, hi: torch.Tensor,
+                       lo: torch.Tensor, *, fp_bits: int,
+                       n_buckets: int | None = None,
+                       valid: torch.Tensor | None = None,
+                       evict_rounds: int = 0,
+                       stash: torch.Tensor | None = None,
+                       schedule: bool = False, donate: bool = False):
+    """Telemetry twin of ``adaptive_insert`` -> its results plus a
+    ``FilterTelemetry`` (``filter_insert_tm``'s counters; the launches of
+    one call add to one plane)."""
+    return _insert(insert_bulk_adaptive_tm, (table, sels, khi, klo), hi, lo,
+                   _adaptive_plane_bytes(table), evict_rounds=evict_rounds,
+                   fp_bits=fp_bits, n_buckets=n_buckets, valid=valid,
+                   stash=stash, schedule=schedule, donate=donate)
+
+
+def adaptive_delete_tm(table: torch.Tensor, sels: torch.Tensor,
+                       khi: torch.Tensor, klo: torch.Tensor, hi: torch.Tensor,
+                       lo: torch.Tensor, *, fp_bits: int,
+                       n_buckets: int | None = None,
+                       valid: torch.Tensor | None = None,
+                       stash: torch.Tensor | None = None,
+                       donate: bool = False):
+    """Telemetry twin of ``adaptive_delete`` -> its results plus a
+    ``FilterTelemetry`` of table- and stash-resolved deletes."""
+    return _delete(delete_bulk_adaptive, (table, sels, khi, klo), hi, lo,
+                   _adaptive_plane_bytes(table), fp_bits=fp_bits,
+                   n_buckets=n_buckets, valid=valid, stash=stash,
+                   donate=donate, tm=True)
+
+
+def adaptive_report_tm(table: torch.Tensor, sels: torch.Tensor,
+                       khi: torch.Tensor, klo: torch.Tensor, hi: torch.Tensor,
+                       lo: torch.Tensor, *, fp_bits: int, n_buckets: int,
+                       valid: torch.Tensor | None = None,
+                       donate: bool = False):
+    """Telemetry twin of ``adaptive_report``: ``selector_bumps`` counts the
+    slots whose selector advanced in this pass."""
+    table, sels, adapted, resident = adaptive_report(
+        table, sels, khi, klo, hi, lo, fp_bits=fp_bits, n_buckets=n_buckets,
+        valid=valid, donate=donate)
+    tm = from_counts(table.device, selector_bumps=adapted.sum())
+    return table, sels, adapted, resident, tm
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,

@@ -25,14 +25,17 @@ from repro_torch.core import hashing
 from repro_torch.kernels import cuda
 from repro_torch.kernels.selector import fp_family, sel_unpack, select_fp
 from repro_torch.kernels.stash import stash_match
+from repro_torch.kernels.telemetry import PROBE_DEPTHS, probe_depth_counts
 
 DEFAULT_BLOCK = 1024
 
 
 def probe_plain(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
                 fp_bits: int, n_buckets: int | None = None,
-                stash: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version -> bool[N]."""
+                stash: torch.Tensor | None = None, want_stats: bool = False):
+    """Plain PyTorch version -> bool[N]; with ``want_stats`` also the
+    per-lane hits (h1, h2, hs) of the home bucket, the alternate bucket
+    and the stash (all False without one)."""
     cuda.PLAIN_CALLS["probe"] += 1
     if n_buckets is None:
         n_buckets = table.shape[0]
@@ -40,10 +43,12 @@ def probe_plain(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
     i1 = hashing.index_hash(hi, lo, n_buckets)
     i2 = hashing.alt_index(i1, fp, n_buckets)
     fp32 = hashing.to_i32(fp)[:, None]
-    hit = (table[i1] == fp32).any(dim=1) | (table[i2] == fp32).any(dim=1)
-    if stash is not None:
-        hit = hit | stash_match(stash, fp, i1, i2)
-    return hit
+    h1 = (table[i1] == fp32).any(dim=1)
+    h2 = (table[i2] == fp32).any(dim=1)
+    hs = (torch.zeros_like(h1) if stash is None
+          else stash_match(stash, fp, i1, i2))
+    hit = h1 | h2 | hs
+    return (hit, (h1, h2, hs)) if want_stats else hit
 
 
 def probe(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
@@ -76,6 +81,44 @@ def probe(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
                 0 if stash is None else stash.shape[1], hi.data_ptr(),
                 lo.data_ptr(), hit.data_ptr(), n, fp_bits, int(n_buckets))
     return hit
+
+
+def probe_tm(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
+             fp_bits: int, n_buckets: int | None = None,
+             stash: torch.Tensor | None = None, n_valid: int | None = None,
+             block: int = DEFAULT_BLOCK):
+    """``probe`` plus its probe-depth plane -> (bool[N], int64[4]).
+
+    The plane counts the first ``n_valid`` lanes (default all N; padding
+    lanes after them are answered but not counted) by their shallowest
+    hit: home bucket, alternate bucket, stash, miss.  CPU tensors take the
+    plain version with stats; CUDA tensors launch the kernel's telemetry
+    instantiation, which counts per warp and adds one count a CTA.
+    """
+    n = hi.shape[0]
+    if n and n % min(block, n):
+        raise ValueError(f"{n=} not a multiple of {block=}")
+    if n_buckets is None:
+        n_buckets = table.shape[0]
+    n_valid = n if n_valid is None else n_valid
+    if table.device.type == "cpu":
+        hit, (h1, h2, hs) = probe_plain(table, hi, lo, fp_bits=fp_bits,
+                                        n_buckets=n_buckets, stash=stash,
+                                        want_stats=True)
+        valid = torch.arange(n, device=hi.device) < n_valid
+        return hit, probe_depth_counts(h1, h2, hs, valid)
+    cuda.check_cuda("probe_tm", table=table, hi=hi, lo=lo, stash=stash)
+    cuda.check_dtype("probe_tm", torch.int32, table=table, hi=hi, lo=lo,
+                     stash=stash)
+    cuda.check_table("probe_tm", table, n_buckets, stash)
+    hit = torch.empty((n,), dtype=torch.bool, device=table.device)
+    plane = torch.zeros((PROBE_DEPTHS,), dtype=torch.int32,
+                        device=table.device)
+    cuda.launch("probe_tm", table.data_ptr(), table.shape[1],
+                cuda.ptr(stash), 0 if stash is None else stash.shape[1],
+                hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
+                int(n_buckets), plane.data_ptr(), n_valid)
+    return hit, plane.to(torch.int64)
 
 
 def probe_multi_plain(tables: torch.Tensor, hi: torch.Tensor,
@@ -172,8 +215,10 @@ def _probe_multi_cuda(tables, hi, lo, *, fp_bits, n_buckets, stashes,
 def probe_adaptive_plain(table: torch.Tensor, sels: torch.Tensor,
                          hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
                          n_buckets: int | None = None,
-                         stash: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version -> bool[N]."""
+                         stash: torch.Tensor | None = None,
+                         want_stats: bool = False):
+    """Plain PyTorch version -> bool[N]; with ``want_stats`` also the
+    per-lane hits (h1, h2, hs), as ``probe_plain``."""
     cuda.PLAIN_CALLS["probe_adaptive"] += 1
     if n_buckets is None:
         n_buckets = table.shape[0]
@@ -181,13 +226,14 @@ def probe_adaptive_plain(table: torch.Tensor, sels: torch.Tensor,
     fam = fp_family(hi, lo, fp_bits)
     i1 = hashing.index_hash(hi, lo, n_buckets)
     i2 = hashing.alt_index(i1, fam[0], n_buckets)
-    hit = torch.zeros(hi.shape, dtype=torch.bool, device=hi.device)
-    for b in (i1, i2):
-        exp = select_fp(fam, sel_unpack(sels[b], bucket_size))
-        hit |= (table[b] == hashing.to_i32(exp)).any(dim=1)
-    if stash is not None:
-        hit = hit | stash_match(stash, fam[0], i1, i2)
-    return hit
+    h1, h2 = (
+        (table[b] == hashing.to_i32(
+            select_fp(fam, sel_unpack(sels[b], bucket_size)))).any(dim=1)
+        for b in (i1, i2))
+    hs = (torch.zeros_like(h1) if stash is None
+          else stash_match(stash, fam[0], i1, i2))
+    hit = h1 | h2 | hs
+    return (hit, (h1, h2, hs)) if want_stats else hit
 
 
 def probe_adaptive(table: torch.Tensor, sels: torch.Tensor, hi: torch.Tensor,
@@ -227,3 +273,40 @@ def _probe_adaptive_cuda(table, sels, hi, lo, *, fp_bits, n_buckets, stash):
                 hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
                 int(n_buckets))
     return hit
+
+
+def probe_adaptive_tm(table: torch.Tensor, sels: torch.Tensor,
+                      hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
+                      n_buckets: int | None = None,
+                      stash: torch.Tensor | None = None,
+                      n_valid: int | None = None,
+                      block: int = DEFAULT_BLOCK):
+    """``probe_adaptive`` plus its probe-depth plane -> (bool[N],
+    int64[4]), with ``probe_tm``'s contract.  On the card the kernel's
+    telemetry instantiation counts at the stage that answered: home row,
+    alternate row, stash prefilter."""
+    n = hi.shape[0]
+    if n and n % min(block, n):
+        raise ValueError(f"{n=} not a multiple of {block=}")
+    if n_buckets is None:
+        n_buckets = table.shape[0]
+    n_valid = n if n_valid is None else n_valid
+    if table.device.type == "cpu":
+        hit, (h1, h2, hs) = probe_adaptive_plain(
+            table, sels, hi, lo, fp_bits=fp_bits, n_buckets=n_buckets,
+            stash=stash, want_stats=True)
+        valid = torch.arange(n, device=hi.device) < n_valid
+        return hit, probe_depth_counts(h1, h2, hs, valid)
+    name = "probe_adaptive_tm"
+    cuda.check_cuda(name, table=table, sels=sels, hi=hi, lo=lo, stash=stash)
+    cuda.check_dtype(name, torch.int32, table=table, sels=sels, hi=hi, lo=lo,
+                     stash=stash)
+    cuda.check_table(name, table, n_buckets, stash, sels=sels)
+    hit = torch.empty((n,), dtype=torch.bool, device=table.device)
+    plane = torch.zeros((PROBE_DEPTHS,), dtype=torch.int32,
+                        device=table.device)
+    cuda.launch(name, table.data_ptr(), sels.data_ptr(), table.shape[1],
+                cuda.ptr(stash), 0 if stash is None else stash.shape[1],
+                hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
+                int(n_buckets), plane.data_ptr(), n_valid)
+    return hit, plane.to(torch.int64)

@@ -10,7 +10,9 @@ adapted and scrambled slots that chains kick and roll back.
 prefilter, its batched bucket loads and its launches of 64 pool slots, and
 ``PROBE_ADAPTIVE_CASES`` for ``csrc/probe_adaptive.cu``'s (the same
 prefilter over one stash, selector words read only for rows that match a
-family fingerprint, the alternate row only where the home row missed). The
+family fingerprint, the alternate row only where the home row missed), and
+``PROBE_CASES`` for ``csrc/probe.cu``'s telemetry instantiation (keys
+answered at every depth, padding lanes that hit and must not count). The
 tests hold the kernels against their plain versions on these inputs, and so
 does ``chip_smoke.py`` on the card: one source, so that both see the same
 arrays for a label and seed.
@@ -358,5 +360,58 @@ def probe_adaptive_inputs(label, seed=0):
                                [right, other, right],
                                rng.randint(0, nb, used.size))
     return dict(table=table, sels=sels, stash=stash, keys=keys,
+                fp_bits=fp_bits, n_buckets=nb,
+                block=128 if n % 128 == 0 else n)
+
+
+# Inputs for probe.cu and its telemetry instantiation (the probe-depth
+# plane): label -> (buffer, active buckets, bucket size, fp_bits, stash
+# slots, keys, counted keys, table load, stash load).  A quarter of the keys
+# are planted in their home bucket, a quarter in their alternate bucket,
+# and (with a stash) some of the rest in the stash; the lanes after the
+# counted ones are padding, key 0, which is planted too, so that a kernel
+# counting them would differ.
+PROBE_CASES = {
+    "stash-128-padded": (4096, 4000, 4, 16, 128, 4096, 4000, 0.8, 0.5),
+    "no-stash": (4096, 4000, 4, 16, 0, 4096, 4096, 0.8, 0.0),
+    "n-1000-padded": (1024, 1000, 4, 16, 32, 1000, 990, 0.8, 0.5),
+    "stash-2500": (2048, 2000, 4, 16, 2500, 5000, 4999, 0.8, 0.3),
+    "bucket-8": (1024, 1000, 8, 16, 64, 2048, 2000, 0.85, 0.5),
+}
+
+
+def probe_inputs(label, seed=0):
+    """numpy inputs of a PROBE_CASES case: a dict with the uint32 table
+    and stash (None without stash slots), the uint64 keys (padding key 0
+    after the counted ones), the counted count, fp_bits, n_buckets and the
+    block the reference takes (128, or the key count where that is no
+    multiple of it)."""
+    buf, nb, bsz, fp_bits, slots, n, counted, load, stash_load = \
+        PROBE_CASES[label]
+    rng = np.random.RandomState(seed)
+    fill = rng.rand(buf, bsz) < load
+    table = np.where(fill, rng.randint(1, 1 << fp_bits, size=(buf, bsz)),
+                     0).astype(np.uint32)
+    table[nb:] = 0
+    keys = random_keys(rng, n)
+    keys[counted:] = 0
+    hi, lo = hashing.key_to_u32_pair_np(keys)
+    fp = hashing.fingerprint_np(hi, lo, fp_bits)
+    i1 = hashing.index_hash_np(hi, lo, nb)
+    i2 = hashing.alt_index_np(i1, fp, nb)
+    where = rng.randint(0, 4, n)
+    where[counted:] = 0                      # the padding key, at home
+    slot = rng.randint(0, bsz, n)
+    home, alt = where == 0, where == 1
+    table[i1[home], slot[home]] = fp[home]
+    table[i2[alt], slot[alt]] = fp[alt]
+    stash = None
+    if slots:
+        stash = np.zeros((2, slots), np.uint32)
+        used = np.nonzero(rng.rand(slots) < stash_load)[0]
+        e = rng.randint(0, counted, used.size)
+        stash[0, used] = fp[e]
+        stash[1, used] = np.where(rng.rand(used.size) < 0.5, i1[e], i2[e])
+    return dict(table=table, stash=stash, keys=keys, counted=counted,
                 fp_bits=fp_bits, n_buckets=nb,
                 block=128 if n % 128 == 0 else n)

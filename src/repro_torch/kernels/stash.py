@@ -23,6 +23,9 @@ from repro_torch.core import hashing
 from repro_torch.core.scheduling import pair_rank
 
 DEFAULT_STASH_SLOTS = 128
+# Lane x slot pairs up to which ``stash_delete`` takes its dense, sync-free
+# form (a 4096-lane wave on a 128-slot stash is 2^19).
+DENSE_DELETE_PAIRS = 1 << 22
 
 
 def make_stash(slots: int = DEFAULT_STASH_SLOTS, *, device="cuda"
@@ -81,6 +84,8 @@ def stash_delete(stash: torch.Tensor, fp: torch.Tensor, i1: torch.Tensor,
     clears the rank-th matching slot; lanes whose rank reaches the match
     count report False.  A cleared slot zeroes both rows.
     """
+    if want.numel() * stash.shape[1] <= DENSE_DELETE_PAIRS:
+        return _stash_delete_dense(stash, fp, i1, i2, want)
     cleared = torch.zeros_like(want)
     lanes = torch.nonzero(want).flatten()   # ranks among want lanes only
     if lanes.numel() == 0:
@@ -98,6 +103,23 @@ def stash_delete(stash: torch.Tensor, fp: torch.Tensor, i1: torch.Tensor,
     stash[:, slot[hit]] = 0
     cleared[lanes] = hit
     return cleared
+
+
+def _stash_delete_dense(stash, fp, i1, i2, want):
+    """``stash_delete`` over every (lane, slot) pair at once: the same
+    clears, with no host sync (no ``nonzero``), for batches small enough
+    that an [N, S] mask is cheap (a serving wave)."""
+    s_fp = hashing.to_u32(stash[0])[None, :]
+    s_bkt = hashing.to_u32(stash[1])[None, :]
+    i1 = hashing.to_u32(i1)[:, None]
+    match = want[:, None] & (s_fp == hashing.to_u32(fp)[:, None]) & (
+        (s_bkt == i1) | (s_bkt == hashing.to_u32(i2)[:, None]))  # [N, S]
+    rank = pair_rank(i1[:, 0], fp, want)    # ranks among want lanes only
+    hit = want & (rank < match.sum(dim=1))
+    match_pos = torch.cumsum(match.to(torch.int64), dim=1) - 1
+    chosen = match & (match_pos == rank[:, None]) & hit[:, None]
+    stash.masked_fill_(chosen.any(dim=0)[None, :], 0)
+    return hit
 
 
 def _hash(hi, lo, fp_bits: int, n_buckets: int):

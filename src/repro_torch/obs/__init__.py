@@ -3,7 +3,10 @@
 Pure-Python copies of ``repro.obs`` (registry, trace, recovery), kept here
 so the port never imports the JAX package; the trace recorder annotates
 ``torch.profiler`` traces instead of XLA ones.  The device counter planes
-(the reference's ``kernels/telemetry.py``) are not ported yet.  Everything
+(the reference's ``kernels/telemetry.py``) are ``repro_torch.kernels.
+telemetry``: the insert and probe kernels count them on the card, and
+``serving.scheduler.FilterOpBatcher(telemetry=True)`` folds them into a
+registry here.  Everything
 here is optional-by-default: components accept ``metrics=None`` /
 ``tracer=None`` and do no observability work unless handed one.
 """

@@ -1,7 +1,9 @@
-"""Serving: the prefix-cache indexes over the filters (``kvcache.py``) and
-the LM engine (``engine.py``: prefill and decode steps, greedy sampling,
-backpressure).  The scheduler, SLO harness and workloads are not ported
-yet."""
+"""Serving: the prefix-cache indexes over the filters (``kvcache.py``), the
+LM engine (``engine.py``: prefill and decode steps, greedy sampling,
+backpressure) and the filter's wave submit path (``scheduler.py``:
+``FilterOpBatcher``).  The scheduler's ``ContinuousBatcher``,
+``DeferredWritePump`` and ``ShardedFilterFills``, the SLO harness and the
+workloads are not ported yet."""
 from repro_torch.serving.engine import (BackpressureConfig,
                                         BackpressureController, generate,
                                         greedy_sample, make_decode_step,
@@ -9,8 +11,11 @@ from repro_torch.serving.engine import (BackpressureConfig,
 from repro_torch.serving.kvcache import (GenerationalPrefixIndex,
                                          PrefixCacheIndex, PrefixStats,
                                          block_hashes)
+from repro_torch.serving.scheduler import (LATENCY_BUCKETS_US, BatcherStats,
+                                           FilterOpBatcher, OpWave)
 
-__all__ = ["BackpressureConfig", "BackpressureController",
-           "GenerationalPrefixIndex", "PrefixCacheIndex", "PrefixStats",
+__all__ = ["BackpressureConfig", "BackpressureController", "BatcherStats",
+           "FilterOpBatcher", "GenerationalPrefixIndex",
+           "LATENCY_BUCKETS_US", "OpWave", "PrefixCacheIndex", "PrefixStats",
            "block_hashes", "generate", "greedy_sample", "make_decode_step",
            "make_prefill_step"]

@@ -10,6 +10,9 @@ import torch
 from repro_torch.adaptive import AdaptiveConfig, AdaptiveMembership
 from repro_torch.convert import adaptive_state_to_numpy, generational_to_numpy
 from repro_torch.configs import get_smoke_config
+from repro_torch.adaptive.state import make_adaptive_state
+from repro_torch.core.filter import make_state
+from repro_torch.core.filter_ops import FilterOps
 from repro_torch.core.ocf import OCF, OcfConfig
 from repro_torch.kernels import cuda
 from repro_torch.kernels.delete import (delete_bulk, delete_bulk_adaptive,
@@ -23,16 +26,25 @@ from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                              fingerprint_hash_plain)
 from repro_torch.kernels.insert import (insert_bulk, insert_bulk_adaptive,
                                         insert_bulk_adaptive_plain,
-                                        insert_bulk_plain)
+                                        insert_bulk_adaptive_tm,
+                                        insert_bulk_plain, insert_bulk_tm)
 from repro_torch.kernels.probe import (probe, probe_adaptive,
-                                       probe_adaptive_plain, probe_multi,
-                                       probe_multi_plain, probe_plain)
+                                       probe_adaptive_plain,
+                                       probe_adaptive_tm, probe_multi,
+                                       probe_multi_plain, probe_plain,
+                                       probe_tm)
 from repro_torch.kernels.staging_cases import (PROBE_ADAPTIVE_CASES,
+                                               PROBE_CASES,
                                                PROBE_MULTI_CASES,
                                                probe_adaptive_inputs,
+                                               probe_inputs,
                                                probe_multi_inputs)
+from repro_torch.kernels.stash import make_stash
+from repro_torch.kernels.telemetry import (KICK_BINS, insert_plane,
+                                           probe_depth_counts)
 from repro_torch.models import Transformer
-from repro_torch.serving import engine
+from repro_torch.obs import MetricsRegistry
+from repro_torch.serving import FilterOpBatcher, engine
 from repro_torch.streaming import GenerationalFilter, GenerationConfig
 
 from torch_port_util import (ADAPTIVE_STAGING_CASES, STAGING_CASES,
@@ -489,3 +501,173 @@ def test_lm_on_card_matches_cpu(dev, seq):
     outs = [engine.generate(m, t, 9).tokens.cpu()
             for m, t in ((card, toks.to(dev)), (cpu, toks))]
     assert torch.equal(*outs)
+
+
+# ------------------------------------------------- telemetry twins ------
+
+
+@pytest.mark.parametrize("label", [*LEGACY_KERNEL_CASES, *STAGING_CASES])
+def test_insert_tm_matches_plain_with_stats(dev, label):
+    """insert.cu's telemetry instantiation: table, stash and ok equal the
+    flag-off kernel's and the plain version's, and its plane (kick
+    histogram, spills, rollbacks) the plain version's stats."""
+    c = _kernel_case(label)
+    nb, block, rounds = c["n_buckets"], c["block"], c["rounds"]
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    valid = torch.from_numpy(c["valid"]).to(dev)
+    tables = [t32(c["table"]).to(dev) for _ in range(3)]
+    stashes = [None if c["stash"] is None else t32(c["stash"]).to(dev)
+               for _ in range(3)]
+    kw = dict(fp_bits=16, n_buckets=nb, evict_rounds=rounds, block=block)
+    cuda.reset_counts()
+    out = insert_bulk_tm(tables[0], hi, lo, valid=valid, stash=stashes[0],
+                         **kw)
+    assert cuda.LAUNCHES["insert_bulk_tm"] == 1
+    ok_off = insert_bulk(tables[1], hi, lo, valid=valid, stash=stashes[1],
+                         **kw)[-1]
+    ok_p, stats = insert_bulk_plain(tables[2], hi, lo, valid,
+                                    stash=stashes[2], want_stats=True, **kw)
+    torch.cuda.synchronize()
+    for t in tables[1:]:
+        assert torch.equal(tables[0], t)
+    if stashes[0] is not None:
+        assert torch.equal(stashes[0], stashes[1])
+        assert torch.equal(stashes[0], stashes[2])
+    assert torch.equal(out[-2], ok_off) and torch.equal(out[-2], ok_p)
+    assert torch.equal(out[-1], insert_plane(*stats, valid))
+    assert int(out[-1][:KICK_BINS].sum()) == int(valid.sum())
+
+
+@pytest.mark.parametrize("label", [*LEGACY_ADAPTIVE_CASES,
+                                   *ADAPTIVE_STAGING_CASES])
+@pytest.mark.parametrize("split_keys", [cuda.SPLIT_KEYS, 300])
+def test_insert_adaptive_tm_matches_plain_with_stats(dev, label,
+                                                     split_keys):
+    """insert_adaptive.cu's telemetry instantiation, as above; a call split
+    into launches adds them all to one plane."""
+    c = _adaptive_case(label)
+    if split_keys < c["block"]:
+        pytest.skip("the split needs at least one logical block a launch")
+    nb, block, fp_bits = c["n_buckets"], c["block"], c["fp_bits"]
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    valid = torch.from_numpy(c["valid"]).to(dev)
+    planes = [[t32(p).to(dev) for p in c["planes"]] for _ in range(3)]
+    stashes = [None if c["stash"] is None else t32(c["stash"]).to(dev)
+               for _ in range(3)]
+    kw = dict(fp_bits=fp_bits, n_buckets=nb, evict_rounds=c["rounds"],
+              block=block)
+    cuda.reset_counts()
+    out = insert_bulk_adaptive_tm(*planes[0], hi, lo, valid=valid,
+                                  stash=stashes[0], split_keys=split_keys,
+                                  **kw)
+    assert cuda.LAUNCHES["insert_bulk_adaptive_tm"] == len(
+        cuda.spans(hi.numel(), block, split_keys))
+    ok_off = insert_bulk_adaptive(*planes[1], hi, lo, valid=valid,
+                                  stash=stashes[1], split_keys=split_keys,
+                                  **kw)[-1]
+    ok_p, stats = insert_bulk_adaptive_plain(*planes[2], hi, lo, valid,
+                                             stash=stashes[2],
+                                             want_stats=True, **kw)
+    torch.cuda.synchronize()
+    for ps in planes[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(planes[0], ps))
+    if stashes[0] is not None:
+        assert torch.equal(stashes[0], stashes[1])
+        assert torch.equal(stashes[0], stashes[2])
+    assert torch.equal(out[-2], ok_off) and torch.equal(out[-2], ok_p)
+    assert torch.equal(out[-1], insert_plane(*stats, valid))
+
+
+@pytest.mark.parametrize("label", PROBE_CASES)
+def test_probe_tm_matches_plain_with_stats(dev, label):
+    """probe.cu's telemetry instantiation: the flag-off kernel's answers
+    for every lane, and the plain version's depth plane of the counted
+    lanes (padding key 0 is planted and must not count)."""
+    c = probe_inputs(label)
+    table = t32(c["table"]).to(dev)
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    k = c["counted"]
+    counted = torch.arange(hi.numel(), device=dev) < k
+    for st in (None, None if c["stash"] is None
+               else t32(c["stash"]).to(dev)):
+        kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"], stash=st)
+        hit, plane = probe_tm(table, hi, lo, n_valid=k, block=c["block"],
+                              **kw)
+        want, hs = probe_plain(table, hi, lo, want_stats=True, **kw)
+        assert torch.equal(hit, want)
+        assert torch.equal(hit, probe(table, hi, lo, block=c["block"], **kw))
+        assert torch.equal(plane, probe_depth_counts(*hs, counted))
+
+
+@pytest.mark.parametrize("label", PROBE_ADAPTIVE_CASES)
+def test_probe_adaptive_tm_matches_plain_with_stats(dev, label):
+    """probe_adaptive.cu's telemetry instantiation, as above (the last
+    seven lanes uncounted)."""
+    c = probe_adaptive_inputs(label, 0)
+    table, sels = t32(c["table"]).to(dev), t32(c["sels"]).to(dev)
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    k = max(0, hi.numel() - 7)
+    counted = torch.arange(hi.numel(), device=dev) < k
+    for st in (None, t32(c["stash"]).to(dev)):
+        kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"], stash=st)
+        hit, plane = probe_adaptive_tm(table, sels, hi, lo, n_valid=k,
+                                       block=c["block"], **kw)
+        want, hs = probe_adaptive_plain(table, sels, hi, lo, want_stats=True,
+                                        **kw)
+        assert torch.equal(hit, want)
+        assert torch.equal(hit, probe_adaptive(table, sels, hi, lo,
+                                               block=c["block"], **kw))
+        assert torch.equal(plane, probe_depth_counts(*hs, counted))
+
+
+def _batcher_stream(adaptive, device, telemetry, seed=3):
+    """A seeded wave stream through a ``FilterOpBatcher`` on ``device``
+    -> (batcher, wave results, registry snapshot without latencies)."""
+    ws, nb = 512, 256
+    ops = FilterOps(fp_bits=8 if adaptive else 12, evict_rounds=4)
+    state = (make_adaptive_state(nb, device=device) if adaptive
+             else make_state(nb, device=device))
+    m = MetricsRegistry()
+    b = FilterOpBatcher(ops, state, stash=make_stash(8, device=device),
+                        wave_slots=ws, double_buffer=True,
+                        telemetry=telemetry, metrics=m)
+    rng = np.random.RandomState(seed)
+    members = random_keys(rng, 2 * ws)
+    benign = random_keys(rng, ws)
+    waves = [b.submit("insert", members[:ws]),
+             b.submit("insert", members[ws:]),
+             b.submit("lookup", np.concatenate([members[:300],
+                                                benign[:200]]))]
+    b.flush()
+    taken = np.concatenate([members[:ws][waves[0].results],
+                            members[ws:][waves[1].results]])
+    if adaptive:
+        waves.append(b.submit("report", benign))
+    waves.append(b.submit("lookup", benign))
+    waves.append(b.submit("delete", taken[:ws]))
+    b.flush()
+    snap = {k: v for k, v in m.snapshot().items() if "latency" not in k}
+    return b, [w.results for w in waves], snap
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_batcher_on_card_matches_cpu(dev, adaptive):
+    """The batcher's two arms on one seeded stream, telemetry on: waves,
+    states and counters on the card equal the CPU's, and the telemetry-off
+    arm on the card gives the same waves and launches no tm symbol."""
+    cuda.reset_counts()
+    card, card_res, card_snap = _batcher_stream(adaptive, "cuda", True)
+    assert any(cuda.LAUNCHES[k] for k in cuda.TM_KERNELS)
+    cpu, cpu_res, cpu_snap = _batcher_stream(adaptive, "cpu", True)
+    cuda.reset_counts()
+    off, off_res, _ = _batcher_stream(adaptive, "cuda", False)
+    assert not any(cuda.LAUNCHES[k] for k in cuda.TM_KERNELS)
+    for a, b, c in zip(card_res, cpu_res, off_res):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert card_snap == cpu_snap
+    for x in (cpu, off):
+        assert torch.equal(card.state.table.cpu(), x.state.table.cpu())
+        assert torch.equal(card.stash.cpu(), x.stash.cpu())
+        assert int(card.state.count) == int(x.state.count)
+    assert card_snap.get("filter_stash_spills", 0) > 0

@@ -20,10 +20,15 @@ from repro.obs import MetricsRegistry as RefRegistry
 from repro.serving.engine import BackpressureController as RefController
 from repro.serving.scheduler import FilterOpBatcher
 from repro.streaming.admission import AdmissionConfig
+from repro_torch.core.filter import make_state
+from repro_torch.core.filter_ops import FilterOps as PortOps
 from repro_torch.kernels import cuda
+from repro_torch.kernels.stash import make_stash
 from repro_torch.launch.serve import serve
 from repro_torch.obs import MetricsRegistry, TraceRecorder
 from repro_torch.serving import BackpressureConfig, BackpressureController
+from repro_torch.serving import FilterOpBatcher as PortBatcher
+from repro_torch.streaming.admission import AdmissionConfig as PortAdmission
 
 pytestmark = pytest.mark.tier1
 
@@ -88,22 +93,35 @@ def test_backpressure_trip_shed_readmit_sequence(registry, controller):
     assert snap['backpressure_decisions{decision="admit"}'] == 2
 
 
+def _port_batcher(m):
+    return PortBatcher(
+        PortOps(evict_rounds=16),
+        make_state(64, buffer_buckets=64, device="cpu"),
+        stash=make_stash(8, device="cpu"), wave_slots=64, double_buffer=True,
+        metrics=m,
+        admission=PortAdmission(high_water=0.3, low_water=0.1))
+
+
+def _ref_batcher(m):
+    return FilterOpBatcher(
+        FilterOps(backend="pallas", evict_rounds=16),
+        jfilter.make_state(64, buffer_buckets=64), stash=kops.make_stash(8),
+        wave_slots=64, double_buffer=True, metrics=m,
+        admission=AdmissionConfig(high_water=0.3, low_water=0.1))
+
+
 def test_backpressure_from_live_admission_metrics():
-    """A burst through the reference's admission-gated batcher publishes
-    trips, deferred waves and shed ops into the port's registry, and the
-    port's controller reading it sheds, as the reference's controller does
-    over its own registry (tests/test_obs.py::
-    test_backpressure_from_live_admission_metrics)."""
+    """A burst through the port's admission-gated batcher (over the port's
+    state) publishes trips, deferred waves and shed ops into the port's
+    registry, and the port's controller reading it sheds, as the
+    reference's batcher and controller do over the reference's registry
+    (tests/test_obs.py::test_backpressure_from_live_admission_metrics)."""
     decisions = []
-    for registry, controller in ((MetricsRegistry, BackpressureController),
-                                 (RefRegistry, RefController)):
+    for registry, controller, make in (
+            (MetricsRegistry, BackpressureController, _port_batcher),
+            (RefRegistry, RefController, _ref_batcher)):
         m = registry()
-        ops = FilterOps(backend="pallas", evict_rounds=16)
-        state = jfilter.make_state(64, buffer_buckets=64)
-        batcher = FilterOpBatcher(
-            ops, state, stash=kops.make_stash(8), wave_slots=64,
-            double_buffer=True, metrics=m,
-            admission=AdmissionConfig(high_water=0.3, low_water=0.1))
+        batcher = make(m)
         bp = controller(m)
         trail = [bp.decide()]
         rng = np.random.RandomState(2)
