@@ -42,11 +42,15 @@ Phases, each timed, each fatal on failure:
      rotate-and-retry), a ``GenerationalPrefixIndex`` stream, two
      ``FilterOpBatcher`` wave streams with telemetry on (a static filter
      with an 8-slot stash, an adaptive one with report waves: waves,
-     states and every counter of the registry equal); and the
-     LM at gemma3-1b's full width and one period's depth (6 layers,
-     float32, TF32 off), built on the CPU and copied to the card: forward
-     logits within a stated tolerance at S = 512 and 200, greedy tokens of
-     prefill + 8 decode steps equal;
+     states and every counter of the registry equal); the six scenarios
+     of the SLO harness through ``run_scenario`` at the reference's sizes
+     (every wave's results, the final state and every report field that
+     is no host time equal); the LM at gemma3-1b's full width and one
+     period's depth (6 layers, float32, TF32 off), built on the CPU and
+     copied to the card: forward logits within a stated tolerance at S =
+     512 and 200, greedy tokens of prefill + 8 decode steps equal; and
+     ``ContinuousBatcher`` over that model, a burst of 7 requests into 3
+     slots (greedy tokens and ``SchedStats`` equal);
   4. the OCF main path at full size: one node's membership filter of a
      distributed store (capacity 2^22 slots, 8 bursts of 1M inserts, 3M
      verified + 100k blind deletes, lookups of every resident key plus 5M
@@ -68,12 +72,26 @@ Phases, each timed, each fatal on failure:
      results and states, the counter sums checked, no telemetry launch in
      the off arm, the median walls), then each under a trace for the
      device's idle share;
+  5e. SLO scenarios at node size: each scenario of the SLO harness with
+     its own mix, hit blend, burst pattern and load trajectory at one
+     node's filter (the reference's stacks with n_buckets and wave_slots
+     scaled by one factor: 2^20 buckets of 4 and waves of 2^17–2^18 keys;
+     the ttl ring at 4 generations of 2^22 slots and 2^19-key waves; the
+     admission arm at 2^20 buckets, 2^19-key waves); the burst train also
+     through the sync and async arms (equal bit for bit); no false
+     negatives from the waves' own results; the scenario telemetry mode
+     card vs CPU; ``uniform`` once more under a trace for the idle share;
+     a ``{"slo": ...}`` JSON line of the rows; launch counts read around
+     it;
   5c. the LM serving path at full size: gemma3-1b (26 layers, full width,
      bfloat16 activations, float32 weights from SEED): a cache-less
      forward over 8192 tokens (prompt scoring, the flash kernel), the
      flash forward against the cached prefill + decode of the same prompt
-     (float32, 1024 tokens, log-softmax within 1e-3), and ``serve()`` of
-     16 requests; launch counts read around it;
+     (float32, 1024 tokens, log-softmax within 1e-3), ``serve()`` of 16
+     requests, and (d) ``ContinuousBatcher``: 8 requests of 1008 + 16
+     tokens into 4 slots (tokens equal to ``generate``'s, ``SchedStats``
+     equal to the CPU's over a 2-layer model); launch counts read around
+     it;
   6. hold each kernel against its plain version at the paths' full size,
      bit for bit, then time it, its plain version and its bound (the
      telemetry instantiations beside their flag-off kernels; for flash
@@ -1415,6 +1433,162 @@ def lm_parity(seqs=(512, 200), steps: int = 8):
                   f"{gen[1].tolist()}", flush=True)
             check(np.array_equal(*gen), "greedy tokens differ between "
                                         "devices")
+    return card, cpu
+
+
+def slo_recorder():
+    """A ``SloHarness`` that keeps what a replay drove: ``target`` (the
+    batcher or the ring) and ``waves`` in submit order (kind, keys, and the
+    ``OpWave`` or the ring call's answer); for a batcher ``launched``, its
+    waves in launch order with their keys (a wave parked by admission
+    launches later than it was submitted); for a ring each call's clock,
+    the generation an insert went into (None when the call rotated) and
+    the generations live at a lookup."""
+    from repro_torch.serving.slo import SloHarness
+
+    class Recording(SloHarness):
+        def run(self, batcher, stream, **kw):
+            self.target, self.waves, self.launched = batcher, [], []
+            submit, launch = batcher.submit, batcher._launch
+
+            def submitted(kind, keys):
+                wave = submit(kind, keys)
+                self.waves.append((kind, keys, wave))
+                return wave
+
+            def launched(wave, keys):
+                self.launched.append((wave, keys))
+                launch(wave, keys)
+            batcher.submit, batcher._launch = submitted, launched
+            return super().run(batcher, stream, **kw)
+
+        def run_generational(self, filt, stream, **kw):
+            self.target, self.waves = filt, []
+            insert, lookup = filt.insert, filt.lookup
+
+            def inserted(keys, now=None):
+                before = (filt.stats.rotations, filt.stats.rotate_retries)
+                ok = insert(keys, now=now)
+                calm = before == (filt.stats.rotations,
+                                  filt.stats.rotate_retries)
+                self.waves.append(("insert", keys, ok,
+                                   filt.gens[-1] if calm else None, now))
+                return ok
+
+            def looked_up(keys, now=None):
+                live = [g for g in filt.gens if g.live(now)]
+                hits = lookup(keys, now=now)
+                self.waves.append(("lookup", keys, hits, live, now))
+                return hits
+            filt.insert, filt.lookup = inserted, looked_up
+            return super().run_generational(filt, stream, **kw)
+    return Recording()
+
+
+def slo_fields(rep) -> dict:
+    """An ``SloReport``'s fields that are no host time."""
+    return {"ops": rep.ops, "waves": rep.waves, "shed_ops": rep.shed_ops,
+            "deferred_waves": rep.deferred_waves,
+            "held_ticks": rep.held_ticks, "extras": rep.extras,
+            "samples": [(x.kind, x.ops, x.burst, x.deferred)
+                        for x in rep.recorder.samples]}
+
+
+def slo_same_waves(a, b) -> bool:
+    """Two recordings' waves: the same kinds, keys, results (None for a
+    shed wave) and parked ticks."""
+    if len(a.waves) != len(b.waves):
+        return False
+    for x, y in zip(a.waves, b.waves):
+        if x[0] != y[0] or not np.array_equal(x[1], y[1]):
+            return False
+        rx, ry = x[2], y[2]
+        if hasattr(rx, "results"):
+            if rx.deferred_ticks != ry.deferred_ticks:
+                return False
+            rx, ry = rx.results, ry.results
+        if (rx is None) != (ry is None) or (
+                rx is not None and not np.array_equal(rx, ry)):
+            return False
+    return True
+
+
+def slo_same_stack(a, b) -> bool:
+    """Two batchers' final planes, stash and count, or two rings' state."""
+    import torch
+    if hasattr(a, "gens"):
+        return same_snapshot(ring_snapshot(a), ring_snapshot(b))
+    planes = [p for p in ("table", "sels", "khi", "klo")
+              if hasattr(a.state, p)]
+    return (all(torch.equal(getattr(a.state, p).cpu(),
+                            getattr(b.state, p).cpu()) for p in planes)
+            and int(a.state.count) == int(b.state.count)
+            and (a.stash is None) == (b.stash is None)
+            and (a.stash is None or torch.equal(a.stash.cpu(),
+                                                b.stash.cpu())))
+
+
+def slo_parity() -> None:
+    """Every scenario of the SLO harness through ``run_scenario`` with the
+    reference's defaults (its stacks, 512-key waves, the generators'
+    lengths), on the card and on the CPU: every wave's results, the final
+    state (the ring's generations for ``ttl_churn``) and every report field
+    that is no host time equal."""
+    from repro_torch.serving.slo import BENCH_SCENARIOS, run_scenario
+    for name in BENCH_SCENARIOS:
+        runs = []
+        for device in ("cuda", "cpu"):
+            h = slo_recorder()
+            runs.append((h, run_scenario(name, seed=SEED, device=device,
+                                         harness=h)))
+        (ch, crep), (ph, prep) = runs
+        check(slo_same_waves(ch, ph),
+              f"scenario {name}: a wave differs, card vs CPU")
+        check(slo_same_stack(ch.target, ph.target),
+              f"scenario {name}: the final state differs, card vs CPU")
+        check(slo_fields(crep) == slo_fields(prep),
+              f"scenario {name}: the report differs, card vs CPU")
+        print(f"   scenario {name}: {crep.waves} waves, {crep.ops} ops, "
+              f"extras {crep.extras}: same as the CPU (card p99 "
+              f"{crep.percentiles_us['p99']!r} us)", flush=True)
+
+
+def burst_prompts(vocab: int, n: int = 7) -> list:
+    """tests/test_scheduler.py's burst: 64-token prompts, the even ones
+    sharing a 48-token prefix."""
+    rng = np.random.RandomState(SEED)
+    shared = rng.randint(0, vocab, 48).astype(np.int32)
+    return [np.concatenate([shared, rng.randint(0, vocab, 16).astype(
+        np.int32)]) if i % 2 == 0 else rng.randint(0, vocab, 64).astype(
+        np.int32) for i in range(n)]
+
+
+def continuous_batcher_parity(card_model, cpu_model) -> None:
+    """tests/test_scheduler.py's burst of 7 requests into 3 slots through
+    ``ContinuousBatcher`` over the card's and the CPU's copy of one model:
+    equal greedy tokens, ``SchedStats`` equal field by field."""
+    from repro_torch.serving import ContinuousBatcher, Request
+    prompts = burst_prompts(cpu_model.cfg.vocab_size)
+    out = []
+    for model in (card_model, cpu_model):
+        b = ContinuousBatcher(model, slots=3, cache_len=128, block=16)
+        reqs = [Request(rid=i, prompt=p, max_new=4)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        check(b.congestion > 1.0, "the burst did not exceed the slots")
+        stats = b.run_until_drained()
+        out.append(([r.out for r in reqs], dataclasses.asdict(stats)))
+    (card_toks, card_stats), (cpu_toks, cpu_stats) = out
+    print(f"   ContinuousBatcher burst: tokens {card_toks} / {cpu_toks}, "
+          f"stats {card_stats}", flush=True)
+    check(card_toks == cpu_toks, "ContinuousBatcher: greedy tokens differ "
+                                 "between devices")
+    check(card_stats == cpu_stats, f"ContinuousBatcher: SchedStats differ: "
+                                   f"{card_stats} vs {cpu_stats}")
+    check(card_stats["finished"] == 7
+          and card_stats["prefix_blocks_reused"] > 0,
+          "ContinuousBatcher: the burst did not drain or reuse a prefix")
 
 
 # ------------------------------------------------------ phase 4: main path --
@@ -1795,6 +1969,418 @@ def filter_wave_path(card: str, *, n_buckets=1 << 20, wave=4096,
     return out
 
 
+# ------------------------------------- phase 5e: SLO scenarios at node size --
+
+# Each scenario at one node's filter: the reference's stack and wave size
+# (repro/serving/slo.py:272-283, 512-key waves) with n_buckets and
+# wave_slots scaled by one factor; stash sizes, fp_bits, TTL and the
+# admission band stay the reference's.  name: (make_batcher kwargs, wave).
+SLO_NODE = {
+    "uniform": (dict(n_buckets=1 << 20), 1 << 17),
+    "zipfian": (dict(n_buckets=1 << 20), 1 << 17),
+    "burst_train": (dict(n_buckets=1 << 20, stash_slots=64), 1 << 18),
+    "delete_heavy": (dict(n_buckets=1 << 20), 1 << 18),
+    "adversarial": (dict(n_buckets=1 << 20), 1 << 18),
+}
+# ttl_churn: the reference's ring (4 generations of 4096 slots, ttl 3.0) at
+# phase 5b's 2^22 slots a generation.
+SLO_RING = dict(generations=4, capacity=1 << 22, fp_bits=16, ttl=3.0)
+SLO_RING_WAVE = 1 << 19
+# The admission arm: the reference's 1024 buckets and 32-slot stash with
+# the band 0.18 / 0.12, double-buffered.
+SLO_ADMISSION = (dict(n_buckets=1 << 20, stash_slots=32), 1 << 19)
+SLO_BAND = (0.18, 0.12)
+SLO_KERNELS = ("probe", "insert_bulk", "delete_bulk", "probe_adaptive",
+               "insert_bulk_adaptive", "fingerprint_hash_family",
+               "probe_multi", "fingerprint_hash", "probe_tm",
+               "insert_bulk_tm", "probe_adaptive_tm",
+               "insert_bulk_adaptive_tm")
+
+
+def device_busy_s(prof) -> float:
+    """Device time summed over a CUDA-activity profile, in seconds."""
+    return sum((getattr(ev, "device_time_total", 0.0) or 0.0)
+               for ev in prof.key_averages()) / 1e6
+
+
+def replay(h, run, trace: bool):
+    """``run()`` -> its report; with ``trace``, under a CUDA-activity
+    profile whose device busy time lands in ``h.busy_s``."""
+    if not trace:
+        return run()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rep = run()
+    h.busy_s = device_busy_s(prof)
+    return rep
+
+
+def slo_arm(name: str, *, stack: dict, wave: int, label=None,
+            double_buffer="auto", admission=None, trace: bool = False):
+    """One batcher arm of phase 5e: a fresh stack from ``make_batcher``,
+    warmed on a throwaway stack of the same shape, then the scenario's
+    default stream through ``SloHarness().run`` (with ``trace``, under a
+    profile) -> (report, recording)."""
+    import torch
+    from repro_torch.serving.slo import _warm_batcher, make_batcher
+    from repro_torch.serving.workloads import scenario_stream
+    t0 = time.perf_counter()
+    stream = scenario_stream(name, SEED, wave_slots=wave)
+    t1 = time.perf_counter()
+    b = make_batcher(name, wave_slots=wave, double_buffer=double_buffer,
+                     admission=admission, **stack)
+    kinds = {x.kind for x in stream}
+    if any(x.feedback for x in stream):
+        kinds.add("report")
+    _warm_batcher(b, kinds)
+    h = slo_recorder()
+    gc.collect()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rep = replay(h, lambda: h.run(b, stream, scenario=label or name), trace)
+    print(f"   {label or name}: stream built in {t1 - t0!r} s, stack and "
+          f"warm-up {t2 - t1!r} s, replay {time.perf_counter() - t2!r} s",
+          flush=True)
+    return rep, h
+
+
+def filter_signatures(keys: np.ndarray, fp_bits: int, n_buckets: int):
+    """uint64 per key: its fingerprint and unordered bucket pair, the slots
+    a delete of it could clear (``core.hashing``'s numpy twins)."""
+    from repro_torch.core.hashing import (alt_index_np, fingerprint_np,
+                                          index_hash_np, key_to_u32_pair_np)
+    hi, lo = key_to_u32_pair_np(keys)
+    fp = fingerprint_np(hi, lo, fp_bits).astype(np.uint64)
+    i1 = index_hash_np(hi, lo, n_buckets).astype(np.uint64)
+    i2 = alt_index_np(i1.astype(np.uint32), fp.astype(np.uint32),
+                      n_buckets).astype(np.uint64)
+    return ((fp << np.uint64(42)) | (np.minimum(i1, i2) << np.uint64(21))
+            | np.maximum(i1, i2))
+
+
+class KeyIds:
+    """Ids of the keys a run inserted (sorted, distinct); -1 for others."""
+
+    def __init__(self, inserted: list):
+        self.keys = (np.unique(np.concatenate(inserted)) if inserted
+                     else np.zeros(0, np.uint64))
+
+    def __call__(self, keys: np.ndarray) -> np.ndarray:
+        out = np.full(keys.size, -1, np.int64)
+        if not self.keys.size:
+            return out
+        # sorted queries walk the sorted keys in order (5x faster than
+        # random ones at millions of keys)
+        order = np.argsort(keys)
+        sk = keys[order]
+        pos = np.searchsorted(self.keys, sk)
+        pos[pos == self.keys.size] = 0
+        out[order] = np.where(self.keys[pos] == sk, pos, -1)
+        return out
+
+
+def batcher_false_negatives(h, *, fp_bits: int) -> dict:
+    """Check (b) of phase 5e for a batcher arm, from the waves' own results
+    in launch order: a key an insert wave acknowledged, and no acknowledged
+    delete has removed since, must answer True in every lookup wave, and
+    again in lookups of every such key after the run.  An acknowledged
+    delete of a key that is not held (a shed insert's key, under
+    admission) may clear a held key's entry with the same fingerprint and
+    buckets; such keys are exempt, and counted."""
+    t0 = time.perf_counter()
+    b = h.target
+    n_buckets = int(b.state.n_buckets)
+    ids = KeyIds([k for w, k in h.launched if w.kind == "insert"])
+    held = np.zeros(ids.keys.size, bool)
+    exempt = np.zeros(ids.keys.size, bool)
+    sigs = None
+    fn = checked = stray = 0
+    for wave, keys in h.launched:
+        res = wave.results
+        if wave.kind == "insert":
+            held[ids(keys[res])] = True
+        elif wave.kind == "delete":
+            gone = ids(keys[res])
+            wild = keys[res][(gone < 0) | ~held[np.maximum(gone, 0)]]
+            if wild.size:
+                stray += wild.size
+                if sigs is None:
+                    sigs = filter_signatures(ids.keys, fp_bits, n_buckets)
+                exempt |= np.isin(sigs, filter_signatures(wild, fp_bits,
+                                                          n_buckets))
+            held[gone[gone >= 0]] = False
+        elif wave.kind == "lookup":
+            i = ids(keys)
+            need = (i >= 0) & held[np.maximum(i, 0)] & ~exempt[np.maximum(
+                i, 0)]
+            checked += int(need.sum())
+            fn += int((need & ~res).sum())
+    # The final lookups go through a second batcher over the same state
+    # (lookups change nothing), so the recorded one keeps its parked waves.
+    members = ids.keys[held & ~exempt]
+    probe = type(b)(b.ops, b.state, stash=b.stash, wave_slots=b.wave_slots)
+    after = [probe.submit("lookup", members[i:i + b.wave_slots])
+             for i in range(0, members.size, b.wave_slots)]
+    probe.flush()
+    fn_after = int(sum((~w.results).sum() for w in after))
+    return {"fn": fn, "checked": checked, "fn_after": fn_after,
+            "held": int(members.size), "stray_deletes": stray,
+            "exempt": int((held & exempt).sum()),
+            "check_s": time.perf_counter() - t0}
+
+
+def ring_false_negatives(h) -> dict:
+    """Check (b) for the ring: a key an insert acknowledged must answer
+    True at a lookup while the generation it went into is in the ring and
+    live at the lookup's clock (an insert call that rotated is not
+    counted: its keys may have gone into either generation)."""
+    t0 = time.perf_counter()
+    ins = [w for w in h.waves if w[0] == "insert"]
+    ids = KeyIds([w[1] for w in ins])
+    owner = np.full(ids.keys.size, -1, np.int64)
+    gens: list = []
+    fn = checked = skipped = 0
+    for kind, keys, out, extra, _now in h.waves:
+        if kind == "insert":
+            if extra is None:
+                skipped += int(out.sum())
+                continue
+            owner[ids(keys[out])] = len(gens)
+            gens.append(extra)
+        else:
+            alive = np.array([any(g is x for x in extra) for g in gens]
+                             + [False])
+            o = owner[ids(keys)]
+            need = alive[o] & (o >= 0)
+            checked += int(need.sum())
+            fn += int((need & ~out).sum())
+    return {"fn": fn, "checked": checked, "skipped_inserts": skipped,
+            "check_s": time.perf_counter() - t0}
+
+
+def slo_rows(rows: dict, rep, name: str) -> None:
+    rows.update(rep.rows(f"slo_{name}"))
+    rows[f"slo_{name}_waves"] = rep.waves
+    rows[f"slo_{name}_wall_s"] = rep.wall_s
+
+
+def slo_node_path(card: str) -> dict:
+    """Phase 5e: every scenario at node size (``SLO_NODE``, ``SLO_RING``,
+    ``SLO_ADMISSION``), each with its own mix, hit blend, burst pattern
+    and load trajectory, composed from ``make_batcher``, ``SloHarness``
+    and ``GenerationalFilter``; the burst train through the sync arm and
+    the default path (the async arm on a card); the scenario harness's
+    telemetry mode at the reference's size, card against CPU; ``uniform``
+    once more under a CUDA trace for the device's idle share.  Checks:
+    (a) the sync and async arms equal bit for bit; (b) no false negatives;
+    (c) adversarial's false positives shrink from the first round to the
+    last; (d) ttl_churn's ring turns over and expires; (e) the admission
+    arm defers and its signal reaches high water; (f) every kernel of
+    ``SLO_KERNELS`` launched; (g) no plain version ran."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.serving.slo import (_warm_generational,
+                                         run_scenario_telemetry)
+    from repro_torch.serving.workloads import scenario_stream
+    from repro_torch.streaming import GenerationalFilter, GenerationConfig
+    from repro_torch.streaming.admission import AdmissionConfig
+
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    rows: dict = {"slo_seed": SEED}
+
+    def counted(label, fn):
+        before = collections.Counter(cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        delta = dict(collections.Counter(cuda.LAUNCHES) - before)
+        print(f"   [{card}] {label}: {took!r} s with warm-up and checks "
+              f"(checks {out[-1].get('check_s')!r} s), launches {delta}",
+              flush=True)
+        return out
+
+    def report(label, rep, fn_stats):
+        p = rep.percentiles_us
+        print(f"   [{card}] {label}: {rep.waves} waves, {rep.ops} ops in "
+              f"{rep.wall_s!r} s ({rep.keys_per_s!r} keys/s, "
+              f"{rep.waves / rep.wall_s!r} waves/s); p50 {p['p50']!r} us, "
+              f"p99 {p['p99']!r} us, p99.9 {p['p999']!r} us; per kind "
+              f"{rep.per_kind}; extras {rep.extras}; shed {rep.shed_ops}, "
+              f"deferred waves {rep.deferred_waves}, held ticks "
+              f"{rep.held_ticks}; false negatives {fn_stats}", flush=True)
+        check(fn_stats["fn"] == 0 and fn_stats.get("fn_after", 0) == 0,
+              f"{label}: false negatives {fn_stats}")
+
+    for name in ("uniform", "zipfian", "delete_heavy", "adversarial"):
+        stack, wave = SLO_NODE[name]
+
+        def arm(name=name, stack=stack, wave=wave):
+            rep, h = slo_arm(name, stack=stack, wave=wave)
+            fps = 8 if name == "adversarial" else 16
+            return rep, h, batcher_false_negatives(h, fp_bits=fps)
+        rep, h, fn_stats = counted(name, arm)
+        report(name, rep, fn_stats)
+        slo_rows(rows, rep, name)
+        if name == "adversarial":
+            looks = [w for k, _keys, w in h.waves if k == "lookup"]
+            pool = len(looks) // 4
+            rounds = [int(sum(w.results.sum() for w in looks[i:i + pool]))
+                      for i in range(0, len(looks), pool)]
+            print(f"   adversarial false positives by round: {rounds} of "
+                  f"{sum(w.n for w in looks[:pool])} pool keys", flush=True)
+            check(rounds[-1] < rounds[0],
+                  f"adversarial: false positives did not shrink: {rounds}")
+        del h
+
+    # (a) the burst train through the sync arm and the default path, which
+    # on a card is the async (double-buffered) arm: one run serves both
+    arms = {}
+    for label, flag in (("sync", False), ("async", "auto")):
+        stack, wave = SLO_NODE["burst_train"]
+
+        def arm(flag=flag, stack=stack, wave=wave, label=label):
+            rep, h = slo_arm("burst_train", stack=stack, wave=wave,
+                             double_buffer=flag)
+            # the async arm's answers are held equal to the sync arm's
+            # below, so one false-negative check serves both
+            return rep, h, (batcher_false_negatives(h, fp_bits=16)
+                            if label == "sync"
+                            else {"fn": 0, "as": "the sync arm"})
+        rep, h, fn_stats = counted(f"burst_train {label}", arm)
+        report(f"burst_train {label}", rep, fn_stats)
+        for pname, v in rep.percentiles_us.items():
+            rows[f"slo_burst_train_{label}_{pname}_us"] = round(v, 1)
+        rows[f"slo_burst_train_{label}_wall_s"] = rep.wall_s
+        arms[label] = h
+        if label == "async":
+            check(h.target.double_buffer, "the default submit path on the "
+                                          "card is not double-buffered")
+            rows["slo_submit_double_buffered"] = 1
+            slo_rows(rows, rep, "burst_train")
+    check(slo_same_waves(arms["sync"], arms["async"])
+          and slo_same_stack(arms["sync"].target, arms["async"].target),
+          "burst_train: the sync and async arms differ")
+    print("   burst_train: sync and async arms equal bit for bit (every "
+          "wave, the final table, stash and count)", flush=True)
+    del arms
+
+    # ttl_churn on phase 5b's ring at ttl 3.0
+    def ring_arm(trace=False):
+        cfg = GenerationConfig(**SLO_RING)
+        stream = scenario_stream("ttl_churn", SEED, wave_slots=SLO_RING_WAVE)
+        _warm_generational(cfg)
+        h = slo_recorder()
+        gc.collect()
+        torch.cuda.synchronize()
+        rep = replay(h, lambda: h.run_generational(
+            GenerationalFilter(config=cfg, now=0.0), stream,
+            scenario="ttl_churn"), trace)
+        return rep, h
+
+    def checked_ring_arm():
+        rep, h = ring_arm()
+        return rep, h, ring_false_negatives(h)
+    rep, h, fn_stats = counted("ttl_churn", checked_ring_arm)
+    report("ttl_churn", rep, fn_stats)
+    slo_rows(rows, rep, "ttl_churn")
+    born = sorted({w[3].born for w in h.waves
+                   if w[0] == "insert" and w[3] is not None})
+    print(f"   ttl_churn: generations born at {born}, stats "
+          f"{h.target.stats}", flush=True)
+    check(rep.extras["expirations"] >= 1 and len(born) >= 2,
+          f"ttl_churn: the ring did not turn over and expire ({born}, "
+          f"{rep.extras})")
+    del h
+
+    # (e) the admission arm
+    hi_w, lo_w = SLO_BAND
+
+    def admission_arm():
+        stack, wave = SLO_ADMISSION
+        rep, h = slo_arm(
+            "burst_train", stack=stack, wave=wave, label="burst_admission",
+            double_buffer=True,
+            admission=AdmissionConfig(high_water=hi_w, low_water=lo_w))
+        return rep, h, batcher_false_negatives(h, fp_bits=16)
+    rep, h, fn_stats = counted("burst_admission", admission_arm)
+    report("burst_admission", rep, fn_stats)
+    admitted = rep.recorder.percentiles(exclude_deferred=True)
+    readmitted = sum(1 for x in rep.recorder.samples if x.deferred)
+    rows["slo_burst_admission_p99_us"] = round(admitted["p99"], 1)
+    rows["slo_burst_admission_shed_ops"] = rep.shed_ops
+    rows["slo_burst_admission_deferred_waves"] = rep.deferred_waves
+    rows["slo_burst_admission_peak_signal"] = rep.extras.get(
+        "peak_signal", 0.0)
+    rows["slo_burst_admission_readmitted_waves"] = readmitted
+    rows["slo_burst_admission_waves"] = rep.waves
+    rows["slo_burst_admission_wall_s"] = rep.wall_s
+    print(f"   burst_admission: admitted-op p99 {admitted['p99']!r} us, "
+          f"{rep.deferred_waves} waves deferred, {readmitted} re-admitted "
+          f"(not fatal), {rep.shed_ops} ops shed, peak signal "
+          f"{h.target.admission.peak_signal!r}", flush=True)
+    check(rep.deferred_waves >= 1
+          and h.target.admission.peak_signal >= hi_w,
+          "burst_admission: the gate never deferred a wave or its signal "
+          "never reached high water")
+    del h
+
+    # the harness's telemetry mode at the reference's sizes; its CPU runs
+    # come after the launch counts are read
+    def telemetry(device: str, tmp: str) -> dict:
+        out = {}
+        for name in ("uniform", "adversarial"):
+            _rep, paths = run_scenario_telemetry(
+                name, f"{tmp}/{device}", device=device, double_buffer=True)
+            check(Path(paths["trace"]).stat().st_size > 0,
+                  f"telemetry {name}: no trace written")
+            with open(paths["metrics"]) as f:
+                out[name] = [{k: v for k, v in json.loads(x).items()
+                              if k != "ts"} for x in f]
+            out[name] = [x for x in out[name] if x["type"] != "wave"
+                         and "latency" not in x["metric"]]
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tm_card = telemetry("cuda", tmp)
+
+    # where the time goes: every arm's replay once more, under a trace
+    adm = dict(label="burst_admission", double_buffer=True,
+               admission=AdmissionConfig(high_water=hi_w, low_water=lo_w))
+    for label, run in (
+            *((n, lambda n=n: slo_arm(n, stack=SLO_NODE[n][0],
+                                      wave=SLO_NODE[n][1], trace=True))
+              for n in ("uniform", "zipfian", "delete_heavy", "adversarial",
+                        "burst_train")),
+            ("ttl_churn", lambda: ring_arm(trace=True)),
+            ("burst_admission", lambda: slo_arm(
+                "burst_train", stack=SLO_ADMISSION[0],
+                wave=SLO_ADMISSION[1], trace=True, **adm))):
+        traced, h = run()
+        idle = 1 - h.busy_s / traced.wall_s
+        rows[f"slo_{label}_traced_idle_share"] = idle
+        print(f"   [{card}] {label} traced: device busy {h.busy_s!r} s of "
+              f"{traced.wall_s!r} s (idle share {idle!r})", flush=True)
+        del h
+
+    torch.cuda.synchronize()
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    print(f"   launches={launches} plain_calls={plain}", flush=True)
+    missing = [k for k in SLO_KERNELS if not launches.get(k)]
+    check(not missing, f"phase 5e never launched {missing}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tm_cpu = telemetry("cpu", tmp)
+    for name, series in tm_card.items():
+        check(series == tm_cpu[name],
+              f"telemetry {name}: the counters differ, card vs CPU")
+        print(f"   telemetry mode {name}: {len(series)} metric series, "
+              f"same as the CPU", flush=True)
+    return {"rows": rows, "launches": launches, "plain": plain}
+
+
 # --------------------------------------------- phase 5b: the streaming path --
 
 
@@ -2104,6 +2690,100 @@ def lm_path(card: str, *, seq: int = LM_SEQ, check_seq: int = 1024,
     launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
     print(f"   launches={launches} plain_calls={plain}", flush=True)
     return launches, plain, out
+
+
+def lm_batcher_path(card: str, *, requests: int = 8, prefix_len: int = 1008,
+                    block: int = 16, gen: int = 8, slots: int = 4,
+                    cache_len: int = 1040):
+    """Phase 5c (d): ``ContinuousBatcher`` over gemma3-1b at full size (26
+    layers, full width, float32 weights from SEED, as (a) builds it): a
+    burst of ``requests`` prompts of ``prefix_len + block`` tokens (half
+    share the system prompt, as ``serve()`` builds them) into ``slots``
+    slots, ``gen`` tokens each, a float32 cache of ``cache_len`` a slot and
+    the OCF prefix index.  Each request's tokens must equal
+    ``engine.generate`` of its prompt on the card; ``SchedStats`` must
+    equal those of the same stream through the batcher on the CPU over a
+    2-layer smoke model of the same vocabulary (the counts do not depend on
+    the depth); the queue must exceed the slots after the burst."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import request_prompts
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ContinuousBatcher, Request
+    from repro_torch.serving.engine import generate
+
+    cfg = get_config(LM_ARCH)
+    prompts = request_prompts(np.random.RandomState(SEED), cfg.vocab_size,
+                              requests=requests, prefix_len=prefix_len,
+                              block=block)
+
+    def burst(model):
+        b = ContinuousBatcher(model, slots=slots, cache_len=cache_len,
+                              block=block)
+        reqs = [Request(rid=i, prompt=p, max_new=gen)
+                for i, p in enumerate(prompts)]
+        return b, reqs
+
+    model = Transformer(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    b, reqs = burst(model)
+    t0 = time.perf_counter()
+    for r in reqs:
+        b.submit(r)
+    congestion = b.congestion
+    done, decode_ticks = {}, []
+    while b.queue or b.active:
+        prefills = b.stats.prefills
+        t1 = time.perf_counter()
+        live = b.step()
+        t2 = time.perf_counter()
+        if b.stats.prefills == prefills:
+            decode_ticks.append((t2 - t1, live))
+        for r in reqs:
+            if r.rid not in done and len(r.out) >= gen:
+                done[r.rid] = t2 - t0
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    lat = np.array([done[r.rid] for r in reqs])
+    dec_s = sum(t for t, _ in decode_ticks)
+    dec_toks = sum(n for _, n in decode_ticks)
+    stats = dataclasses.asdict(b.stats)
+    print(f"   (d) ContinuousBatcher [{card}]: {requests} requests x "
+          f"({prefix_len} + {block} prompt, {gen} generated) into {slots} "
+          f"slots: {wall!r} s, {requests / wall!r} requests/s, latency "
+          f"mean {float(lat.mean())!r} s p99 "
+          f"{float(np.percentile(lat, 99))!r} s (from the burst's "
+          f"arrival), decode {dec_toks / dec_s!r} tokens/s ({dec_toks} "
+          f"tokens in {len(decode_ticks)} ticks without a prefill), "
+          f"congestion after the burst {congestion!r}", flush=True)
+    print(f"   (d) stats {stats}, launches {launches}", flush=True)
+    check(congestion > 1.0, f"(d) congestion {congestion} after the burst")
+    for r in reqs:
+        want = generate(model, torch.from_numpy(r.prompt)[None, :],
+                        gen, cache_len=cache_len).tokens[0].cpu().tolist()
+        check(r.out == want, f"(d) request {r.rid}: tokens {r.out} differ "
+                             f"from generate's {want}")
+    del b, model
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(get_smoke_config(LM_ARCH), n_layers=2,
+                                vocab_size=cfg.vocab_size, dtype="float32",
+                                max_seq_len=cache_len)
+    cb, creqs = burst(Transformer(small, seed=SEED, device="cpu"))
+    for r in creqs:
+        cb.submit(r)
+    cpu_stats = dataclasses.asdict(cb.run_until_drained())
+    check(stats == cpu_stats, f"(d) SchedStats differ from the CPU's: "
+                              f"{stats} vs {cpu_stats}")
+    check(stats["finished"] == requests
+          and stats["prefix_blocks_reused"] > 0,
+          "(d) the burst did not drain or reused no prefix block")
+    print(f"   (d) tokens equal generate's for all {requests} requests; "
+          f"SchedStats equal the CPU's (2-layer smoke model)", flush=True)
+    return launches, plain, {"wall": wall, "latency_s": lat.tolist(),
+                             "decode_tokens_per_s": dec_toks / dec_s}
 
 
 # --------------------------------------------------------- phase 6: times --
@@ -3051,7 +3731,8 @@ def main() -> int:
         prefix_index_parity()
         for adaptive in (False, True):
             batcher_parity(adaptive)
-        lm_parity()
+        slo_parity()
+        continuous_batcher_parity(*lm_parity())
 
     # Each path runs with the counts set to 0 just before it and read just
     # after; its kernels' "launches" come from that run.
@@ -3079,9 +3760,17 @@ def main() -> int:
                          for k in cuda.TM_KERNELS})
         plain["waves"] = waves["plain"]
 
+    with phase("SLO scenarios at node size"):
+        slo = slo_node_path(card)
+        plain["slo"] = slo["plain"]
+
     with phase("LM serving path at full size"):
         counts, plain["lm"], _lm = lm_path(card)
         launches.update({k: counts.get(k, 0) for k in LM_KERNELS})
+        counts, plain["lm_batcher"], _lmb = lm_batcher_path(card)
+        missing = [k for k in ("fingerprint_hash", "probe", "insert_bulk")
+                   if not counts.get(k)]
+        check(not missing, f"(d) the prefix index never launched {missing}")
 
     for name in cuda.KERNELS:
         check(launches.get(name, 0) > 0,
@@ -3152,6 +3841,7 @@ def main() -> int:
                      **{k: t[k] for k in ("path_keys", "path_ms",
                                           "path_bound_ms") if k in t}})
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
+    print(json.dumps({"slo": slo["rows"]}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

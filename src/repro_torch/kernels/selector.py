@@ -22,7 +22,7 @@ Layout (int32 tensors holding uint32 bit patterns, like the table):
 ``report_adapt`` is the reference's ``lax.scan``: reports are rare
 control-plane events and keep exact sequential semantics.  Here the rows
 the reported keys can touch are gathered once, adapted in lane order on
-the host, and scattered back.  The kernels (``csrc/*_adaptive.cu``) read
+the host (only the lanes that can adapt a slot), and scattered back.  The kernels (``csrc/*_adaptive.cu``) read
 the packed word directly (``ocf_common.cuh::sel_of``).
 """
 from __future__ import annotations
@@ -96,7 +96,7 @@ def select_fp(fam, sels: torch.Tensor) -> torch.Tensor:
 def _adapt_one_bucket(row, sels, rhi, rlo, fam, hi, lo, enable: bool, *,
                       fp_bits: int):
     """Repair every colliding slot of one bucket row for one reported key
-    -> (row, sels, any adapted, key resident here).
+    -> (row, sels, any adapted).
 
     ``row``/``rhi``/``rlo``: int64 u32 values [bucket_size]; ``sels``:
     int64 selectors [bucket_size]; ``fam``: int64 [4], the key's family;
@@ -110,7 +110,7 @@ def _adapt_one_bucket(row, sels, rhi, rlo, fam, hi, lo, enable: bool, *,
     nfp = hashing.fingerprint_sel(rhi, rlo, nsel, fp_bits)
     row = torch.where(collide, nfp, row)
     sels = torch.where(collide, nsel, sels)
-    return row, sels, bool(collide.any()), bool((same & enable).any())
+    return row, sels, bool(collide.any())
 
 
 def report_adapt(table: torch.Tensor, sels: torch.Tensor, khi: torch.Tensor,
@@ -150,21 +150,43 @@ def report_adapt(table: torch.Tensor, sels: torch.Tensor, khi: torch.Tensor,
     rhi = hashing.to_u32(khi[rows_at]).cpu()
     rlo = hashing.to_u32(klo[rows_at]).cpu()
     fam_h = torch.stack([hashing.to_u32(f) for f in fam], dim=1).cpu()
-    at = {b: j for j, b in enumerate(rows_at.tolist())}
-    hi_h, lo_h = hashing.to_u32(hi).tolist(), hashing.to_u32(lo).tolist()
-    i1_h, i2_h, ok_h = i1.tolist(), i2.tolist(), valid.tolist()
-    adapted, resident = [False] * n, [False] * n
+    j1 = torch.searchsorted(rows_at, i1).cpu()
+    j2 = torch.searchsorted(rows_at, i2).cpu()
+    hi_c, lo_c = hashing.to_u32(hi).cpu(), hashing.to_u32(lo).cpu()
+    # Adapting changes fingerprints and selectors, never which slots are
+    # occupied or the mirror keys, so ``resident`` is read off the rows as
+    # gathered, for all lanes at once.  A lane adapts nothing unless one of
+    # its rows holds another key's slot under the lane's family
+    # fingerprint (for the slot's selector) or an earlier lane adapted one
+    # of its rows: only such valid lanes take the sequential path below.
+    ok = valid.cpu()
+    live = torch.zeros(n, dtype=torch.bool)
+    resident = torch.zeros(n, dtype=torch.bool)
+    for j in (j1, j2):
+        r = rows[j]
+        occupied = r != 0
+        same = occupied & (rhi[j] == hi_c[:, None]) & (rlo[j] == lo_c[:, None])
+        live |= (occupied & (r == fam_h.gather(1, rsel[j])) & ~same).any(1)
+        resident |= same.any(1)
+    resident &= ok
+    hi_h, lo_h = hi_c.tolist(), lo_c.tolist()
+    i1_h, i2_h, live_h = i1.tolist(), i2.tolist(), (live & ok).tolist()
+    j1_h, j2_h, ok_h = j1.tolist(), j2.tolist(), ok.tolist()
+    adapted = [False] * n
+    dirty: set = set()
     for lane in range(n):
-        ok = bool(ok_h[lane])
-        for b, enable in ((i1_h[lane], ok),
-                          (i2_h[lane], ok and i2_h[lane] != i1_h[lane])):
-            j = at[b]
-            rows[j], rsel[j], a, r = _adapt_one_bucket(
+        if not ok_h[lane] or not (live_h[lane] or j1_h[lane] in dirty
+                                  or j2_h[lane] in dirty):
+            continue
+        for j, enable in ((j1_h[lane], True),
+                          (j2_h[lane], i2_h[lane] != i1_h[lane])):
+            rows[j], rsel[j], a = _adapt_one_bucket(
                 rows[j], rsel[j], rhi[j], rlo[j], fam_h[lane], hi_h[lane],
                 lo_h[lane], enable, fp_bits=fp_bits)
             adapted[lane] |= a
-            resident[lane] |= r
+            if a:
+                dirty.add(j)
     table[rows_at] = hashing.to_i32(rows).to(dev)
     sels[rows_at] = sel_pack(rsel).to(dev)
     return (table, sels, torch.tensor(adapted, device=dev),
-            torch.tensor(resident, device=dev))
+            resident.to(dev))

@@ -33,6 +33,24 @@ def health_snapshot(metrics, *, index, requests_served: int) -> dict:
     }
 
 
+def request_prompts(rng: np.random.RandomState, vocab: int, *,
+                    requests: int, prefix_len: int, block: int
+                    ) -> list[np.ndarray]:
+    """The served request stream: ``requests`` int32 prompts of
+    ``prefix_len + block`` tokens drawn from ``rng``; the even ones share
+    one system prefix (prefix-cache hits), the odd ones are fresh."""
+    shared_prefix = rng.randint(0, vocab, prefix_len).astype(np.int32)
+    prompts = []
+    for r in range(requests):
+        if r % 2 == 0:
+            fresh = rng.randint(0, vocab, block).astype(np.int32)
+            prompts.append(np.concatenate([shared_prefix, fresh]))
+        else:
+            prompts.append(rng.randint(0, vocab,
+                                       prefix_len + block).astype(np.int32))
+    return prompts
+
+
 def serve(arch: str, *, requests: int, prefix_len: int, gen: int,
           smoke: bool = True, seed: int = 0, block: int = 16,
           metrics=None, tracer=None, device: str = "cuda"):
@@ -61,19 +79,12 @@ def serve(arch: str, *, requests: int, prefix_len: int, gen: int,
         return (tracer.span(name, **kw) if tracer is not None
                 else contextlib.nullcontext())
 
-    shared_prefix = rng.randint(0, cfg.vocab_size, prefix_len).astype(np.int32)
+    prompts = request_prompts(rng, cfg.vocab_size, requests=requests,
+                              prefix_len=prefix_len, block=block)
     lat, reused_blocks = [], 0
     prefill_s = decode_s = 0.0
-    for r in range(requests):
+    for r, prompt in enumerate(prompts):
         t0 = time.perf_counter()
-        # half the requests share the system prefix (prefix-cache hits)
-        if r % 2 == 0:
-            prompt = np.concatenate(
-                [shared_prefix,
-                 rng.randint(0, cfg.vocab_size, block).astype(np.int32)])
-        else:
-            prompt = rng.randint(0, cfg.vocab_size,
-                                 prefix_len + block).astype(np.int32)
         n_cached = index.match_prefix(prompt)
         reused_blocks += n_cached
         # a deployment fetches the cached pages of blocks [0, n_cached);

@@ -1,17 +1,21 @@
-"""The filter's serving front: wave-granular submit path over ``FilterOps``.
+"""The serving front: the filter's wave submit path and the request
+scheduler.
 
 Counterpart of ``FilterOpBatcher`` (with ``OpWave``, ``BatcherStats`` and
-``LATENCY_BUCKETS_US``) in ``repro.serving.scheduler``.  Membership ops
-arrive as *waves* of homogeneous keys (lookups, inserts, deletes, reports
-of false positives).  One wave is prepared on the host (lookup dedup, pad
-to a fixed shape, hash split, one upload), dispatched to the device through
-``FilterOps``, and harvested.  The harvest is the only host sync: one
-``.cpu()`` of the wave's results, the filter's count, the stash occupancy
-and (with telemetry on) the counter plane, packed on the device first.  In
-double-buffered mode wave k is harvested after wave k+1 has been prepared
-and dispatched, so host prep overlaps the device's work.  Both modes issue
-the same device work in the same order, so their results and the state
-they leave are equal bit for bit.
+``LATENCY_BUCKETS_US``) and of ``ContinuousBatcher`` (with ``Request`` and
+``SchedStats``) in ``repro.serving.scheduler``.
+
+**Filter waves.**  Membership ops arrive as *waves* of homogeneous keys
+(lookups, inserts, deletes, reports of false positives).  One wave is
+prepared on the host (lookup dedup, pad to a fixed shape, hash split, one
+upload), dispatched to the device through ``FilterOps``, and harvested.
+The harvest is the only host sync: one ``.cpu()`` of the wave's results,
+the filter's count, the stash occupancy and (with telemetry on) the
+counter plane, packed on the device first.  In double-buffered mode wave
+k is harvested after wave k+1 has been prepared and dispatched, so host
+prep overlaps the device's work.  Both modes issue the same device work
+in the same order, so their results and the state they leave are equal
+bit for bit.
 
 Two dispatches do touch the host inside the device work: a report wave
 (``kernels.selector.report_adapt`` is a host loop, as the reference's
@@ -19,9 +23,17 @@ sequential scan is) and a delete wave with a stash larger than
 ``kernels.stash.DENSE_DELETE_PAIRS`` allows densely.  Lookup and insert
 waves, and delete waves of serving size, dispatch without a sync.
 
-``ContinuousBatcher``, ``DeferredWritePump``, ``ShardedFilterFills``, the
-SLO harness and the workloads of the reference's serving package are not
-ported yet.
+**Requests.**  ``ContinuousBatcher`` packs LM requests into a fixed number
+of decode slots: a tick fills free slots from the queue (prefill, sample,
+one token read), then queues every occupied slot's decode step and sample
+with no host sync, and reads all of the tick's tokens in one stacked
+transfer.  The OCF prefix index (``serving.kvcache``) counts the prefix
+blocks a prompt could reuse, and a finished request publishes its
+prompt's blocks.  Admission control can defer requests while the filter
+is congested.
+
+``DeferredWritePump`` and ``ShardedFilterFills`` of the reference's
+scheduler, which drive the sharded filter, are not ported yet.
 """
 from __future__ import annotations
 
@@ -42,6 +54,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.stash import stash_occupancy
 from repro_torch.kernels.telemetry import (KICK_BINS, KICK_EDGES, OFFSET,
                                            PLANE_SIZE, PROBE_DEPTHS, pack)
+from repro_torch.serving.engine import (greedy_sample, make_decode_step,
+                                        make_prefill_step)
+from repro_torch.serving.kvcache import PrefixCacheIndex
 
 # Wave latency histogram edges (us) for the metrics registry.
 LATENCY_BUCKETS_US = (50.0, 100.0, 200.0, 500.0, 1_000.0, 2_000.0,
@@ -399,5 +414,192 @@ class FilterOpBatcher:
         m.gauge("filter_stash_fill_hw").set_max(tm[OFFSET["stash_fill_hw"]])
 
 
-__all__ = ["BatcherStats", "FilterOpBatcher", "LATENCY_BUCKETS_US",
-           "OpWave"]
+# ------------------------------------------------ continuous batching ----
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    out: list = dataclasses.field(default_factory=list)
+    prefix_hit_blocks: int = 0
+
+
+@dataclasses.dataclass
+class SchedStats:
+    admitted: int = 0
+    finished: int = 0
+    decode_steps: int = 0
+    prefills: int = 0
+    peak_queue: int = 0
+    prefix_blocks_reused: int = 0
+    wasted_slot_steps: int = 0    # decode steps with idle slots (burst gaps)
+    deferred: int = 0             # requests parked by admission control
+    shed_requests: int = 0        # requests dropped by backpressure policy
+
+
+class ContinuousBatcher:
+    """Fixed-slot continuous batcher over a per-slot KV cache.
+
+    One cache per slot (a paged allocator would share pages across slots;
+    the OCF index is the membership layer either way).  ``step()`` runs
+    one scheduler tick: fill free slots from the queue (prefill), then one
+    decode step over each occupied slot.
+    """
+
+    def __init__(self, model, *, slots: int = 4, cache_len: int = 512,
+                 block: int = 32, dtype=torch.float32,
+                 sample_fn: Optional[Callable] = None, index=None,
+                 admission=None, backpressure=None):
+        """``model``: a ``models.Transformer`` (it holds its weights).
+        ``index``: any PrefixCacheIndex duck (e.g. the streaming
+        ``GenerationalPrefixIndex``); defaults to the OCF-backed one on the
+        model's device.  ``admission``: optional
+        ``streaming.AdmissionController``: while its congestion signal is
+        tripped, ``submit`` parks requests in ``deferred``.
+        ``backpressure``: optional ``engine.BackpressureController``, a
+        registry-fed admit / defer / shed policy consulted BEFORE the
+        filter-side gate; ``shed`` drops the request (counted in
+        ``stats.shed_requests``)."""
+        self.model = model
+        self.slots = slots
+        self.cache_len = cache_len
+        self.index = index if index is not None else PrefixCacheIndex(
+            block=block, device=model.device)
+        self.admission = admission
+        self.backpressure = backpressure
+        self.queue: deque[Request] = deque()
+        self.deferred: deque[Request] = deque()
+        self.active: dict[int, Request] = {}
+        self.pos = np.zeros(slots, dtype=np.int64)
+        self.caches = [None] * slots
+        self.stats = SchedStats()
+        self._prefill = make_prefill_step(model)
+        self._decode = make_decode_step(model)
+        self._dtype = dtype
+        self._sample = sample_fn or greedy_sample
+        self._last_tok = [None] * slots
+
+    # ------------------------------------------------------------ intake --
+
+    def _enqueue(self, req: Request) -> None:
+        self.queue.append(req)
+        self.stats.admitted += 1
+        self.stats.peak_queue = max(self.stats.peak_queue, len(self.queue))
+
+    def submit(self, req: Request) -> bool:
+        """Queue a request; False when admission control deferred it (it
+        stays in ``deferred`` and re-enters on a later tick) or the
+        backpressure policy shed it (dropped: the caller must retry)."""
+        if self.backpressure is not None:
+            decision = self.backpressure.decide()
+            if decision == "shed":
+                self.stats.shed_requests += 1
+                return False
+            if decision == "defer":
+                self.deferred.append(req)
+                self.stats.deferred += 1
+                return False
+        if self.admission is not None and not self.admission.admit():
+            self.deferred.append(req)
+            self.stats.deferred += 1
+            return False
+        self._enqueue(req)
+        return True
+
+    def _drain_deferred(self):
+        """Re-admit parked requests while the congestion signal allows.
+
+        One side-effect-free ``peek`` gates the whole drain: nothing here
+        mutates the filter, so the signal (a device read) cannot change
+        between requests, and polling does not inflate the controller's
+        per-request counters.  A fully starved batcher (everything
+        deferred, nothing queued or decoding) can never see the signal
+        recede on its own, so it ages the filter: reclaim TTL-expired
+        generations, else rotate; the next tick checks again.
+        """
+        if self.deferred and self.admission.peek():
+            while self.deferred:
+                self._enqueue(self.deferred.popleft())
+        if self.deferred and not self.queue and not self.active:
+            filt = self.admission.filt
+            if not filt.advance():
+                filt.rotate()
+
+    @property
+    def congestion(self) -> float:
+        """Queue pressure (plus the filter's congestion when admission is
+        wired): the EOF-style signal, in [0, inf)."""
+        q = (len(self.queue) + len(self.deferred)) / max(1, self.slots)
+        if self.admission is not None:
+            q += self.admission.signal()
+        return q
+
+    # ------------------------------------------------------------- tick ---
+
+    def _admit_one(self, slot: int, req: Request):
+        hit = self.index.match_prefix(req.prompt)
+        req.prefix_hit_blocks = hit
+        self.stats.prefix_blocks_reused += hit
+        cache = self.model.init_cache(1, self.cache_len, dtype=self._dtype)
+        prompt = torch.from_numpy(np.asarray(req.prompt)).to(
+            self.model.device)[None, :]
+        logits, cache = self._prefill(cache, prompt)
+        self.caches[slot] = cache
+        self.pos[slot] = req.prompt.size
+        self._last_tok[slot] = self._sample(logits)
+        req.out.append(int(self._last_tok[slot][0, 0]))
+        self.active[slot] = req
+        self.stats.prefills += 1
+
+    def step(self) -> int:
+        """One scheduler tick -> the number of live requests decoded."""
+        if self.admission is not None and self.deferred:
+            self._drain_deferred()
+        elif (self.deferred and self.backpressure is not None
+                and self.backpressure.decide() == "admit"):
+            while self.deferred:
+                self._enqueue(self.deferred.popleft())
+        for slot in range(self.slots):
+            if slot not in self.active and self.queue:
+                self._admit_one(slot, self.queue.popleft())
+        # Dispatch: every occupied slot's decode and sample are queued on
+        # the device with no host sync; the harvest below reads all of the
+        # tick's tokens in ONE stacked transfer.
+        ticked: list[tuple[int, Request]] = []
+        toks = []
+        for slot, req in list(self.active.items()):
+            logits, cache = self._decode(self.caches[slot],
+                                         self._last_tok[slot],
+                                         int(self.pos[slot]))
+            self.caches[slot] = cache
+            self.pos[slot] += 1
+            tok = self._sample(logits)
+            self._last_tok[slot] = tok
+            ticked.append((slot, req))
+            toks.append(tok)
+        if ticked:
+            vals = torch.cat([t[:, 0] for t in toks]).cpu().numpy()
+            for (slot, req), val in zip(ticked, vals):
+                req.out.append(int(val))
+                if len(req.out) >= req.max_new:
+                    self.index.admit(req.prompt)  # publish prefix blocks
+                    del self.active[slot]
+                    self.caches[slot] = None
+                    self.stats.finished += 1
+        self.stats.decode_steps += 1
+        self.stats.wasted_slot_steps += self.slots - len(ticked)
+        return len(ticked)
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> SchedStats:
+        ticks = 0
+        while ((self.queue or self.active or self.deferred)
+               and ticks < max_ticks):
+            self.step()
+            ticks += 1
+        return self.stats
+
+
+__all__ = ["BatcherStats", "ContinuousBatcher", "FilterOpBatcher",
+           "LATENCY_BUCKETS_US", "OpWave", "Request", "SchedStats"]

@@ -671,3 +671,48 @@ def test_batcher_on_card_matches_cpu(dev, adaptive):
         assert torch.equal(card.stash.cpu(), x.stash.cpu())
         assert int(card.state.count) == int(x.state.count)
     assert card_snap.get("filter_stash_spills", 0) > 0
+
+
+@pytest.mark.parametrize("name", ["burst_train", "adversarial", "ttl_churn"])
+def test_slo_scenario_on_card_matches_cpu(dev, name):
+    """One short scenario of the SLO harness on the card and on the CPU:
+    every wave's results, the final state and the report's fields that
+    are no host time equal; the card's run launches kernels and takes no
+    plain version."""
+    from repro_torch.convert import generational_to_numpy
+    from repro_torch.serving import slo
+    from torch_port_util import (SLO_SMALL, SLO_WS, recording_harness,
+                                 report_fields)
+    runs = []
+    for device in ("cuda", "cpu"):
+        cuda.reset_counts()
+        h = recording_harness(slo.SloHarness)
+        rep = slo.run_scenario(name, seed=7, device=device, harness=h,
+                               wave_slots=SLO_WS,
+                               stream_kwargs=SLO_SMALL[name])
+        if device == "cuda":
+            assert sum(cuda.LAUNCHES.values()) > 0
+            assert not cuda.PLAIN_CALLS
+        runs.append((h, rep))
+    (ch, crep), (ph, prep) = runs
+    assert report_fields(crep) == report_fields(prep)
+    assert len(ch.waves) == len(ph.waves)
+    for a, b in zip(ch.waves, ph.waves):
+        if hasattr(a, "results"):
+            a, b = a.results, b.results
+        np.testing.assert_array_equal(a, b)
+    if name == "ttl_churn":
+        ca, pa = generational_to_numpy(ch.target), generational_to_numpy(
+            ph.target)
+        assert ca["stats"] == pa["stats"]
+        assert len(ca["gens"]) == len(pa["gens"])
+        for x, y in zip(ca["gens"], pa["gens"]):
+            for key in x:
+                np.testing.assert_array_equal(x[key], y[key])
+        return
+    for plane in ("table", "sels", "khi", "klo"):
+        if hasattr(ch.target.state, plane):
+            assert torch.equal(getattr(ch.target.state, plane).cpu(),
+                               getattr(ph.target.state, plane))
+    assert torch.equal(ch.target.stash.cpu(), ph.target.stash)
+    assert int(ch.target.state.count) == int(ph.target.state.count)

@@ -146,7 +146,8 @@ def _report_inputs(seed, nb, fp_bits):
 
 
 @pytest.mark.parametrize("seed,nb,fp_bits,fixed_points",
-                         [(0, 7, 5, True), (1, 64, 6, False)])
+                         [(0, 7, 5, True), (1, 64, 6, False),
+                          (2, 4096, 8, False)])
 def test_report_adapt_matches(seed, nb, fp_bits, fixed_points):
     planes, keys, valid = _report_inputs(seed, nb, fp_bits)
     hi, lo = split(keys)

@@ -200,3 +200,58 @@ def row_rel_err(got, want):
     den = want.float().norm(dim=-1)
     live = den > 0
     return num[live] / den[live]
+
+
+# -------------------------------------------------------------- serving --
+
+# Short scenario streams (tests/test_slo.py's SMALL) for waves of 64 keys.
+SLO_WS = 64
+SLO_SMALL = {
+    "uniform": dict(waves=8),
+    "zipfian": dict(waves=8),
+    "adversarial": dict(rounds=2),
+    "burst_train": dict(bursts=2, burst_waves=2, gap_waves=2),
+    "ttl_churn": dict(waves=8),
+    "delete_heavy": dict(waves=9),
+}
+
+
+def recording_harness(base):
+    """An instance of a subclass of ``base`` (the reference's or the port's
+    ``SloHarness``) that keeps what a replay drove: ``target`` (the
+    batcher or the ring) and ``waves`` (every submitted ``OpWave``, report
+    waves included, or every ring call's host answer), in order."""
+    class Recording(base):
+        def run(self, batcher, stream, **kw):
+            self.target, self.waves = batcher, []
+            submit = batcher.submit
+
+            def recorded(kind, keys):
+                wave = submit(kind, keys)
+                self.waves.append(wave)
+                return wave
+            batcher.submit = recorded
+            return super().run(batcher, stream, **kw)
+
+        def run_generational(self, filt, stream, **kw):
+            self.target, self.waves = filt, []
+            for op in ("insert", "lookup"):
+                def recorded(keys, now=None, _fn=getattr(filt, op)):
+                    out = _fn(keys, now=now)
+                    self.waves.append(out)
+                    return out
+                setattr(filt, op, recorded)
+            return super().run_generational(filt, stream, **kw)
+    return Recording()
+
+
+def report_fields(report):
+    """An ``SloReport``'s fields that are no host time: counts, extras and
+    each sample's (kind, ops, burst, deferred)."""
+    return {"ops": report.ops, "waves": report.waves,
+            "shed_ops": report.shed_ops,
+            "deferred_waves": report.deferred_waves,
+            "held_ticks": report.held_ticks, "extras": report.extras,
+            "kinds": sorted(report.per_kind),
+            "samples": [(s.kind, s.ops, s.burst, s.deferred)
+                        for s in report.recorder.samples]}
