@@ -27,8 +27,13 @@ Phases, each timed, each fatal on failure:
      ``probe_adaptive_tm``, ``insert_bulk_adaptive_tm``) against their
      plain versions with stats (answers, tables and counter planes) and
      against the flag-off kernels, on the same cases and on PROBE_CASES
-     (with and without a stash, padding lanes that hit and must not count,
-     n no multiple of 256); and
+     (with and without a stash: padding lanes that hit and must not count,
+     n of 1, 1000, 4097 and 20000, full stashes, a key's fingerprint at a
+     third bucket, 32-bit fingerprints of one 16-bit fold, 8-bit ones,
+     stashes of 1, 1025 and 2500 slots, bucket sizes 1 and 8), ``probe``
+     on the same; ``fingerprint_hash`` on FINGERPRINT_CASES (n of 1, 3,
+     4097, 2^17 + 5 and 2^19 + 5, key views aligned and one element in);
+     and
      ``flash_attention`` within a stated tolerance at gemma3-1b's shapes
      (Hq=4, Hkv=1, S=8192, D=256; float32 and bfloat16; window 512 and
      none), small cases of the reference's sweep, a case with Sq > Skv and
@@ -102,7 +107,13 @@ Phases, each timed, each fatal on failure:
      adaptive path's launch size too (its 10M benign keys with its stash,
      the same with 128 live stash entries, its remaining members; each
      held against the plain version bit for bit first, then timed by CUDA
-     events with L2 flushed before each launch).
+     events with L2 flushed before each launch), and ``probe``,
+     ``probe_tm`` and ``fingerprint_hash`` at their serving paths' launch
+     sizes (PROBE_PATH_SIZES, FINGERPRINT_PATH_SIZES) on phase 5e's node
+     table as its ``uniform`` arm leaves it, half the keys held: without
+     a stash, with the arm's stash, with its every slot live; each held
+     first, then timed warm (the profiler) and with L2 flushed (CUDA
+     events), beside its bound, x bound and x the launch floor.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -137,13 +148,19 @@ HASH_OPS = 55
 # each (two murmur3 mixes, the seed tweak, mask and zero remap).
 FAMILY_OPS = HASH_OPS + 3 * 24
 FULL_BUCKETS = 1 << 22        # 16M slots of 4: the main path's grown size
+# The launch sizes of probe and fingerprint_hash on their serving paths:
+# the OCF's and the filter-op waves' 4096-key chunks, and the SLO
+# scenarios' waves of 2^17-2^19 keys (phase 5e; the insert pre-pass hashes
+# a whole wave).
+PROBE_PATH_SIZES = (CHUNK, 1 << 17, 1 << 18, 1 << 19)
+FINGERPRINT_PATH_SIZES = (CHUNK, 1 << 17, 1 << 18, 1 << 19)
 KERNEL_ROWS = {
     # name: (source, TPU kernel it replaces, what holds it back on the card)
     "fingerprint_hash": ("src/repro_torch/csrc/fingerprint.cu",
                          "src/repro/kernels/fingerprint.py:63",
-                         "not measured"),
+                         "launch_floor"),
     "probe": ("src/repro_torch/csrc/probe.cu",
-              "src/repro/kernels/probe.py:122", "not measured"),
+              "src/repro/kernels/probe.py:122", "random_sector_fetches"),
     "insert_bulk": ("src/repro_torch/csrc/insert.cu",
                     "src/repro/kernels/insert.py:440", "serial_cta_loop"),
     "delete_bulk": ("src/repro_torch/csrc/delete.cu",
@@ -169,7 +186,7 @@ KERNEL_ROWS = {
     # The telemetry instantiations, in place of the reference's twins (its
     # XLA emulations with want_stats, not pallas_call sites).
     "probe_tm": ("src/repro_torch/csrc/probe.cu",
-                 "src/repro/kernels/probe.py:156", "not measured"),
+                 "src/repro/kernels/probe.py:156", "random_sector_fetches"),
     "insert_bulk_tm": ("src/repro_torch/csrc/insert.cu",
                        "src/repro/kernels/insert.py:531", "serial_cta_loop"),
     "probe_adaptive_tm": ("src/repro_torch/csrc/probe_adaptive.cu",
@@ -414,6 +431,7 @@ class KernelBench:
               "delete missed a resident key")
         self.staging()
         self.probe_cases()
+        self.fingerprint_cases()
 
     def hold_probe_tm(self, name, kern_tm, plain, off, args, counted, block,
                       kw) -> list:
@@ -463,6 +481,27 @@ class KernelBench:
             print(f"   probe case {label}: n={c['keys'].size} counted="
                   f"{c['counted']} depth planes without / with the stash="
                   f"{planes}: same as the plain version", flush=True)
+
+    def fingerprint_cases(self) -> None:
+        """FINGERPRINT_CASES: fingerprint_hash at small and ragged n up to
+        the serving paths' largest launches, on views aligned and one
+        element into their storage, kernel against the plain version."""
+        from repro_torch.core import hashing
+        from repro_torch.kernels.fingerprint import (fingerprint_hash,
+                                                     fingerprint_hash_plain)
+        from repro_torch.kernels.staging_cases import FINGERPRINT_CASES
+        torch = self.torch
+        for n, offset in FINGERPRINT_CASES:
+            keys = random_keys(self.rng, n + offset)
+            hi, lo = (torch.from_numpy(x.view(np.int32)).to(self.dev)[offset:]
+                      for x in hashing.key_to_u32_pair_np(keys))
+            nb = self.n_buckets - n
+            got = fingerprint_hash(hi, lo, fp_bits=16, n_buckets=nb, block=n)
+            want = fingerprint_hash_plain(hi, lo, fp_bits=16, n_buckets=nb)
+            self.record("fingerprint_hash", zip(got, want))
+            print(f"   fingerprint_hash case n={n} offset={offset} "
+                  f"(16-byte aligned: {hi.data_ptr() % 16 == 0}): same as "
+                  f"the plain version", flush=True)
 
     def staging(self) -> None:
         """STAGING_CASES: insert (the first quarter of the keys twice, in
@@ -2118,6 +2157,7 @@ def batcher_false_negatives(h, *, fp_bits: int) -> dict:
     # The final lookups go through a second batcher over the same state
     # (lookups change nothing), so the recorded one keeps its parked waves.
     members = ids.keys[held & ~exempt]
+    h.members = members
     probe = type(b)(b.ops, b.state, stash=b.stash, wave_slots=b.wave_slots)
     after = [probe.submit("lookup", members[i:i + b.wave_slots])
              for i in range(0, members.size, b.wave_slots)]
@@ -2225,6 +2265,11 @@ def slo_node_path(card: str) -> dict:
         rep, h, fn_stats = counted(name, arm)
         report(name, rep, fn_stats)
         slo_rows(rows, rep, name)
+        if name == "uniform":
+            # phase 6 times probe on this node's final state
+            node = {"table": h.target.state.table.clone(),
+                    "n_buckets": int(h.target.state.n_buckets),
+                    "stash": h.target.stash.clone(), "resident": h.members}
         if name == "adversarial":
             looks = [w for k, _keys, w in h.waves if k == "lookup"]
             pool = len(looks) // 4
@@ -2378,7 +2423,7 @@ def slo_node_path(card: str) -> dict:
               f"telemetry {name}: the counters differ, card vs CPU")
         print(f"   telemetry mode {name}: {len(series)} metric series, "
               f"same as the CPU", flush=True)
-    return {"rows": rows, "launches": launches, "plain": plain}
+    return {"rows": rows, "launches": launches, "plain": plain, "node": node}
 
 
 # --------------------------------------------- phase 5b: the streaming path --
@@ -2864,14 +2909,16 @@ def table_work(before, after, hi, lo, valid, nb, *, lane_bytes: int,
     key and mask once; the home bucket's sector of every valid lane; the
     alternate bucket's sector of the lanes ``second(fp, i1)`` says the
     home bucket cannot answer; and every sector the call changed, written
-    once."""
+    once.  Distinct sectors are counted once: a sector that is one key's
+    home and another's alternate is read once."""
+    import torch
     from repro_torch.core import hashing
     fp = hashing.fingerprint(hi, lo, 16)
     i1 = hashing.index_hash(hi, lo, nb)
     i2 = hashing.alt_index(i1, fp, nb)
     again = second(fp, i1) & valid
     changed = (before != after).any(dim=1).nonzero().flatten()
-    reads = sectors(i1[valid]) + sectors(i2[again])
+    reads = sectors(torch.cat([i1[valid], i2[again]]))
     nbytes = hi.numel() * lane_bytes + SECTOR * (reads + sectors(changed))
     ops = hi.numel() * HASH_OPS + 2 * before.shape[1] * (
         int(valid.sum()) + int(again.sum()))
@@ -3473,6 +3520,150 @@ def probe_adaptive_path_times(m, remaining: np.ndarray,
     return out
 
 
+def probe_work(table, stash, hi, lo, nb) -> tuple[int, int]:
+    """(bytes, ops) one probe launch needs for this run's data, counted as
+    ``table_work`` counts the 4096-key row (keys in, answers out, the home
+    sector of every key, the alternate sector where the home bucket cannot
+    answer), plus the stash's live entries read once."""
+    import torch
+    from repro_torch.core import hashing
+    valid = torch.ones(hi.shape[0], dtype=torch.bool, device=hi.device)
+
+    def second(fp, i1):
+        return ~(hashing.to_u32(table[i1]) == fp[:, None]).any(dim=1)
+    nbytes, ops = table_work(table, table, hi, lo, valid, nb,
+                             lane_bytes=8 + 1, second=second)
+    live = 0 if stash is None else int((stash[0] != 0).sum())
+    return nbytes + 8 * live, ops
+
+
+def path_row(label: str, call, symbol: str, work, floor: float,
+             flush) -> dict:
+    """Time one launch held before: device ms by the profiler (as the path
+    runs it, the table warm in L2) and by CUDA events with ``flush``
+    emptying the L2 before each launch; its bound, x bound and x the
+    launch floor."""
+    bound, by = least_ms(*work)
+    warm = kernel_device_ms(call, 10, None, symbol)
+    cold = flushed_event_ms(call, 10, flush)
+    check(warm is not None, f"{label}: no device time for {symbol}")
+    xb = None if cold is None else cold / bound
+    print(f"   {label}: {warm!r} ms (device, profiler), {cold!r} ms "
+          f"(device, CUDA events, L2 flushed); bound {bound!r} ms ({by}, "
+          f"{work[0]} B); x bound {warm / bound!r}, flushed {xb!r}; "
+          f"{warm / floor!r} x the launch floor", flush=True)
+    return {"ms": warm, "flushed_ms": cold, "bound_ms": bound}
+
+
+def probe_path_times(node: dict, floor: float) -> dict:
+    """probe, probe_tm and fingerprint_hash at the launch sizes of their
+    serving paths (``PROBE_PATH_SIZES``, ``FINGERPRINT_PATH_SIZES``), on
+    phase 5e's node table as the ``uniform`` arm leaves it (2^20 buckets of
+    4, fp_bits 16), half the keys held there and half absent: probe without
+    a stash, with the arm's 128-slot stash, and with that stash's every
+    slot live (half of them the fingerprint of an absent key of the call
+    at one of its buckets, half random), so that the walk runs; probe_tm
+    with the same three.  Each launch is first held against its plain
+    version bit for bit (fatal), then timed by ``path_row``."""
+    import torch
+    from repro_torch.core import hashing
+    from repro_torch.kernels.fingerprint import (fingerprint_hash,
+                                                 fingerprint_hash_plain)
+    from repro_torch.kernels.probe import probe, probe_plain, probe_tm
+    from repro_torch.kernels.telemetry import probe_depth_counts
+
+    table, nb, stash = node["table"], node["n_buckets"], node["stash"]
+    dev = table.device
+    rng = np.random.RandomState(SEED + 23)
+    top = max(PROBE_PATH_SIZES)
+    check(node["resident"].size >= top // 2,
+          f"the node holds {node['resident'].size} keys, fewer than "
+          f"{top // 2}")
+    resident = node["resident"][rng.permutation(node["resident"].size)]
+    absent = random_keys(rng, top)
+    slots = stash.shape[1]
+    a_hi, a_lo = hashing.key_to_u32_pair_np(absent[: slots // 2])
+    a_fp = hashing.fingerprint_np(a_hi, a_lo, 16)
+    a_i1 = hashing.index_hash_np(a_hi, a_lo, nb)
+    planted = np.stack([rng.randint(1, 1 << 16, slots),
+                        rng.randint(0, nb, slots)]).astype(np.uint32)
+    planted[0, : slots // 2] = a_fp
+    planted[1, : slots // 2] = a_i1
+    planted = torch.from_numpy(planted.view(np.int32)).to(dev)
+    # The L2 is emptied before each flushed launch by a 128 MB read, which
+    # leaves no dirty line for the launch to write back (a write would).
+    flush_buf = torch.ones(1 << 25, dtype=torch.int32, device=dev)
+    sink = torch.empty((), dtype=torch.int64, device=dev)
+
+    def flush():
+        torch.sum(flush_buf, 0, dtype=torch.int64, out=sink)
+    print(f"   node: {nb} buckets of {table.shape[1]}, "
+          f"{node['resident'].size} keys held, the arm's stash "
+          f"{int((stash[0] != 0).sum())} of {slots} slots live", flush=True)
+
+    def pair(keys):
+        hi, lo = hashing.key_to_u32_pair_np(keys)
+        return (torch.from_numpy(hi.view(np.int32)).to(dev),
+                torch.from_numpy(lo.view(np.int32)).to(dev))
+
+    out = {}
+    for n in PROBE_PATH_SIZES:
+        hi, lo = pair(np.concatenate([resident[: n // 2],
+                                      absent[: n - n // 2]]))
+        block = min(n, 1024)
+        for label, st in (("no stash", None), ("the arm's stash", stash),
+                          ("every stash slot live", planted)):
+            def call(hi=hi, lo=lo, st=st, block=block):
+                return probe(table, hi, lo, fp_bits=16, n_buckets=nb,
+                             stash=st, block=block)
+            got = call()
+            want, hs = probe_plain(table, hi, lo, fp_bits=16, n_buckets=nb,
+                                   stash=st, want_stats=True)
+            check(torch.equal(got, want),
+                  f"probe at {n} keys, {label}: kernel differs from its "
+                  f"plain version ({int((got != want).sum())} keys)")
+            tag = (f"probe at the path's size, {n} keys, {label} "
+                   f"({int(got.sum())} hits, {int(hs[2].sum())} from the "
+                   f"stash, same as the plain version)")
+            work = probe_work(table, st, hi, lo, nb)
+            out[("probe", n, label)] = path_row(tag, call, "probe_kernel",
+                                                work, floor, flush)
+
+            def call_tm(hi=hi, lo=lo, st=st, block=block):
+                return probe_tm(table, hi, lo, fp_bits=16, n_buckets=nb,
+                                stash=st, block=block)
+            hit_tm, plane = call_tm()
+            want_plane = probe_depth_counts(*hs, hs[0] | ~hs[0])
+            check(torch.equal(hit_tm, want)
+                  and torch.equal(plane, want_plane),
+                  f"probe_tm at {n} keys, {label}: differs from the plain "
+                  f"version with stats ({plane.tolist()} vs "
+                  f"{want_plane.tolist()})")
+            out[("probe_tm", n, label)] = path_row(
+                f"probe_tm at the path's size, {n} keys, {label} (depth "
+                f"plane {plane.tolist()}, same as the plain version; the "
+                f"span holds its plane's zeroing)", call_tm, "probe_kernel",
+                (work[0] + 16, work[1]), floor, flush)
+            del got, want, hs, hit_tm
+    for n in FINGERPRINT_PATH_SIZES:
+        hi, lo = pair(absent[:n])
+
+        def call(hi=hi, lo=lo, n=n):
+            return fingerprint_hash(hi, lo, fp_bits=16, n_buckets=nb,
+                                    block=min(n, 1024))
+        got = call()
+        want = fingerprint_hash_plain(hi, lo, fp_bits=16, n_buckets=nb)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"fingerprint_hash at {n} keys: kernel differs from its "
+              f"plain version")
+        out[("fingerprint_hash", n, "")] = path_row(
+            f"fingerprint_hash at the path's size, {n} keys (same as the "
+            f"plain version)", call, "fingerprint", (n * (8 + 12),
+                                                      n * HASH_OPS),
+            floor, flush)
+    return out
+
+
 def streaming_kernel_times(snap, present: np.ndarray) -> dict:
     """Kernel, wrapper, plain and bound times of probe_multi on the
     streaming path's final ring (a copy of its pool with the live slots,
@@ -3803,6 +3994,15 @@ def main() -> int:
                                  "for a one-element add")
         print(f"   launch floor (one-element torch add): {floor!r} ms "
               f"(device)", flush=True)
+        sized = probe_path_times(slo["node"], floor)
+        top = max(PROBE_PATH_SIZES)
+        for name, key in (("probe", (top, "the arm's stash")),
+                          ("probe_tm", (top, "the arm's stash")),
+                          ("fingerprint_hash",
+                           (max(FINGERPRINT_PATH_SIZES), ""))):
+            row = sized[(name, *key)]
+            perf[name].update(path_keys=key[0], path_ms=row["flushed_ms"],
+                              path_bound_ms=row["bound_ms"])
         for name in ("fingerprint_hash", "probe", "fingerprint_hash_family",
                      "probe_adaptive", "probe_multi"):
             print(f"   {name}: {perf[name]['ms']!r} ms (device), "

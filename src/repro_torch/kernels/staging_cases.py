@@ -11,8 +11,11 @@ prefilter, its batched bucket loads and its launches of 64 pool slots, and
 ``PROBE_ADAPTIVE_CASES`` for ``csrc/probe_adaptive.cu``'s (the same
 prefilter over one stash, selector words read only for rows that match a
 family fingerprint, the alternate row only where the home row missed), and
-``PROBE_CASES`` for ``csrc/probe.cu``'s telemetry instantiation (keys
-answered at every depth, padding lanes that hit and must not count). The
+``PROBE_CASES`` for ``csrc/probe.cu``'s (the same prefilter over one
+stash, and its telemetry instantiation: keys answered at every depth,
+padding lanes that hit and must not count), and ``FINGERPRINT_CASES`` for
+``csrc/fingerprint.cu`` (ragged sizes up to its serving paths' largest
+launches, and views that start inside their storage). The
 tests hold the kernels against their plain versions on these inputs, and so
 does ``chip_smoke.py`` on the card: one source, so that both see the same
 arrays for a label and seed.
@@ -364,20 +367,63 @@ def probe_adaptive_inputs(label, seed=0):
                 block=128 if n % 128 == 0 else n)
 
 
-# Inputs for probe.cu and its telemetry instantiation (the probe-depth
-# plane): label -> (buffer, active buckets, bucket size, fp_bits, stash
-# slots, keys, counted keys, table load, stash load).  A quarter of the keys
-# are planted in their home bucket, a quarter in their alternate bucket,
-# and (with a stash) some of the rest in the stash; the lanes after the
-# counted ones are padding, key 0, which is planted too, so that a kernel
-# counting them would differ.
+# fingerprint_hash's stress cases (``csrc/fingerprint.cu``): (keys,
+# elements the key views start into their storage).  Small and ragged n
+# up to the serving paths' largest launches (2^19 keys) with 1-3 keys past
+# a multiple of four, and views one element into their storage, which no
+# 16-byte access may read.
+FINGERPRINT_CASES = ((1, 0), (3, 0), (4097, 0), (4097, 1),
+                     ((1 << 17) + 5, 0), ((1 << 17) + 5, 1),
+                     ((1 << 19) + 5, 0), ((1 << 19) + 5, 1))
+
+
+# Inputs for probe.cu, its stash prefilter and its telemetry instantiation
+# (the probe-depth plane): label -> (buffer, active buckets, bucket size,
+# fp_bits, stash slots, keys, counted keys, table load, stash load[, stash
+# mix]).  A quarter of the keys are planted in their home bucket, a quarter
+# in their alternate bucket, and (with a stash) some of the rest in the
+# stash; the lanes after the counted ones are padding, key 0, which is
+# planted too, so that a kernel counting them would differ.  Without a mix
+# every filled stash entry holds a counted key's fingerprint at one of its
+# buckets; with one, the filled entries are shared as in PROBE_MULTI_MIX
+# (exact; same fingerprint, a third bucket; another fingerprint of the same
+# 16-bit fold, a right bucket; random).
+PROBE_MIX = PROBE_MULTI_MIX
 PROBE_CASES = {
     "stash-128-padded": (4096, 4000, 4, 16, 128, 4096, 4000, 0.8, 0.5),
     "no-stash": (4096, 4000, 4, 16, 0, 4096, 4096, 0.8, 0.0),
     "n-1000-padded": (1024, 1000, 4, 16, 32, 1000, 990, 0.8, 0.5),
     "stash-2500": (2048, 2000, 4, 16, 2500, 5000, 4999, 0.8, 0.3),
     "bucket-8": (1024, 1000, 8, 16, 64, 2048, 2000, 0.85, 0.5),
+    # the serving paths' stash, every slot live
+    "stash-128-full": (4096, 4000, 4, 16, 128, 4096, 4000, 0.8, 1.0,
+                       PROBE_MIX),
+    # the map's bit set, the exact compare misses (a third bucket)
+    "same-fp-other-bucket": (4096, 4000, 4, 16, 128, 4096, 4000, 0.8, 0.8,
+                             (0.1, 0.9, 0.0, 0.0)),
+    # 32-bit fingerprints whose folds collide but whose values differ
+    "fp32-folds": (4096, 4000, 4, 32, 128, 4096, 4000, 0.8, 0.9,
+                   (0.2, 0.2, 0.5, 0.1)),
+    # 8-bit fingerprints: 128 entries over 255 values, a dense map
+    "fp8-dense": (2048, 2000, 4, 8, 128, 4096, 4000, 0.8, 1.0, PROBE_MIX),
+    # one slot; 1025 slots, two staging passes in every CTA
+    "stash-1": (1024, 1000, 4, 16, 1, 1024, 1000, 0.8, 1.0,
+                (1.0, 0.0, 0.0, 0.0)),
+    "stash-1025": (2048, 2000, 4, 16, 1025, 4096, 4000, 0.8, 0.9,
+                   PROBE_MIX),
+    "bucket-1": (4096, 4000, 1, 16, 64, 4096, 4000, 0.8, 0.5, PROBE_MIX),
+    "bucket-8-mixed": (1024, 1000, 8, 16, 64, 4096, 4000, 0.85, 0.8,
+                       PROBE_MIX),
+    "n-1": (1024, 1000, 4, 16, 32, 1, 1, 0.8, 0.5, PROBE_MIX),
+    "n-4097": (4096, 4000, 4, 16, 128, 4097, 4090, 0.8, 0.5, PROBE_MIX),
+    # more keys than a launch that loads both buckets at once
+    # (csrc/probe.cu's kEagerKeys): the alternate bucket after the home one
+    "n-20000": (4096, 4000, 4, 16, 128, 20000, 19990, 0.8, 0.5, PROBE_MIX),
 }
+# The cases whose counted keys reach every depth (home, alternate, and
+# with their stash the stash), which tests of the depth plane require.
+PROBE_DEPTH_CASES = ("stash-128-padded", "no-stash", "n-1000-padded",
+                     "stash-2500", "bucket-8")
 
 
 def probe_inputs(label, seed=0):
@@ -386,7 +432,7 @@ def probe_inputs(label, seed=0):
     after the counted ones), the counted count, fp_bits, n_buckets and the
     block the reference takes (128, or the key count where that is no
     multiple of it)."""
-    buf, nb, bsz, fp_bits, slots, n, counted, load, stash_load = \
+    buf, nb, bsz, fp_bits, slots, n, counted, load, stash_load, *mix = \
         PROBE_CASES[label]
     rng = np.random.RandomState(seed)
     fill = rng.rand(buf, bsz) < load
@@ -410,8 +456,26 @@ def probe_inputs(label, seed=0):
         stash = np.zeros((2, slots), np.uint32)
         used = np.nonzero(rng.rand(slots) < stash_load)[0]
         e = rng.randint(0, counted, used.size)
+        right = np.where(rng.rand(used.size) < 0.5, i1[e], i2[e])
         stash[0, used] = fp[e]
-        stash[1, used] = np.where(rng.rand(used.size) < 0.5, i1[e], i2[e])
+        stash[1, used] = right
+        if mix:
+            kind = rng.choice(4, size=used.size, p=mix[0])
+            other = (i1[e] + 1 + rng.randint(0, max(nb - 2, 1), used.size)
+                     ) % nb
+            bad = (other == i1[e]) | (other == i2[e])
+            while bad.any():
+                other[bad] = rng.randint(0, nb, int(bad.sum()))
+                bad = (nb > 2) & ((other == i1[e]) | (other == i2[e]))
+            flip = np.uint32(0x10001 if fp_bits > 16 else 1)
+            folded = fp[e] ^ flip
+            folded = np.where(folded == 0, np.uint32(1), folded)
+            stash[0, used] = np.select(
+                [kind == 0, kind == 1, kind == 2], [fp[e], fp[e], folded],
+                rng.randint(1, 1 << fp_bits, used.size, dtype=np.int64))
+            stash[1, used] = np.select([kind == 0, kind == 1, kind == 2],
+                                       [right, other, right],
+                                       rng.randint(0, nb, used.size))
     return dict(table=table, stash=stash, keys=keys, counted=counted,
                 fp_bits=fp_bits, n_buckets=nb,
                 block=128 if n % 128 == 0 else n)

@@ -33,7 +33,8 @@ from repro_torch.kernels.probe import (probe, probe_adaptive,
                                        probe_adaptive_tm, probe_multi,
                                        probe_multi_plain, probe_plain,
                                        probe_tm)
-from repro_torch.kernels.staging_cases import (PROBE_ADAPTIVE_CASES,
+from repro_torch.kernels.staging_cases import (FINGERPRINT_CASES,
+                                               PROBE_ADAPTIVE_CASES,
                                                PROBE_CASES,
                                                PROBE_MULTI_CASES,
                                                probe_adaptive_inputs,
@@ -576,6 +577,38 @@ def test_insert_adaptive_tm_matches_plain_with_stats(dev, label,
         assert torch.equal(stashes[0], stashes[2])
     assert torch.equal(out[-2], ok_off) and torch.equal(out[-2], ok_p)
     assert torch.equal(out[-1], insert_plane(*stats, valid))
+
+
+@pytest.mark.parametrize("label", PROBE_CASES)
+def test_probe_cases_match_plain(dev, label):
+    """probe.cu's stash prefilter and bucket loads on PROBE_CASES, with and
+    without the stash: the kernel against the plain version."""
+    c = probe_inputs(label)
+    table = t32(c["table"]).to(dev)
+    hi, lo = (t32(x).to(dev) for x in split(c["keys"]))
+    for st in (None, None if c["stash"] is None
+               else t32(c["stash"]).to(dev)):
+        kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"], stash=st)
+        cuda.reset_counts()
+        got = probe(table, hi, lo, block=c["block"], **kw)
+        assert cuda.LAUNCHES["probe"] == 1
+        assert torch.equal(got, probe_plain(table, hi, lo, **kw))
+
+
+@pytest.mark.parametrize("n,offset", FINGERPRINT_CASES)
+def test_fingerprint_hash_cases_match_plain(dev, n, offset):
+    """fingerprint.cu at FINGERPRINT_CASES' sizes, on views aligned and one
+    element into their storage, kernel against plain."""
+    hi, lo = split(random_keys(np.random.RandomState(n + offset),
+                               n + offset))
+    hi, lo = t32(hi).to(dev)[offset:], t32(lo).to(dev)[offset:]
+    nb = 1_000_003 - n
+    cuda.reset_counts()
+    got = fingerprint_hash(hi, lo, fp_bits=16, n_buckets=nb, block=n)
+    assert cuda.LAUNCHES["fingerprint_hash"] == 1
+    for a, b in zip(got, fingerprint_hash_plain(hi, lo, fp_bits=16,
+                                                n_buckets=nb)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("label", PROBE_CASES)

@@ -10,9 +10,13 @@ from repro.kernels import ops as ref_ops
 from repro.kernels.fingerprint import fingerprint_hash as ref_fingerprint
 from repro.kernels.insert import insert_bulk as ref_insert
 from repro.kernels.probe import probe as ref_probe
+from repro.kernels.probe import probe_emulated_tm
+from repro_torch.core import hashing
 from repro_torch.kernels import cuda, ops
 from repro_torch.kernels.fingerprint import fingerprint_hash
-from repro_torch.kernels.probe import probe
+from repro_torch.kernels.probe import probe, probe_plain, probe_tm
+from repro_torch.kernels.staging_cases import (FINGERPRINT_CASES,
+                                               PROBE_CASES, probe_inputs)
 
 from torch_port_util import random_keys, split, t32, u32
 
@@ -40,6 +44,71 @@ def test_fingerprint_hash_matches_interpreter():
                            block=128)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(u32(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("n,offset", FINGERPRINT_CASES)
+def test_fingerprint_hash_cases_match_emulation(n, offset):
+    """FINGERPRINT_CASES: sizes 1, 3, 4097, 2^17 + 5 and 2^19 + 5, and key
+    views that start one element into their storage, which no 16-byte
+    access may read."""
+    hi, lo = split(random_keys(np.random.RandomState(n + offset),
+                               n + offset))
+    thi, tlo = t32(hi)[offset:], t32(lo)[offset:]
+    assert (thi.data_ptr() % 16 == 0) == (offset == 0)
+    nb = 1_000_003 - n
+    want = ref_fingerprint(jnp.asarray(hi[offset:]), jnp.asarray(lo[offset:]),
+                           fp_bits=16, n_buckets=nb, block=n, emulate=True)
+    got = fingerprint_hash(thi, tlo, fp_bits=16, n_buckets=nb, block=n)
+    for g, w in zip(got, want):
+        assert g.shape == (n,)
+        np.testing.assert_array_equal(u32(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("label", list(PROBE_CASES))
+def test_probe_cases_match_reference(label):
+    """PROBE_CASES (full stashes, a key's fingerprint at a third bucket,
+    32-bit fingerprints of one 16-bit fold, 8-bit ones that fill the
+    prefilter's map, stashes of 1 and 1025 slots, bucket sizes 1 and 8,
+    N = 1, 4097 and 20000, padding lanes), with and without their stash:
+    the plain version against the reference's probe in emulation for every
+    lane, and probe_tm (its plain version here) against the reference's
+    probe_emulated_tm over the counted keys."""
+    c = probe_inputs(label, 0)
+    hi, lo = split(c["keys"])
+    k = c["counted"]
+    kw = dict(fp_bits=c["fp_bits"], n_buckets=c["n_buckets"])
+    for stash in (None, c["stash"]):
+        rst = None if stash is None else jnp.asarray(stash)
+        tst = None if stash is None else t32(stash)
+        want = ref_probe(jnp.asarray(c["table"]), jnp.asarray(hi),
+                         jnp.asarray(lo), stash=rst, block=c["block"],
+                         emulate=True, **kw)
+        got = probe_plain(t32(c["table"]), t32(hi), t32(lo), stash=tst, **kw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        hit, plane = probe_tm(t32(c["table"]), t32(hi), t32(lo), stash=tst,
+                              n_valid=k, block=c["block"], **kw)
+        rhit, rdepth = probe_emulated_tm(
+            jnp.asarray(c["table"]), jnp.asarray(hi[:k]), jnp.asarray(lo[:k]),
+            c["n_buckets"], rst, fp_bits=c["fp_bits"])
+        np.testing.assert_array_equal(hit.numpy(), got.numpy())
+        np.testing.assert_array_equal(hit[:k].numpy(), np.asarray(rhit))
+        np.testing.assert_array_equal(plane.numpy(),
+                                      np.asarray(rdepth).astype(np.int64))
+    if c["stash"] is None:
+        return
+    # What a case stresses is in its data: entries that hold a missing
+    # key's fingerprint at a bucket of another key, or a fingerprint of its
+    # fold that is not its own.
+    fp = hashing.fingerprint_np(hi, lo, c["fp_bits"])
+    live = c["stash"][0][c["stash"][0] != 0]
+    missed = ~got.numpy()
+    if label == "same-fp-other-bucket":
+        assert (missed & np.isin(fp, live)).any()
+    if label == "fp32-folds":
+        def fold(x):
+            return (x ^ (x >> 16)) & 0xFFFF
+        assert (missed & np.isin(fold(fp), fold(live))
+                & ~np.isin(fp, live)).any()
 
 
 def _filled(seed, buf, n_buckets, n_keys, stash_slots=0):

@@ -25,7 +25,7 @@ from repro_torch.core.filter_ops import FilterOps
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import telemetry as tmod
 from repro_torch.kernels.probe import probe_adaptive_tm, probe_tm
-from repro_torch.kernels.staging_cases import (PROBE_CASES,
+from repro_torch.kernels.staging_cases import (PROBE_DEPTH_CASES,
                                                probe_adaptive_inputs,
                                                probe_inputs)
 
@@ -382,11 +382,13 @@ def test_adaptive_twins_match_reference(rounds, stash_slots, schedule):
 # ------------------------------------------------- the probe planes ----
 
 
-@pytest.mark.parametrize("label", list(PROBE_CASES))
+@pytest.mark.parametrize("label", PROBE_DEPTH_CASES)
 def test_probe_cases_depth_plane_match_reference(label):
-    """``probe_tm`` (the plain version here) on PROBE_CASES: answers for
-    every lane, and the depth plane of the counted lanes, equal the
-    reference's ``probe_emulated_tm`` over the counted keys alone (the
+    """``probe_tm`` (the plain version here) on the PROBE_CASES whose
+    counted keys reach every depth (PROBE_DEPTH_CASES;
+    tests/test_torch_probe.py holds every case against the reference):
+    answers for every lane, and the depth plane of the counted lanes, equal
+    the reference's ``probe_emulated_tm`` over the counted keys alone (the
     padding key 0 is planted and must not count)."""
     c = probe_inputs(label, 0)
     hi, lo = split(c["keys"])
