@@ -37,7 +37,11 @@ Phases, each timed, each fatal on failure:
      ``flash_attention`` within a stated tolerance at gemma3-1b's shapes
      (Hq=4, Hkv=1, S=8192, D=256; float32 and bfloat16; window 512 and
      none), small cases of the reference's sweep, a case with Sq > Skv and
-     lengths (200, 300) that end in ragged tiles;
+     lengths (200, 300) that end in ragged tiles; and the scan backend's
+     ``scan_insert`` and ``scan_delete`` on SCAN_CASES (key mode on a
+     2^12-bucket table driven to load 0.97 by 2^14 keys, pair mode into a
+     16-slot stash that fills, 2^14 deletes with duplicates, a stack of
+     shards in one launch);
   3. run seeded streams through the card and the CPU and require
      identical state and answers after every operation: ~100k-key EOF
      streams through ``OCF`` (with and without a stash), two
@@ -53,9 +57,13 @@ Phases, each timed, each fatal on failure:
      is no host time equal); the LM at gemma3-1b's full width and one
      period's depth (6 layers, float32, TF32 off), built on the CPU and
      copied to the card: forward logits within a stated tolerance at S =
-     512 and 200, greedy tokens of prefill + 8 decode steps equal; and
+     512 and 200, greedy tokens of prefill + 8 decode steps equal;
      ``ContinuousBatcher`` over that model, a burst of 7 requests into 3
-     slots (greedy tokens and ``SchedStats`` equal);
+     slots (greedy tokens and ``SchedStats`` equal); and a sharded-filter
+     stream on both backends (2 shards x 2^12 buckets x 4, a 128-slot
+     stash, both routes at a capacity that defers, a split to 4 and a
+     merge back in several rounds; tables, stashes, ok, deferred, overflow
+     and hits equal after every step);
   4. the OCF main path at full size: one node's membership filter of a
      distributed store (capacity 2^22 slots, 8 bursts of 1M inserts, 3M
      verified + 100k blind deletes, lookups of every resident key plus 5M
@@ -88,6 +96,20 @@ Phases, each timed, each fatal on failure:
      card vs CPU; ``uniform`` once more under a trace for the idle share;
      a ``{"slo": ...}`` JSON line of the rows; launch counts read around
      it;
+  5f. one sharded node set at node size (``SHARDED``:
+     ``benchmarks/elastic_bench.py``'s settings with 2^20 buckets a shard):
+     ``DeferredWritePump`` writes 6,291,456 distinct keys in waves of 2^18
+     to load 0.75 (no failure); routed lookups of every key and as many
+     absent ones (no false negative, false positives within 4 x the
+     theoretical rate); ``ElasticController`` splits to 4 shards (nothing
+     lost, every entry on its pair owner, lookups exact) and merges back
+     (live entries conserved up to ``failed``); ``save_sharded``, the loss
+     of shard 1 (``degraded_lookup`` flags exactly its keys and answers
+     them True, the others as before), ``recover_shard`` (every answer
+     back); routed deletes of half the keys (all acknowledged, the other
+     half still found); then the same writes, lookups and deletes on the
+     scan backend; wall and device-busy time of each step, launch counts
+     read around it;
   5c. the LM serving path at full size: gemma3-1b (26 layers, full width,
      bfloat16 activations, float32 weights from SEED): a cache-less
      forward over 8192 tokens (prompt scoring, the flash kernel), the
@@ -113,7 +135,10 @@ Phases, each timed, each fatal on failure:
      table as its ``uniform`` arm leaves it, half the keys held: without
      a stash, with the arm's stash, with its every slot live; each held
      first, then timed warm (the profiler) and with L2 flushed (CUDA
-     events), beside its bound, x bound and x the launch floor.
+     events), beside its bound, x bound and x the launch floor; and the
+     scan kernels at their phase-5f launches (the merge's receive walk, the
+     scan backend's largest delete), held against their plain versions bit
+     for bit, then timed, with the time per walked lane.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -195,6 +220,13 @@ KERNEL_ROWS = {
     "insert_bulk_adaptive_tm": ("src/repro_torch/csrc/insert_adaptive.cu",
                                 "src/repro/kernels/insert.py:995",
                                 "serial_cta_loop"),
+    # The scan backend's walks, for the reference's lax.scan cores (no
+    # pallas_call): core/filter.py::_insert_one (bulk_insert, :146;
+    # distributed/elastic.py::insert_pairs, :125) and bulk_delete's body.
+    "scan_insert": ("src/repro_torch/csrc/scan.cu",
+                    "src/repro/core/filter.py:77", "dependent_chain"),
+    "scan_delete": ("src/repro_torch/csrc/scan.cu",
+                    "src/repro/core/filter.py:240", "dependent_chain"),
 }
 STATIC_KERNELS = ("fingerprint_hash", "probe", "insert_bulk", "delete_bulk")
 ADAPTIVE_KERNELS = ("fingerprint_hash_family", "probe_adaptive",
@@ -3863,6 +3895,573 @@ def wgmma_report(summary: list[str]) -> list[str]:
 # ------------------------------------------------------------------ main --
 
 
+# ---------------------------------- phases 2, 3, 5f: the sharded filter --
+
+# One sharded node set at node size (phase 5f): benchmarks/elastic_bench.py's
+# settings (fp_bits 16, a 128-slot stash a shard, route "pair", capacity
+# factor 4.0) with n_buckets scaled from 512 to 2^20 a shard (the 16 MB
+# table of phases 5d and 5e), filled through the pump to elastic_bench's
+# load, 3072 of 4096 slots.
+SHARDED = dict(n_shards=2, n_buckets=1 << 20, bucket_size=4, stash_slots=128,
+               fp_bits=16, route="pair", capacity_factor=4.0)
+SHARDED_KEYS = 6 * (1 << 20)          # 6,291,456: load 0.75 of 2 x 2^22
+# elastic_bench's concurrent stream (256 keys beside 3072), scaled the same:
+# parked by the pump while the split runs, replayed after the cutover.
+SHARDED_CONCURRENT = 1 << 19
+SHARDED_WAVE = 1 << 18                # a pump submit
+SHARDED_BATCH = 1 << 20               # a routed lookup or delete call
+SCAN_KERNELS = ("scan_insert", "scan_delete")
+
+
+def scan_vs_plain() -> dict:
+    """Phase 2: ``scan_insert`` and ``scan_delete`` against their plain
+    versions on the card, bit for bit, on SCAN_CASES (key mode on a
+    2^12-bucket table driven to load 0.97 by 2^14 keys, pair mode into a
+    16-slot stash that fills, deletes of 2^14 keys with duplicates, a stack
+    of shards in one launch) -> max abs error by kernel."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.scan import (scan_delete, scan_delete_plain,
+                                          scan_insert, scan_insert_plain)
+    from repro_torch.kernels.staging_cases import SCAN_CASES, scan_inputs
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int32).copy()).cuda()
+
+    err = {}
+    for label in SCAN_CASES:
+        tables, stashes, a, b, valid, kw = scan_inputs(label)
+        mode = kw.pop("mode")
+        name = "scan_delete" if mode == "delete" else "scan_insert"
+        va = torch.from_numpy(valid).cuda()
+        outs = []
+        for run in ("kernel", "plain"):
+            tt, st = dev(tables), dev(stashes)
+            cuda.reset_counts()
+            if mode == "delete":
+                args = dict(n_buckets=kw["n_buckets"], fp_bits=kw["fp_bits"])
+                ok = (scan_delete(tt, dev(a), dev(b), valid=va, **args)
+                      if run == "kernel" else
+                      scan_delete_plain(tt, dev(a), dev(b), va, **args))
+            else:
+                args = dict(n_buckets=kw["n_buckets"], mode=mode,
+                            fp_bits=kw["fp_bits"], max_disp=kw["max_disp"])
+                ok = (scan_insert(tt, dev(a), dev(b), valid=va, stashes=st,
+                                  **args)
+                      if run == "kernel" else
+                      scan_insert_plain(tt, dev(a), dev(b), va, stashes=st,
+                                        **args))
+            if run == "kernel":
+                check(cuda.LAUNCHES[name] == 1 and not cuda.PLAIN_CALLS,
+                      f"{name} case {label}: not one launch of the kernel")
+            outs.append([x for x in (tt, st, ok) if x is not None])
+        pairs = list(zip(*outs))
+        for x, y in pairs:
+            check(torch.equal(x, y), f"{name} case {label}: the kernel "
+                                     f"differs from its plain version")
+        fails = int((va & ~outs[0][-1]).sum())
+        spilled = ("" if stashes is None else
+                   f", stash {int((outs[0][1][:, 0] != 0).sum())} of "
+                   f"{stashes.shape[0] * stashes.shape[2]} slots live")
+        print(f"   {name} case {label}: {int(va.sum())} lanes, {fails} "
+              f"failed{spilled}, kernel == plain bit for bit", flush=True)
+        err[name] = 0
+    return err
+
+
+def sharded_stream(device: str, backend: str) -> list:
+    """One seeded stream through the sharded filter -> the outputs of every
+    step (tables, stashes, ok, deferred, overflow, hits, migration
+    reports), as CPU tensors: 2 shards x 2^12 buckets x 4, a 128-slot
+    stash, both routes, capacity factor 1.0 (routing defers), then (pair
+    route) a split to 4 and a merge back with a cap that streams rounds."""
+    import torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import hashing
+    from repro_torch.distributed.elastic import (filter_mesh, merge_state,
+                                                 split_state)
+    rng = np.random.RandomState(SEED + 24)
+    steps = []
+
+    def step(label, state, *arrays):
+        steps.append((label, [x.cpu() for x in (state.tables, state.stashes,
+                                                *arrays)]))
+
+    for route in ("key", "pair"):
+        mesh = filter_mesh(2, device=device)
+        state = dist.make_sharded_state(2, 1 << 12, 4, stash_slots=128,
+                                        device=device)
+        keys = random_keys(rng, 28_000)
+        hi, lo = (torch.from_numpy(x.view(np.int32)).to(device)
+                  for x in hashing.key_to_u32_pair_np(keys))
+        kw = dict(fp_bits=16, backend=backend, route=route,
+                  capacity_factor=1.0)
+        for w in range(4):
+            sl = slice(w * 7000, (w + 1) * 7000)
+            state, ok, dfr, ov = dist.distributed_insert(
+                mesh, "data", state, hi[sl], lo[sl], max_disp=64, **kw)
+            step(f"{route} insert {w}", state, ok, dfr, ov)
+        hit, ov = dist.distributed_lookup(mesh, "data", state, hi, lo, **kw)
+        step(f"{route} lookup", state, hit, ov)
+        if route == "pair":
+            m4 = filter_mesh(4, device=device)
+            state, rep = split_state(m4, "data", state)
+            step("split", state, torch.tensor([rep.keys_moved, rep.rounds,
+                                               rep.failed]))
+            state, rep = merge_state(m4, "data", state, cap=2000)
+            step("merge", state, torch.tensor([rep.keys_moved, rep.rounds,
+                                               rep.failed]))
+        state, dok, ddf, dov = dist.distributed_delete(
+            mesh, "data", state, hi[:14_000], lo[:14_000], **kw)
+        step(f"{route} delete", state, dok, ddf, dov)
+    return steps
+
+
+def sharded_parity() -> None:
+    """Phase 3: the sharded stream on the card and on the CPU, equal bit for
+    bit after every step, for both backends."""
+    import torch
+    from repro_torch.kernels import cuda
+    for backend in ("cuda", "torch"):
+        cuda.reset_counts()
+        card = sharded_stream("cuda", backend)
+        launches = dict(cuda.LAUNCHES)
+        check(not cuda.PLAIN_CALLS, f"plain versions ran on the card "
+                                    f"({backend}): {dict(cuda.PLAIN_CALLS)}")
+        cpu = sharded_stream("cpu", backend)
+        for (label, a), (_l, b) in zip(card, cpu):
+            check(len(a) == len(b) and all(
+                torch.equal(x, y) for x, y in zip(a, b)),
+                f"sharded stream ({backend}) {label}: card and CPU differ")
+        rep = {label: x[-1].tolist() for label, x in card
+               if label in ("split", "merge")}
+        print(f"   sharded stream ({backend}): {len(card)} steps equal card "
+              f"vs CPU; split / merge (moved, rounds, failed) {rep}; "
+              f"launches {launches}", flush=True)
+        want = ("probe", "scan_insert", "scan_delete") if backend == "torch" \
+            else ("probe", "insert_bulk", "delete_bulk", "scan_insert")
+        check(all(launches.get(k) for k in want),
+              f"sharded stream ({backend}) never launched one of {want}")
+
+
+class _Capture:
+    """Wraps a scan wrapper where a module calls it, keeping a copy of the
+    inputs of its largest call (most valid lanes)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.best, self.lanes = None, -1
+
+    def __enter__(self):
+        def spy(tables, a, b, **kw):
+            valid = kw.get("valid")
+            lanes = a.numel() if valid is None else int(valid.sum())
+            if lanes > self.lanes:
+                stashes = kw.get("stashes")
+                self.lanes = lanes
+                self.best = (tables.clone(), a.clone(), b.clone(),
+                             {**kw, "valid": None if valid is None
+                              else valid.clone(),
+                              "stashes": None if stashes is None
+                              else stashes.clone()})
+            return self.fn(tables, a, b, **kw)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+def sharded_node_path(card: str) -> dict:
+    """Phase 5f: one sharded node set at node size (``SHARDED``), driven
+    through the entry points a store's control plane calls: the pump writes
+    SHARDED_KEYS distinct keys in waves, routed lookups of every key and as
+    many absent ones, a live split to 4 shards and a merge back through
+    ``ElasticController``, a snapshot, the loss of shard 1 (degraded
+    lookups), its recovery, and routed deletes of half the keys; then the
+    same node once more on the scan backend.  Fatal checks in each step;
+    wall and device-busy time per step."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.ckpt import save_sharded
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import filter as tfilter
+    from repro_torch.core import hashing
+    from repro_torch.core.metrics import theoretical_fp_rate
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed.elastic import ElasticController, filter_mesh
+    from repro_torch.distributed.fault import (FaultInjector,
+                                               degraded_lookup, recover_shard)
+    from repro_torch.kernels import cuda
+    from repro_torch.obs import MetricsRegistry, RecoveryMetrics
+    from repro_torch.serving.scheduler import DeferredWritePump
+
+    cfg = SHARDED
+    fp_bits, route, cf = cfg["fp_bits"], cfg["route"], cfg["capacity_factor"]
+    rng = np.random.RandomState(SEED + 5)
+    n_all = SHARDED_KEYS + SHARDED_CONCURRENT
+    keys = np.unique(random_keys(rng, n_all + 4096))
+    keys = rng.permutation(keys)[:n_all]
+    absent = random_keys(rng, n_all + 4096)
+    absent = absent[~np.isin(absent, keys)][:n_all]
+    check(keys.size == absent.size == n_all, "key draw came short")
+    hi_np, lo_np = hashing.key_to_u32_pair_np(keys)
+    a_hi, a_lo = hashing.key_to_u32_pair_np(absent)
+
+    def dev(a):
+        return torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int32).copy()).cuda()
+
+    times = {}
+
+    def timed(label, fn):
+        """Run ``fn`` under a CUDA-activity profile -> its result; record
+        the wall and device-busy seconds."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = device_busy_s(prof)
+        times[label] = (wall, busy)
+        print(f"   [{card}] {label}: {wall!r} s wall, device busy {busy!r} s"
+              f" (idle share {1 - busy / wall!r})", flush=True)
+        return out
+
+    def lookups(mesh, state, h, l, backend="cuda"):
+        out = [dist.distributed_lookup(
+            mesh, "data", state, dev(h[s:s + SHARDED_BATCH]),
+            dev(l[s:s + SHARDED_BATCH]), fp_bits=fp_bits, backend=backend,
+            route=route, capacity_factor=cf)[0]
+            for s in range(0, h.size, SHARDED_BATCH)]
+        return torch.cat(out).cpu().numpy()
+
+    def live(state):
+        return int((state.tables != 0).sum()
+                   + (state.stashes[:, 0] != 0).sum())
+
+    def arm(backend: str, reg):
+        mesh = filter_mesh(cfg["n_shards"])
+        state = dist.make_sharded_state(
+            cfg["n_shards"], cfg["n_buckets"], cfg["bucket_size"],
+            stash_slots=cfg["stash_slots"])
+        pump = DeferredWritePump(mesh, "data", state, fp_bits=fp_bits,
+                                 backend=backend, route=route,
+                                 capacity_factor=cf, metrics=reg)
+
+        def write():
+            for s in range(0, SHARDED_KEYS, SHARDED_WAVE):
+                pump.submit(hi_np[s:s + SHARDED_WAVE],
+                            lo_np[s:s + SHARDED_WAVE])
+                pump.run_until_drained()
+            return pump.stats
+        stats = timed(f"{backend}: pump writes {SHARDED_KEYS} keys in waves "
+                      f"of {SHARDED_WAVE}", write)
+        stats = dataclasses.replace(stats)
+        print(f"   {backend}: {stats}, pending {pump.pending}, load "
+              f"{float(dist.sharded_occupancy(pump.state))!r}", flush=True)
+        check(stats.failed == 0 and pump.pending == 0
+              and stats.inserted == SHARDED_KEYS,
+              f"{backend}: the pump failed or left keys: {stats}")
+        return mesh, pump
+
+    # -- the kernel backend: writes, lookups, split, merge, loss, deletes --
+    reg = MetricsRegistry()
+    rec = RecoveryMetrics(metrics=reg)
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    mesh2, pump = arm("cuda", reg)
+    eps = theoretical_fp_rate(cfg["bucket_size"], fp_bits,
+                              float(dist.sharded_occupancy(pump.state)))
+
+    def check_lookups(mesh, state, label, n, fn_limit=0):
+        hits = lookups(mesh, state, hi_np[:n], lo_np[:n])
+        miss = lookups(mesh, state, a_hi[:n], a_lo[:n])
+        fn, fp = int((~hits).sum()), int(miss.sum())
+        print(f"   {label}: false negatives {fn}, false positives {fp} "
+              f"(rate {fp / n!r}, 4 x theoretical {4 * eps!r}; the pair "
+              f"owner takes log2(shards) bits of a fingerprint's entropy, "
+              f"so expect about shards x theoretical)", flush=True)
+        check(fn <= fn_limit, f"{label}: {fn} false negatives")
+        check(fp / n <= 4 * eps, f"{label}: fp rate too high")
+        return hits, miss
+
+    timed(f"lookups of {2 * SHARDED_KEYS} keys (2 shards)",
+          lambda: check_lookups(mesh2, pump.state, "2 shards", SHARDED_KEYS))
+    ctrl = ElasticController(pump, axis="data", recovery=rec)
+    live0 = live(pump.state)
+    m4 = filter_mesh(4)
+    pump.hold()            # the concurrent stream parks mid-cutover
+    ok, dfr = pump.submit(hi_np[SHARDED_KEYS:], lo_np[SHARDED_KEYS:])
+    check(not ok.any() and bool(dfr.all())
+          and pump.pending == SHARDED_CONCURRENT,
+          "the held pump did not park the concurrent stream")
+    rep = timed("split 2 -> 4 (ElasticController)", lambda: ctrl.split(m4))
+    print(f"   split: {rep}; backlog after {pump.pending}, {pump.stats}",
+          flush=True)
+    st4 = pump.state
+    check(rep.failed == 0, f"the split failed {rep.failed} lanes")
+    check(pump.pending == 0 and pump.stats.failed == 0
+          and pump.stats.inserted == n_all,
+          f"the parked stream did not drain after the split: {pump.stats}")
+    # Each acknowledged insert adds one live entry, so the split conserved
+    # the live entries when the count grew by exactly the parked stream.
+    live0 += SHARDED_CONCURRENT
+    check(live(st4) == live0, "the split did not conserve live entries")
+    eps = theoretical_fp_rate(cfg["bucket_size"], fp_bits,
+                              2 * float(dist.sharded_occupancy(st4)))
+    nb = cfg["n_buckets"]
+    for s in range(4):
+        t = st4.tables[s].reshape(-1)
+        rows = torch.arange(st4.tables.shape[1], device=t.device
+                            ).repeat_interleave(cfg["bucket_size"])
+        occ = t != 0
+        s_occ = st4.stashes[s, 0] != 0
+        owner = torch.cat([
+            hashing.owner_shard_pair(rows[occ], t[occ], nb, 4),
+            hashing.owner_shard_pair(st4.stashes[s, 1][s_occ],
+                                     st4.stashes[s, 0][s_occ], nb, 4)])
+        check(bool((owner == s).all()),
+              f"shard {s} holds entries it does not own after the split")
+    timed(f"lookups of {2 * n_all} keys (4 shards)",
+          lambda: check_lookups(m4, st4, "4 shards", n_all))
+    with _Capture(elastic, "scan_insert") as cap:
+        rep = timed("merge 4 -> 2 (ElasticController)",
+                    lambda: ctrl.merge(mesh2))
+    print(f"   merge: {rep}", flush=True)
+    check(live0 == live(pump.state) + rep.failed,
+          "the merge did not conserve live entries")
+    healthy = timed(f"lookups of {2 * n_all} keys (merged)",
+                    lambda: check_lookups(mesh2, pump.state, "merged", n_all,
+                                          fn_limit=rep.failed))
+    migration = {"split_s": times["split 2 -> 4 (ElasticController)"][0],
+                 "merge_s": times["merge 4 -> 2 (ElasticController)"][0],
+                 "merge_lanes": cap.lanes, "merge_failed": rep.failed,
+                 "merge_rounds": rep.rounds, "merge_moved": rep.keys_moved}
+
+    # -- loss of shard 1 and its recovery from a snapshot --
+    state = pump.state
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("save_sharded", lambda: save_sharded(tmp, 1, state))
+        inj = FaultInjector(recovery=rec)
+        dead = inj.kill(state, 1)
+
+        def degraded():
+            outs = [degraded_lookup(
+                mesh2, "data", dead, dev(h[s:s + SHARDED_BATCH]),
+                dev(l[s:s + SHARDED_BATCH]), fp_bits=fp_bits, injector=inj,
+                route=route, capacity_factor=cf, recovery=rec)
+                for h, l in ((hi_np, lo_np), (a_hi, a_lo))
+                for s in range(0, h.size, SHARDED_BATCH)]
+            return (np.concatenate([o[0] for o in outs]),
+                    np.concatenate([o[2] for o in outs]))
+        out, deg = timed("degraded lookups (shard 1 lost)", degraded)
+        owner = np.concatenate([hashing.owner_shard_key_pair_np(
+            h, l, nb, fp_bits, 2) for h, l in ((hi_np, lo_np),
+                                                (a_hi, a_lo))])
+        want = np.concatenate(healthy)
+        check(bool((deg == (owner == 1)).all()),
+              "degraded_lookup flagged other keys than shard 1's")
+        check(bool(out[deg].all()), "a lost shard's key answered False")
+        check(bool((out[~deg] == want[~deg]).all()),
+              "a surviving shard's answer changed")
+        back = timed("recover_shard 1", lambda: recover_shard(
+            dead, 1, ckpt_dir=tmp, injector=inj, recovery=rec))
+    after = np.concatenate([lookups(mesh2, back, hi_np, lo_np),
+                            lookups(mesh2, back, a_hi, a_lo)])
+    check(bool((after == want).all()),
+          "recovery did not bring every answer back")
+    print(f"   shard loss: {int(deg.sum())} degraded answers, recovered in "
+          f"{times['recover_shard 1'][0]!r} s; every answer back",
+          flush=True)
+
+    # -- routed deletes of half the keys --
+    half = n_all // 2
+
+    def deletes(mesh, state, backend):
+        oks = []
+        for s in range(0, half, SHARDED_BATCH):
+            e = min(half, s + SHARDED_BATCH)
+            state, ok, dfr, _ov = dist.distributed_delete(
+                mesh, "data", state, dev(hi_np[s:e]), dev(lo_np[s:e]),
+                fp_bits=fp_bits, backend=backend, route=route,
+                capacity_factor=cf, donate=True)
+            oks.append(ok.cpu().numpy())
+        return state, np.concatenate(oks)
+    back, dok = timed(f"deletes of {half} keys",
+                      lambda: deletes(mesh2, back, "cuda"))
+    check(bool(dok.all()), f"{int((~dok).sum())} verified deletes refused")
+    rest = lookups(mesh2, back, hi_np[half:n_all], lo_np[half:n_all])
+    check(bool(rest.all()), f"{int((~rest).sum())} false negatives after "
+                            f"the deletes")
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    plain = dict(cuda.PLAIN_CALLS)
+    print(f"   launches (kernel backend) {launches} plain_calls {plain}",
+          flush=True)
+    missing = [k for k in ("probe", "insert_bulk", "delete_bulk",
+                           "scan_insert") if not launches.get(k)]
+    check(not missing, f"phase 5f never launched {missing}")
+    del pump, ctrl, st4, state, dead, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the same node on the scan backend: writes, lookups, deletes --
+    cuda.reset_counts()
+    with _Capture(tfilter, "scan_insert") as icap:
+        mesh_s, pump_s = arm("torch", None)
+    hits = timed("scan backend: lookups of the keys",
+                 lambda: lookups(mesh_s, pump_s.state, hi_np[:SHARDED_KEYS],
+                                 lo_np[:SHARDED_KEYS], backend="torch"))
+    check(bool(hits.all()), "scan backend: false negatives")
+    half = SHARDED_KEYS // 2
+    with _Capture(tfilter, "scan_delete") as dcap:
+        st, dok = timed(f"scan backend: deletes of {half} keys",
+                        lambda: deletes(mesh_s, pump_s.state, "torch"))
+    check(bool(dok.all()), "scan backend: a verified delete was refused")
+    rest = lookups(mesh_s, st, hi_np[half:SHARDED_KEYS],
+                   lo_np[half:SHARDED_KEYS], backend="torch")
+    check(bool(rest.all()), "scan backend: false negatives after deletes")
+    torch.cuda.synchronize()
+    s_launches = dict(cuda.LAUNCHES)
+    plain = dict(collections.Counter(plain) + collections.Counter(
+        cuda.PLAIN_CALLS))
+    print(f"   launches (scan backend) {s_launches}", flush=True)
+    check(all(s_launches.get(k) for k in ("probe", *SCAN_KERNELS)),
+          f"the scan backend never launched one of probe, {SCAN_KERNELS}")
+    counts = collections.Counter(launches)
+    counts.update(s_launches)
+    del pump_s, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": dict(counts), "plain": plain, "times": times,
+            "migration": migration, "merge_input": cap.best,
+            "insert_input": icap.best, "delete_input": dcap.best}
+
+
+def scan_work(tables, after, a, b, valid, *, mode, n_buckets, stashes=None):
+    """(bytes, ops) a walk needs for this run's data: the mask once, each
+    walked lane's two words and ok byte, the home bucket's sector of every
+    walked lane, every changed sector written once (and the stash, with
+    one); the hash (key mode) or the alternate index (pair mode) a walked
+    lane."""
+    import torch
+    from repro_torch.core import hashing
+    v = valid
+    if mode == "pair":
+        i1 = hashing.to_u32(a[v]) % n_buckets
+        ops = 20 * int(v.sum())
+    else:
+        i1 = hashing.index_hash(a[v], b[v], n_buckets)
+        ops = HASH_OPS * int(v.sum())
+    shard = torch.nonzero(v)[:, 0]
+    rows = shard * tables.shape[1] + i1
+    changed = (tables != after).any(dim=2).reshape(-1).nonzero().flatten()
+    nbytes = (valid.numel() + 9 * int(v.sum())
+              + SECTOR * (sectors(rows) + sectors(changed)))
+    if stashes is not None:
+        nbytes += 2 * stashes.numel() * 4
+    return nbytes, ops
+
+
+def scan_kernel_times(captured: dict) -> dict:
+    """Phase 6 rows of the scan kernels at their path's launches: the
+    merge's receive walk (``scan_insert``, pair mode, every receiving shard
+    in one launch), the scan backend's largest insert residue (``scan_insert``
+    key mode, one 2^20-bucket shard; its figures go in the row's ``key_*``
+    fields) and its largest delete launch (``scan_delete``): each held
+    against its plain version bit for bit, then timed (device ms by the
+    profiler, the wrapper by CUDA events; the plain version once, by the
+    host clock, so long is its walk)."""
+    import torch
+    from repro_torch.kernels.scan import (scan_delete, scan_delete_plain,
+                                          scan_insert, scan_insert_plain)
+    out = {}
+    for label, key, kern_fn, plain_fn in (
+            ("scan_insert", "merge_input", scan_insert, scan_insert_plain),
+            ("scan_insert_key", "insert_input", scan_insert,
+             scan_insert_plain),
+            ("scan_delete", "delete_input", scan_delete, scan_delete_plain)):
+        name = label.removesuffix("_key")
+        tables0, a, b, kw = captured[key]
+        tables = tables0.clone()
+        stashes0 = kw.get("stashes")
+        stashes = None if stashes0 is None else stashes0.clone()
+        t3 = tables if tables.dim() == 3 else tables[None]
+        valid = kw["valid"]
+        if valid is None:
+            valid = torch.ones(a.shape, dtype=torch.bool, device=a.device)
+        v3 = valid if valid.dim() == 2 else valid[None]
+        a3 = a if a.dim() == 2 else a[None]
+        b3 = b if b.dim() == 2 else b[None]
+        s3 = None if stashes is None else (
+            stashes if stashes.dim() == 3 else stashes[None])
+        mode = kw.get("mode", "key")
+        args = {k: v for k, v in kw.items()
+                if k in ("n_buckets", "fp_bits", "max_disp", "mode")}
+        if name == "scan_insert":
+            args.setdefault("fp_bits", None)
+
+        def setup():
+            tables.copy_(tables0)
+            if stashes is not None:
+                stashes.copy_(stashes0)
+
+        def kern():
+            ok = kern_fn(tables, a, b, valid=valid, stashes=stashes, **args) \
+                if name == "scan_insert" else \
+                kern_fn(tables, a, b, valid=valid, **args)
+            return [tables, *([] if stashes is None else [stashes]), ok]
+
+        def plain():
+            ok = plain_fn(t3, a3, b3, v3, stashes=s3, **args) \
+                if name == "scan_insert" else plain_fn(t3, a3, b3, v3, **args)
+            ok = ok if valid.dim() == 2 else ok[0]
+            return [tables, *([] if stashes is None else [stashes]), ok]
+
+        setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [t.clone() for t in plain()]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        setup()
+        got = [t.clone() for t in kern()]
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"{label} at the path's launch: the kernel differs from the "
+              f"plain version")
+        walked = int(valid.sum())
+        nbytes, ops = scan_work(t3, got[0] if got[0].dim() == 3
+                                else got[0][None], a3, b3, v3,
+                                mode=mode, n_buckets=args["n_buckets"],
+                                stashes=s3)
+        bound_ms, bound_by = least_ms(nbytes, ops)
+        d = kernel_device_ms(kern, 2, setup, name + "_kernel")
+        check(d is not None, f"{name}: no device time in the trace")
+        w = time_ms(kern, 2, setup)
+        out[label] = {"ms": d, "wrapper_ms": w, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bytes": nbytes, "ops": ops, "lanes": walked,
+                      "us_per_lane": d * 1e3 / max(walked, 1),
+                      "shards": t3.shape[0]}
+        tag = f" ({mode} mode)" if name == "scan_insert" else ""
+        print(f"   {label}{tag}: held at the path's launch "
+              f"({t3.shape[0]} shards, {walked} walked lanes of "
+              f"{a.numel()}), kernel {d!r} ms "
+              f"(device), {d * 1e3 / max(walked, 1)!r} us a walked lane, "
+              f"wrapper {w!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} "
+              f"ms ({bound_by}: {nbytes} B, {ops} ops)", flush=True)
+    key = out.pop("scan_insert_key")
+    out["scan_insert"].update({f"key_{k}": key[k] for k in (
+        "lanes", "ms", "us_per_lane", "plain_ms", "bound_ms")})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3907,7 +4506,7 @@ def main() -> int:
         fbench = FlashKernelBench("cuda")
         fbench.run()
         max_err = {**bench.max_err, **abench.max_err, **sbench.max_err,
-                   **fbench.max_err}
+                   **fbench.max_err, **scan_vs_plain()}
         torch.cuda.synchronize()
 
     with phase("slice parity cuda vs cpu"):
@@ -3923,6 +4522,7 @@ def main() -> int:
         for adaptive in (False, True):
             batcher_parity(adaptive)
         slo_parity()
+        sharded_parity()
         continuous_batcher_parity(*lm_parity())
 
     # Each path runs with the counts set to 0 just before it and read just
@@ -3955,6 +4555,12 @@ def main() -> int:
         slo = slo_node_path(card)
         plain["slo"] = slo["plain"]
 
+    with phase("sharded node set at node size"):
+        sharded = sharded_node_path(card)
+        launches.update({k: sharded["launches"].get(k, 0)
+                         for k in SCAN_KERNELS})
+        plain["sharded"] = sharded["plain"]
+
     with phase("LM serving path at full size"):
         counts, plain["lm"], _lm = lm_path(card)
         launches.update({k: counts.get(k, 0) for k in LM_KERNELS})
@@ -3983,6 +4589,10 @@ def main() -> int:
             path_ms=path["benign"]["tm_ms"],
             path_bound_ms=path["benign"]["bound_ms"])
         perf.update(streaming_kernel_times(ring, present))
+        perf.update(scan_kernel_times(sharded))
+        del sharded
+        gc.collect()
+        torch.cuda.empty_cache()
         flash = flash_kernel_times()
         perf["flash_attention"] = flash["global"]
         # The launch floor: a one-element add's device time, beside the
@@ -4039,7 +4649,11 @@ def main() -> int:
                      "held_by": held_by,
                      "library_ms": t.get("library_ms"),
                      **{k: t[k] for k in ("path_keys", "path_ms",
-                                          "path_bound_ms") if k in t}})
+                                          "path_bound_ms", "lanes",
+                                          "us_per_lane", "key_lanes",
+                                          "key_ms", "key_us_per_lane",
+                                          "key_plain_ms", "key_bound_ms")
+                        if k in t}})
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"slo": slo["rows"]}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -6,7 +6,9 @@ dtype) and live here as ``int32`` tensors with the same bit pattern.
 stats and capacity history), so a port ``OCF`` can continue a stream
 from the reference's state.  ``adaptive_state_from_numpy`` does the same
 for the four planes of the adaptive filter, and
-``generational_from_numpy`` for the streaming generation ring.
+``generational_from_numpy`` for the streaming generation ring, and
+``sharded_state_from_numpy`` for the sharded filter's stacked tables and
+stashes (``sharded_state_to_numpy`` gives them back).
 
 The LM stack's weights cross as the reference's parameter pytree of
 float32 numpy arrays (``embed``, ``final_norm``, ``blocks[j][...]``
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.adaptive.state import AdaptiveState
+from repro_torch.core.distributed import ShardedFilterState
 from repro_torch.core.filter import FilterState
 from repro_torch.core.hashing import resolve_device
 from repro_torch.core.ocf import OCF, OcfConfig, OcfStats
@@ -62,6 +65,29 @@ def state_to_numpy(state: FilterState, stash: Optional[torch.Tensor] = None
     return {"table": u32(state.table), "count": int(state.count),
             "n_buckets": int(state.n_buckets),
             "stash": None if stash is None else u32(stash)}
+
+
+def sharded_state_from_numpy(tables: np.ndarray,
+                             stashes: Optional[np.ndarray] = None,
+                             n_buckets: Optional[int] = None, *,
+                             device="cuda") -> ShardedFilterState:
+    """uint32 tables [S, buf, b] (+ uint32 stashes [S, 2, slots])
+    -> ``ShardedFilterState`` on ``device``."""
+    dev = resolve_device(device)
+    return ShardedFilterState(
+        tables=_tensor(tables, dev),
+        stashes=None if stashes is None else _tensor(stashes, dev),
+        n_buckets=None if n_buckets is None else int(n_buckets))
+
+
+def sharded_state_to_numpy(state: ShardedFilterState) -> dict:
+    """-> {"tables": uint32[S, buf, b], "stashes": uint32[S, 2, slots] or
+    None, "n_buckets": int or None}."""
+    def u32(t):
+        return t.detach().cpu().numpy().view(np.uint32).copy()
+    return {"tables": u32(state.tables),
+            "stashes": None if state.stashes is None else u32(state.stashes),
+            "n_buckets": state.n_buckets}
 
 
 def adaptive_state_from_numpy(table: np.ndarray, sels: np.ndarray,

@@ -9,13 +9,22 @@ int32 key halves and the dynamic-capacity ``FilterState`` (active
                   launch the kernels; on CPU tensors (``device="cpu"``) the
                   kernel modules run their plain PyTorch versions.
   * ``"auto"``  — resolves to ``"cuda"``.
-  * ``"torch"`` — reserved for the counterpart of the reference's
-                  ``"jnp"`` scan backend (``core/filter.py::bulk_*``); it
-                  raises ``NotImplementedError`` until that is ported.
+  * ``"torch"`` — the scan backend, counterpart of the reference's
+                  ``"jnp"``: an optimistic round plus the sequential insert
+                  walk (``scan_insert``, chains bounded by ``max_disp``) for
+                  inserts, the sequential delete walk (``scan_delete``) for
+                  deletes (``core/filter.py``), the stash math of
+                  ``kernels/stash.py`` for spills and stash clears.
+                  Membership does not depend on the insert or delete
+                  schedule, so its lookups are the ``probe`` kernel's, as on
+                  ``"cuda"`` (the reference's ``bulk_lookup`` gives the same
+                  answers).  The adaptive, fan-out and telemetry ops run the
+                  kernels on either backend, as the reference's do.
 
-``donate=True`` means the mutating ops update the caller's table and stash
-tensors IN PLACE (the reference donated the buffers to XLA); with
-``donate=False`` they work on copies and leave the inputs untouched.
+``donate=True`` means the mutating kernel ops update the caller's table
+and stash tensors IN PLACE (the reference donated the buffers to XLA);
+with ``donate=False`` they work on copies and leave the inputs untouched.
+The scan backend never donates, like the reference's ``"jnp"`` arm.
 """
 from __future__ import annotations
 
@@ -24,9 +33,12 @@ from typing import Literal, Optional, Sequence
 
 import torch
 
+from repro_torch.core import filter as tfilter
 from repro_torch.core.filter import FilterState, make_state
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.stash import stash_occupancy
+from repro_torch.kernels.scan import DEFAULT_MAX_DISP
+from repro_torch.kernels.stash import (stash_delete_ref, stash_occupancy,
+                                       stash_spill_ref)
 
 Backend = Literal["cuda", "auto", "torch"]
 
@@ -50,10 +62,11 @@ class FilterOps:
     """Lookup / insert / delete / rebuild entry points over the kernels.
 
     ``evict_rounds`` bounds the insert kernel's eviction rounds (default:
-    the budget for the 0.85 operating load).  A key that exhausts it (and
-    finds no stash slot) reports False with the table rolled back; the OCF
+    the budget for the 0.85 operating load); ``max_disp`` bounds the scan
+    backend's sequential chains.  A key that exhausts its budget (and finds
+    no stash slot) reports False with the table rolled back; the OCF
     answers with grow + rebuild.  ``schedule`` turns on the conflict-wave
-    pre-pass of inserts (``core/scheduling.py``).
+    pre-pass of kernel inserts (``core/scheduling.py``).
     """
 
     fp_bits: int = 16
@@ -61,32 +74,41 @@ class FilterOps:
     evict_rounds: Optional[int] = None
     schedule: bool = False
     donate: bool = False
+    max_disp: int = DEFAULT_MAX_DISP
 
     def __post_init__(self):
         if self.backend not in ("cuda", "auto", "torch"):
             raise ValueError(f"unknown filter backend {self.backend!r} "
                              "(expected 'cuda' | 'auto' | 'torch')")
-        if self.backend == "torch":
-            raise NotImplementedError(
-                "backend='torch' (the scan backend, counterpart of the "
-                "reference's 'jnp') is not ported yet; use 'cuda'")
         if self.evict_rounds is None:
             object.__setattr__(self, "evict_rounds",
                                evict_rounds_for_load(0.85))
+
+    @property
+    def scan(self) -> bool:
+        """True on the scan backend (``"torch"``)."""
+        return self.backend == "torch"
 
     # ------------------------------------------------------------- ops --
 
     def lookup(self, state: FilterState, hi: torch.Tensor,
                lo: torch.Tensor) -> torch.Tensor:
-        """Membership for a batch -> bool[N]."""
+        """Membership for a batch -> bool[N] (either backend: the probe
+        kernel)."""
         return kops.probe_dispatch(state.table, hi, lo, fp_bits=self.fp_bits,
                                    n_buckets=state.n_buckets)
 
     def insert(self, state: FilterState, hi: torch.Tensor, lo: torch.Tensor,
                valid: Optional[torch.Tensor] = None
                ) -> tuple[FilterState, torch.Tensor]:
-        """Bulk insert -> (state, ok[N]): optimistic rounds plus bounded
-        eviction rounds in one kernel launch."""
+        """Bulk insert -> (state, ok[N]).  cuda: optimistic rounds plus
+        bounded eviction rounds in one kernel launch; torch: the optimistic
+        round, then the sequential walk on its residue."""
+        if self.scan:
+            return tfilter.bulk_insert_hybrid(state, hi, lo,
+                                              fp_bits=self.fp_bits,
+                                              max_disp=self.max_disp,
+                                              valid=valid)
         table, ok = kops.filter_insert(
             state.table, hi, lo, fp_bits=self.fp_bits,
             n_buckets=state.n_buckets, valid=valid,
@@ -98,8 +120,8 @@ class FilterOps:
     def lookup_with_stash(self, state: FilterState, stash: torch.Tensor,
                           hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
         """Membership against table AND overflow stash -> bool[N]."""
-        return kops.probe_dispatch(state.table, hi, lo, fp_bits=self.fp_bits,
-                                   n_buckets=state.n_buckets, stash=stash)
+        return self.probe_table(state.table, hi, lo,
+                                n_buckets=state.n_buckets, stash=stash)
 
     def insert_spill(self, state: FilterState, stash: torch.Tensor,
                      hi: torch.Tensor, lo: torch.Tensor,
@@ -112,11 +134,16 @@ class FilterOps:
         entries are counted by ``stash_occupancy``.
         """
         spilled_before = stash_occupancy(stash)
-        table, new_stash, ok = kops.filter_insert(
-            state.table, hi, lo, fp_bits=self.fp_bits,
-            n_buckets=state.n_buckets, valid=valid,
-            evict_rounds=self.evict_rounds, stash=stash,
-            schedule=self.schedule, donate=self.donate)
+        if self.scan:
+            table, new_stash, ok = self._scan_insert_table(
+                state.table, hi, lo, n_buckets=state.n_buckets, valid=valid,
+                stash=stash)
+        else:
+            table, new_stash, ok = kops.filter_insert(
+                state.table, hi, lo, fp_bits=self.fp_bits,
+                n_buckets=state.n_buckets, valid=valid,
+                evict_rounds=self.evict_rounds, stash=stash,
+                schedule=self.schedule, donate=self.donate)
         newly_stashed = stash_occupancy(new_stash) - spilled_before
         count = state.count + ok.sum() - newly_stashed
         return FilterState(table, count, state.n_buckets), new_stash, ok
@@ -124,8 +151,13 @@ class FilterOps:
     def delete(self, state: FilterState, hi: torch.Tensor, lo: torch.Tensor,
                valid: Optional[torch.Tensor] = None
                ) -> tuple[FilterState, torch.Tensor]:
-        """Verified bulk delete -> (state, ok[N]).  The k-th duplicate key
-        clears the k-th resident copy; callers verify membership first."""
+        """Verified bulk delete -> (state, ok[N]).  cuda: the k-th duplicate
+        key clears the k-th resident copy, all home buckets before all
+        alternates; torch: key by key, home else alternate.  Callers verify
+        membership first."""
+        if self.scan:
+            return tfilter.bulk_delete(state, hi, lo, fp_bits=self.fp_bits,
+                                       valid=valid)
         table, ok = kops.filter_delete(
             state.table, hi, lo, fp_bits=self.fp_bits,
             n_buckets=state.n_buckets, valid=valid, donate=self.donate)
@@ -246,11 +278,16 @@ class FilterOps:
         return state._replace(table=table, sels=sels), adapted, resident
 
     # --------------------------------------------------- raw-table ops --
+    #
+    # Stateless ops over a bare int32[n_buckets, bucket_size] table (plus
+    # optional stash): what ``core.distributed`` runs for each shard.  They
+    # never donate: the result is a new table (and stash).
 
     def probe_table(self, table: torch.Tensor, hi: torch.Tensor,
                     lo: torch.Tensor, *, n_buckets: Optional[int] = None,
                     stash: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Membership probe on a bare table (plus optional stash)."""
+        """Membership probe on a bare table (plus optional stash), either
+        backend: the probe kernel."""
         return kops.probe_dispatch(table, hi, lo, fp_bits=self.fp_bits,
                                    n_buckets=n_buckets, stash=stash)
 
@@ -260,10 +297,37 @@ class FilterOps:
                      stash: Optional[torch.Tensor] = None):
         """Bare-table bulk insert on copies -> (table, ok[N]) or
         (table, stash, ok[N])."""
+        if self.scan:
+            return self._scan_insert_table(table, hi, lo,
+                                           n_buckets=n_buckets, valid=valid,
+                                           stash=stash)
         return kops.filter_insert(table, hi, lo, fp_bits=self.fp_bits,
                                   n_buckets=n_buckets, valid=valid,
                                   evict_rounds=self.evict_rounds,
                                   stash=stash, schedule=self.schedule)
+
+    def _scan_insert_table(self, table, hi, lo, *, n_buckets, valid, stash):
+        """The scan backend's raw-table insert: the optimistic round, the
+        sequential walk on its residue when ``evict_rounds > 0``, then each
+        lane still failing parks its key's fingerprint (bound for its
+        alternate bucket) in the stash."""
+        if valid is None:
+            valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
+        st = tfilter.table_state(table, n_buckets)
+        if self.evict_rounds > 0:
+            st, placed = tfilter.bulk_insert_hybrid(
+                st, hi, lo, fp_bits=self.fp_bits, max_disp=self.max_disp,
+                valid=valid)
+        else:
+            st, placed = tfilter.parallel_insert_once(
+                st, hi, lo, fp_bits=self.fp_bits, valid=valid)
+        if stash is None:
+            return st.table, placed
+        stash = stash.clone()
+        spilled = stash_spill_ref(stash, hi, lo, valid & ~placed,
+                                  fp_bits=self.fp_bits,
+                                  n_buckets=st.n_buckets)
+        return st.table, stash, placed | spilled
 
     def delete_table(self, table: torch.Tensor, hi: torch.Tensor,
                      lo: torch.Tensor, *, n_buckets: Optional[int] = None,
@@ -272,9 +336,22 @@ class FilterOps:
         """Bare-table verified delete on copies -> (table, ok[N]), or
         (table, stash, ok[N]) with a ``stash``: lanes that miss the table
         clear their stash entry (table copies first)."""
-        return kops.filter_delete(table, hi, lo, fp_bits=self.fp_bits,
-                                  n_buckets=n_buckets, valid=valid,
-                                  stash=stash)
+        if not self.scan:
+            return kops.filter_delete(table, hi, lo, fp_bits=self.fp_bits,
+                                      n_buckets=n_buckets, valid=valid,
+                                      stash=stash)
+        if valid is None:
+            valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
+        st, ok = tfilter.bulk_delete(tfilter.table_state(table, n_buckets),
+                                     hi, lo, fp_bits=self.fp_bits,
+                                     valid=valid)
+        if stash is None:
+            return st.table, ok
+        stash = stash.clone()
+        cleared = stash_delete_ref(stash, hi, lo, valid & ~ok,
+                                   fp_bits=self.fp_bits,
+                                   n_buckets=st.n_buckets)
+        return st.table, stash, ok | cleared
 
     # --------------------------------------------------- telemetry twins --
     #

@@ -174,6 +174,44 @@ def alt_index_np(i: np.ndarray, fp: np.ndarray, n_buckets: int) -> np.ndarray:
             % np.uint64(n_buckets)).astype(np.uint32)
 
 
+def owner_shard_np(hi: np.ndarray, lo: np.ndarray, n_shards: int
+                   ) -> np.ndarray:
+    """Which filter shard owns a key (key routing)."""
+    with np.errstate(over="ignore"):
+        h = murmur3_mix_np((splitmix32_np(lo)
+                            + np.asarray(hi, np.uint32)).astype(np.uint32))
+    return (h % np.uint32(n_shards)).astype(np.uint32)
+
+
+# Pair routing (elastic resharding).  A stored slot is only (bucket, fp), so
+# an owner that must be re-derivable during a split or merge depends only on
+# the slot's candidate pair: min(i, alt(i, fp)) plus fp identifies it from
+# either end (the additive complement is an involution).  The hash does not
+# depend on the shard count (only the final modulo does), so pow2 counts
+# nest: owner(2n) mod n == owner(n).
+_PAIR_C = 0x27220A95
+
+
+def owner_shard_pair_np(bucket: np.ndarray, fp: np.ndarray, n_buckets: int,
+                        n_shards: int) -> np.ndarray:
+    """Owner shard of a stored (bucket, fingerprint) pair, key-free."""
+    fp = np.asarray(fp, np.uint32)
+    b = np.asarray(bucket, dtype=np.uint32) % np.uint32(n_buckets)
+    lo_b = np.minimum(b, alt_index_np(b, fp, n_buckets))
+    with np.errstate(over="ignore"):
+        h = murmur3_mix_np(splitmix32_np(lo_b) ^ murmur3_mix_np(
+            (fp + np.uint32(_PAIR_C)).astype(np.uint32)))
+    return (h % np.uint32(n_shards)).astype(np.uint32)
+
+
+def owner_shard_key_pair_np(hi: np.ndarray, lo: np.ndarray, n_buckets: int,
+                            fp_bits: int, n_shards: int) -> np.ndarray:
+    """Pair-routing owner computed from a live key (the insert side)."""
+    fp = fingerprint_np(hi, lo, fp_bits)
+    i1 = index_hash_np(hi, lo, n_buckets)
+    return owner_shard_pair_np(i1, fp, n_buckets, n_shards)
+
+
 # ---------------------------------------------------------------- torch ----
 
 
@@ -242,6 +280,31 @@ def alt_index(i: torch.Tensor, fp: torch.Tensor, n_buckets: int
 # traced-scalar ``*_dyn`` spellings collapse onto the static ones).
 index_hash_dyn = index_hash
 alt_index_dyn = alt_index
+
+
+def owner_shard(hi: torch.Tensor, lo: torch.Tensor, n_shards: int
+                ) -> torch.Tensor:
+    """Torch twin of ``owner_shard_np`` -> int64 in [0, n_shards)."""
+    return murmur3_mix((splitmix32(lo) + to_u32(hi)) & MASK32) % int(n_shards)
+
+
+def owner_shard_pair(bucket: torch.Tensor, fp: torch.Tensor, n_buckets: int,
+                     n_shards: int) -> torch.Tensor:
+    """Torch twin of ``owner_shard_pair_np`` -> int64 in [0, n_shards)."""
+    fp = to_u32(fp)
+    b = to_u32(bucket) % int(n_buckets)
+    lo_b = torch.minimum(b, alt_index(b, fp, n_buckets))
+    h = murmur3_mix(splitmix32(lo_b)
+                    ^ murmur3_mix((fp + _PAIR_C) & MASK32))
+    return h % int(n_shards)
+
+
+def owner_shard_key_pair(hi: torch.Tensor, lo: torch.Tensor, n_buckets: int,
+                         fp_bits: int, n_shards: int) -> torch.Tensor:
+    """Torch twin of ``owner_shard_key_pair_np``."""
+    fp = fingerprint(hi, lo, fp_bits)
+    i1 = index_hash(hi, lo, n_buckets)
+    return owner_shard_pair(i1, fp, n_buckets, n_shards)
 
 
 def key_to_u32_pair(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,11 +1,12 @@
 """Conflict-aware batch scheduling — the insert path's dispatch pre-pass.
 
 Counterpart of ``repro.core.scheduling`` (``conflict_waves``,
-``dispatch_order``, ``pair_rank``, ``dedupe_keys``).  Every lane's home bucket is ranked
-within its equal-bucket group: the k-th lane targeting a bucket lands in
-wave k, and the batch is dispatched wave-major.  Both sorts are stable, so
-same-bucket lanes keep their relative order and the rank each lane sees in
-a placement round is unchanged by the permutation.
+``dispatch_order``, ``pair_rank``, ``wave_count``, ``dedupe_keys``).
+Every lane's home bucket is ranked within its equal-bucket group: the k-th
+lane targeting a bucket lands in wave k, and the batch is dispatched
+wave-major.  Both sorts are stable, so same-bucket lanes keep their
+relative order and the rank each lane sees in a placement round is
+unchanged by the permutation.
 
 Plain tensor code on both devices (the reference, too, ran it outside any
 kernel): ``jnp.argsort(stable=True)`` becomes ``torch.sort(stable=True)``
@@ -93,6 +94,15 @@ def dispatch_order_from_buckets(i1: torch.Tensor, valid: torch.Tensor
     inv = torch.empty_like(idx)
     inv[perm] = idx
     return perm, inv
+
+
+def wave_count(i1: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Number of conflict-free waves a batch schedules into -> int64[]
+    (1: already conflict-free; K: some bucket is targeted by K lanes)."""
+    if i1.numel() == 0:
+        return torch.zeros((), dtype=torch.int64, device=i1.device)
+    w = conflict_waves(i1, valid)
+    return torch.where(valid, w + 1, 0).amax()
 
 
 def dedupe_keys(keys: np.ndarray) -> tuple[np.ndarray, "np.ndarray | None"]:

@@ -1,0 +1,306 @@
+"""Elastic resharding of the sharded filter: live split and merge.
+
+Counterpart of the filter part of ``repro.distributed.elastic``
+(``filter_mesh``, ``insert_pairs``, the migration round, ``MigrationReport``,
+``migrate_state``, ``split_state``, ``merge_state``, ``ElasticController``).
+Mesh elasticity (``largest_mesh``, ``reshard_state``) waits for the LM
+stack's mesh.
+
+A resident slot stores (bucket, fingerprint), and ``min(bucket, alt(bucket,
+fp))`` plus the fingerprint identifies the key's bucket pair from either
+end, so the pair owner (``hashing.owner_shard_pair``) is re-derivable from
+the table alone.  The pair hash does not depend on the shard count, so
+owners nest across pow2 counts (``owner(2n) mod n == owner(n)``): a 2x
+split moves a subset of shard s's entries to s + n, a merge folds s + n
+back onto s.  States that reshard are written with ``route="pair"``.
+
+A migration round, for every shard at once: enumerate its lanes (table
+slots with their row, stash entries with their stored bucket), compute the
+pair owner under the target count, rank the foreign lanes per destination
+(``conflict_waves``), clear at the source only the lanes that fit this
+round's ``cap``, exchange ``(fp, bucket)`` buffers, and pair-insert what
+each shard received with ``scan_insert`` (mode ``"pair"``, one launch for
+every receiving shard, exhausted chains spilled to the shard's stash).
+Rounds repeat until no shard holds a foreign lane.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import hashing
+from repro_torch.core.distributed import (ShardMesh, ShardedFilterState,
+                                          _all_to_all, _scatter_routed)
+from repro_torch.core.scheduling import conflict_waves
+from repro_torch.kernels.scan import scan_insert
+
+# The reference's chain budget for migrated lanes.
+MIGRATION_MAX_DISP = 64
+
+
+def filter_mesh(n_shards: int, axis_name: str = "data",
+                device="cuda") -> ShardMesh:
+    """1-D filter mesh of ``n_shards`` shards on one device (raises if
+    ``"cuda"`` has no card).  The elastic controller builds the pre- and
+    post-cutover meshes with this."""
+    if n_shards < 1:
+        raise ValueError(f"a filter mesh needs a shard, got {n_shards}")
+    return ShardMesh(int(n_shards), axis_name,
+                     hashing.resolve_device(device))
+
+
+def insert_pairs(table, stash, bucket, fp, valid, *, n_buckets,
+                 max_disp: int = MIGRATION_MAX_DISP):
+    """Insert migrated (bucket, fingerprint) pairs into one shard's slice
+    -> (table, stash, ok bool[N]), on copies.
+
+    ``i1 = bucket mod n_buckets``, ``i2 = alt(i1, fp)``, then the
+    sequential insert (place, alternate, bounded eviction with rollback),
+    spilling an exhausted chain's ``(fp, i2)`` to the stash.  Invalid lanes
+    touch neither structure.
+    """
+    table, stash = table.clone(), stash.clone()
+    ok = scan_insert(table, bucket, fp, n_buckets=n_buckets, mode="pair",
+                     max_disp=max_disp, valid=valid, stashes=stash)
+    return table, stash, ok
+
+
+def _migrate_round(tables, stashes, *, target_shards: int, cap: int,
+                   n_buckets: int, max_disp: int):
+    """One migration round over every shard, IN PLACE on ``tables`` and
+    ``stashes`` -> (moved, remaining, failed), int64[S] each.
+
+    ``remaining`` counts foreign lanes still resident (the stop condition);
+    ``failed`` counts received lanes that neither placed nor spilled.
+    """
+    n_mesh, buf, bs = tables.shape
+    dev = tables.device
+    lane_fp = torch.cat([tables.reshape(n_mesh, -1), stashes[:, 0, :]], 1)
+    rows = torch.arange(buf, dtype=torch.int32, device=dev)
+    lane_bkt = torch.cat([rows.repeat_interleave(bs).expand(n_mesh, -1),
+                          stashes[:, 1, :]], 1)
+    me = torch.arange(n_mesh, device=dev)[:, None]
+    owner = hashing.owner_shard_pair(lane_bkt, lane_fp, n_buckets,
+                                     target_shards)
+    foreign = (lane_fp != 0) & (owner != me)
+    rank = conflict_waves((me * n_mesh + owner).reshape(-1),
+                          foreign.reshape(-1)).reshape(owner.shape)
+    fits = (rank < cap) & foreign
+    dst = torch.where(fits, owner, n_mesh)
+    # Clear shipped lanes at the source before inserting received ones, so
+    # a shard that both sends and receives reuses the freed slots.
+    b_fp, b_bkt, b_valid = _scatter_routed(dst, rank, fits, n_mesh, cap,
+                                           lane_fp, lane_bkt)
+    n_table = buf * bs
+    tables.reshape(n_mesh, -1).masked_fill_(fits[:, :n_table], 0)
+    stashes.masked_fill_(fits[:, None, n_table:], 0)
+    r_fp, r_bkt, r_valid = (_all_to_all(b).reshape(n_mesh, -1)
+                            for b in (b_fp, b_bkt, b_valid))
+    ok = scan_insert(tables, r_bkt, r_fp, n_buckets=n_buckets, mode="pair",
+                     max_disp=max_disp, valid=r_valid, stashes=stashes)
+    return (fits.sum(1), (foreign & ~fits).sum(1),
+            (r_valid & ~ok).sum(1))
+
+
+@dataclasses.dataclass
+class MigrationReport:
+    """What one split/merge did — the recovery-metrics payload."""
+    direction: str          # "split" | "merge"
+    old_shards: int
+    new_shards: int
+    keys_moved: int         # fingerprints shipped shard-to-shard
+    rounds: int             # exchange rounds until drained
+    failed: int             # received lanes lost to full destinations
+    seconds: float = 0.0    # migration wall time (filled by split/merge)
+
+
+def migrate_state(mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
+                  target_shards: int, cap: Optional[int] = None,
+                  max_disp: int = MIGRATION_MAX_DISP, max_rounds: int = 64):
+    """Stream every mis-owned lane to its pair owner under ``target_shards``
+    -> (new_state, moved, rounds, failed); the input state is left as it
+    was.
+
+    ``cap`` bounds fingerprints per (source, destination) pair per round
+    (default: everything a shard holds, one round).  Requires stashes.
+    """
+    _require_stashes(state)
+    if state.tables.shape[0] != mesh.shape[axis]:
+        raise ValueError(f"{state.tables.shape[0]} shards on a mesh of "
+                         f"{mesh.shape[axis]}")
+    n_buckets = (state.n_buckets if state.n_buckets is not None
+                 else state.tables.shape[1])
+    if cap is None:
+        cap = n_buckets * state.tables.shape[2] + state.stashes.shape[2]
+    tables = state.tables.to(mesh.device).clone()
+    stashes = state.stashes.to(mesh.device).clone()
+    moved_total = rounds = failed_total = 0
+    while True:
+        moved, remaining, failed = _migrate_round(
+            tables, stashes, target_shards=target_shards, cap=cap,
+            n_buckets=n_buckets, max_disp=max_disp)
+        moved, remaining, failed = (int(x) for x in torch.stack(
+            [moved.sum(), remaining.sum(), failed.sum()]).tolist())
+        rounds += 1
+        moved_total += moved
+        failed_total += failed
+        if remaining == 0:
+            break
+        if rounds >= max_rounds:
+            raise RuntimeError(
+                f"migration did not drain in {max_rounds} rounds "
+                f"({remaining} lanes still foreign)")
+    new_state = state._replace(tables=tables, stashes=stashes)
+    return new_state, moved_total, rounds, failed_total
+
+
+def _require_stashes(state: ShardedFilterState) -> None:
+    if state.stashes is None:
+        raise ValueError("elastic migration requires per-shard stashes "
+                         "(spill target)")
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def split_state(new_mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
+                cap: Optional[int] = None,
+                max_disp: int = MIGRATION_MAX_DISP, max_rounds: int = 64
+                ) -> tuple[ShardedFilterState, MigrationReport]:
+    """Grow a pair-routed state 2x, live and rebuild-free: shard s < n keeps
+    old shard s, shards n..2n-1 start empty, then the migration runs on the
+    NEW mesh.  Every foreign lane of shard s goes to s + n, and a
+    destination bucket receives at most one source bucket's slots, so a
+    split cannot overfill."""
+    _require_stashes(state)
+    n_old = state.tables.shape[0]
+    n_new = new_mesh.shape[axis]
+    if n_new != 2 * n_old or n_new & (n_new - 1):
+        raise ValueError(f"a split doubles a pow2 shard count: {n_old} -> "
+                         f"{n_new}")
+    t0 = time.perf_counter()
+    dev = new_mesh.device
+    seeded = state._replace(
+        tables=torch.cat([state.tables.to(dev),
+                          torch.zeros_like(state.tables, device=dev)]),
+        stashes=torch.cat([state.stashes.to(dev),
+                           torch.zeros_like(state.stashes, device=dev)]))
+    new_state, moved, rounds, failed = migrate_state(
+        new_mesh, axis, seeded, target_shards=n_new, cap=cap,
+        max_disp=max_disp, max_rounds=max_rounds)
+    _sync(dev)
+    return new_state, MigrationReport(
+        "split", n_old, n_new, moved, rounds, failed,
+        time.perf_counter() - t0)
+
+
+def merge_state(old_mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
+                cap: Optional[int] = None,
+                max_disp: int = MIGRATION_MAX_DISP, max_rounds: int = 64
+                ) -> tuple[ShardedFilterState, MigrationReport]:
+    """Shrink a pair-routed state 2x, live and rebuild-free: the migration
+    runs on the OLD mesh with the halved owner (shard s + n/2 folds onto s,
+    through the full pair insert: receivers are contended), then the
+    drained top half is sliced off."""
+    n_old = state.tables.shape[0]
+    if n_old != old_mesh.shape[axis] or n_old % 2:
+        raise ValueError(f"a merge halves an even shard count on its mesh, "
+                         f"got {n_old}")
+    k = n_old // 2
+    t0 = time.perf_counter()
+    new_state, moved, rounds, failed = migrate_state(
+        old_mesh, axis, state, target_shards=k, cap=cap, max_disp=max_disp,
+        max_rounds=max_rounds)
+    top = (int((new_state.tables[k:] != 0).sum()),
+           int((new_state.stashes[k:, 0, :] != 0).sum()))
+    if top != (0, 0):
+        raise RuntimeError(f"merge left {top[0]}+{top[1]} lanes on drained "
+                           "shards")
+    merged = new_state._replace(tables=new_state.tables[:k].clone(),
+                                stashes=new_state.stashes[:k].clone())
+    _sync(merged.tables.device)
+    return merged, MigrationReport(
+        "merge", n_old, k, moved, rounds, failed, time.perf_counter() - t0)
+
+
+# --------------------------------------------------- serving control plane
+
+
+@dataclasses.dataclass
+class ElasticController:
+    """Zero-downtime split/merge over a live ``DeferredWritePump``.
+
+    The cutover: (1) hold the pump (fresh submits park) and freeze write
+    admission; (2) run the migration (split on the new mesh / merge on the
+    old); (3) retarget the pump at the new (mesh, state) and release; (4)
+    drain the parked backlog.  Time to recover is hold -> backlog drained.
+    ``recovery`` is an optional ``obs.recovery.RecoveryMetrics``.
+    """
+
+    pump: object                               # serving DeferredWritePump
+    axis: str = "data"
+    recovery: Optional[object] = None
+    cap: Optional[int] = None
+    max_disp: int = MIGRATION_MAX_DISP
+    max_rounds: int = 64
+    drain_ticks: int = 100
+    clock: Callable[[], float] = time.perf_counter
+
+    def split(self, new_mesh: ShardMesh) -> MigrationReport:
+        return self._resize("split", new_mesh)
+
+    def merge(self, new_mesh: ShardMesh) -> MigrationReport:
+        return self._resize("merge", new_mesh)
+
+    def _resize(self, direction: str, new_mesh: ShardMesh) -> MigrationReport:
+        pump, rec = self.pump, self.recovery
+        t0 = self.clock()
+        pump.hold()
+        admission = getattr(pump, "admission", None)
+        if admission is not None and hasattr(admission, "freeze"):
+            admission.freeze()
+        try:
+            with (rec.span(f"elastic_{direction}",
+                           new_shards=new_mesh.shape[self.axis])
+                  if rec else _NULL_CTX):
+                if direction == "split":
+                    new_state, report = split_state(
+                        new_mesh, self.axis, pump.state, cap=self.cap,
+                        max_disp=self.max_disp, max_rounds=self.max_rounds)
+                else:
+                    # merge migrates on the OLD mesh, then lands on the new.
+                    new_state, report = merge_state(
+                        pump.mesh, self.axis, pump.state, cap=self.cap,
+                        max_disp=self.max_disp, max_rounds=self.max_rounds)
+                pump.retarget(new_mesh, self.axis, new_state)
+        finally:
+            if admission is not None and hasattr(admission, "thaw"):
+                admission.thaw()
+            pump.release()
+        backlog = pump.pending
+        pump.run_until_drained(max_ticks=self.drain_ticks)
+        seconds = self.clock() - t0
+        if rec is not None:
+            rec.migration(direction, keys=report.keys_moved,
+                          rounds=report.rounds, failed=report.failed,
+                          seconds=report.seconds)
+            rec.backlog(pump.pending)
+            rec.drained(backlog - pump.pending)
+            rec.recovered(f"elastic_{direction}", seconds)
+        return report
+
+
+class _Null:
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_CTX = _Null()

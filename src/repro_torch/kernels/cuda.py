@@ -70,6 +70,11 @@ KERNELS = {
     "probe_multi": ("probe_multi.cu", "ocf_probe_multi",
                     [_P, _I, _U64, _I, _I, _P, _I, _P, _P, _P, _I, _I, _U,
                      _I, _P]),
+    "scan_insert": ("scan.cu", "ocf_scan_insert",
+                    [_P, _I, _I, _U, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _P]),
+    "scan_delete": ("scan.cu", "ocf_scan_delete",
+                    [_P, _I, _I, _U, _P, _P, _P, _P, _I, _I, _P]),
     "flash_attention": ("flash_attention.cu", "lm_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P, _P]),

@@ -1,14 +1,72 @@
-"""Blockwise attention: the cached (prefill and decode) attention path.
+"""Plain tensor references: the filter's scan-backend refs and blockwise
+attention.
 
-Counterpart of ``repro.kernels.ref.blockwise_attention``.  Like the
-reference, this is plain tensor code and no kernel: the reference reaches
-its Pallas flash kernel only for a cache-less forward
+Counterpart of ``repro.kernels.ref``.  The filter refs
+(``fingerprint_ref``, ``probe_ref``, ``insert_once_ref``,
+``insert_residue_ref``, ``delete_ref``) are the reference's raw-table refs
+over ``core/filter.py``'s bulk ops, the code ``FilterOps(backend="torch")``
+runs for inserts and deletes.
+
+``blockwise_attention`` is the cached (prefill and decode) attention path.
+Like the reference, it is plain tensor code and no kernel: the reference
+reaches its Pallas flash kernel only for a cache-less forward
 (``repro.kernels.ops.attention``), and so does the port
 (``repro_torch.kernels.ops.attention``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import filter as tfilter
+from repro_torch.core import hashing
+from repro_torch.kernels.scan import DEFAULT_MAX_DISP
+
+# ------------------------------------------------------------- filter refs --
+
+
+def fingerprint_ref(hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
+                    n_buckets: int):
+    """(fp, i1, i2) of a key batch, int64 each."""
+    fp = hashing.fingerprint(hi, lo, fp_bits)
+    i1 = hashing.index_hash(hi, lo, n_buckets)
+    return fp, i1, hashing.alt_index(i1, fp, n_buckets)
+
+
+def probe_ref(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
+              fp_bits: int, n_buckets=None) -> torch.Tensor:
+    """Bulk membership on a raw table -> bool[N]."""
+    return tfilter.bulk_lookup(tfilter.table_state(table, n_buckets), hi,
+                               lo, fp_bits=fp_bits)
+
+
+def insert_once_ref(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                    *, fp_bits: int, n_buckets=None, valid=None):
+    """Optimistic single-round insert on a raw table -> (table, placed)."""
+    st, placed = tfilter.parallel_insert_once(
+        tfilter.table_state(table, n_buckets), hi, lo, fp_bits=fp_bits,
+        valid=valid)
+    return st.table, placed
+
+
+def insert_residue_ref(table: torch.Tensor, hi: torch.Tensor,
+                       lo: torch.Tensor, *, fp_bits: int, n_buckets=None,
+                       valid=None, max_disp: int = DEFAULT_MAX_DISP):
+    """Sequential eviction-chain insert on a raw table -> (table, placed)."""
+    st, ok = tfilter.bulk_insert(tfilter.table_state(table, n_buckets), hi,
+                                 lo, fp_bits=fp_bits, max_disp=max_disp,
+                                 valid=valid)
+    return st.table, ok
+
+
+def delete_ref(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
+               fp_bits: int, n_buckets=None, valid=None):
+    """Sequential delete on a raw table -> (table, deleted)."""
+    st, ok = tfilter.bulk_delete(tfilter.table_state(table, n_buckets), hi,
+                                 lo, fp_bits=fp_bits, valid=valid)
+    return st.table, ok
+
+
+# ------------------------------------------------------- flash attention --
 
 NEG_INF = -1e30
 

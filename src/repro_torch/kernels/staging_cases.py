@@ -15,7 +15,10 @@ family fingerprint, the alternate row only where the home row missed), and
 stash, and its telemetry instantiation: keys answered at every depth,
 padding lanes that hit and must not count), and ``FINGERPRINT_CASES`` for
 ``csrc/fingerprint.cu`` (ragged sizes up to its serving paths' largest
-launches, and views that start inside their storage). The
+launches, and views that start inside their storage), and ``SCAN_CASES``
+for ``csrc/scan.cu`` (chains that fail and roll back at load 0.97, spills
+into a stash that fills, active counts below the buffer, bucket size 8, a
+stack of shards with mostly-invalid lanes, duplicate deletes).  The
 tests hold the kernels against their plain versions on these inputs, and so
 does ``chip_smoke.py`` on the card: one source, so that both see the same
 arrays for a label and seed.
@@ -479,3 +482,88 @@ def probe_inputs(label, seed=0):
     return dict(table=table, stash=stash, keys=keys, counted=counted,
                 fp_bits=fp_bits, n_buckets=nb,
                 block=128 if n % 128 == 0 else n)
+
+
+# ------------------------------------------------------------- scan walks --
+#
+# label -> (kind, shards, n_buckets, buffer, bucket_size, prefill load,
+#           lanes a shard, valid share, max_disp, stash slots, live stash)
+SCAN_CASES = {
+    "key-load-0.97": ("key", 1, 1 << 12, 1 << 12, 4, 0.0, 1 << 14, 1.0,
+                      500, 0, 0),
+    "key-spill-active": ("key", 1, 3000, 1 << 12, 4, 0.85, 4096, 1.0, 8,
+                         16, 3),
+    "key-bs8": ("key", 2, 1 << 10, 1 << 10, 8, 0.8, 4096, 0.9, 16, 0, 0),
+    "pair-stash-16": ("pair", 1, 1 << 12, 1 << 12, 4, 0.9, 4096, 1.0, 64,
+                      16, 4),
+    "pair-shards": ("pair", 4, 1 << 10, 1 << 10, 4, 0.7, 8192, 0.15, 64,
+                    128, 40),
+    "delete-dups": ("delete", 1, 1 << 12, 1 << 12, 4, 0.9, 1 << 14, 1.0,
+                    0, 0, 0),
+    "delete-shards": ("delete", 3, 1 << 10, 1 << 10, 4, 0.8, 4096, 0.3, 0,
+                      0, 0),
+}
+
+
+def _fill_home_or_alt(rng, table, n_buckets, load, fp_bits):
+    """Place random keys, home bucket else alternate, until ``load`` of the
+    active slots is taken -> the placed keys' (hi, lo), uint32."""
+    bs = table.shape[1]
+    want = int(n_buckets * bs * load)
+    keys = random_keys(rng, int(want * 1.5) + 16)
+    hi, lo = hashing.key_to_u32_pair_np(keys)
+    fp = hashing.fingerprint_np(hi, lo, fp_bits)
+    i1 = hashing.index_hash_np(hi, lo, n_buckets)
+    i2 = hashing.alt_index_np(i1, fp, n_buckets)
+    fill = (table != 0).sum(axis=1)
+    placed = []
+    for k in range(keys.size):
+        if len(placed) >= want:
+            break
+        for b in (int(i1[k]), int(i2[k])):
+            if fill[b] < bs:
+                table[b, fill[b]] = fp[k]
+                fill[b] += 1
+                placed.append(k)
+                break
+    placed = np.asarray(placed, np.int64)
+    return hi[placed], lo[placed]
+
+
+def scan_inputs(label, seed=0):
+    """Inputs of a ``SCAN_CASES`` case, uint32 / bool numpy: (tables [S,
+    buffer, b], stashes [S, 2, slots] or None, a [S, L], b [S, L], valid
+    [S, L], kwargs of the walk: mode (``"key"``, ``"pair"``, or
+    ``"delete"`` for ``scan_delete``), n_buckets, fp_bits, max_disp)."""
+    (kind, shards, nb, buf, bs, load, lanes, share, max_disp, slots,
+     live) = SCAN_CASES[label]
+    rng = np.random.RandomState(seed + 11)
+    fp_bits = 16
+    tables = np.zeros((shards, buf, bs), np.uint32)
+    a = np.zeros((shards, lanes), np.uint32)
+    b = np.zeros((shards, lanes), np.uint32)
+    for s in range(shards):
+        shard_load = load * (0.8 + 0.2 * s / max(shards - 1, 1))
+        hi, lo = _fill_home_or_alt(rng, tables[s], nb, shard_load, fp_bits)
+        if kind == "delete":
+            # residents, some of them twice over, and absent keys
+            pick = rng.randint(0, hi.size, lanes)
+            absent = rng.rand(lanes) < 0.1
+            khi, klo = hashing.key_to_u32_pair_np(random_keys(rng, lanes))
+            a[s] = np.where(absent, khi, hi[pick])
+            b[s] = np.where(absent, klo, lo[pick])
+        elif kind == "key":
+            a[s], b[s] = hashing.key_to_u32_pair_np(random_keys(rng, lanes))
+        else:
+            a[s] = rng.randint(0, 1 << 31, lanes).astype(np.uint32)
+            b[s] = rng.randint(1, 1 << fp_bits, lanes).astype(np.uint32)
+    valid = rng.rand(shards, lanes) < share
+    stashes = None
+    if slots:
+        stashes = np.zeros((shards, 2, slots), np.uint32)
+        for s in range(shards):
+            at = rng.choice(slots, size=live, replace=False)
+            stashes[s, 0, at] = rng.randint(1, 1 << fp_bits, live)
+            stashes[s, 1, at] = rng.randint(0, nb, live)
+    return tables, stashes, a, b, valid, dict(
+        mode=kind, n_buckets=nb, fp_bits=fp_bits, max_disp=max_disp)

@@ -32,8 +32,13 @@ blocks a prompt could reuse, and a finished request publishes its
 prompt's blocks.  Admission control can defer requests while the filter
 is congested.
 
-``DeferredWritePump`` and ``ShardedFilterFills`` of the reference's
-scheduler, which drive the sharded filter, are not ported yet.
+**Deferred writes.**  The routed writes of the sharded filter
+(``core.distributed.distributed_insert``) return a deferred batch: lanes
+that exceeded their owner shard's capacity and were never attempted.
+``DeferredWritePump`` parks them on the host and resubmits them while the
+admission controller allows, over ``ShardedFilterFills`` (the sharded
+state's table and stash fill as the congestion signal); the elastic
+controller holds it during a split or merge.
 """
 from __future__ import annotations
 
@@ -603,3 +608,181 @@ class ContinuousBatcher:
 
 __all__ = ["BatcherStats", "ContinuousBatcher", "FilterOpBatcher",
            "LATENCY_BUCKETS_US", "OpWave", "Request", "SchedStats"]
+
+
+# --------------------------------------------------- deferred writes ------
+#
+# The routed writes return a deferred batch; the pump closes the loop with
+# the same hysteresis controller the request path uses: deferred keys are a
+# write-side admission queue.
+
+
+class ShardedFilterFills:
+    """``GenerationalFilter.fills()``-shaped duck over a sharded state:
+    (aggregate table fill, aggregate stash fill).  Takes a zero-arg getter,
+    because the pump replaces its state every write."""
+
+    def __init__(self, get_state: Callable):
+        self._get = get_state
+
+    def fills(self) -> tuple[float, float]:
+        state = self._get()
+        fill = float((state.tables != 0).float().mean())
+        stash_fill = (float((state.stashes[:, 0, :] != 0).float().mean())
+                      if state.stashes is not None else 0.0)
+        return fill, stash_fill
+
+
+@dataclasses.dataclass
+class PumpStats:
+    submitted: int = 0      # lanes offered via submit()
+    inserted: int = 0       # lanes resident after their (re)attempt
+    deferred: int = 0       # lane-deferrals observed (a lane can repeat)
+    resubmitted: int = 0    # lanes re-offered by pump()
+    held_ticks: int = 0     # pump ticks the hysteresis gate held the queue
+    failed: int = 0         # genuine insert failures (chain + stash full)
+
+
+class DeferredWritePump:
+    """Hysteresis-controlled resubmission of routed-write deferred batches.
+
+    Wraps ``distributed_insert`` on a (mesh, axis, sharded state):
+    ``submit`` runs the routed insert and parks the deferred lanes on the
+    host; ``pump`` re-offers them only while the admission controller
+    allows (trip at its high water, resume at its low water).  Parked
+    batches are padded to the shard count with ``valid=False`` lanes, so a
+    resubmission never inserts a sentinel key.  Keys are numpy uint32
+    halves on the host; the writes run on the mesh's device.
+    """
+
+    def __init__(self, mesh, axis: str, state, *, fp_bits: int,
+                 admission=None, capacity_factor: float = 2.0,
+                 backend: str = "auto", donate: bool = True, metrics=None,
+                 tracer=None, route: str = "key"):
+        from repro_torch.core.distributed import distributed_insert
+        from repro_torch.streaming.admission import AdmissionController
+        self.mesh, self.axis = mesh, axis
+        self.state = state
+        self.fp_bits = fp_bits
+        self.capacity_factor = capacity_factor
+        self.backend = backend
+        self.donate = donate
+        self.metrics = metrics
+        self.tracer = tracer
+        self.route = route
+        self._insert = distributed_insert
+        self.admission = admission or AdmissionController(
+            filt=ShardedFilterFills(lambda: self.state), metrics=metrics)
+        self.n_shards = mesh.shape[axis]
+        self._pend_hi = np.empty((0,), np.uint32)
+        self._pend_lo = np.empty((0,), np.uint32)
+        self.stats = PumpStats()
+        self.held = False
+
+    @property
+    def pending(self) -> int:
+        return int(self._pend_hi.size)
+
+    def _span(self, name: str, **args):
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, **args)
+
+    # ------------------------------------------ elastic cutover hooks --
+
+    def hold(self):
+        """Park ALL traffic (fresh submits included) until ``release``."""
+        self.held = True
+
+    def release(self):
+        self.held = False
+
+    def retarget(self, mesh, axis: str, state):
+        """Point the pump at a new (mesh, axis, state): the cutover step.
+        The parked backlog survives and drains through the new mesh."""
+        self.mesh, self.axis = mesh, axis
+        self.state = state
+        self.n_shards = mesh.shape[axis]
+
+    def _attempt(self, hi: np.ndarray, lo: np.ndarray):
+        """One routed insert over a host batch, padded to the shard count."""
+        pad = (-hi.size) % self.n_shards
+        valid = np.ones(hi.size + pad, bool)
+        if pad:
+            hi = np.concatenate([hi, np.zeros(pad, np.uint32)])
+            lo = np.concatenate([lo, np.zeros(pad, np.uint32)])
+            valid[-pad:] = False
+        dev = self.mesh.device
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        self.state, ok, deferred, ov = self._insert(
+            self.mesh, self.axis, self.state, put(hi.view(np.int32)),
+            put(lo.view(np.int32)), fp_bits=self.fp_bits,
+            capacity_factor=self.capacity_factor, backend=self.backend,
+            donate=self.donate, valid=put(valid), route=self.route)
+        ok, deferred = ok.cpu().numpy(), deferred.cpu().numpy()
+        self._pend_hi = np.concatenate([self._pend_hi, hi[deferred]])
+        self._pend_lo = np.concatenate([self._pend_lo, lo[deferred]])
+        self.stats.inserted += int(ok.sum())
+        self.stats.deferred += int(deferred.sum())
+        self.stats.failed += int((valid & ~ok & ~deferred).sum())
+        if self.metrics is not None:
+            m = self.metrics
+            m.counter("routing_inserted_lanes").inc(int(ok.sum()))
+            m.counter("routing_deferred_lanes").inc(int(deferred.sum()))
+            m.counter("routing_overflow_lanes").inc(int(ov.sum()))
+        return ok, deferred
+
+    def submit(self, hi, lo):
+        """Routed insert of a fresh batch -> (ok[N], deferred[N]).
+
+        Deferred lanes park for ``pump``.  While ``held`` the batch parks
+        whole (nothing inserted, everything deferred).
+        """
+        hi = np.asarray(hi, np.uint32)
+        lo = np.asarray(lo, np.uint32)
+        self.stats.submitted += int(hi.size)
+        if self.held:
+            self._pend_hi = np.concatenate([self._pend_hi, hi])
+            self._pend_lo = np.concatenate([self._pend_lo, lo])
+            self.stats.deferred += int(hi.size)
+            return (np.zeros(hi.size, bool), np.ones(hi.size, bool))
+        return self._attempt(hi, lo)
+
+    def pump(self) -> int:
+        """One resubmission tick -> lanes re-attempted (0 while held or
+        while the gate, read with the side-effect-free ``peek``, is shut:
+        ``held_ticks``)."""
+        if not self.pending:
+            return 0
+        if self.held or not self.admission.peek():
+            self.stats.held_ticks += 1
+            if self.metrics is not None:
+                self.metrics.counter("pump_held_ticks").inc()
+            return 0
+        hi, lo = self._pend_hi, self._pend_lo
+        self._pend_hi = np.empty((0,), np.uint32)
+        self._pend_lo = np.empty((0,), np.uint32)
+        self.stats.resubmitted += int(hi.size)
+        if self.metrics is not None:
+            self.metrics.counter("pump_resubmitted_lanes").inc(int(hi.size))
+        with self._span("pump_resubmit", lanes=int(hi.size)):
+            self._attempt(hi, lo)
+        return int(hi.size)
+
+    def run_until_drained(self, *, max_ticks: int = 100,
+                          on_held=None) -> PumpStats:
+        """Pump until nothing is parked (or ``max_ticks``).  ``on_held`` is
+        called on each held tick while the gate is tripped (where a control
+        plane relieves congestion); without one the loop stops when a tick
+        makes no progress."""
+        for _ in range(max_ticks):
+            if not self.pending:
+                break
+            if self.pump() == 0 and on_held is None:
+                break
+            if on_held is not None and self.admission.tripped:
+                on_held(self)
+        return self.stats

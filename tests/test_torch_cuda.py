@@ -33,13 +33,16 @@ from repro_torch.kernels.probe import (probe, probe_adaptive,
                                        probe_adaptive_tm, probe_multi,
                                        probe_multi_plain, probe_plain,
                                        probe_tm)
+from repro_torch.kernels.scan import scan_delete, scan_insert
 from repro_torch.kernels.staging_cases import (FINGERPRINT_CASES,
                                                PROBE_ADAPTIVE_CASES,
                                                PROBE_CASES,
                                                PROBE_MULTI_CASES,
+                                               SCAN_CASES,
                                                probe_adaptive_inputs,
                                                probe_inputs,
-                                               probe_multi_inputs)
+                                               probe_multi_inputs,
+                                               scan_inputs)
 from repro_torch.kernels.stash import make_stash
 from repro_torch.kernels.telemetry import (KICK_BINS, insert_plane,
                                            probe_depth_counts)
@@ -749,3 +752,110 @@ def test_slo_scenario_on_card_matches_cpu(dev, name):
                                getattr(ph.target.state, plane))
     assert torch.equal(ch.target.stash.cpu(), ph.target.stash)
     assert int(ch.target.state.count) == int(ph.target.state.count)
+
+
+# ------------------------------------- scan backend and the sharded filter --
+
+
+@pytest.mark.parametrize("label", list(SCAN_CASES))
+def test_scan_kernels_match_plain(dev, label):
+    """scan_insert / scan_delete against their plain versions, bit for bit
+    (tables, stashes, ok): chains that fail and roll back at load 0.97,
+    spills into a stash that fills, a stack of shards in one launch."""
+    tables, stashes, a, b, valid, kw = scan_inputs(label)
+    mode = kw.pop("mode")
+    outs = []
+    for device in (dev, "cpu"):
+        tt = t32(tables).to(device)
+        st = None if stashes is None else t32(stashes).to(device)
+        args = (t32(a).to(device), t32(b).to(device))
+        v = torch.from_numpy(valid).to(device)
+        cuda.reset_counts()
+        if mode == "delete":
+            ok = scan_delete(tt, *args, fp_bits=kw["fp_bits"],
+                             n_buckets=kw["n_buckets"], valid=v)
+        else:
+            ok = scan_insert(tt, *args, mode=mode, valid=v, stashes=st, **kw)
+        name = "scan_delete" if mode == "delete" else "scan_insert"
+        if device == dev:
+            assert cuda.LAUNCHES[name] == 1 and not cuda.PLAIN_CALLS
+        outs.append((tt.cpu(), None if st is None else st.cpu(), ok.cpu()))
+    (tk, sk, okk), (tp, sp, okp) = outs
+    assert torch.equal(tk, tp) and torch.equal(okk, okp)
+    assert sk is None or torch.equal(sk, sp)
+
+
+def _scan_backend_stream(device):
+    fops = FilterOps(backend="torch", max_disp=64)
+    rng = np.random.RandomState(5)
+    state = make_state(1 << 10, 4, buffer_buckets=1 << 11, device=device)
+    stash = make_stash(32, device=device)
+    keys = random_keys(rng, 4300)
+    out = []
+    for part in np.array_split(keys, 3):
+        hi, lo = (t32(x).to(device) for x in split(part))
+        state, stash, ok = fops.insert_spill(state, stash, hi, lo)
+        out.append(ok.cpu())
+    hi, lo = (t32(x).to(device) for x in split(keys))
+    out.append(fops.lookup_with_stash(state, stash, hi, lo).cpu())
+    state, dok = fops.delete(state, hi[:2000], lo[:2000])
+    out += [dok.cpu(), state.table.cpu(), stash.cpu(), state.count.cpu()]
+    return out
+
+
+def test_scan_backend_on_card_matches_cpu(dev):
+    """FilterOps(backend="torch") on the card: its kernels launch (the scan
+    walks, and ``probe`` for its lookups), and the stream (inserts with
+    spills past load 0.95, lookups, deletes) equals the CPU's bit for
+    bit."""
+    cuda.reset_counts()
+    card = _scan_backend_stream(dev)
+    assert cuda.LAUNCHES["scan_insert"] > 0 and cuda.LAUNCHES["probe"] > 0
+    assert cuda.LAUNCHES["scan_delete"] > 0 and not cuda.PLAIN_CALLS
+    for a, b in zip(card, _scan_backend_stream("cpu")):
+        assert torch.equal(a, b)
+
+
+def _sharded_stream(device, backend):
+    from repro_torch.core import distributed as dist
+    from repro_torch.distributed.elastic import (filter_mesh, merge_state,
+                                                 split_state)
+    rng = np.random.RandomState(9)
+    out = []
+    for route in ("key", "pair"):
+        mesh = filter_mesh(2, device=device)
+        state = dist.make_sharded_state(2, 512, 4, stash_slots=16,
+                                        device=device)
+        keys = random_keys(rng, 3600)
+        hi, lo = (t32(x).to(device) for x in split(keys))
+        state, ok, dfr, ov = dist.distributed_insert(
+            mesh, "data", state, hi, lo, fp_bits=16, backend=backend,
+            route=route, capacity_factor=1.0, max_disp=16)
+        hit, lov = dist.distributed_lookup(mesh, "data", state, hi, lo,
+                                           fp_bits=16, backend=backend,
+                                           route=route)
+        out += [ok, dfr, ov, hit, lov]
+        if route == "pair":
+            m4 = filter_mesh(4, device=device)
+            state, rep = split_state(m4, "data", state)
+            out += [state.tables, state.stashes,
+                    torch.tensor([rep.keys_moved, rep.rounds, rep.failed])]
+            state, rep = merge_state(m4, "data", state, cap=300)
+            out += [torch.tensor([rep.keys_moved, rep.rounds, rep.failed])]
+        state, dok, ddf, dov = dist.distributed_delete(
+            mesh, "data", state, hi[:1800], lo[:1800], fp_bits=16,
+            backend=backend, route=route)
+        out += [state.tables, state.stashes, dok, ddf, dov]
+    return [x.cpu() for x in out]
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_sharded_stream_on_card_matches_cpu(dev, backend):
+    """Routed inserts, lookups and deletes over two shards (both routes, a
+    capacity that defers), a split to four and a merge back: card and CPU
+    equal bit for bit, through the kernels on the card."""
+    cuda.reset_counts()
+    card = _sharded_stream(dev, backend)
+    assert cuda.LAUNCHES["scan_insert"] > 0 and not cuda.PLAIN_CALLS
+    for a, b in zip(card, _sharded_stream("cpu", backend)):
+        assert torch.equal(a, b)

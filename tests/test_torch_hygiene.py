@@ -15,7 +15,9 @@ from repro_torch.adaptive import (AdaptiveConfig, AdaptiveFilter,
                                   AdaptiveMembership, make_adaptive_state)
 from repro_torch.convert import (adaptive_state_from_numpy,
                                  generational_from_numpy, ocf_from_numpy,
-                                 state_from_numpy)
+                                 sharded_state_from_numpy, state_from_numpy)
+from repro_torch.core.distributed import make_sharded_state
+from repro_torch.distributed.elastic import filter_mesh
 from repro_torch.core.filter import make_state
 from repro_torch.core.filter_ops import FilterOps
 from repro_torch.core.ocf import OCF, OcfConfig
@@ -26,6 +28,7 @@ from repro_torch.kernels.flash_attention import _flash_cuda
 from repro_torch.kernels.fingerprint import _family_cuda
 from repro_torch.kernels.insert import _insert_adaptive_cuda
 from repro_torch.kernels.probe import _probe_adaptive_cuda, _probe_multi_cuda
+from repro_torch.kernels.scan import _scan_delete_cuda, _scan_insert_cuda
 from repro_torch.kernels.stash import make_stash
 from repro_torch.launch.serve import serve
 from repro_torch.models import Transformer
@@ -52,7 +55,10 @@ def test_no_jax_or_reference_imports_in_source():
                 "models/transformer.py", "models/attention.py",
                 "models/layers.py", "models/config.py",
                 "kernels/flash_attention.py", "kernels/ref.py",
-                "configs/registry.py", "launch/serve.py"):
+                "configs/registry.py", "launch/serve.py",
+                "kernels/scan.py", "core/distributed.py",
+                "distributed/elastic.py", "distributed/fault.py",
+                "distributed/sharding.py", "checkpoint/ckpt.py"):
         assert sub in files, sub
     bad = []
     for path in _port_files():
@@ -82,7 +88,9 @@ def test_importing_every_module_loads_no_jax():
         "for m in ('streaming.generations', 'streaming.stash', 'obs.trace',"
         " 'obs.registry', 'obs.recovery', 'serving.kvcache',"
         " 'serving.engine', 'models.transformer', 'kernels.flash_attention',"
-        " 'configs.gemma3_1b', 'launch.serve'):\n"
+        " 'configs.gemma3_1b', 'launch.serve', 'kernels.scan',"
+        " 'core.distributed', 'distributed.elastic', 'distributed.fault',"
+        " 'distributed.sharding', 'checkpoint.ckpt'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
@@ -123,7 +131,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  lambda: make_sharded_stashes(2, 8),
                  lambda: Transformer(get_smoke_config("gemma3-1b")),
                  lambda: serve("gemma3-1b", requests=1, prefix_len=16,
-                               gen=2)):
+                               gen=2),
+                 lambda: filter_mesh(2),
+                 lambda: make_sharded_state(2, 64),
+                 lambda: sharded_state_from_numpy(table[None], None, 1024)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asking for the CPU is what makes it run there
@@ -134,13 +145,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                               now=0.0)
     assert ring.insert(np.arange(100, dtype=np.uint64), now=0.0).all()
     assert ring.lookup(np.arange(100, dtype=np.uint64), now=0.0).all()
+    mesh = filter_mesh(2, device="cpu")
+    assert mesh.device.type == "cpu" and mesh.shape == {"data": 2}
+    assert make_sharded_state(2, 64, device="cpu").tables.device.type == \
+        "cpu"
 
 
 def test_backends():
     assert FilterOps().backend == "auto"
     assert FilterOps(backend="cuda").evict_rounds == 32
-    with pytest.raises(NotImplementedError):
-        FilterOps(backend="torch")
+    scan = FilterOps(backend="torch")     # the scan backend, ported
+    assert scan.scan and scan.max_disp == 500
+    assert not FilterOps(backend="cuda").scan
     with pytest.raises(ValueError):
         FilterOps(backend="pallas")
 
@@ -181,6 +197,12 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
                                           keys, valid, block=128, **kw),
             lambda: _probe_multi_cuda(table[None], keys, keys,
                                       stashes=None, **kw),
+            lambda: _scan_insert_cuda(table[None], keys[None], keys[None],
+                                      valid[None], n_buckets=16, mode="key",
+                                      fp_bits=16, max_disp=8, stashes=None),
+            lambda: _scan_delete_cuda(table[None], keys[None], keys[None],
+                                      valid[None], n_buckets=16,
+                                      fp_bits=16),
             lambda: _flash_cuda(torch.zeros((1, 4, 64, 16)),
                                 torch.zeros((1, 1, 64, 16)),
                                 torch.zeros((1, 1, 64, 16)), causal=True,
@@ -192,7 +214,7 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
 
 def test_build_names_a_library_per_source():
     names = {cuda._lib_path(k).name for k in cuda.KERNELS}
-    assert len(names) == 10
+    assert len(names) == 11
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert cuda.BUILD_DIR == ROOT / "build"
     for src, _fn, _args in cuda.KERNELS.values():

@@ -255,3 +255,94 @@ def report_fields(report):
             "kinds": sorted(report.per_kind),
             "samples": [(s.kind, s.ops, s.burst, s.deferred)
                         for s in report.recorder.samples]}
+
+
+# ------------------------------------------- reference runs on a mesh ---
+
+_ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
+_PREAMBLE = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
+import numpy as np
+IN = dict(np.load({inp!r}))
+OUT = {{}}
+"""
+
+
+def reference_run(script: str, *, devices: int, inputs=None,
+                  timeout: int = 300) -> dict:
+    """Run ``script`` against the reference in a subprocess whose JAX sees
+    ``devices`` CPU devices (meshes from ``filter_mesh(n)``) -> ``OUT``.
+
+    The script reads numpy ``inputs`` as ``IN`` and fills the dict ``OUT``
+    with numpy arrays and numbers, which come back through an ``.npz``.
+    """
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    import textwrap
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, out = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
+        np.savez(inp, **(inputs or {}))
+        code = (_PREAMBLE.format(n=devices, inp=inp)
+                + textwrap.dedent(script)
+                + f"\nnp.savez({out!r}, **OUT)\n")
+        env = {"PYTHONPATH": str(_ROOT / "src"), "JAX_PLATFORMS": "cpu",
+               "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+               "HOME": os.environ.get("HOME", tmp)}
+        res = subprocess.run([sys.executable, "-c", code], cwd=str(_ROOT),
+                             env=env, capture_output=True, text=True,
+                             timeout=timeout)
+        assert res.returncode == 0, res.stderr[-4000:]
+        with np.load(out) as f:
+            return {k: f[k] for k in f.files}
+
+
+# Reference-side helpers for ``reference_run`` scripts: ``lookup`` is the
+# reference's ``distributed_lookup`` under one jit per setting (the bare
+# call re-traces its shard_map on every call, ~10 s each on the CPU), and
+# it replaces the module attribute, which ``degraded_lookup`` imports at
+# call time; ``put`` stores a sharded state and arrays under a tag.
+REF_JIT_LOOKUP = """
+import jax
+import jax.numpy as jnp
+from repro.core import distributed as _dist
+
+_orig_lookup = _dist.distributed_lookup
+_LOOKUPS = {}
+
+
+def lookup(mesh, state, hi, lo, *, fp_bits, backend="auto", route="key",
+           capacity_factor=2.0, axis="data"):
+    key = (mesh, axis, state.n_buckets, state.stashes is None, fp_bits,
+           backend, route, capacity_factor)
+    fn = _LOOKUPS.get(key)
+    if fn is None:
+        nb = state.n_buckets
+
+        def run(tables, stashes, hi, lo):
+            st = _dist.ShardedFilterState(tables, stashes, nb)
+            return _orig_lookup(mesh, axis, st, hi, lo, fp_bits=fp_bits,
+                                backend=backend, route=route,
+                                capacity_factor=capacity_factor)
+        fn = _LOOKUPS[key] = jax.jit(run)
+    return fn(state.tables, state.stashes, jnp.asarray(hi), jnp.asarray(lo))
+
+
+def _jit_lookup(mesh, axis, state, hi, lo, *, fp_bits, capacity_factor=2.0,
+                backend="auto", route="key"):
+    return lookup(mesh, state, hi, lo, fp_bits=fp_bits, backend=backend,
+                  route=route, capacity_factor=capacity_factor, axis=axis)
+
+
+_dist.distributed_lookup = _jit_lookup
+
+
+def put(tag, state, **arrays):
+    OUT[tag + "/tables"] = np.asarray(state.tables)
+    if state.stashes is not None:
+        OUT[tag + "/stashes"] = np.asarray(state.stashes)
+    for k, v in arrays.items():
+        OUT[f"{tag}/{k}"] = np.asarray(v)
+"""
