@@ -41,7 +41,9 @@ Phases, each timed, each fatal on failure:
      ``scan_insert`` and ``scan_delete`` on SCAN_CASES (key mode on a
      2^12-bucket table driven to load 0.97 by 2^14 keys, pair mode into a
      16-slot stash that fills, 2^14 deletes with duplicates, a stack of
-     shards in one launch);
+     shards in one launch, crowded rows, self-pairs, deletes of one
+     fingerprint across one bucket pair), each insert case at windows of
+     1, 32 and ``MAX_WINDOW`` lanes with its schedule's shares;
   3. run seeded streams through the card and the CPU and require
      identical state and answers after every operation: ~100k-key EOF
      streams through ``OCF`` (with and without a stash), two
@@ -136,9 +138,11 @@ Phases, each timed, each fatal on failure:
      a stash, with the arm's stash, with its every slot live; each held
      first, then timed warm (the profiler) and with L2 flushed (CUDA
      events), beside its bound, x bound and x the launch floor; and the
-     scan kernels at their phase-5f launches (the merge's receive walk, the
-     scan backend's largest delete), held against their plain versions bit
-     for bit, then timed, with the time per walked lane.
+     scan kernels at their phase-5f launches (the merge's and the split's
+     receive walks, the scan backend's largest insert residue and largest
+     delete), held against their plain versions bit for bit, then timed,
+     with the time per walked lane, the insert's schedule shares and the
+     delete's conflict groups and grouping time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -224,9 +228,9 @@ KERNEL_ROWS = {
     # pallas_call): core/filter.py::_insert_one (bulk_insert, :146;
     # distributed/elastic.py::insert_pairs, :125) and bulk_delete's body.
     "scan_insert": ("src/repro_torch/csrc/scan.cu",
-                    "src/repro/core/filter.py:77", "dependent_chain"),
+                    "src/repro/core/filter.py:77", "serial_cta_loop"),
     "scan_delete": ("src/repro_torch/csrc/scan.cu",
-                    "src/repro/core/filter.py:240", "dependent_chain"),
+                    "src/repro/core/filter.py:240", "random_sector_fetches"),
 }
 STATIC_KERNELS = ("fingerprint_hash", "probe", "insert_bulk", "delete_bulk")
 ADAPTIVE_KERNELS = ("fingerprint_hash_family", "probe_adaptive",
@@ -3913,15 +3917,29 @@ SHARDED_BATCH = 1 << 20               # a routed lookup or delete call
 SCAN_KERNELS = ("scan_insert", "scan_delete")
 
 
+SCAN_WINDOWS = (1, 32)         # beside scan.MAX_WINDOW
+
+
+def scan_shares(stats, lanes: int) -> str:
+    """The insert kernel's schedule counts as shares of its walked lanes."""
+    from repro_torch.kernels.scan import SCHEDULE_FIELDS
+    return ", ".join(f"{k} {int(v) / max(lanes, 1):.4f}"
+                     for k, v in zip(SCHEDULE_FIELDS, stats.tolist()))
+
+
 def scan_vs_plain() -> dict:
     """Phase 2: ``scan_insert`` and ``scan_delete`` against their plain
     versions on the card, bit for bit, on SCAN_CASES (key mode on a
     2^12-bucket table driven to load 0.97 by 2^14 keys, pair mode into a
     16-slot stash that fills, deletes of 2^14 keys with duplicates, a stack
-    of shards in one launch) -> max abs error by kernel."""
+    of shards in one launch, crowded rows, windows whose chains cross their
+    edges, spills inside a window, self-pairs, deletes of one fingerprint
+    across one bucket pair), each insert case at windows of 1, 32 and
+    ``MAX_WINDOW`` lanes -> max abs error by kernel."""
     import torch
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.scan import (scan_delete, scan_delete_plain,
+    from repro_torch.kernels.scan import (MAX_WINDOW, delete_groups,
+                                          scan_delete, scan_delete_plain,
                                           scan_insert, scan_insert_plain)
     from repro_torch.kernels.staging_cases import SCAN_CASES, scan_inputs
 
@@ -3935,37 +3953,47 @@ def scan_vs_plain() -> dict:
         mode = kw.pop("mode")
         name = "scan_delete" if mode == "delete" else "scan_insert"
         va = torch.from_numpy(valid).cuda()
-        outs = []
-        for run in ("kernel", "plain"):
+        tt, st = dev(tables), dev(stashes)
+        if mode == "delete":
+            args = dict(n_buckets=kw["n_buckets"], fp_bits=kw["fp_bits"])
+            want = [tt, scan_delete_plain(tt, dev(a), dev(b), va, **args)]
+            keys = delete_groups(dev(a), dev(b), va, **args)[4]
+            runs = {f"{int((keys[1:] != keys[:-1]).sum()) + 1} conflict "
+                    f"groups": lambda tt, st: scan_delete(
+                        tt, dev(a), dev(b), valid=va, **args)}
+        else:
+            args = dict(n_buckets=kw["n_buckets"], mode=mode,
+                        fp_bits=kw["fp_bits"], max_disp=kw["max_disp"])
+            want = [x for x in (tt, st, scan_insert_plain(
+                tt, dev(a), dev(b), va, stashes=st, **args)) if x is not None]
+            stats = torch.zeros(4, dtype=torch.int64, device="cuda")
+
+            def run(tt, st, w):
+                stats.zero_()
+                return scan_insert(tt, dev(a), dev(b), valid=va, stashes=st,
+                                   window=w, stats=stats, **args)
+            runs = {f"window {w}": (lambda tt, st, w=w: run(tt, st, w))
+                    for w in (*SCAN_WINDOWS, MAX_WINDOW)}
+        for how, fn in runs.items():
             tt, st = dev(tables), dev(stashes)
             cuda.reset_counts()
-            if mode == "delete":
-                args = dict(n_buckets=kw["n_buckets"], fp_bits=kw["fp_bits"])
-                ok = (scan_delete(tt, dev(a), dev(b), valid=va, **args)
-                      if run == "kernel" else
-                      scan_delete_plain(tt, dev(a), dev(b), va, **args))
-            else:
-                args = dict(n_buckets=kw["n_buckets"], mode=mode,
-                            fp_bits=kw["fp_bits"], max_disp=kw["max_disp"])
-                ok = (scan_insert(tt, dev(a), dev(b), valid=va, stashes=st,
-                                  **args)
-                      if run == "kernel" else
-                      scan_insert_plain(tt, dev(a), dev(b), va, stashes=st,
-                                        **args))
-            if run == "kernel":
-                check(cuda.LAUNCHES[name] == 1 and not cuda.PLAIN_CALLS,
-                      f"{name} case {label}: not one launch of the kernel")
-            outs.append([x for x in (tt, st, ok) if x is not None])
-        pairs = list(zip(*outs))
-        for x, y in pairs:
-            check(torch.equal(x, y), f"{name} case {label}: the kernel "
-                                     f"differs from its plain version")
-        fails = int((va & ~outs[0][-1]).sum())
-        spilled = ("" if stashes is None else
-                   f", stash {int((outs[0][1][:, 0] != 0).sum())} of "
-                   f"{stashes.shape[0] * stashes.shape[2]} slots live")
-        print(f"   {name} case {label}: {int(va.sum())} lanes, {fails} "
-              f"failed{spilled}, kernel == plain bit for bit", flush=True)
+            ok = fn(tt, st)
+            check(cuda.LAUNCHES[name] == 1 and not cuda.PLAIN_CALLS,
+                  f"{name} case {label}: not one launch of the kernel")
+            got = [x for x in (tt, st, ok) if x is not None]
+            for x, y in zip(got, want):
+                check(torch.equal(x, y), f"{name} case {label} ({how}): the "
+                                         f"kernel differs from its plain "
+                                         f"version")
+            fails = int((va & ~ok).sum())
+            spilled = ("" if stashes is None else
+                       f", stash {int((st[:, 0] != 0).sum())} of "
+                       f"{stashes.shape[0] * stashes.shape[2]} slots live")
+            shares = ("" if mode == "delete" else
+                      f"; {scan_shares(stats, int(va.sum()))}")
+            print(f"   {name} case {label} ({how}): {int(va.sum())} lanes, "
+                  f"{fails} failed{spilled}, kernel == plain bit for "
+                  f"bit{shares}", flush=True)
         err[name] = 0
     return err
 
@@ -4201,7 +4229,9 @@ def sharded_node_path(card: str) -> dict:
     check(not ok.any() and bool(dfr.all())
           and pump.pending == SHARDED_CONCURRENT,
           "the held pump did not park the concurrent stream")
-    rep = timed("split 2 -> 4 (ElasticController)", lambda: ctrl.split(m4))
+    with _Capture(elastic, "scan_insert") as scap:
+        rep = timed("split 2 -> 4 (ElasticController)",
+                    lambda: ctrl.split(m4))
     print(f"   split: {rep}; backlog after {pump.pending}, {pump.stats}",
           flush=True)
     st4 = pump.state
@@ -4340,7 +4370,8 @@ def sharded_node_path(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": dict(counts), "plain": plain, "times": times,
-            "migration": migration, "merge_input": cap.best,
+            "migration": migration, "split_input": scap.best,
+            "merge_input": cap.best,
             "insert_input": icap.best, "delete_input": dcap.best}
 
 
@@ -4372,22 +4403,30 @@ def scan_work(tables, after, a, b, valid, *, mode, n_buckets, stashes=None):
 def scan_kernel_times(captured: dict) -> dict:
     """Phase 6 rows of the scan kernels at their path's launches: the
     merge's receive walk (``scan_insert``, pair mode, every receiving shard
-    in one launch), the scan backend's largest insert residue (``scan_insert``
-    key mode, one 2^20-bucket shard; its figures go in the row's ``key_*``
-    fields) and its largest delete launch (``scan_delete``): each held
-    against its plain version bit for bit, then timed (device ms by the
-    profiler, the wrapper by CUDA events; the plain version once, by the
-    host clock, so long is its walk)."""
+    in one launch), the split's receive walk (the same, 4 shards; its
+    figures go in the row's ``split_*`` fields), the scan backend's largest
+    insert residue (``scan_insert`` key mode, one 2^20-bucket shard;
+    ``key_*`` fields) and its largest delete launch (``scan_delete``): each
+    held against its plain version bit for bit, then timed (device ms by
+    the profiler, the wrapper by CUDA events; the plain version once, by
+    the host clock, so long is its walk).  Each insert launch also reports
+    its schedule (shares of lanes taken direct, taken as chain records,
+    walked because dirty, walked as chains); the delete its conflict groups
+    and the grouping's ms (``delete_groups``, CUDA events) apart from the
+    walk's."""
     import torch
-    from repro_torch.kernels.scan import (scan_delete, scan_delete_plain,
-                                          scan_insert, scan_insert_plain)
+    from repro_torch.kernels.scan import (delete_groups, scan_delete,
+                                          scan_delete_plain, scan_insert,
+                                          scan_insert_plain)
     out = {}
     for label, key, kern_fn, plain_fn in (
             ("scan_insert", "merge_input", scan_insert, scan_insert_plain),
+            ("scan_insert_split", "split_input", scan_insert,
+             scan_insert_plain),
             ("scan_insert_key", "insert_input", scan_insert,
              scan_insert_plain),
             ("scan_delete", "delete_input", scan_delete, scan_delete_plain)):
-        name = label.removesuffix("_key")
+        name = label.removesuffix("_key").removesuffix("_split")
         tables0, a, b, kw = captured[key]
         tables = tables0.clone()
         stashes0 = kw.get("stashes")
@@ -4406,14 +4445,17 @@ def scan_kernel_times(captured: dict) -> dict:
                 if k in ("n_buckets", "fp_bits", "max_disp", "mode")}
         if name == "scan_insert":
             args.setdefault("fp_bits", None)
+        stats = torch.zeros(4, dtype=torch.int64, device=tables.device)
 
         def setup():
             tables.copy_(tables0)
             if stashes is not None:
                 stashes.copy_(stashes0)
+            stats.zero_()
 
         def kern():
-            ok = kern_fn(tables, a, b, valid=valid, stashes=stashes, **args) \
+            ok = kern_fn(tables, a, b, valid=valid, stashes=stashes,
+                         stats=stats, **args) \
                 if name == "scan_insert" else \
                 kern_fn(tables, a, b, valid=valid, **args)
             return [tables, *([] if stashes is None else [stashes]), ok]
@@ -4441,24 +4483,45 @@ def scan_kernel_times(captured: dict) -> dict:
                                 mode=mode, n_buckets=args["n_buckets"],
                                 stashes=s3)
         bound_ms, bound_by = least_ms(nbytes, ops)
+        schedule = ""
+        if name == "scan_insert":
+            schedule = f"; schedule {scan_shares(stats, walked)}"
+            shares = stats.tolist()
         d = kernel_device_ms(kern, 2, setup, name + "_kernel")
         check(d is not None, f"{name}: no device time in the trace")
         w = time_ms(kern, 2, setup)
-        out[label] = {"ms": d, "wrapper_ms": w, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "bytes": nbytes, "ops": ops, "lanes": walked,
-                      "us_per_lane": d * 1e3 / max(walked, 1),
-                      "shards": t3.shape[0]}
+        row = {"ms": d, "wrapper_ms": w, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "ops": ops, "lanes": walked,
+               "us_per_lane": d * 1e3 / max(walked, 1),
+               "shards": t3.shape[0]}
+        if name == "scan_insert":
+            row["schedule"] = dict(zip(("direct", "chain", "dirty",
+                                        "walked"), shares))
+        else:
+            groups = delete_groups(a3, b3, v3, n_buckets=args["n_buckets"],
+                                   fp_bits=args["fp_bits"])[4]
+            row["groups"] = int((groups[1:] != groups[:-1]).sum()) + 1
+            row["group_ms"] = time_ms(lambda: delete_groups(
+                a3, b3, v3, n_buckets=args["n_buckets"],
+                fp_bits=args["fp_bits"]), 3)
+            schedule = (f"; {row['groups']} conflict groups, grouping "
+                        f"{row['group_ms']!r} ms (CUDA events)")
+        out[label] = row
         tag = f" ({mode} mode)" if name == "scan_insert" else ""
         print(f"   {label}{tag}: held at the path's launch "
               f"({t3.shape[0]} shards, {walked} walked lanes of "
               f"{a.numel()}), kernel {d!r} ms "
               f"(device), {d * 1e3 / max(walked, 1)!r} us a walked lane, "
               f"wrapper {w!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} "
-              f"ms ({bound_by}: {nbytes} B, {ops} ops)", flush=True)
-    key = out.pop("scan_insert_key")
-    out["scan_insert"].update({f"key_{k}": key[k] for k in (
-        "lanes", "ms", "us_per_lane", "plain_ms", "bound_ms")})
+              f"ms ({bound_by}: {nbytes} B, {ops} ops){schedule}",
+              flush=True)
+    for prefix, label in (("key", "scan_insert_key"),
+                          ("split", "scan_insert_split")):
+        row = out.pop(label)
+        out["scan_insert"].update({f"{prefix}_{k}": row[k] for k in (
+            "lanes", "ms", "us_per_lane", "plain_ms", "bound_ms",
+            "schedule")})
     return out
 
 
@@ -4650,9 +4713,15 @@ def main() -> int:
                      "library_ms": t.get("library_ms"),
                      **{k: t[k] for k in ("path_keys", "path_ms",
                                           "path_bound_ms", "lanes",
-                                          "us_per_lane", "key_lanes",
-                                          "key_ms", "key_us_per_lane",
-                                          "key_plain_ms", "key_bound_ms")
+                                          "us_per_lane", "schedule",
+                                          "key_lanes", "key_ms",
+                                          "key_us_per_lane", "key_plain_ms",
+                                          "key_bound_ms", "key_schedule",
+                                          "split_lanes", "split_ms",
+                                          "split_us_per_lane",
+                                          "split_plain_ms", "split_bound_ms",
+                                          "split_schedule", "groups",
+                                          "group_ms")
                         if k in t}})
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"slo": slo["rows"]}), flush=True)

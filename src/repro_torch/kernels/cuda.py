@@ -72,9 +72,10 @@ KERNELS = {
                      _I, _P]),
     "scan_insert": ("scan.cu", "ocf_scan_insert",
                     [_P, _I, _I, _U, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _P]),
+                     _I, _P, _P]),
     "scan_delete": ("scan.cu", "ocf_scan_delete",
-                    [_P, _I, _I, _U, _P, _P, _P, _P, _I, _I, _P]),
+                    [_P, _I, _I, _U, _P, _P, _P, _I, _P, _P, ctypes.c_longlong,
+                     _P, _I, _P]),
     "flash_attention": ("flash_attention.cu", "lm_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _F, _P, _P]),

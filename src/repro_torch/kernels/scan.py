@@ -31,10 +31,19 @@ rounds.
 Both take a stack of shards, ``tables`` int32[S, buffer, bucket_size]
 (a single [buffer, bucket_size] table is one shard), with lanes [S, L]
 and update the tables (and stashes) IN PLACE.  Shards are independent.
-The CUDA kernels (``csrc/scan.cu``) walk each shard's valid lanes with
-one thread of one CTA a shard, all shards in one launch; the wrappers
-compact the valid lanes first (order kept), so mostly-empty receive
-buffers cost nothing.  The plain versions walk the same lanes on the host.
+The wrappers compact the valid lanes first (order kept), so mostly-empty
+receive buffers cost nothing.  The CUDA kernels (``csrc/scan.cu``, whose
+header argues why each result is the sequential walk's): ``scan_insert``
+takes each shard's lanes in windows of ``window`` lanes, one CTA a shard,
+every shard in one launch; the CTA's threads read every lane's two rows
+(and walk short eviction chains) at once against the table the earlier
+windows left, then one warp commits the lanes in order, taking a lane's
+speculation where no row it read was written since and walking it from the
+live table otherwise.  ``scan_delete`` groups the lanes by their conflict
+key (shard, fingerprint, lower bucket of the pair; ``delete_groups``: a
+stable sort on the card) and walks the groups in parallel, each group's
+lanes in order.  The plain versions walk the same lanes on the host, one
+after another: they are the semantics.
 """
 from __future__ import annotations
 
@@ -48,7 +57,18 @@ from repro_torch.kernels import cuda
 # (500) and the elastic migration's ``insert_pairs`` (64).
 DEFAULT_MAX_DISP = 500
 MODES = ("key", "pair")
+# Lanes a window of the ``scan_insert`` kernel: the callers' default, and
+# the largest the kernel takes beside a 2^20-bucket dirty set in the
+# H100's 227 KB of shared memory.
+DEFAULT_WINDOW = 2048
+MAX_WINDOW = 4096
+# The insert kernel's schedule counts (``stats=``): lanes taken from their
+# direct speculation, taken as a speculated chain, walked because a row they
+# read was written earlier in the window, walked as chains.
+SCHEDULE_FIELDS = ("direct", "chain", "dirty", "walked")
 _M = hashing.MASK32
+# Mixes the shard into a delete's conflict key (odd, below 2^63).
+_SHARD_MIX = 0x2545F4914F6CDD1D
 
 
 # ------------------------------------------------------------ host walk ---
@@ -199,10 +219,9 @@ def _compact(valid: torch.Tensor, *lanes):
     """Valid lanes of every shard, in order -> (index [M, 2], offsets
     int64[S + 1], compacted lanes [M] each)."""
     idx = torch.nonzero(valid)
-    counts = torch.bincount(idx[:, 0], minlength=valid.shape[0])
     offsets = torch.zeros(valid.shape[0] + 1, dtype=torch.int64,
                           device=valid.device)
-    offsets[1:] = torch.cumsum(counts, 0)
+    offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)
     return idx, offsets, [x[idx[:, 0], idx[:, 1]].contiguous()
                           for x in lanes]
 
@@ -217,36 +236,64 @@ def _check(name, tables, a, b, valid, n_buckets, stashes=None):
                      None if stashes is None else stashes[0])
 
 
-def _launch(name, tables, a, b, valid, before: tuple, after: tuple):
-    """Compact the valid lanes and launch ``name`` over every shard, its C
-    arguments ``before`` the lanes and ``after`` the shard count -> ok
-    bool[S, L] (no launch when no lane is valid)."""
-    idx, offsets, (a_c, b_c) = _compact(valid, a, b)
-    ok = torch.zeros(valid.shape, dtype=torch.bool, device=tables.device)
-    if idx.shape[0] == 0:
-        return ok
-    ok_c = torch.zeros((idx.shape[0],), dtype=torch.bool,
-                       device=tables.device)
-    cuda.launch(name, tables.data_ptr(), tables.shape[1], tables.shape[2],
-                *before, a_c.data_ptr(), b_c.data_ptr(), offsets.data_ptr(),
-                ok_c.data_ptr(), tables.shape[0], *after)
+def _uncompact(valid, idx, ok_c):
+    """The compacted lanes' ok back in place -> ok bool[S, L]."""
+    ok = torch.zeros(valid.shape, dtype=torch.bool, device=valid.device)
     ok[idx[:, 0], idx[:, 1]] = ok_c
     return ok
 
 
 def _scan_insert_cuda(tables, a, b, valid, *, n_buckets, mode, fp_bits,
-                      max_disp, stashes):
+                      max_disp, stashes, window=DEFAULT_WINDOW, stats=None):
     _check("scan_insert", tables, a, b, valid, n_buckets, stashes)
-    slots = 0 if stashes is None else stashes.shape[2]
-    return _launch("scan_insert", tables, a, b, valid,
-                   (int(n_buckets), cuda.ptr(stashes), slots),
-                   (MODES.index(mode), int(fp_bits or 0), int(max_disp)))
+    if stats is not None:
+        cuda.check_cuda("scan_insert", tables=tables, stats=stats)
+        cuda.check_dtype("scan_insert", torch.int64, stats=stats)
+    idx, offsets, (a_c, b_c) = _compact(valid, a, b)
+    ok_c = torch.zeros((idx.shape[0],), dtype=torch.bool,
+                       device=tables.device)
+    if idx.shape[0]:
+        cuda.launch("scan_insert", tables.data_ptr(), tables.shape[1],
+                    tables.shape[2], int(n_buckets), cuda.ptr(stashes),
+                    0 if stashes is None else stashes.shape[2],
+                    a_c.data_ptr(), b_c.data_ptr(), offsets.data_ptr(),
+                    ok_c.data_ptr(), tables.shape[0], MODES.index(mode),
+                    int(fp_bits or 0), int(max_disp), int(window),
+                    cuda.ptr(stats))
+    return _uncompact(valid, idx, ok_c)
+
+
+def delete_groups(hi, lo, valid, *, n_buckets: int, fp_bits: int):
+    """The grouping of a ``scan_delete`` launch, on the lanes' device:
+    compact the valid lanes of [S, L] ``hi``, ``lo`` (order kept), key each
+    by its conflict key (shard, fingerprint, lower bucket of its pair; two
+    lanes with different keys touch different slots) and sort the keys
+    stably -> (index [M, 2], offsets int64[S + 1], hi [M], lo [M], sorted
+    keys int64[M], perm int64[M]: the compacted lane at each sorted
+    position).  Lanes of one key are adjacent and in lane order."""
+    idx, offsets, (hi_c, lo_c) = _compact(valid, hi, lo)
+    fp = hashing.fingerprint(hi_c, lo_c, fp_bits)
+    i1 = hashing.index_hash(hi_c, lo_c, n_buckets)
+    i2 = hashing.alt_index(i1, fp, n_buckets)
+    key = (fp << 31) | torch.minimum(i1, i2)
+    key ^= idx[:, 0] * _SHARD_MIX
+    keys, perm = torch.sort(key, stable=True)
+    return idx, offsets, hi_c, lo_c, keys, perm
 
 
 def _scan_delete_cuda(tables, hi, lo, valid, *, n_buckets, fp_bits):
     _check("scan_delete", tables, hi, lo, valid, n_buckets)
-    return _launch("scan_delete", tables, hi, lo, valid, (int(n_buckets),),
-                   (int(fp_bits),))
+    idx, offsets, hi_c, lo_c, keys, perm = delete_groups(
+        hi, lo, valid, n_buckets=n_buckets, fp_bits=fp_bits)
+    ok_c = torch.zeros((idx.shape[0],), dtype=torch.bool,
+                       device=tables.device)
+    if idx.shape[0]:
+        cuda.launch("scan_delete", tables.data_ptr(), tables.shape[1],
+                    tables.shape[2], int(n_buckets), hi_c.data_ptr(),
+                    lo_c.data_ptr(), offsets.data_ptr(), tables.shape[0],
+                    keys.data_ptr(), perm.data_ptr(), idx.shape[0],
+                    ok_c.data_ptr(), int(fp_bits))
+    return _uncompact(valid, idx, ok_c)
 
 
 def scan_insert(tables: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
@@ -254,7 +301,9 @@ def scan_insert(tables: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
                 fp_bits: int | None = None,
                 max_disp: int = DEFAULT_MAX_DISP,
                 valid: torch.Tensor | None = None,
-                stashes: torch.Tensor | None = None) -> torch.Tensor:
+                stashes: torch.Tensor | None = None,
+                window: int = DEFAULT_WINDOW,
+                stats: torch.Tensor | None = None) -> torch.Tensor:
     """Sequential insert walk over each shard's lanes, IN PLACE -> ok.
 
     ``tables``: int32[S, buffer, bucket_size] (or one [buffer,
@@ -262,9 +311,16 @@ def scan_insert(tables: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
     halves ``(hi, lo)`` in ``mode="key"`` (needs ``fp_bits``) or the
     migrated ``(bucket, fp)`` in ``mode="pair"``; ``valid``: bool, the
     lanes to walk; ``stashes``: optional int32[S, 2, slots] (or [2,
-    slots]) that exhausted chains spill to.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel.
+    slots]) that exhausted chains spill to.  ``window``: the kernel's lanes
+    a window, 1 to ``MAX_WINDOW`` (the result does not depend on it);
+    ``stats``: an optional int64[4] CUDA tensor the kernel adds its lanes'
+    schedule to (``SCHEDULE_FIELDS``; the plain version has no schedule and
+    leaves it alone).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel.
     """
+    if not 1 <= window <= MAX_WINDOW:
+        raise ValueError(f"scan_insert: window {window} is not in "
+                         f"[1, {MAX_WINDOW}]")
     if mode not in MODES:
         raise ValueError(f"unknown scan mode {mode!r} (expected {MODES})")
     if mode == "key" and fp_bits is None:
@@ -273,10 +329,13 @@ def scan_insert(tables: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
         valid = torch.ones(a.shape, dtype=torch.bool, device=a.device)
     tables3, a, b, valid, stashes = _shards(tables, a, b, valid, stashes)
     n_buckets = tables3.shape[1] if n_buckets is None else n_buckets
-    run = (scan_insert_plain if tables3.device.type == "cpu"
-           else _scan_insert_cuda)
-    ok = run(tables3, a, b, valid, n_buckets=n_buckets, mode=mode,
-             fp_bits=fp_bits, max_disp=max_disp, stashes=stashes)
+    args = dict(n_buckets=n_buckets, mode=mode, fp_bits=fp_bits,
+                max_disp=max_disp, stashes=stashes)
+    if tables3.device.type == "cpu":
+        ok = scan_insert_plain(tables3, a, b, valid, **args)
+    else:
+        ok = _scan_insert_cuda(tables3, a, b, valid, window=window,
+                               stats=stats, **args)
     return ok[0] if tables.dim() == 2 else ok
 
 

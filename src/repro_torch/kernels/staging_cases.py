@@ -18,7 +18,10 @@ padding lanes that hit and must not count), and ``FINGERPRINT_CASES`` for
 launches, and views that start inside their storage), and ``SCAN_CASES``
 for ``csrc/scan.cu`` (chains that fail and roll back at load 0.97, spills
 into a stash that fills, active counts below the buffer, bucket size 8, a
-stack of shards with mostly-invalid lanes, duplicate deletes).  The
+stack of shards with mostly-invalid lanes, duplicate deletes; and, for
+the kernels' window and conflict-group schedules, crowded rows, windows
+whose chains cross their edges, spills inside a window, self-pairs, and
+deletes of one fingerprint across one bucket pair).  The
 tests hold the kernels against their plain versions on these inputs, and so
 does ``chip_smoke.py`` on the card: one source, so that both see the same
 arrays for a label and seed.
@@ -487,7 +490,15 @@ def probe_inputs(label, seed=0):
 # ------------------------------------------------------------- scan walks --
 #
 # label -> (kind, shards, n_buckets, buffer, bucket_size, prefill load,
-#           lanes a shard, valid share, max_disp, stash slots, live stash)
+#           lanes a shard, valid share, max_disp, stash slots, live stash[,
+#           extras]); extras: ``fp_bits`` (16 by default), ``rows`` and
+# ``fps`` (pair lanes' home rows drawn from ``rows`` consecutive rows and
+# their fingerprints from ``fps`` values, so that their pairs crowd onto a
+# few dozen rows).  The later cases drive the kernels' schedules: windows
+# whose speculations are mostly dirty, chains that cross a window's edge,
+# spills inside a window, deletes of one fingerprint whose home bucket is
+# another lane's alternate, self-pairs (i1 == i2), absent keys, and rows
+# wider than the insert kernel's 15-slot masks.
 SCAN_CASES = {
     "key-load-0.97": ("key", 1, 1 << 12, 1 << 12, 4, 0.0, 1 << 14, 1.0,
                       500, 0, 0),
@@ -502,6 +513,19 @@ SCAN_CASES = {
                     0, 0, 0),
     "delete-shards": ("delete", 3, 1 << 10, 1 << 10, 4, 0.8, 4096, 0.3, 0,
                       0, 0),
+    "pair-crowded": ("pair", 1, 1 << 12, 1 << 12, 4, 0.3, 2048, 1.0, 32,
+                     32, 4, {"rows": 40, "fps": 3}),
+    "pair-windows": ("pair", 1, 1 << 12, 1 << 12, 4, 0.45, 10000, 1.0, 64,
+                     16, 0),
+    "key-spill-window": ("key", 2, 1 << 11, 1 << 11, 4, 0.9, 2048, 1.0, 4,
+                         64, 8),
+    "key-tiny-n": ("key", 1, 61, 64, 4, 0.5, 1024, 1.0, 32, 16, 2,
+                   {"fp_bits": 6}),
+    "pair-self-bs2": ("pair", 2, 37, 40, 2, 0.3, 512, 0.8, 16, 8, 0,
+                      {"fp_bits": 6}),
+    "delete-fp4": ("delete", 2, 64, 64, 4, 0.9, 2048, 1.0, 0, 0, 0,
+                   {"fp_bits": 4}),
+    "key-bs16": ("key", 1, 200, 256, 16, 0.85, 2048, 1.0, 32, 8, 2),
 }
 
 
@@ -536,9 +560,10 @@ def scan_inputs(label, seed=0):
     [S, L], kwargs of the walk: mode (``"key"``, ``"pair"``, or
     ``"delete"`` for ``scan_delete``), n_buckets, fp_bits, max_disp)."""
     (kind, shards, nb, buf, bs, load, lanes, share, max_disp, slots,
-     live) = SCAN_CASES[label]
+     live, *extras) = SCAN_CASES[label]
+    extras = extras[0] if extras else {}
     rng = np.random.RandomState(seed + 11)
-    fp_bits = 16
+    fp_bits = extras.get("fp_bits", 16)
     tables = np.zeros((shards, buf, bs), np.uint32)
     a = np.zeros((shards, lanes), np.uint32)
     b = np.zeros((shards, lanes), np.uint32)
@@ -554,6 +579,12 @@ def scan_inputs(label, seed=0):
             b[s] = np.where(absent, klo, lo[pick])
         elif kind == "key":
             a[s], b[s] = hashing.key_to_u32_pair_np(random_keys(rng, lanes))
+        elif "rows" in extras:
+            start = rng.randint(0, nb)
+            a[s] = ((start + rng.randint(0, extras["rows"], lanes)) % nb
+                    ).astype(np.uint32)
+            fps = rng.randint(1, 1 << fp_bits, extras["fps"])
+            b[s] = fps[rng.randint(0, fps.size, lanes)].astype(np.uint32)
         else:
             a[s] = rng.randint(0, 1 << 31, lanes).astype(np.uint32)
             b[s] = rng.randint(1, 1 << fp_bits, lanes).astype(np.uint32)

@@ -33,6 +33,7 @@ from repro_torch.kernels.probe import (probe, probe_adaptive,
                                        probe_adaptive_tm, probe_multi,
                                        probe_multi_plain, probe_plain,
                                        probe_tm)
+from repro_torch.kernels.scan import MAX_WINDOW as SCAN_MAX_WINDOW
 from repro_torch.kernels.scan import scan_delete, scan_insert
 from repro_torch.kernels.staging_cases import (FINGERPRINT_CASES,
                                                PROBE_ADAPTIVE_CASES,
@@ -757,14 +758,24 @@ def test_slo_scenario_on_card_matches_cpu(dev, name):
 # ------------------------------------- scan backend and the sharded filter --
 
 
-@pytest.mark.parametrize("label", list(SCAN_CASES))
-def test_scan_kernels_match_plain(dev, label):
+# Every insert case at the windows whose edges fall inside its lanes (one
+# lane, a warp's 32) and at the largest window; deletes have no window.
+SCAN_RUNS = [(label, w) for label, case in SCAN_CASES.items()
+             for w in ((None,) if case[0] == "delete"
+                       else (1, 32, SCAN_MAX_WINDOW))]
+
+
+@pytest.mark.parametrize("label,window", SCAN_RUNS)
+def test_scan_kernels_match_plain(dev, label, window):
     """scan_insert / scan_delete against their plain versions, bit for bit
     (tables, stashes, ok): chains that fail and roll back at load 0.97,
-    spills into a stash that fills, a stack of shards in one launch."""
+    spills into a stash that fills, a stack of shards in one launch,
+    crowded rows, self-pairs, deletes across one bucket pair; the insert
+    kernel's schedule counts add up to its walked lanes."""
     tables, stashes, a, b, valid, kw = scan_inputs(label)
     mode = kw.pop("mode")
     outs = []
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
     for device in (dev, "cpu"):
         tt = t32(tables).to(device)
         st = None if stashes is None else t32(stashes).to(device)
@@ -774,6 +785,9 @@ def test_scan_kernels_match_plain(dev, label):
         if mode == "delete":
             ok = scan_delete(tt, *args, fp_bits=kw["fp_bits"],
                              n_buckets=kw["n_buckets"], valid=v)
+        elif device == dev:
+            ok = scan_insert(tt, *args, mode=mode, valid=v, stashes=st,
+                             window=window, stats=stats, **kw)
         else:
             ok = scan_insert(tt, *args, mode=mode, valid=v, stashes=st, **kw)
         name = "scan_delete" if mode == "delete" else "scan_insert"
@@ -783,6 +797,8 @@ def test_scan_kernels_match_plain(dev, label):
     (tk, sk, okk), (tp, sp, okp) = outs
     assert torch.equal(tk, tp) and torch.equal(okk, okp)
     assert sk is None or torch.equal(sk, sp)
+    if mode != "delete":
+        assert int(stats.sum()) == int(valid.sum())
 
 
 def _scan_backend_stream(device):

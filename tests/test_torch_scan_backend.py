@@ -140,17 +140,19 @@ def test_valid_mask_and_stash_ops_match_jnp():
 def test_scan_walks_match_reference_scans():
     """scan_insert in key mode is ``bulk_insert``; scan_delete is
     ``bulk_delete`` (home else alternate, key by key); a stack of shards is
-    each shard walked on its own."""
-    for label in ("key-load-0.97", "key-bs8", "delete-dups",
-                  "delete-shards"):
+    each shard walked on its own.  Every key-mode and delete case."""
+    for label, case in SCAN_CASES.items():
+        if case[0] not in ("key", "delete"):
+            continue
         tables, _st, a, b, valid, kw = scan_inputs(label)
+        fp_bits = kw["fp_bits"]
         tt = t32(tables)
         if kw["mode"] == "delete":
-            ok = scan_delete(tt, t32(a), t32(b), fp_bits=16,
+            ok = scan_delete(tt, t32(a), t32(b), fp_bits=fp_bits,
                              n_buckets=kw["n_buckets"],
                              valid=torch.from_numpy(valid))
         else:
-            ok = scan_insert(tt, t32(a), t32(b), mode="key", fp_bits=16,
+            ok = scan_insert(tt, t32(a), t32(b), mode="key", fp_bits=fp_bits,
                              n_buckets=kw["n_buckets"],
                              max_disp=kw["max_disp"],
                              valid=torch.from_numpy(valid))
@@ -159,10 +161,10 @@ def test_scan_walks_match_reference_scans():
                                      jnp.int32(kw["n_buckets"]))
             args = (st, jnp.asarray(a[s]), jnp.asarray(b[s]))
             if kw["mode"] == "delete":
-                st, rok = jfilter.bulk_delete(*args, fp_bits=16,
+                st, rok = jfilter.bulk_delete(*args, fp_bits=fp_bits,
                                               valid=jnp.asarray(valid[s]))
             else:
-                st, rok = jfilter.bulk_insert(*args, fp_bits=16,
+                st, rok = jfilter.bulk_insert(*args, fp_bits=fp_bits,
                                               max_disp=kw["max_disp"],
                                               valid=jnp.asarray(valid[s]))
             np.testing.assert_array_equal(np.asarray(st.table), u32(tt[s]),
@@ -171,7 +173,8 @@ def test_scan_walks_match_reference_scans():
                                           err_msg=label)
 
 
-@pytest.mark.parametrize("label", ["pair-stash-16", "pair-shards"])
+@pytest.mark.parametrize("label", [k for k, v in SCAN_CASES.items()
+                                   if v[0] == "pair"])
 def test_insert_pairs_match_reference(label):
     """Migrated (bucket, fp) pairs with spills into a stash that fills:
     the port's ``insert_pairs`` against the reference's, shard by shard."""
