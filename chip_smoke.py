@@ -37,7 +37,10 @@ Phases, each timed, each fatal on failure:
      ``flash_attention`` within a stated tolerance at gemma3-1b's shapes
      (Hq=4, Hkv=1, S=8192, D=256; float32 and bfloat16; window 512 and
      none), small cases of the reference's sweep, a case with Sq > Skv and
-     lengths (200, 300) that end in ragged tiles; and the scan backend's
+     lengths (200, 300) that end in ragged tiles, and deepseek-v2-lite's
+     MLA heads through ``ops.attention`` (Hq = Hkv = 16, q and k of 192, v
+     of 128, zero-padded to 256: bfloat16 at S = 8192 and 200, float32 at
+     1024); and the scan backend's
      ``scan_insert`` and ``scan_delete`` on SCAN_CASES (key mode on a
      2^12-bucket table driven to load 0.97 by 2^14 keys, pair mode into a
      16-slot stash that fills, 2^14 deletes with duplicates, a stack of
@@ -61,7 +64,14 @@ Phases, each timed, each fatal on failure:
      copied to the card: forward logits within a stated tolerance at S =
      512 and 200, greedy tokens of prefill + 8 decode steps equal;
      ``ContinuousBatcher`` over that model, a burst of 7 requests into 3
-     slots (greedy tokens and ``SchedStats`` equal); and a sharded-filter
+     slots (greedy tokens and ``SchedStats`` equal); deepseek-v2-lite-16b
+     at full width and 3 layers (the dense MLA prefix, 2 MoE blocks),
+     float32, TF32 off, built on the CPU and copied to the card: at S =
+     512 (one routing group) and 1024 (two) each layer on the CPU's input
+     to it on both devices (expert choices equal but at a near tie of
+     gate gap <= 1e-5, printed; ``keep`` equal; outputs row by row within
+     1e-4), then logits within 1e-3 and the aux loss within 1e-6, and the
+     greedy tokens of prefill + 8 decode steps equal; and a sharded-filter
      stream on both backends (2 shards x 2^12 buckets x 4, a 128-slot
      stash, both routes at a capacity that defers, a split to 4 and a
      merge back in several rounds; tables, stashes, ok, deferred, overflow
@@ -142,7 +152,23 @@ Phases, each timed, each fatal on failure:
      receive walks, the scan backend's largest insert residue and largest
      delete), held against their plain versions bit for bit, then timed,
      with the time per walked lane, the insert's schedule shares and the
-     delete's conflict groups and grouping time.
+     delete's conflict groups and grouping time; and ``flash_attention`` at
+     deepseek-v2-lite's padded MLA shape beside its bound at the unpadded
+     heads and one ``scaled_dot_product_attention`` call on them;
+  5g. (run last, with every earlier phase's state freed) MoE + MLA at
+     full size: (a) deepseek-v2-lite-16b (27 layers, full width, float32
+     weights from SEED, bfloat16 activations): a cache-less forward over
+     8192 tokens, 3 repeats (tokens/s, 27 flash launches, peak memory, the
+     device time split into flash, MoE dispatch / combine, other matrix
+     products, elementwise and casts; decode steps' kernels); (b) float32:
+     the flash forward against a cached prefill (512 + 511 tokens) + one
+     decode step at 1024 tokens, log-softmax within 1e-3, at a capacity of
+     the whole group, and (b') at the config's capacity the flash forward
+     against a cached prefill of the same tokens; (c) ``serve()`` of 8
+     requests of 496 + 16 tokens, 8 generated (reused blocks > 0); (d)
+     qwen3-moe-235b-a22b at full width, 2 layers: two bfloat16 forwards
+     over 4096 tokens (finite, 2 flash launches each); launch counts read
+     around it.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -249,6 +275,19 @@ FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 # 1e-3 a row); a kernel that dropped one 64-key tile from a row of n keys
 # reads about 8 / sqrt(n), 0.09 at n = 8192 (FlashKernelBench prints it).
 FLASH_ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# Phases 3 and 5g: the MoE + MLA model (configs/deepseek_v2_lite_16b.py,
+# arXiv:2405.04434) and qwen3-moe (configs/qwen3_moe_235b_a22b.py).
+MOE_ARCH = "deepseek-v2-lite-16b"
+QWEN_ARCH = "qwen3-moe-235b-a22b"
+MOE_SEQ = 8192                # 5g (a): 16 routing groups of 512
+QWEN_SEQ = 4096
+QWEN_LAYERS = 2               # 5g (d): 2 of 94 layers (~25 GB in float32)
+# Card against CPU (phase 3, float32): a routing difference is admitted only
+# at a near tie, a CPU gate gap at the boundary it crosses of at most this;
+# layer outputs row by row within MOE_ROW_TOL (float32 sums in other
+# orders, through 2048-wide products), logits within 1e-3, aux within 1e-6.
+MOE_NEAR_TIE = 1e-5
+MOE_ROW_TOL = 1e-4
 # The streaming dedup stage of one node: examples/streaming_dedup.py's ring
 # at 2^22 slots a generation (4 x 16 MiB of tables on the card).
 RING = dict(generations=4, capacity=1 << 22, bucket_size=4, fp_bits=16,
@@ -1156,6 +1195,52 @@ class FlashKernelBench:
                           "flash_attention: a row with no live key is not 0")
                 self.max_err["flash_attention"] = max(
                     self.max_err["flash_attention"], m)
+        self.run_mla(gen)
+
+    # deepseek-v2-lite's cache-less MLA heads (Hq = Hkv = 16; q, k of 192,
+    # v of 128): b, heads, S, Dk, Dv, dtype
+    MLA_CASES = [(1, 16, LM_SEQ, 192, 128, "bfloat16"),
+                 (1, 16, 1024, 192, 128, "float32"),
+                 (1, 16, 200, 192, 128, "bfloat16")]
+
+    def run_mla(self, gen) -> None:
+        """MLA's heads through ``ops.attention``: one kernel launch on q,
+        k, v zero-padded to 256 at the scale 192^-0.5, held against the
+        plain version on the same padded heads, both cut back to 128, with
+        the tolerances above."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import cuda, ops
+        from repro_torch.kernels.flash_attention import flash_attention_plain
+        for case in self.MLA_CASES:
+            b, h, s, dk, dv, name = case
+            dtype = getattr(torch, name)
+            q, k, v = (torch.randn(shape, device=self.dev, generator=gen)
+                       .to(dtype) for shape in ((b, h, s, dk), (b, h, s, dk),
+                                                (b, h, s, dv)))
+            before = cuda.LAUNCHES["flash_attention"]
+            got = ops.attention(q, k, v, scale=dk ** -0.5).float()
+            torch.cuda.synchronize()
+            check(cuda.LAUNCHES["flash_attention"] == before + 1,
+                  f"flash_attention MLA {case}: not one kernel launch")
+            want = flash_attention_plain(
+                *(F.pad(t, (0, 256 - t.shape[-1])) for t in (q, k, v)),
+                scale=dk ** -0.5)[..., :dv].float()
+            err = (got - want).abs()
+            tol, row_tol = FLASH_TOL[name], FLASH_ROW_TOL[name]
+            excess = float((err - tol * (1 + want.abs())).max())
+            m = float(err.max())
+            rel = float(row_rel_err(got, want).max())
+            print(f"   flash_attention MLA {case}, padded to 256: "
+                  f"max_abs_err {m!r} (tolerance {tol} x (1 + |want|)); row "
+                  f"relative error {rel!r} (limit {row_tol})", flush=True)
+            check(got.shape == (b, h, s, dv) and excess <= 0,
+                  f"flash_attention MLA {case}: outside the tolerance by "
+                  f"{excess}")
+            check(rel <= row_tol, f"flash_attention MLA {case}: row relative "
+                                  f"error {rel} > {row_tol}")
+            self.max_err["flash_attention"] = max(
+                self.max_err["flash_attention"], m)
 
 
 # --------------------------------------------------- phase 3: slice parity --
@@ -1509,6 +1594,147 @@ def lm_parity(seqs=(512, 200), steps: int = 8):
             check(np.array_equal(*gen), "greedy tokens differ between "
                                         "devices")
     return card, cpu
+
+
+def token_flips(routes_a, routes_b) -> list:
+    """Tokens whose MoE routing differs between two runs of one layer ->
+    [(token, gap), ...], tokens counted across the ``Routing``s of each
+    run in order (calls of one run, groups of a call).  A token differs
+    where its chosen experts or its first choice do; its gap is run b's
+    gate gap at the boundary the difference crosses (k-th against (k+1)-th
+    probability for the set, first against second for the first
+    choice)."""
+    import torch
+
+    def flat(routes):
+        k, e = routes[0].expert.shape[-1], routes[0].probs.shape[-1]
+        return (torch.cat([r.expert.cpu().reshape(-1, k) for r in routes]),
+                torch.cat([r.probs.cpu().reshape(-1, e) for r in routes]))
+    (ea, _), (eb, pb) = flat(routes_a), flat(routes_b)
+    k = eb.shape[-1]
+    set_diff = (ea.sort(dim=-1).values != eb.sort(dim=-1).values).any(dim=-1)
+    diff = set_diff | (ea[:, 0] != eb[:, 0])
+    p = pb.sort(dim=-1, descending=True).values
+    gap = (p[:, k - 1] - p[:, k]).where(set_diff, p[:, 0] - p[:, 1])
+    return [(int(t), float(gap[t])) for t in diff.nonzero()[:, 0].tolist()]
+
+
+def admit_flips(flips, label: str) -> int:
+    """Print each routing difference, fatal unless a near tie (a gate gap
+    <= MOE_NEAR_TIE) -> the first token that differs (or a large int)."""
+    for t, gap in flips:
+        print(f"   {label}: token {t} routed differently, gate gap {gap!r} "
+              f"(admitted at <= {MOE_NEAR_TIE})", flush=True)
+        check(gap <= MOE_NEAR_TIE, f"{label}: token {t} routed differently "
+                                   f"at a gate gap of {gap}")
+    return min([t for t, _ in flips], default=1 << 62)
+
+
+def first_flip(runs_a: list, runs_b: list, n_layers: int, label: str) -> int:
+    """The first token routed differently in any MoE layer between two
+    runs of a model, each a list of calls' ``routes`` lists (near ties
+    admitted, others fatal): no token before it saw a difference, in any
+    layer (causal attention; capacity ranks count earlier tokens only)."""
+    return min([admit_flips(token_flips([c[n] for c in runs_a],
+                                        [c[n] for c in runs_b]),
+                            f"{label}, MoE layer {n}")
+                for n in range(n_layers)], default=1 << 62)
+
+
+def moe_parity(seqs=(512, 1024), steps: int = 8) -> None:
+    """deepseek-v2-lite-16b at full width, 3 layers deep (the dense MLA
+    prefix and 2 MLA + MoE blocks), float32, TF32 off: one seeded init on
+    the CPU, copied to the card.  At S = 512 (one routing group) and 1024
+    (two), each layer runs on the CPU's input to it on both devices: the
+    expert choices equal (a difference only at a near tie, a CPU gate gap
+    <= MOE_NEAR_TIE, printed; its group's tokens then leave the output
+    check), ``keep`` equal, the outputs row by row within MOE_ROW_TOL.
+    Then the end-to-end logits within 1e-3 (on the tokens before the first
+    near-tie difference, if one occurs) and the aux loss within 1e-6; the
+    greedy tokens of prefill + ``steps`` decode steps at 512 equal."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import Transformer
+    from repro_torch.models.layers import embed
+    from repro_torch.serving.engine import generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=3,
+                              dtype="float32")
+    cpu = Transformer(cfg, seed=SEED, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    d = cfg.d_model
+    with torch.no_grad():
+        for seq in seqs:
+            toks = torch.from_numpy(np.random.RandomState(SEED + 12).randint(
+                0, cfg.vocab_size, (1, seq)))
+            x = embed(cpu.emb["embed"], toks, cfg)
+            rot_c, rot_g = cpu.rotation(1, seq), card.rotation(1, seq)
+            for n, (lc, lg) in enumerate(zip(cpu.layers, card.layers)):
+                rc, rg = [], []
+                y, _, _ = lc(x, rot=rot_c, routes=rc)
+                yg, _, _ = lg(x.cuda(), rot=rot_g, routes=rg)
+                rows = torch.ones(seq, dtype=torch.bool)
+                what = "dense MLP"
+                if rc:
+                    label = f"MoE S={seq} layer {n}"
+                    flips = token_flips(rg, rc)
+                    admit_flips(flips, label)
+                    t = rc[0].expert.shape[1]       # tokens a group
+                    flipped = {tok // t for tok, _ in flips}
+                    keep = (rg[0].keep.cpu() != rc[0].keep).any(dim=-1)
+                    bad = {int(g) for g in keep.any(dim=-1).nonzero()[:, 0]}
+                    check(not bad - flipped,
+                          f"{label}: keep differs in groups "
+                          f"{sorted(bad - flipped)} without a routing "
+                          f"difference")
+                    for g in flipped:
+                        rows[g * t:(g + 1) * t] = False
+                    what = (f"experts equal on {seq - len(flips)} of {seq} "
+                            f"tokens, {int((~rc[0].keep).sum())} of "
+                            f"{rc[0].keep.numel()} (token, choice) pairs "
+                            f"dropped at capacity {rc[0].capacity}")
+                rel = float(row_rel_err(yg.cpu().reshape(-1, d)[rows],
+                                        y.reshape(-1, d)[rows]).max())
+                print(f"   {MOE_ARCH} x3 float32 S={seq} layer {n} "
+                      f"({cpu.slots[n][0]}): {what}; output row relative "
+                      f"error card vs cpu {rel!r} (limit {MOE_ROW_TOL})",
+                      flush=True)
+                check(rel <= MOE_ROW_TOL, f"MoE S={seq} layer {n}: outputs "
+                                          f"differ by {rel}")
+                x = y
+            rg, rc = [], []
+            cuda.reset_counts()
+            a = card.apply(toks.cuda(), routes=rg)
+            torch.cuda.synchronize()
+            check(cuda.LAUNCHES["flash_attention"] == cfg.n_layers,
+                  "the card's forward did not launch flash_attention per "
+                  "layer")
+            b = cpu.apply(toks, routes=rc)
+            first = min(seq, first_flip([rg], [rc], len(rc),
+                                        f"MoE S={seq} end to end"))
+            err = float((a.logits.cpu()[:, :first]
+                         - b.logits[:, :first]).abs().max())
+            aux = abs(float(a.aux_loss) - float(b.aux_loss))
+            print(f"   {MOE_ARCH} x3 float32 S={seq}: logits max_abs_err card "
+                  f"vs cpu {err!r} on {first} of {seq} tokens (max |logit| "
+                  f"{float(b.logits.abs().max())!r}); aux loss "
+                  f"{float(a.aux_loss)!r} / {float(b.aux_loss)!r}, "
+                  f"difference {aux!r}", flush=True)
+            check(err < 1e-3, f"MoE logits differ between devices by {err}")
+            if first == seq:
+                check(aux <= 1e-6, f"MoE aux losses differ by {aux}")
+            if seq == seqs[0]:
+                gen = [generate(m, tk, steps + 1).tokens.cpu().numpy()
+                       for m, tk in ((card, toks.cuda()), (cpu, toks))]
+                print(f"   {MOE_ARCH} greedy tokens {gen[0].tolist()} / "
+                      f"{gen[1].tolist()}", flush=True)
+                check(np.array_equal(*gen), "MoE greedy tokens differ "
+                                            "between devices")
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def slo_recorder():
@@ -2616,6 +2842,14 @@ def streaming_path(card: str, *, ticks=32, base=600_000, burst=4,
         "times": times, "device_s": device_s, "fp_share": fp_share}
 
 
+def kernel_class(name: str) -> str:
+    """"flash", "matmul" or "other" by a device kernel's name."""
+    key = name.lower()
+    return ("flash" if "flash_" in key else "matmul"
+            if any(w in key for w in ("gemm", "nvjet", "cutlass", "xmma"))
+            else "other")
+
+
 def lm_profile(model, toks, card: str, *, prompt: int = 1024,
                steps: int = 3) -> dict:
     """Where the LM path's time goes, from CUDA-activity ``torch.profiler``
@@ -2641,11 +2875,7 @@ def lm_profile(model, toks, card: str, *, prompt: int = 1024,
             if us <= 0 or ev.key.startswith("aten::"):
                 continue
             kernels += ev.count
-            key = ev.key.lower()
-            kind = ("flash" if "flash_" in key else "matmul"
-                    if any(w in key for w in ("gemm", "nvjet", "cutlass",
-                                              "xmma")) else "other")
-            by[kind] += us / 1e3
+            by[kernel_class(ev.key)] += us / 1e3
         return wall * 1e3, by, kernels
 
     wall, by, _n = trace(lambda: model.apply(toks))
@@ -2865,6 +3095,307 @@ def lm_batcher_path(card: str, *, requests: int = 8, prefix_len: int = 1008,
           f"SchedStats equal the CPU's (2-layer smoke model)", flush=True)
     return launches, plain, {"wall": wall, "latency_s": lat.tolist(),
                              "decode_tokens_per_s": dec_toks / dec_s}
+
+
+# ------------------------------------- phase 5g: MoE + MLA at full size --
+
+MOE_RANGES = ("moe.dispatch", "moe.experts", "moe.combine")
+
+
+def device_split(prof) -> tuple[dict, float]:
+    """Device ms of a CPU + CUDA trace by class -> (split, the device ms of
+    every kernel in the trace).  The flash kernel (launched through
+    ctypes, so tied to no op: read by name); MoE dispatch / combine, every
+    kernel launched inside the ``moe.dispatch`` and ``moe.combine`` ranges
+    of ``models/moe.py`` (router, routing, one-hots, their einsums); the
+    expert products (``moe.experts``: the weights' bfloat16 casts, the
+    einsums, the SiLU) as matrix products and the rest; the other matrix
+    products; the other elementwise kernels and casts.  The split covers
+    the flash kernel and the kernels the trace ties to an op."""
+    from torch.autograd import DeviceType
+    by = {"flash": 0.0, "moe_dispatch_combine": 0.0, "experts_matmul": 0.0,
+          "experts_other": 0.0, "matmul": 0.0, "other": 0.0}
+    total = 0.0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and ev.name not in MOE_RANGES:
+            ms = (ev.time_range.end - ev.time_range.start) / 1e3
+            total += ms
+            if kernel_class(ev.name) == "flash":
+                by["flash"] += ms
+    stack = [(ev, None) for ev in prof.events()
+             if ev.device_type == DeviceType.CPU and ev.cpu_parent is None]
+    while stack:
+        ev, rng = stack.pop()
+        rng = ev.name if ev.name in MOE_RANGES else rng
+        for k in getattr(ev, "kernels", []):
+            kind = kernel_class(k.name)
+            if kind == "flash":
+                continue
+            if rng == "moe.experts":
+                kind = "experts_" + kind
+            elif rng is not None:
+                kind = "moe_dispatch_combine"
+            by[kind] += k.duration / 1e3
+        stack.extend((c, rng) for c in ev.cpu_children)
+    return by, total
+
+
+def moe_profile(model, toks, card: str, *, prompt: int = 512,
+                steps: int = 3) -> dict:
+    """Where 5g's time goes, from CPU + CUDA ``torch.profiler`` traces:
+    one cache-less forward over ``toks`` (``device_split``; the idle share
+    of the host clock), then ``steps`` greedy decode steps after a
+    ``prompt``-token prefill into a float32 cache (kernels launched, device
+    busy and host ms a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        from torch.autograd import DeviceType
+        n = sum(1 for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA
+                and ev.name not in MOE_RANGES)
+        return wall, prof, n
+
+    wall, prof, _n = trace(lambda: model.apply(toks))
+    by, total = device_split(prof)
+    split = sum(by.values())
+    print(f"   (a) profile of one forward [{card}]: {wall!r} ms host clock "
+          f"(under the profiler), device busy {total!r} ms: flash "
+          f"{by['flash']!r}, MoE dispatch / combine "
+          f"{by['moe_dispatch_combine']!r}, expert products "
+          f"{by['experts_matmul']!r} + their casts and SiLU "
+          f"{by['experts_other']!r}, other matrix products "
+          f"{by['matmul']!r}, other elementwise and casts {by['other']!r} "
+          f"({split!r} ms of it classed); idle share {1 - total / wall!r}",
+          flush=True)
+    cache = model.init_cache(1, prompt + steps + 1, dtype=torch.float32)
+    model.apply(toks[:, :prompt], cache=cache, cache_pos=0)
+    tok = toks[:, prompt:prompt + 1]
+
+    def decode():
+        for pos in range(prompt, prompt + steps):
+            int(model.decode_step(cache, tok, pos).logits[0, 0].argmax())
+    dwall, dprof, dn = trace(decode)
+    dby, dtotal = device_split(dprof)
+    print(f"   (a) profile of {steps} decode steps [{card}]: "
+          f"{dwall / steps!r} ms a step host clock (under the profiler), "
+          f"{dn / steps!r} device kernels a step, device busy "
+          f"{dtotal / steps!r} ms a step (MoE dispatch / combine "
+          f"{dby['moe_dispatch_combine'] / steps!r}, expert products "
+          f"{dby['experts_matmul'] / steps!r} + their casts and SiLU "
+          f"{dby['experts_other'] / steps!r}, other matrix products "
+          f"{dby['matmul'] / steps!r}, other elementwise and casts "
+          f"{dby['other'] / steps!r}), idle share {1 - dtotal / dwall!r}",
+          flush=True)
+    return {"forward_ms": wall, "forward_device_ms": total,
+            "forward_split_ms": by, "decode_ms": dwall / steps,
+            "decode_kernels": dn / steps,
+            "decode_device_ms": dtotal / steps}
+
+
+def free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def moe_path(card: str, *, seq: int = MOE_SEQ, check_seq: int = 1024,
+             requests: int = 8, prefix_len: int = 496, block: int = 16,
+             gen: int = 8) -> tuple[dict, dict, dict]:
+    """Phase 5g, MoE + MLA at full size.  (a) deepseek-v2-lite-16b (27
+    layers, full width, float32 weights from SEED, bfloat16 activations):
+    a cache-less forward over ``seq`` tokens (16 routing groups of 512;
+    each layer's MLA through the padded flash kernel), 3 repeats, tokens/s,
+    flash launches a forward (27), peak device memory, ``moe_profile``.
+    (b) float32, TF32 off: the serving consistency check of
+    tests/test_models.py, the last position's log-softmax of the flash
+    forward over ``check_seq`` tokens against a cached prefill of 512 and
+    then 511 tokens (the non-absorbed MLA path) and one decode step (the
+    absorbed path, exact routing), within 1e-3; at a capacity of the whole
+    group (capacity factor E / k: no token drops, as the reference's smoke
+    configs have it for that check), since a forward and an exact decode
+    step route the last token differently by design wherever its expert
+    is full.  (b') At the config's own capacity factor, the flash forward
+    against a cached prefill of the same ``check_seq`` tokens (the same
+    groups, so the same drops), every position's log-softmax within 1e-3.
+    (c) ``serve()``: ``requests`` prompts of ``prefix_len + block`` tokens
+    (one 512-token routing group each), ``gen`` tokens each; reused blocks
+    > 0.  (d) qwen3-moe-235b-a22b at full width, QWEN_LAYERS layers: two
+    cache-less bfloat16 forwards over QWEN_SEQ tokens, finite logits, a
+    flash launch per layer.  Every model is freed before the next arm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Transformer
+
+    cfg = get_config(MOE_ARCH)
+    rng = np.random.RandomState(SEED + 13)
+    out = {}
+    free_card()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+
+    # (a) prompt scoring
+    t0 = time.perf_counter()
+    model = Transformer(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq))).cuda()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = model.apply(toks)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    finite = bool(torch.isfinite(o.logits).all())
+    shape, aux = tuple(o.logits.shape), float(o.aux_loss)
+    del o
+    peak = torch.cuda.max_memory_allocated()
+    flash_per_forward = cuda.LAUNCHES["flash_attention"] // len(times)
+    out["forward_s"] = min(times)
+    print(f"   (a) {cfg.name}: {n_params} parameters (init {init_s!r} s), "
+          f"forward over {seq} tokens {times!r} s -> {seq / min(times)!r} "
+          f"tokens/s [{card}]; logits {shape} finite={finite}, aux loss "
+          f"{aux!r}; flash launches per forward {flash_per_forward}; peak "
+          f"device memory {peak / 2**30!r} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30!r} "
+          f"({resident / 2**30!r} GiB resident before the phase)",
+          flush=True)
+    check(finite and shape == (1, seq, cfg.vocab_size),
+          "5g: the prompt-scoring logits are not finite or of the wrong "
+          "shape")
+    check(flash_per_forward == cfg.n_layers,
+          f"5g: {flash_per_forward} flash launches per forward, not "
+          f"{cfg.n_layers}")
+    out["peak_bytes"] = peak
+    out["forward_launches"] = flash_per_forward
+    out["forward_profile"] = moe_profile(model, toks, card)
+    del model
+    free_card()
+
+    # (b) the flash forward against the cached serving path, float32
+    f32_before = cuda.LAUNCHES["flash_attention"]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = cfg.moe
+    nodrop = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    model = Transformer(nodrop, seed=SEED, device="cuda")
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                        (1, check_seq))).cuda()
+    runs = [[], [], [], []]
+    full = model.apply(toks, routes=runs[0]).logits[:, -1]
+    cache = model.init_cache(1, check_seq + 4, dtype=torch.float32)
+    half = m.group_size
+    model.apply(toks[:, :half], cache=cache, cache_pos=0, routes=runs[1])
+    model.apply(toks[:, half:-1], cache=cache, cache_pos=half,
+                routes=runs[2])
+    dec = model.apply(toks[:, -1:], cache=cache, cache_pos=check_seq - 1,
+                      routes=runs[3]).logits[:, 0]
+    err = float((torch.log_softmax(full, -1)
+                 - torch.log_softmax(dec, -1)).abs().max())
+    out["serving_err"] = err
+    first = first_flip(runs[1:], runs[:1], len(runs[0]), "(b)")
+    print(f"   (b) flash forward vs cached prefill ({half} + "
+          f"{check_seq - half - 1}) + decode, float32, S={check_seq}, "
+          f"capacity factor {nodrop.moe.capacity_factor!r}: log-softmax max "
+          f"err {err!r}; routes equal "
+          f"{'everywhere' if first >= check_seq else f'before token {first}'}",
+          flush=True)
+    check(err < 1e-3, f"5g (b): the flash forward and the cached serving "
+                      f"path differ by {err}")
+    del model, cache, full, dec
+    free_card()
+    model = Transformer(dataclasses.replace(cfg, dtype="float32"), seed=SEED,
+                        device="cuda")
+    routes, pre_routes = [], []
+    full = model.apply(toks, routes=routes).logits
+    dropped = sum(int((~r.keep).sum()) for r in routes)
+    cache = model.init_cache(1, check_seq, dtype=torch.float32)
+    pre = model.apply(toks, cache=cache, cache_pos=0,
+                      routes=pre_routes).logits
+    first = min(check_seq, first_flip([pre_routes], [routes], len(routes),
+                                      "(b')"))
+    err = float((torch.log_softmax(full[:, :first], -1)
+                 - torch.log_softmax(pre[:, :first], -1)).abs().max())
+    out["prefill_err"] = err
+    print(f"   (b') flash forward vs cached prefill, float32, S={check_seq}, "
+          f"capacity factor {m.capacity_factor!r} ({dropped} (token, choice) "
+          f"pairs dropped over {len(routes)} MoE layers): log-softmax max "
+          f"err {err!r} over the first {first} of {check_seq} positions "
+          f"(routes equal there)", flush=True)
+    check(err < 1e-3, f"5g (b'): the flash forward and the cached prefill "
+                      f"differ by {err}")
+    f32_launches = cuda.LAUNCHES["flash_attention"] - f32_before
+    del model, cache, full, pre, routes
+    free_card()
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # (c) the server
+    res = serve(MOE_ARCH, requests=requests, prefix_len=prefix_len, gen=gen,
+                smoke=False, seed=SEED, block=block, device="cuda")
+    out["serve"] = res
+    step_ms = (1e3 / res["decode_tokens_per_s"]
+               if res["decode_tokens_per_s"] else float("nan"))
+    print(f"   (c) serve {requests} requests x ({prefix_len} + {block} "
+          f"prompt, {gen} generated) [{card}]: latency mean "
+          f"{res['latency_mean_s']!r} s p99 {res['latency_p99_s']!r} s, "
+          f"prefill {res['prefill_tokens_per_s']!r} tokens/s, decode "
+          f"{res['decode_tokens_per_s']!r} tokens/s ({step_ms!r} ms a "
+          f"step, batch 1; kernels a step: (a)'s decode profile), prefix "
+          f"hit rate {res['prefix_hit_rate']!r}, reused blocks "
+          f"{res['reused_blocks']}, index {res['index_stats']}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB",
+          flush=True)
+    check(res["reused_blocks"] > 0, "5g (c): serve reused no prefix block")
+    free_card()
+
+    # (d) qwen3-moe at full width, cut in depth
+    qcfg = dataclasses.replace(get_config(QWEN_ARCH), n_layers=QWEN_LAYERS)
+    model = Transformer(qcfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    qtoks = torch.from_numpy(rng.randint(0, qcfg.vocab_size,
+                                         (1, QWEN_SEQ))).cuda()
+    before = cuda.LAUNCHES["flash_attention"]
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = model.apply(qtoks)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    q_launches = (cuda.LAUNCHES["flash_attention"] - before) // len(walls)
+    finite = bool(torch.isfinite(o.logits).all())
+    print(f"   (d) {qcfg.name} x{QWEN_LAYERS} layers: {n_params} parameters, "
+          f"forward over {QWEN_SEQ} tokens {walls!r} s (the first with "
+          f"cuBLAS's plans) [{card}]; logits {tuple(o.logits.shape)} "
+          f"finite={finite}, aux loss {float(o.aux_loss)!r}; flash launches "
+          f"a forward {q_launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB", flush=True)
+    check(finite, "5g (d): qwen3-moe logits are not finite")
+    check(q_launches == QWEN_LAYERS, f"5g (d): {q_launches} flash launches "
+                                     f"a forward, not {QWEN_LAYERS}")
+    del model, o
+    free_card()
+    torch.cuda.synchronize()
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    print(f"   launches={launches} plain_calls={plain} (float32 flash "
+          f"launches of (b), (b'): {f32_launches})", flush=True)
+    return launches, plain, out
 
 
 # --------------------------------------------------------- phase 6: times --
@@ -3840,6 +4371,70 @@ def flash_kernel_times() -> dict:
     return out
 
 
+def sdpa_backend(q, k, v, **kw) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs
+    (``torch._fused_sdp_choice``), or "none" where it names none."""
+    import torch
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+    except Exception as exc:                     # noqa: BLE001
+        return f"none ({type(exc).__name__}: {exc})"
+
+
+def mla_flash_times() -> dict:
+    """flash_attention at deepseek-v2-lite's cache-less MLA shape
+    (bfloat16, B=1, Hq=Hkv=16, S=MOE_SEQ; q and k of 192, v of 128, which
+    ``ops.attention`` zero-pads to 256): the kernel's device time, the
+    wrapper (``ops.attention``: padding, launch, cut), the plain version
+    on the padded heads, and the bound: 2 * (Dk + Dv) * Hq operations per
+    live (query, key) pair at the unpadded Dk = 192 and Dv = 128 over the
+    bfloat16 tensor-core rate, or q, k, v and o moved once over the memory
+    rate, the larger.  The library's yardstick: one
+    ``scaled_dot_product_attention`` call on the unpadded q, k, v (causal,
+    the same scale), with the backend it picks; null where none runs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    b, h, s, dk, dv = 1, 16, MOE_SEQ, 192, 128
+    scale = dk ** -0.5
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 14)
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen)
+               .to(torch.bfloat16) for shape in ((b, h, s, dk), (b, h, s, dk),
+                                                 (b, h, s, dv)))
+    padded = [F.pad(t, (0, 256 - t.shape[-1])) for t in (q, k, v)]
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + b * h * s * dv)
+    n_ops = 2 * (dk + dv) * h * live_pairs(s, s, True, None) * b
+    name = "flash_attention (MLA, padded to 256)"
+    row = time_rows({name: (
+        lambda: ops.attention(q, k, v, scale=scale),
+        lambda: flash_attention_plain(*padded, scale=scale)[..., :dv],
+        None, (nbytes, n_ops), "flash_wgmma_kernel")}, TENSOR_OPS_PER_S,
+        hold=False)[name]
+    backend = sdpa_backend(q, k, v, is_causal=True, scale=scale)
+
+    def lib():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              scale=scale)
+    try:
+        row["library_ms"] = (time_ms(lib, 5) + time_ms(lib, 5)) / 2
+        diff = float((lib().float() - ops.attention(
+            q, k, v, scale=scale).float()).abs().max())
+    except RuntimeError as exc:
+        row["library_ms"], diff = None, None
+        backend = f"none ({exc})"
+    row.update(library_backend=backend, x_bound=row["ms"] / row["bound_ms"],
+               shape=[b, h, s, dk, dv])
+    print(f"   {name}: x bound {row['x_bound']!r}; "
+          f"scaled_dot_product_attention on the unpadded heads "
+          f"{row['library_ms']!r} ms (backend {backend}), max |difference| "
+          f"{diff!r}; {n_ops} operations", flush=True)
+    del q, k, v, padded
+    return row
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel of an ``nvcc -Xptxas -v`` log: its name
     (``name_kernel<D>``, read from the mangled symbol), registers, static
@@ -4587,6 +5182,7 @@ def main() -> int:
         slo_parity()
         sharded_parity()
         continuous_batcher_parity(*lm_parity())
+        moe_parity()
 
     # Each path runs with the counts set to 0 just before it and read just
     # after; its kernels' "launches" come from that run.
@@ -4658,6 +5254,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         flash = flash_kernel_times()
         perf["flash_attention"] = flash["global"]
+        perf["flash_attention"]["mla"] = mla_flash_times()
         # The launch floor: a one-element add's device time, beside the
         # kernels whose launches take about that long.
         one = torch.zeros(1, device="cuda")
@@ -4701,6 +5298,17 @@ def main() -> int:
                   f"{k_s!r} s in the kernel (share "
                   f"{k_s / main_times[op]!r})", flush=True)
 
+    # Phase 5g needs the card's memory: nothing of the earlier phases stays.
+    slo_rows = slo["rows"]
+    del ocf, resident, m, remaining, ring, present, waves, slo, one
+    free_card()
+    with phase("MoE + MLA serving at full size"):
+        counts, plain["moe"], moe = moe_path(card)
+        perf["flash_attention"]["mla"]["launches_per_forward"] = \
+            moe["forward_launches"]
+        check(sum(plain["moe"].values()) == 0,
+              f"plain versions ran on the MoE path: {plain['moe']}")
+
     rows = []
     for name, (source, replaces, held_by) in KERNEL_ROWS.items():
         t = perf[name]
@@ -4721,10 +5329,10 @@ def main() -> int:
                                           "split_us_per_lane",
                                           "split_plain_ms", "split_bound_ms",
                                           "split_schedule", "groups",
-                                          "group_ms")
+                                          "group_ms", "mla")
                         if k in t}})
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
-    print(json.dumps({"slo": slo["rows"]}), flush=True)
+    print(json.dumps({"slo": slo_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Model configurations of the port (``repro.configs`` copied): the dense
-GQA architectures whose forward and serving path the port runs."""
+GQA and MoE architectures whose forward and serving path the port runs."""
 from repro_torch.configs.registry import (ARCHS, PORTED, canonical,
                                           get_config, get_smoke_config)
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.configs.registry`` (its dry-run cells and shapes
 wait with ``launch/dryrun.py``).  The port carries the config
-files of the dense GQA architectures (``PORTED``); asking for another one
-raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 12).
+files of the architectures it runs (``PORTED``: the dense GQA ones and the
+MoE family, deepseek-v2-lite's MLA among them); asking for another one
+raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ ARCHS = [
     "musicgen_large",
 ]
 
-PORTED = ("gemma3_1b", "gemma2_27b", "mistral_nemo_12b")
+PORTED = ("gemma3_1b", "gemma2_27b", "mistral_nemo_12b",
+          "deepseek_v2_lite_16b", "qwen3_moe_235b_a22b")
 
 _ALIASES = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
@@ -49,7 +51,7 @@ def _module(arch: str):
     if name not in PORTED:
         if name in ARCHS:
             raise NotImplementedError(
-                f"{arch}: not ported yet (ROADMAP.md Queue 1 item 12); the "
+                f"{arch}: not ported yet (ROADMAP.md Queue 1 item 2); the "
                 f"port runs {', '.join(PORTED)}")
         raise ValueError(f"unknown architecture {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{name}")

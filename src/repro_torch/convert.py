@@ -11,12 +11,16 @@ for the four planes of the adaptive filter, and
 stashes (``sharded_state_to_numpy`` gives them back).
 
 The LM stack's weights cross as the reference's parameter pytree of
-float32 numpy arrays (``embed``, ``final_norm``, ``blocks[j][...]``
-stacked over periods, ``tail[j][...]`` stacked over one):
-``transformer_params_from_numpy`` loads them into the port's
-``Transformer`` in its slot-major layer order, and
+float32 numpy arrays (``embed``, ``final_norm``, ``prefix[...]`` stacked
+over a MoE model's dense prefix, ``blocks[j][...]`` stacked over periods,
+``tail[j][...]`` stacked over one; a MoE block's ``mlp`` holds
+``router``, ``experts`` stacked over the experts and ``shared``, an MLA
+block's ``mixer`` ``wq``, ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``,
+``wo``): ``transformer_params_from_numpy`` loads them into the port's
+``Transformer`` in its executed layer order, and
 ``transformer_params_to_numpy`` gives them back in that pytree, and
-``cache_to_numpy`` gives a KV cache in the reference's layout.
+``cache_to_numpy`` gives a KV cache (or MLA latent cache) in the
+reference's layout.
 """
 from __future__ import annotations
 
@@ -214,8 +218,15 @@ def _block_leaves(layer):
     """(reference key path, parameter) of one port block; the norms sit at
     the top of the reference's block dict."""
     for group in _BLOCK_GROUPS:
-        for name, param in getattr(layer, group).items():
-            yield ((name,) if group == "norms" else (group, name)), param
+        for name, param in getattr(layer, group).named_parameters():
+            path = tuple(name.split("."))
+            yield (path if group == "norms" else (group, *path)), param
+
+
+def _group_tree(tree: dict, group: str, j: int):
+    """The reference's stacked block dict of (group, slot j): ``prefix``
+    is one dict, ``blocks`` and ``tail`` tuples of them."""
+    return tree[group] if group == "prefix" else tree[group][j]
 
 
 def transformer_params_from_numpy(params_np: dict, cfg: ModelConfig, *,
@@ -226,10 +237,10 @@ def transformer_params_from_numpy(params_np: dict, cfg: ModelConfig, *,
     model = Transformer(cfg, device=device)
     dev = model.device
     with torch.no_grad():
-        for name, param in model.emb.items():
+        for name, param in model.emb.named_parameters():
             param.copy_(torch.from_numpy(np.array(params_np[name])).to(dev))
         for layer, (group, j, i) in zip(model.layers, model.slots):
-            tree = params_np[group][j]
+            tree = _group_tree(params_np, group, j)
             for path, param in _block_leaves(layer):
                 arr = tree
                 for key in path:
@@ -241,7 +252,8 @@ def transformer_params_from_numpy(params_np: dict, cfg: ModelConfig, *,
 def transformer_params_to_numpy(model: Transformer) -> dict:
     """A port ``Transformer``'s weights -> the reference's pytree (float32
     numpy), blocks stacked over periods in the reference's order."""
-    out = {name: p.detach().cpu().numpy() for name, p in model.emb.items()}
+    out = {name: p.detach().cpu().numpy()
+           for name, p in model.emb.named_parameters()}
     stacks: dict = {}
     for layer, (group, j, _i) in zip(model.layers, model.slots):
         slot = stacks.setdefault(group, {}).setdefault(j, {})
@@ -258,13 +270,17 @@ def transformer_params_to_numpy(model: Transformer) -> dict:
         return {k: stack(v) for k, v in node.items()}
 
     for group, slots in stacks.items():
-        out[group] = tuple(stack(slots[j]) for j in sorted(slots))
+        out[group] = (stack(slots[0]) if group == "prefix" else
+                      tuple(stack(slots[j]) for j in sorted(slots)))
     return out
 
 
 def cache_to_numpy(cache: dict) -> dict:
-    """A port KV cache -> ``{"blocks": [(k, v)], "tail": [(k, v)]}`` of
-    numpy arrays in the reference's layout ([n, B, Hkv, S, D] per slot)."""
-    return {group: [(c.k.detach().float().cpu().numpy(),
-                     c.v.detach().float().cpu().numpy()) for c in slots]
-            for group, slots in cache.items()}
+    """A port KV cache -> ``{"blocks": [(k, v)], "tail": [(k, v)],
+    "prefix": (k, v)}`` of numpy arrays in the reference's layout ([n, B,
+    Hkv, S, D] per slot; MLA: k of [n, B, 1, S, kv_lora + rope])."""
+    def pair(c):
+        return (c.k.detach().float().cpu().numpy(),
+                c.v.detach().float().cpu().numpy())
+    return {group: pair(slots) if group == "prefix" else
+            [pair(c) for c in slots] for group, slots in cache.items()}

@@ -37,7 +37,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.delete import delete_bulk, delete_bulk_adaptive
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                              fingerprint_hash_family)
 from repro_torch.kernels.insert import (insert_bulk, insert_bulk_adaptive,
@@ -529,10 +529,31 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     flash kernel (its plain version for CPU tensors); a call over a cache
     goes to ``blockwise_attention``.  The reference's off-TPU
     ``local_attention`` arm is not ported (the port has a kernel on every
-    device it runs on)."""
+    device it runs on).
+
+    The flash kernel takes one head dim D in ``HEAD_DIMS`` for q, k and v.
+    Where v's head dim differs from q's and k's, or theirs is not in
+    ``HEAD_DIMS`` (MLA: 192 and 128), q, k and v are zero-padded to the
+    smallest D in ``HEAD_DIMS`` that holds both, the scale fixed first
+    (the given one, else Dk^-0.5), and the output cut back to v's width:
+    zero columns add 0 to every dot product and give zero output
+    columns, so this is the same function."""
     if qpos_start is None and valid_len is None and key_positions is None:
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               logit_softcap=logit_softcap, scale=scale)
+        dk, dv = q.shape[-1], v.shape[-1]
+        if dk == dv and dk in HEAD_DIMS:
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   logit_softcap=logit_softcap, scale=scale)
+        d = next((h for h in HEAD_DIMS if h >= max(dk, dv)), None)
+        if d is None:
+            raise ValueError(f"attention: head dims {dk}, {dv} exceed the "
+                             f"flash kernel's {HEAD_DIMS[-1]}")
+
+        def pad(t):
+            return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+        out = flash_attention(pad(q), pad(k), pad(v), causal=causal,
+                              window=window, logit_softcap=logit_softcap,
+                              scale=scale if scale is not None else dk ** -0.5)
+        return out[..., :dv]
     return blockwise_attention(q, k, v, causal=causal, window=window,
                                logit_softcap=logit_softcap, scale=scale,
                                qpos_start=qpos_start, valid_len=valid_len,

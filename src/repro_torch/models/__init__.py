@@ -1,5 +1,6 @@
-"""The LM stack of the port: dense GQA decoder blocks (global and
-sliding-window attention) over the flash attention kernel."""
+"""The LM stack of the port: decoder blocks of GQA (global and
+sliding-window) or MLA attention over the flash attention kernel, with
+dense or MoE MLPs."""
 from repro_torch.models.config import (MlaConfig, ModelConfig, MoeConfig,
                                        RglruConfig, SsmConfig)
 from repro_torch.models.transformer import ModelOutput, Transformer

@@ -1,17 +1,23 @@
-"""GQA/MQA attention (local window, soft-cap, qk-norm) with a KV cache.
+"""Attention mixers: GQA/MQA (local window, soft-cap, qk-norm) with a KV
+cache, and MLA (DeepSeek-V2 multi-head latent attention) with its latent
+cache.
 
-Counterpart of the GQA half of ``repro.models.attention`` (``KVCache``,
-``init_attention``, ``apply_attention``); MLA and cross-attention are not
-ported.  ``apply_attention`` is cache-polymorphic like the reference's:
+Counterpart of ``repro.models.attention`` (``KVCache``,
+``init_attention``, ``apply_attention``, ``init_mla``, ``apply_mla``);
+cross-attention is not ported.  Both apply functions are
+cache-polymorphic like the reference's:
 
   * ``cache=None``: the full-sequence forward; attention goes to the flash
-    kernel (``kernels.ops.attention``).
+    kernel (``kernels.ops.attention``; MLA's 192-wide q, k and 128-wide v
+    reach it zero-padded to 256).
   * ``cache`` with ``cache_pos``: prefill or decode.  This step's k and v
-    are written into the cache **in place** (the reference returns an
-    updated copy; the port returns the same ``KVCache``, its tensors
-    changed), and attention runs blockwise over the valid prefix (or, for a
-    ``window``-long ring cache, over the ring with each slot's absolute
-    position).
+    (MLA: its latent) are written into the cache **in place** (the
+    reference returns an updated copy; the port returns the same
+    ``KVCache``, its tensors changed), and attention runs blockwise over
+    the valid prefix (or, for a ``window``-long ring cache, over the ring
+    with each slot's absolute position).  MLA with at most 8 new tokens
+    takes the reference's absorbed path: ``w_uk`` folded into the query,
+    ``w_uv`` into the output, attention over the 576-wide latent itself.
 """
 from __future__ import annotations
 
@@ -25,8 +31,8 @@ from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # [B, Hkv, S, D]
-    v: torch.Tensor  # [B, Hkv, S, D]
+    k: torch.Tensor  # [B, Hkv, S, D]  (MLA: [B, 1, S, lora + rope])
+    v: torch.Tensor  # [B, Hkv, S, D]  (MLA: unused, [1, 1, 1])
 
 
 def init_attention(cfg: ModelConfig, *, generator, device) -> dict:
@@ -98,3 +104,78 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
                             scale=cfg.attn_scale)
     out = out.transpose(1, 2).reshape(b, sq, hq * hd)
     return out @ p["wo"].to(x.dtype), cache
+
+
+# =============================================================== MLA ======
+
+
+def init_mla(cfg: ModelConfig, *, generator, device) -> dict:
+    """``wq``, ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``, ``wo``, in the
+    reference's key order and shapes."""
+    m, d, hq = cfg.mla, cfg.d_model, cfg.n_heads
+    p = {"wq": dense_init((d, hq * (m.qk_nope_dim + m.qk_rope_dim)),
+                          generator=generator, device=device),
+         "w_dkv": dense_init((d, m.kv_lora_rank + m.qk_rope_dim),
+                             generator=generator, device=device),
+         "kv_norm": torch.ones(m.kv_lora_rank, device=device)}
+    for name, shape in (("w_uk", (m.kv_lora_rank, hq * m.qk_nope_dim)),
+                        ("w_uv", (m.kv_lora_rank, hq * m.v_head_dim)),
+                        ("wo", (hq * m.v_head_dim, d))):
+        p[name] = dense_init(shape, generator=generator, device=device)
+    return p
+
+
+def apply_mla(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
+              cache: Optional[KVCache] = None,
+              cache_pos: Optional[int] = None):
+    """x: [B, S, E] -> ([B, S, E], cache or None).  ``rot``: the (cos,
+    sin) of ``layers.rope_angles`` at ``qk_rope_dim``, [B, 1, S,
+    qk_rope_dim / 2].  The cache holds the normed latent and the rotated
+    rope key, [B, 1, S_max, kv_lora + rope]; where it is float32 under
+    bfloat16 activations, products with it run in float32, as the
+    reference's type promotion has them."""
+    m = cfg.mla
+    b, sq, _ = x.shape
+    hq, dt = cfg.n_heads, x.dtype
+    nope, lora = m.qk_nope_dim, m.kv_lora_rank
+    q = (x @ p["wq"].to(dt)).reshape(b, sq, hq, nope + m.qk_rope_dim)
+    q_nope = q[..., :nope].transpose(1, 2)                  # [B, H, S, n]
+    q_rope = apply_rope(q[..., nope:].transpose(1, 2), *rot)
+    latent = x @ p["w_dkv"].to(dt)                          # [B, S, l + r]
+    c_kv = rmsnorm(latent[..., :lora], p["kv_norm"], cfg.rms_eps)
+    k_rope = apply_rope(latent[..., None, lora:].transpose(1, 2), *rot)
+    scale = (nope + m.qk_rope_dim) ** -0.5
+
+    if cache is not None:
+        cache.k[:, 0, cache_pos:cache_pos + sq] = torch.cat(
+            [c_kv, k_rope[:, 0]], dim=-1).to(cache.k.dtype)
+        hist = cache.k[:, 0]                                # [B, S_max, .]
+        c_kv_all = hist[..., :lora]
+        k_rope_all = hist[..., None, lora:].transpose(1, 2)  # [B, 1, S, r]
+        at = dict(qpos_start=cache_pos, valid_len=cache_pos + sq)
+    else:
+        c_kv_all, k_rope_all, at = c_kv, k_rope, {}
+    skv = c_kv_all.shape[1]
+
+    if cache is not None and sq <= 8:
+        # the absorbed path: attention against the latent cache itself
+        w_uk = p["w_uk"].to(dt).reshape(lora, hq, nope)
+        q_lat = torch.einsum("bhqd,lhd->bhql", q_nope, w_uk)
+        out_lat = ops.attention(torch.cat([q_lat, q_rope], dim=-1),
+                                hist[:, None], c_kv_all[:, None],
+                                causal=True, scale=scale, **at)
+        w_uv = p["w_uv"].to(dt).reshape(lora, hq, m.v_head_dim)
+        out = torch.einsum("bhql,lhd->bhqd", out_lat, w_uv)
+    else:
+        ct = torch.promote_types(c_kv_all.dtype, dt)
+        c_all = c_kv_all.to(ct)
+        k_nope = (c_all @ p["w_uk"].to(dt).to(ct)).reshape(
+            b, skv, hq, nope).transpose(1, 2)
+        vv = (c_all @ p["w_uv"].to(dt).to(ct)).reshape(
+            b, skv, hq, m.v_head_dim).transpose(1, 2)
+        k_rope_b = k_rope_all.expand(b, hq, skv, m.qk_rope_dim).to(dt)
+        out = ops.attention(torch.cat([q_nope, q_rope], dim=-1),
+                            torch.cat([k_nope, k_rope_b.to(ct)], dim=-1),
+                            vv, causal=True, scale=scale, **at)
+    out = out.transpose(1, 2).reshape(b, sq, hq * m.v_head_dim)
+    return out @ p["wo"].to(dt), cache

@@ -2,7 +2,7 @@
 
 A copy of ``repro.models.config`` (pure dataclasses), kept here so that the
 port never imports the JAX package.  Every config file loads; the port's
-``Transformer`` runs the dense ``global`` / ``local`` blocks.
+``Transformer`` runs ``global`` / ``local`` attention, MLA and MoE blocks.
 
 One ``ModelConfig`` describes dense / MoE / MLA / SSM / hybrid / vlm / audio
 decoder stacks.  Layer heterogeneity (local vs global attention, recurrent vs

@@ -86,22 +86,34 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
 # ------------------------------------------------------------------- mlp ---
 
 
-def init_mlp(cfg: ModelConfig, d_ff: int, *, generator, device) -> dict:
+def init_mlp(cfg: ModelConfig, d_ff: int, *, stacked: tuple = (),
+             generator, device) -> dict:
     """GLU (``w_in``, ``w_gate``, ``w_out``) or plain (``w_in``, ``w_out``)
-    MLP weights, in the reference's key order."""
+    MLP weights, in the reference's key order; ``stacked``: leading dims
+    (the experts of a MoE layer)."""
     d = cfg.d_model
-    p = {"w_in": dense_init((d, d_ff), generator=generator, device=device)}
+    p = {"w_in": dense_init((*stacked, d, d_ff), generator=generator,
+                            device=device)}
     if cfg.activation in ("silu_glu", "gelu_glu"):
-        p["w_gate"] = dense_init((d, d_ff), generator=generator,
+        p["w_gate"] = dense_init((*stacked, d, d_ff), generator=generator,
                                  device=device)
-    p["w_out"] = dense_init((d_ff, d), generator=generator, device=device)
+    p["w_out"] = dense_init((*stacked, d_ff, d), generator=generator,
+                            device=device)
     return p
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))``, one rounding to x's dtype per
+    operation: ``jax.nn.silu``'s operations, which XLA rounds one by one
+    in bfloat16 (``F.silu`` rounds once, and moves bfloat16 MoE routes
+    at near ties)."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["w_in"].to(x.dtype)
     if cfg.activation == "silu_glu":
-        h = F.silu(x @ p["w_gate"].to(x.dtype)) * h
+        h = silu(x @ p["w_gate"].to(x.dtype)) * h
     elif cfg.activation == "gelu_glu":
         h = F.gelu(x @ p["w_gate"].to(x.dtype), approximate="tanh") * h
     elif cfg.activation == "squared_relu":

@@ -1,21 +1,26 @@
-"""Decoder stack of dense ``global`` / ``local`` attention blocks.
+"""Decoder stack: dense ``global`` / ``local`` attention blocks, MoE and
+MLA (DeepSeek-V2's dense prefix, then MoE blocks).
 
-Counterpart of ``repro.models.transformer`` for the dense GQA
-architectures.  The reference stacks each pattern slot's weights over the
-periods and runs one ``lax.scan`` per slot: **all periods of slot 0, then
-all periods of slot 1, ...**, then the tail.  For gemma3-1b (pattern 5 x
-local + global, 4 periods, a 2-layer tail) the executed order is 20 local
-layers, 4 global, 2 local, not L,L,L,L,L,G repeated.  The port holds its
-layers in that executed order (``Transformer.kinds``, ``layer_slots``),
-so the same weights give the same function.
+Counterpart of ``repro.models.transformer``.  The reference stacks each
+pattern slot's weights over the periods and runs one ``lax.scan`` per
+slot: the dense prefix (``first_k_dense`` layers of a MoE model) first,
+then **all periods of slot 0, then all periods of slot 1, ...**, then the
+tail.  For gemma3-1b (pattern 5 x local + global, 4 periods, a 2-layer
+tail) the executed order is 20 local layers, 4 global, 2 local, not
+L,L,L,L,L,G repeated.  The port holds its layers in that executed order
+(``Transformer.kinds``, ``layer_slots``), so the same weights give the
+same function.
 
 The module holds its weights (float32, as the reference's) and runs
 forward only: the flash kernel has no backward, in the reference as here.
 Caches mirror the reference's layout, ``{"blocks": [KVCache per slot with
-k, v of [n_periods, B, Hkv, S, D]], "tail": [...]}``; layer (slot j,
-period i) attends over ``cache["blocks"][j]`` at period i, written in
-place.  MoE, MLA, SSM, RG-LRU blocks, prefix embeddings and cross-attention
-memory raise ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 12).
+k, v of [n_periods, B, Hkv, S, D]], "tail": [...], "prefix": KVCache}``
+(MLA: k of [n, B, 1, S, kv_lora + rope], v unused); layer (slot j, period
+i) attends over ``cache["blocks"][j]`` at period i, written in place.  A
+MoE block routes a decode step (a cache and one token) exactly, as the
+reference does; ``ModelOutput.aux_loss`` sums the blocks' load-balance
+losses.  SSM, RG-LRU blocks, prefix embeddings and cross-attention memory
+raise ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from torch import nn
 
 from repro_torch.core.hashing import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
@@ -39,64 +45,106 @@ DENSE_KINDS = ("global", "local")
 @dataclasses.dataclass
 class ModelOutput:
     logits: torch.Tensor
+    aux_loss: torch.Tensor        # float32 scalar; 0 without MoE blocks
     cache: Any = None
 
 
-def _params(d: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in d.items()})
+class ParamTree(nn.Module):
+    """A nested dict of frozen parameters, read as ``p["a"]["b"]``;
+    ``named_parameters()`` gives each leaf's dotted path."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, ParamTree(value))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 def layer_slots(cfg: ModelConfig) -> list[tuple[str, int, int]]:
-    """The executed layer order as ``(group, slot, period)``: every period
-    of pattern slot 0, then of slot 1, ..., then the tail slots
-    (``group`` is ``"blocks"`` or ``"tail"``)."""
-    out = [("blocks", j, i) for j in range(cfg.period)
-           for i in range(cfg.n_periods)]
+    """The executed layer order as ``(group, slot, period)``: the dense
+    prefix, then every period of pattern slot 0, then of slot 1, ..., then
+    the tail slots (``group`` is ``"prefix"``, ``"blocks"`` or
+    ``"tail"``)."""
+    prefix = cfg.moe.first_k_dense if cfg.moe else 0
+    out = [("prefix", 0, i) for i in range(prefix)]
+    out += [("blocks", j, i) for j in range(cfg.period)
+            for i in range(cfg.n_periods)]
     out += [("tail", j, 0) for j in range(len(cfg.tail))]
     return out
 
 
 class Block(nn.Module):
-    """norm1 -> attention (-> norm1b) -> residual -> norm2 -> MLP
-    (-> norm2b) -> residual; the ``b`` norms where ``use_post_norm``."""
+    """norm1 -> attention or MLA (-> norm1b) -> residual -> norm2 -> MLP
+    or MoE (-> norm2b) -> residual; the ``b`` norms where
+    ``use_post_norm``.  A MoE model's prefix blocks take a dense MLP of
+    ``d_ff``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, generator, device):
+    def __init__(self, cfg: ModelConfig, kind: str, *, generator, device,
+                 in_prefix: bool = False):
         super().__init__()
         self.cfg, self.kind = cfg, kind
+        self.moe = cfg.moe is not None and not in_prefix
         d = cfg.d_model
         norms = {"norm1": torch.ones(d, device=device)}
-        self.mixer = _params(attn_mod.init_attention(
-            cfg, generator=generator, device=device))
+        init_mixer = (attn_mod.init_mla if cfg.mla is not None
+                      else attn_mod.init_attention)
+        self.mixer = ParamTree(init_mixer(cfg, generator=generator,
+                                          device=device))
         if cfg.use_post_norm:
             norms["norm1b"] = torch.ones(d, device=device)
         norms["norm2"] = torch.ones(d, device=device)
-        self.mlp = _params(init_mlp(cfg, cfg.d_ff, generator=generator,
-                                    device=device))
+        self.mlp = ParamTree(
+            moe_mod.init_moe(cfg, generator=generator, device=device)
+            if self.moe else init_mlp(cfg, cfg.d_ff, generator=generator,
+                                      device=device))
         if cfg.use_post_norm:
             norms["norm2b"] = torch.ones(d, device=device)
-        self.norms = _params(norms)
+        self.norms = ParamTree(norms)
 
-    def forward(self, x, *, rot, cache=None, cache_pos=None):
+    def forward(self, x, *, rot, cache=None, cache_pos=None, routes=None):
+        """-> (x, cache, float32 aux loss or None).  ``routes``: a list
+        that receives a MoE block's ``moe.Routing``."""
         cfg = self.cfg
         h = rmsnorm(x, self.norms["norm1"], cfg.rms_eps)
-        window = cfg.window if self.kind == "local" else None
-        out, cache = attn_mod.apply_attention(
-            self.mixer, cfg, h, rot=rot, window=window, cache=cache,
-            cache_pos=cache_pos)
+        if cfg.mla is not None:
+            out, cache = attn_mod.apply_mla(self.mixer, cfg, h, rot=rot,
+                                            cache=cache, cache_pos=cache_pos)
+        else:
+            window = cfg.window if self.kind == "local" else None
+            out, cache = attn_mod.apply_attention(
+                self.mixer, cfg, h, rot=rot, window=window, cache=cache,
+                cache_pos=cache_pos)
         if cfg.use_post_norm:
             out = rmsnorm(out, self.norms["norm1b"], cfg.rms_eps)
-        x = x + out
-        h = rmsnorm(x, self.norms["norm2"], cfg.rms_eps)
-        out = apply_mlp(self.mlp, cfg, h)
+        # the residual rounds to x's dtype, the norm reads the float32 sum:
+        # XLA fuses the add into the norm's float32 cast (in bfloat16 a
+        # rounded norm input moves MoE routes at near ties)
+        s = x.float() + out.float()
+        x = s.to(x.dtype)
+        h = rmsnorm(s, self.norms["norm2"], cfg.rms_eps).to(x.dtype)
+        aux = None
+        if self.moe:
+            exact = cache is not None and x.shape[1] == 1   # decode
+            out, aux = moe_mod.apply_moe(self.mlp, cfg, h, exact=exact,
+                                         routes=routes)
+        else:
+            out = apply_mlp(self.mlp, cfg, h)
         if cfg.use_post_norm:
             out = rmsnorm(out, self.norms["norm2b"], cfg.rms_eps)
-        return x + out, cache
+        return x + out, cache, aux
 
 
 def check_supported(cfg: ModelConfig) -> None:
     unported = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
         ("ssm", cfg.ssm is not None or cfg.family == "ssm"),
         ("rglru", cfg.rglru is not None or "rglru" in cfg.pattern),
         ("prefix_embeds", cfg.prefix_embed_len > 0),
@@ -105,7 +153,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported yet (ROADMAP.md "
-            f"Queue 1 item 12); the port runs dense global/local blocks")
+            f"Queue 1 item 2); the port runs global/local attention, MLA "
+            f"and MoE blocks")
 
 
 class Transformer(nn.Module):
@@ -128,63 +177,84 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             emb["lm_head"] = init_embedding(cfg, generator=gen, device=dev)
         emb["final_norm"] = torch.ones(cfg.d_model, device=dev)
-        self.emb = _params(emb)
+        self.emb = ParamTree(emb)
         self.slots = layer_slots(cfg)
-        self.kinds = [cfg.pattern[j] if g == "blocks" else cfg.tail[j]
+        self.kinds = [cfg.tail[j] if g == "tail" else cfg.pattern[j]
                       for g, j, _i in self.slots]
         self.layers = nn.ModuleList(
-            Block(cfg, kind, generator=gen, device=dev)
-            for kind in self.kinds)
+            Block(cfg, kind, generator=gen, device=dev,
+                  in_prefix=group == "prefix")
+            for kind, (group, _j, _i) in zip(self.kinds, self.slots))
+        # MLA rotates only its qk_rope_dim dims, at that width's frequencies
+        rope_dim = cfg.mla.qk_rope_dim if cfg.mla else cfg.head_dim_
         self.register_buffer("rope_freqs",
-                             rope_freqs(cfg.head_dim_, cfg.rope_theta).to(dev),
+                             rope_freqs(rope_dim, cfg.rope_theta).to(dev),
                              persistent=False)
 
     @property
     def device(self) -> torch.device:
         return self.emb["embed"].device
 
+    def rotation(self, batch: int, length: int, start: int = 0):
+        """The (cos, sin) that every layer of a call over positions
+        ``start ..`` applies (the reference recomputes it per layer, with
+        the same float32 operations)."""
+        positions = start + torch.arange(length, device=self.device)
+        return rope_angles(positions[None, None, :].expand(batch, 1, length),
+                           self.rope_freqs)
+
     # ------------------------------------------------------------ apply --
 
     @torch.no_grad()
     def apply(self, tokens, *, cache=None, cache_pos: Optional[int] = None,
-              prefix_embeds=None, memory=None) -> ModelOutput:
-        """tokens: int [B, S] -> ModelOutput (float32 logits [B, S, V]).
+              prefix_embeds=None, memory=None,
+              routes: Optional[list] = None) -> ModelOutput:
+        """tokens: int [B, S] -> ModelOutput (float32 logits [B, S, V],
+        the float32 aux loss summed over the MoE blocks).
 
         Without ``cache`` this is the full-sequence forward (flash
         attention); with ``cache`` and ``cache_pos`` (a host int) it is
         prefill or decode, and the returned cache is the given one, written
-        in place.
+        in place.  ``routes``: a list that receives each MoE block's
+        ``moe.Routing``, in the executed order.
         """
         if prefix_embeds is not None or memory is not None:
             raise NotImplementedError(
                 "prefix_embeds / memory: not ported yet (ROADMAP.md Queue 1 "
-                "item 12)")
+                "item 2)")
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         x = embed(self.emb["embed"], tokens, cfg)
         b, s, _ = x.shape
-        start = 0 if cache_pos is None else int(cache_pos)
-        positions = (start + torch.arange(s, device=x.device))[None, :] \
-            .expand(b, s)
-        # one rotation table for every layer (the reference recomputes it
-        # per layer, with the same float32 operations)
-        rot = rope_angles(positions[:, None, :], self.rope_freqs)
+        rot = self.rotation(b, s, 0 if cache_pos is None else int(cache_pos))
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer, (group, j, i) in zip(self.layers, self.slots):
             lc = None
             if cache is not None:
-                slot = cache[group][j]
+                slot = cache[group] if group == "prefix" else cache[group][j]
                 lc = KVCache(slot.k[i], slot.v[i])
-            x, _ = layer(x, rot=rot, cache=lc, cache_pos=cache_pos)
+            x, _, aux = layer(x, rot=rot, cache=lc, cache_pos=cache_pos,
+                              routes=routes)
+            if aux is not None:
+                aux_total = aux_total + aux
         x = rmsnorm(x, self.emb["final_norm"], cfg.rms_eps)
         head = (self.emb["lm_head"] if "lm_head" in self.emb
                 else self.emb["embed"])
         logits = unembed(head, x, cfg)
-        return ModelOutput(logits=logits, cache=cache)
+        return ModelOutput(logits=logits, aux_loss=aux_total, cache=cache)
 
     # ------------------------------------------------------------ cache --
 
     def _slot_cache(self, kind, n, batch, max_len, dtype, *, window_bound):
         cfg = self.cfg
+        if cfg.mla is not None:
+            m = cfg.mla
+            width = m.kv_lora_rank + m.qk_rope_dim
+            return KVCache(
+                k=torch.zeros((n, batch, 1, max_len, width), dtype=dtype,
+                              device=self.device),
+                v=torch.zeros((n, 1, 1, 1, 1), dtype=dtype,
+                              device=self.device))
         klen = max_len
         if window_bound and kind == "local":
             klen = min(max_len, cfg.window)
@@ -194,8 +264,9 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    dtype=torch.bfloat16, window_bound: bool = False) -> dict:
-        """Per pattern slot, k and v stacked over periods.
-        ``window_bound=True`` gives local slots a window-long ring."""
+        """Per pattern slot, k and v stacked over periods (and the dense
+        prefix's, stacked over its layers).  ``window_bound=True`` gives
+        local slots a window-long ring."""
         cfg = self.cfg
         out = {"blocks": [
             self._slot_cache(kind, cfg.n_periods, batch, max_len, dtype,
@@ -205,6 +276,11 @@ class Transformer(nn.Module):
             out["tail"] = [self._slot_cache(kind, 1, batch, max_len, dtype,
                                             window_bound=window_bound)
                            for kind in cfg.tail]
+        prefix = cfg.moe.first_k_dense if cfg.moe else 0
+        if prefix:
+            out["prefix"] = self._slot_cache(cfg.pattern[0], prefix, batch,
+                                             max_len, dtype,
+                                             window_bound=window_bound)
         return out
 
     def decode_step(self, cache, tokens, pos: int) -> ModelOutput:

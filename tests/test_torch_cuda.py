@@ -508,6 +508,58 @@ def test_lm_on_card_matches_cpu(dev, seq):
     assert torch.equal(*outs)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_mla_heads_padded(dev, dtype):
+    """MLA's cache-less attention (q, k of 192, v of 128, Hq = Hkv) through
+    ``ops.attention``: one kernel launch on heads zero-padded to 256, held
+    against the plain version on the same padded heads, cut back to 128,
+    with the tolerances above."""
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(11)
+    q, k = (torch.from_numpy(rng.randn(1, 4, 300, 192)).to(dev, dtype)
+            for _ in range(2))
+    v = torch.from_numpy(rng.randn(1, 4, 300, 128)).to(dev, dtype)
+    cuda.reset_counts()
+    got = ops.attention(q, k, v, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == 1 and not cuda.PLAIN_CALLS
+    pad = [torch.nn.functional.pad(t, (0, 256 - t.shape[-1]))
+           for t in (q, k, v)]
+    want = flash_attention_plain(*pad, scale=192 ** -0.5)[..., :128]
+    assert got.shape == (1, 4, 300, 128)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-6
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    row_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert float(row_rel_err(got, want).max()) <= row_tol
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_moe_lm_on_card_matches_cpu(dev, arch):
+    """The MoE smoke models (deepseek: MLA over the padded flash kernel)
+    built on the CPU and copied to the card: float32 logits within 1e-4
+    and aux loss within 1e-6 (tf32 off), greedy tokens of prefill + 8
+    decode steps equal."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = Transformer(cfg, seed=1, device="cpu")
+    card = Transformer(cfg, seed=1, device="cpu").to(dev)
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 64)))
+    cuda.reset_counts()
+    a = card.apply(toks.to(dev))
+    assert cuda.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert not cuda.PLAIN_CALLS
+    b = cpu.apply(toks)
+    torch.testing.assert_close(a.logits.cpu(), b.logits, atol=1e-4,
+                               rtol=1e-4)
+    assert abs(float(a.aux_loss) - float(b.aux_loss)) <= 1e-6
+    outs = [engine.generate(m, t, 9).tokens.cpu()
+            for m, t in ((card, toks.to(dev)), (cpu, toks))]
+    assert torch.equal(*outs)
+
+
 # ------------------------------------------------- telemetry twins ------
 
 

@@ -56,9 +56,31 @@ def test_prefill_and_decode_match_reference(name):
     assert cuda.PLAIN_CALLS["flash_attention"] == 0
     mine = cache_to_numpy(pc)
     for group in rc:
-        for rslot, (k, v) in zip(rc[group], mine[group]):
+        # the dense prefix's cache is one slot, the others lists of slots
+        rslots, pslots = ((rc[group],), (mine[group],)) if group == \
+            "prefix" else (rc[group], mine[group])
+        assert len(rslots) == len(pslots)
+        for rslot, (k, v) in zip(rslots, pslots):
             np.testing.assert_allclose(k, np.asarray(rslot.k), atol=F32_TOL)
             np.testing.assert_allclose(v, np.asarray(rslot.v), atol=F32_TOL)
+
+
+@pytest.mark.parametrize("name", ["deepseek", "qwen3-moe"])
+def test_decode_matches_full_f32(name):
+    """tests/test_models.py's serving consistency check on the port: the
+    last position's log-softmax of the cache-less forward (flash) against
+    a prefill of all but the last token plus one decode step (blockwise
+    over the cache; MLA's absorbed path; exact MoE routing), within 1e-3
+    (observed <= 1e-6)."""
+    _ref, _params, model = lm_models(name)
+    toks = torch.from_numpy(lm_tokens(model.cfg, (2, 32), seed=5))
+    full = model.apply(toks).logits[:, -1]
+    cache = model.init_cache(2, 36, dtype=torch.float32)
+    model.apply(toks[:, :-1], cache=cache, cache_pos=0)
+    dec = model.decode_step(cache, toks[:, -1:], 31).logits[:, 0]
+    err = float((torch.log_softmax(full, -1)
+                 - torch.log_softmax(dec, -1)).abs().max())
+    assert err < 1e-3, err
 
 
 def test_generate_matches_reference():

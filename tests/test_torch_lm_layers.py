@@ -43,7 +43,8 @@ def _np(x):
 
 
 def test_config_files_match_the_reference():
-    for arch in ("gemma3-1b", "gemma2-27b", "mistral-nemo-12b"):
+    for arch in ("gemma3-1b", "gemma2-27b", "mistral-nemo-12b",
+                 "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"):
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
             ref_get_config(arch))
         assert get_config(arch).param_count() == \

@@ -28,11 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.models import Transformer as RefTransformer
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import transformer_params_to_numpy
 from repro_torch.kernels import cuda
 from repro_torch.models import Transformer
-from repro_torch.models.config import MoeConfig
+from repro_torch.models.config import SsmConfig
 
 from torch_port_util import LM_CONFIGS, lm_models, lm_tokens, ref_logits
 
@@ -40,6 +42,7 @@ pytestmark = pytest.mark.tier1
 
 F32_TOL = 5e-5
 BF16_TOL, BF16_MEAN_TOL = 0.25, 0.02
+AUX_TOL = {"float32": 1e-7, "bfloat16": 1e-6}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -47,9 +50,12 @@ BF16_TOL, BF16_MEAN_TOL = 0.25, 0.02
 def test_apply_logits_match_reference(name, dtype):
     ref, params, model = lm_models(name, dtype)
     toks = lm_tokens(ref.cfg, (2, 32))
-    want = np.asarray(ref_logits(ref, params, toks))
+    want, want_aux = (np.asarray(a) for a in jax.jit(
+        lambda p, t: (lambda o: (o.logits, o.aux_loss))(ref.apply(p, t)))(
+            params, jnp.asarray(toks)))
     cuda.reset_counts()
-    got = model.apply(torch.from_numpy(toks)).logits
+    out = model.apply(torch.from_numpy(toks))
+    got = out.logits
     # every layer's attention went to the flash kernel (its plain version)
     assert cuda.PLAIN_CALLS["flash_attention"] == model.cfg.n_layers
     assert got.dtype == torch.float32 and got.shape == want.shape
@@ -59,6 +65,10 @@ def test_apply_logits_match_reference(name, dtype):
     else:
         assert err.max() < BF16_TOL and err.mean() < BF16_MEAN_TOL, (
             err.max(), err.mean())
+    # the MoE load-balance loss, summed over the blocks; 0 without MoE
+    assert out.aux_loss.dtype == torch.float32
+    assert abs(float(out.aux_loss) - float(want_aux)) <= AUX_TOL[dtype]
+    assert (float(want_aux) > 0) == (model.cfg.moe is not None)
 
 
 def test_ragged_length_matches_reference():
@@ -100,8 +110,9 @@ def test_layers_run_slot_major():
     assert np.abs(wrong - want).max() > 100 * F32_TOL
 
 
-def test_params_round_trip():
-    _ref, params, model = lm_models("gemma3-14")
+@pytest.mark.parametrize("name", ["gemma3-14", "deepseek", "qwen3-moe"])
+def test_params_round_trip(name):
+    _ref, params, model = lm_models(name)
     back = transformer_params_to_numpy(model)
     want = jax.tree.map(np.asarray, params)
     assert jax.tree.structure(back) == jax.tree.structure(want)
@@ -124,16 +135,39 @@ def test_own_init_is_seeded_and_forward_only():
     assert out.logits.dtype == torch.float32
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_own_moe_init_has_the_reference_params(arch):
+    """The own init holds the reference init's parameters, leaf for leaf:
+    ``param_count()`` plus each MLA layer's ``kv_norm``, which it omits
+    (the reference's count does too); the dense prefix comes first."""
+    cfg = get_smoke_config(arch)
+    model = Transformer(cfg, seed=0, device="cpu")
+    n = sum(p.numel() for p in model.parameters())
+    want = jax.eval_shape(lambda k: RefTransformer(
+        ref_smoke_config(arch)).init(k)[0], jax.random.PRNGKey(0))
+    assert n == sum(int(np.prod(a.shape)) for a in jax.tree.leaves(want))
+    norms = cfg.n_layers * cfg.mla.kv_lora_rank if cfg.mla else 0
+    assert n == cfg.param_count() + norms
+    prefix = cfg.moe.first_k_dense
+    assert [layer.moe for layer in model.layers] == \
+        [False] * prefix + [True] * (cfg.n_layers - prefix)
+    assert model.slots[0] == (("prefix", 0, 0) if prefix
+                              else ("blocks", 0, 0))
+    out = model.apply(torch.zeros((1, 16), dtype=torch.int64))
+    assert out.logits.shape == (1, 16, cfg.vocab_size)
+    assert float(out.aux_loss) > 0
+
+
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("qwen3-moe-235b-a22b")
+        get_config("mamba2-1.3b")
     with pytest.raises(ValueError):
         get_config("no-such-model")
     cfg = get_smoke_config("mistral-nemo-12b")
-    moe = dataclasses.replace(cfg, family="moe", moe=MoeConfig(
-        n_experts=4, top_k=2, expert_d_ff=32))
-    with pytest.raises(NotImplementedError, match="moe"):
-        Transformer(moe, device="cpu")
+    ssm = dataclasses.replace(cfg, family="ssm", ssm=SsmConfig())
+    with pytest.raises(NotImplementedError, match="ssm"):
+        Transformer(ssm, device="cpu")
     model = Transformer(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         model.apply(torch.zeros((1, 4), dtype=torch.int64),

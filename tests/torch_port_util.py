@@ -125,11 +125,14 @@ def assert_same_ring(ref_ring, port_ring, where=""):
 # ------------------------------------------------------------- LM stack --
 
 # name -> (arch, ModelConfig overrides) of the smoke configs the LM tests
-# hold against the reference; gemma3 at 14 layers runs 2 periods + a tail.
+# hold against the reference; gemma3 at 14 layers runs 2 periods + a tail;
+# deepseek runs a dense MLA prefix layer, then MLA + MoE blocks.
 LM_CONFIGS = {"gemma3": ("gemma3_1b", {}),
               "gemma3-14": ("gemma3_1b", dict(n_layers=14)),
               "gemma2": ("gemma2_27b", {}),
-              "mistral-nemo": ("mistral_nemo_12b", {})}
+              "mistral-nemo": ("mistral_nemo_12b", {}),
+              "deepseek": ("deepseek_v2_lite_16b", {}),
+              "qwen3-moe": ("qwen3_moe_235b_a22b", {})}
 _REF_PARAMS = {}
 
 
