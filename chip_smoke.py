@@ -40,7 +40,11 @@ Phases, each timed, each fatal on failure:
      lengths (200, 300) that end in ragged tiles, and deepseek-v2-lite's
      MLA heads through ``ops.attention`` (Hq = Hkv = 16, q and k of 192, v
      of 128, zero-padded to 256: bfloat16 at S = 8192 and 200, float32 at
-     1024); and the scan backend's
+     1024), and in bfloat16 the shapes of phase 5h's forwards
+     (recurrentgemma-2b's local layers: a GQA group of 10, D 256, window
+     2048; musicgen-large's self-attention and its non-causal
+     cross-attention, Sq 8192 over 256 memory frames; llava's 32 / 8 heads
+     at D 128; nemotron's 48 / 8 at 4096); and the scan backend's
      ``scan_insert`` and ``scan_delete`` on SCAN_CASES (key mode on a
      2^12-bucket table driven to load 0.97 by 2^14 keys, pair mode into a
      16-slot stash that fills, 2^14 deletes with duplicates, a stack of
@@ -71,7 +75,13 @@ Phases, each timed, each fatal on failure:
      to it on both devices (expert choices equal but at a near tie of
      gate gap <= 1e-5, printed; ``keep`` equal; outputs row by row within
      1e-4), then logits within 1e-3 and the aux loss within 1e-6, and the
-     greedy tokens of prefill + 8 decode steps equal; and a sharded-filter
+     greedy tokens of prefill + 8 decode steps equal; mamba2-1.3b (2
+     layers), recurrentgemma-2b (3: rglru, rglru, local), musicgen-large
+     (2, with a seeded memory), llava-next-mistral-7b (2, with 128 seeded
+     prefix embeddings) and nemotron-4-15b (2), each at full width,
+     float32, TF32 off, built on the card and copied to the CPU: logits
+     within 1e-3, greedy tokens of prefill + 4 decode steps equal; and a
+     sharded-filter
      stream on both backends (2 shards x 2^12 buckets x 4, a 128-slot
      stash, both routes at a capacity that defers, a split to 4 and a
      merge back in several rounds; tables, stashes, ok, deferred, overflow
@@ -154,7 +164,8 @@ Phases, each timed, each fatal on failure:
      with the time per walked lane, the insert's schedule shares and the
      delete's conflict groups and grouping time; and ``flash_attention`` at
      deepseek-v2-lite's padded MLA shape beside its bound at the unpadded
-     heads and one ``scaled_dot_product_attention`` call on them;
+     heads and one ``scaled_dot_product_attention`` call on them, and at
+     phase 5h's five shapes beside their bounds and SDPA;
   5g. (run last, with every earlier phase's state freed) MoE + MLA at
      full size: (a) deepseek-v2-lite-16b (27 layers, full width, float32
      weights from SEED, bfloat16 activations): a cache-less forward over
@@ -168,7 +179,19 @@ Phases, each timed, each fatal on failure:
      requests of 496 + 16 tokens, 8 generated (reused blocks > 0); (d)
      qwen3-moe-235b-a22b at full width, 2 layers: two bfloat16 forwards
      over 4096 tokens (finite, 2 flash launches each); launch counts read
-     around it.
+     around it;
+  5h. (after 5g, its state freed) mamba2-1.3b, recurrentgemma-2b,
+     musicgen-large, llava-next-mistral-7b and nemotron-4-15b at full
+     width and depth (float32 weights from SEED, bfloat16 activations):
+     (a) a cache-less forward over 8192 positions (llava: 2880 prefix
+     embeddings + 5312 tokens; musicgen with a 256-frame memory; nemotron
+     at its 4096), 3 repeats: positions/s, flash launches, device busy by
+     class, peak memory under 80 GB; (b) float32: the forward against a
+     cached prefill of all but the last of 1024 tokens (mamba2: 768 +
+     255, its chunk rule) + one decode step, log-softmax within 1e-3,
+     with the memory or the prefix; (c) ``serve()`` of mamba2 and
+     recurrentgemma, 8 requests of 496 + 16 tokens through the prefix
+     index (reused blocks > 0); launch counts read around it.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -265,6 +288,22 @@ STREAMING_KERNELS = ("probe_multi",)
 LM_KERNELS = ("flash_attention",)
 LM_ARCH = "gemma3-1b"
 LM_SEQ = 8192                 # the prompt-scoring forward of phase 5c
+# Phase 5h: the SSM, RG-LRU, cross-attention and prefix architectures and
+# nemotron at full width; positions of a cache-less forward (llava: its
+# 2880 prefix embeddings + 5312 tokens; nemotron: its max_seq_len, 4096)
+ARCH_PATH = ("mamba2-1.3b", "recurrentgemma-2b", "musicgen-large",
+             "llava-next-mistral-7b", "nemotron-4-15b")
+ARCH_SEQ = 8192
+ARCH_CHECK_SEQ = 1024         # 5h (b): float32 forward vs prefill + decode
+ARCH_SERVED = ("mamba2-1.3b", "recurrentgemma-2b")
+PEAK_BYTES = 80e9             # 5h: the peak device memory allowed
+# Phase 3: (layers, tokens) of each at full width, card vs CPU; llava's
+# prefix there is ARCH_PARITY_PREFIX embeddings (2880 would cost the CPU
+# ~20 s for the same check)
+ARCH_PARITY = {"mamba2-1.3b": (2, 256), "recurrentgemma-2b": (3, 256),
+               "musicgen-large": (2, 256), "llava-next-mistral-7b": (2, 128),
+               "nemotron-4-15b": (2, 128)}
+ARCH_PARITY_PREFIX = 128
 # Flash attention against its plain version, |got - want| <= tol * (1 +
 # |want|): the reference sweep's tolerances (tests/test_kernels.py).
 FLASH_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
@@ -1095,7 +1134,8 @@ class FlashKernelBench:
     on the long global case the script also reads what the row check
     would see from a kernel that dropped the first 64-key tile of every
     row (the plain version without those keys) and requires the check to
-    catch it."""
+    catch it.  PATH_CASES, in bfloat16 only, are the shapes of phase 5h's
+    forwards."""
 
     CASES = [
         # b, hq, hkv, sq, skv, d, causal, window, softcap
@@ -1118,6 +1158,19 @@ class FlashKernelBench:
         (1, 4, 1, 200, 200, 256, True, 64, None),
         (1, 2, 1, 300, 300, 64, True, None, 20.0),
     ]
+    # the shapes phase 5h's cache-less forwards give the kernel, in the
+    # dtype they run (bfloat16): recurrentgemma-2b's local layers (a GQA
+    # group of 10, D 256, window 2048), musicgen-large's self-attention
+    # and its cross-attention over the 256-frame memory (non-causal, Sq >>
+    # Skv), llava-next-mistral-7b's 2880 + 5312 positions, nemotron-4-15b
+    # at its max_seq_len
+    PATH_CASES = [
+        (1, 10, 1, ARCH_SEQ, ARCH_SEQ, 256, True, 2048, None),
+        (1, 32, 32, ARCH_SEQ, ARCH_SEQ, 64, True, None, None),
+        (1, 32, 32, ARCH_SEQ, 256, 64, False, None, None),
+        (1, 32, 8, ARCH_SEQ, ARCH_SEQ, 128, True, None, None),
+        (1, 48, 8, 4096, 4096, 128, True, None, None),
+    ]
     STRIDED_CASES = [
         (1, 8, 2, 1024, 1024, 256, True, None, None),
         (2, 8, 4, 128, 256, 128, True, 64, 30.0),
@@ -1138,11 +1191,13 @@ class FlashKernelBench:
             flash_attention, flash_attention_plain)
         gen = torch.Generator(device=self.dev)
         gen.manual_seed(SEED)
-        cases = [(c, False) for c in self.CASES] + \
-            [(c, True) for c in self.STRIDED_CASES]
-        for case, strided in cases:
+        both = (torch.float32, torch.bfloat16)
+        cases = [(c, False, both) for c in self.CASES] + \
+            [(c, False, (torch.bfloat16,)) for c in self.PATH_CASES] + \
+            [(c, True, both) for c in self.STRIDED_CASES]
+        for case, strided, dtypes in cases:
             b, hq, hkv, sq, skv, d, causal, window, cap = case
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes:
                 def randn(*shape):
                     return torch.randn(shape, device=self.dev,
                                        generator=gen).to(dtype)
@@ -1190,7 +1245,7 @@ class FlashKernelBench:
                           f"{weakest!r}", flush=True)
                     check(weakest > row_tol, "the row check would not catch "
                                              "a dropped kv tile")
-                if skv < sq:
+                if causal and skv < sq:
                     check(float(got[:, :, :sq - skv].abs().max()) == 0.0,
                           "flash_attention: a row with no live key is not 0")
                 self.max_err["flash_attention"] = max(
@@ -1735,6 +1790,85 @@ def moe_parity(seqs=(512, 1024), steps: int = 8) -> None:
     del card, cpu
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def arch_conditions(cfg, batch: int, seed: int, *, dtype, device,
+                    prefix_len=None) -> dict:
+    """The conditioning inputs of a config, seeded: musicgen's
+    text-encoder memory [B, M, memory_dim] of N(0, 1), llava's prefix
+    embeddings [B, P, E] of N(0, 1 / E) (the scale of the token
+    embeddings' rows); {} for the others.  ``prefix_len`` overrides P."""
+    import torch
+    rng = np.random.RandomState(seed)
+    if cfg.cross_attn_memory_len:
+        mem = rng.randn(batch, cfg.cross_attn_memory_len,
+                        cfg.cross_attn_memory_dim)
+        return {"memory": torch.from_numpy(mem).to(device, dtype)}
+    if cfg.prefix_embed_len:
+        p = prefix_len or cfg.prefix_embed_len
+        pre = rng.randn(batch, p, cfg.d_model) / np.sqrt(cfg.d_model)
+        return {"prefix_embeds": torch.from_numpy(pre).to(device, dtype)}
+    return {}
+
+
+def attention_layers(model) -> int:
+    """Flash launches of one cache-less forward: one a global or local
+    layer, two where its cross-attention has a memory (the caller's
+    count)."""
+    return sum(kind in ("global", "local") for kind in model.kinds)
+
+
+def arch_parity(steps: int = 4) -> None:
+    """Phase 3 for the SSM, RG-LRU, cross-attention and prefix configs and
+    nemotron: each at full width, ARCH_PARITY's depth and tokens, float32,
+    TF32 off, one seeded init on the card copied to the CPU.  The
+    cache-less forward's logits agree within 1e-3, with the conditioning
+    inputs (musicgen's memory, ARCH_PARITY_PREFIX of llava's prefix
+    embeddings), and the flash kernel ran once a layer (twice with a
+    memory); the greedy tokens of prefill + ``steps`` decode steps are
+    equal."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import Transformer
+    from repro_torch.serving.engine import generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, (layers, seq) in ARCH_PARITY.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        card = Transformer(cfg, seed=SEED, device="cuda")
+        cpu = copy.deepcopy(card).to("cpu")
+        toks = torch.from_numpy(np.random.RandomState(SEED + 15).randint(
+            0, cfg.vocab_size, (1, seq)))
+        kw = arch_conditions(cfg, 1, SEED + 16, dtype=torch.float32,
+                             device="cpu", prefix_len=ARCH_PARITY_PREFIX)
+        kw_card = {k: v.cuda() for k, v in kw.items()}
+        cuda.reset_counts()
+        a = card.apply(toks.cuda(), **kw_card).logits
+        torch.cuda.synchronize()
+        per = attention_layers(card) * (2 if "memory" in kw else 1)
+        check(cuda.LAUNCHES["flash_attention"] == per and
+              not sum(cuda.PLAIN_CALLS.values()),
+              f"{arch}: the card's forward launched "
+              f"{cuda.LAUNCHES['flash_attention']} flash kernels, not {per}")
+        b = cpu.apply(toks, **kw).logits
+        err = float((a.cpu() - b).abs().max())
+        gen = [generate(m, t, steps + 1, **c).tokens.cpu().numpy()
+               for m, t, c in ((card, toks.cuda(), kw_card),
+                               (cpu, toks, kw))]
+        print(f"   {cfg.name} x{layers} layers, float32, S={seq}"
+              f"{''.join(f' + {k}' for k in kw)}: logits max_abs_err card vs cpu {err!r} "
+              f"(max |logit| {float(b.abs().max())!r}), flash launches "
+              f"{per}; greedy tokens {gen[0].tolist()} / {gen[1].tolist()} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        check(err < 1e-3, f"{arch}: logits differ between devices by {err}")
+        check(np.array_equal(*gen), f"{arch}: greedy tokens differ between "
+                                    f"devices")
+        del card, cpu, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def slo_recorder():
@@ -2850,6 +2984,28 @@ def kernel_class(name: str) -> str:
             else "other")
 
 
+def class_trace(fn) -> tuple[float, dict, int]:
+    """One call of ``fn`` under a CUDA-activity ``torch.profiler`` trace
+    -> (host ms, device ms by ``kernel_class``, device kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    kernels = 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0) or 0.0
+        if us <= 0 or ev.key.startswith("aten::"):
+            continue
+        kernels += ev.count
+        by[kernel_class(ev.key)] += us / 1e3
+    return wall * 1e3, by, kernels
+
+
 def lm_profile(model, toks, card: str, *, prompt: int = 1024,
                steps: int = 3) -> dict:
     """Where the LM path's time goes, from CUDA-activity ``torch.profiler``
@@ -2859,25 +3015,7 @@ def lm_profile(model, toks, card: str, *, prompt: int = 1024,
     ``prompt``-token prefill in a float32 cache (device kernels launched
     and device busy time per step, against the host clock)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def trace(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        by = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
-        kernels = 0
-        for ev in prof.key_averages():
-            us = getattr(ev, "device_time_total", 0.0) or 0.0
-            if us <= 0 or ev.key.startswith("aten::"):
-                continue
-            kernels += ev.count
-            by[kernel_class(ev.key)] += us / 1e3
-        return wall * 1e3, by, kernels
-
+    trace = class_trace
     wall, by, _n = trace(lambda: model.apply(toks))
     busy = sum(by.values())
     print(f"   (a) profile of one forward [{card}]: {wall!r} ms host clock, "
@@ -3398,6 +3536,183 @@ def moe_path(card: str, *, seq: int = MOE_SEQ, check_seq: int = 1024,
     return launches, plain, out
 
 
+# ------------- phase 5h: SSM, RG-LRU, cross-attention and prefix models --
+
+
+def prefill_pieces(cfg, n: int) -> list[int]:
+    """Lengths of the prefill calls that cover ``n`` tokens: one call,
+    but an SSM model's prefill takes a multiple of its chunk or less than
+    one chunk (``ssd_chunked``), so it runs as the chunks' multiple and
+    then the rest."""
+    if cfg.ssm is None or n <= cfg.ssm.chunk:
+        return [n]
+    whole = n // cfg.ssm.chunk * cfg.ssm.chunk
+    return [whole] + ([n - whole] if n > whole else [])
+
+
+def arch_forward(arch: str, card: str) -> dict:
+    """5h (a) for one config: full width and depth (nemotron cut only if
+    its float32 weights leave no room, printed), float32 weights from
+    SEED, bfloat16 activations; a cache-less forward over ARCH_SEQ
+    positions (nemotron: its max_seq_len) with the config's conditioning
+    input, three times: wall s, positions/s, flash launches a forward,
+    device busy by class (``class_trace``), peak device memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import Transformer
+    cfg = get_config(arch)
+    seq = min(ARCH_SEQ, cfg.max_seq_len)
+    weights = cfg.param_count() * 4
+    cut = ""
+    if weights > 0.85 * PEAK_BYTES:
+        layers = int(cfg.n_layers * 0.85 * PEAK_BYTES / weights)
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cut = f", cut to {layers} of {get_config(arch).n_layers} layers"
+    free_card()
+    t0 = time.perf_counter()
+    model = Transformer(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    kw = arch_conditions(cfg, 1, SEED + 17, dtype=torch.bfloat16,
+                         device="cuda")
+    n_prefix = kw["prefix_embeds"].shape[1] if "prefix_embeds" in kw else 0
+    toks = torch.from_numpy(np.random.RandomState(SEED + 18).randint(
+        0, cfg.vocab_size, (1, seq - n_prefix))).cuda()
+    before = cuda.LAUNCHES["flash_attention"]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model.apply(toks, **kw).logits
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = (cuda.LAUNCHES["flash_attention"] - before) // len(times)
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    wall, by, n_kernels = class_trace(lambda: model.apply(toks, **kw))
+    busy = sum(by.values())
+    mem_note = (f", a {cfg.cross_attn_memory_len}-frame memory"
+                if "memory" in kw else "")
+    want = attention_layers(model) * (2 if "memory" in kw else 1)
+    print(f"   (a) {cfg.name}: {n_params} parameters{cut} (init {init_s:.2f}"
+          f" s), forward over {seq} positions ({n_prefix} prefix "
+          f"embeddings{mem_note}) "
+          f"{times!r} s -> {seq / min(times)!r} positions/s, "
+          f"{(seq - n_prefix) / min(times)!r} tokens/s [{card}]; "
+          f"logits {shape} finite={finite}; flash launches per forward "
+          f"{launches}; traced {wall!r} ms, device busy {busy!r} ms (flash "
+          f"{by['flash']!r}, matrix products {by['matmul']!r}, other "
+          f"{by['other']!r}; {n_kernels} kernels), idle share "
+          f"{1 - busy / wall!r}; peak device memory {peak / 2**30!r} GiB "
+          f"({peak / 1e9!r} GB, limit {PEAK_BYTES / 1e9:.0f} GB)",
+          flush=True)
+    check(finite and shape == (1, seq - n_prefix, cfg.vocab_size),
+          f"5h {arch}: logits not finite or of the wrong shape {shape}")
+    check(launches == want, f"5h {arch}: {launches} flash launches a "
+                            f"forward, not {want}")
+    check(peak < PEAK_BYTES, f"5h {arch}: peak device memory {peak} B")
+    del model, kw, toks
+    free_card()
+    return {"arch": arch, "layers": cfg.n_layers, "params": n_params,
+            "positions": seq, "prefix": n_prefix, "forward_s": times,
+            "positions_per_s": seq / min(times), "flash_launches": launches,
+            "traced_ms": wall, "device_ms": by, "idle": 1 - busy / wall,
+            "peak_bytes": peak}
+
+
+def arch_consistency(arch: str) -> float:
+    """5h (b): float32, TF32 off, full width and depth: the last
+    position's log-softmax of the cache-less forward over ARCH_CHECK_SEQ
+    tokens (with the config's conditioning input; llava: its 2880 prefix
+    embeddings before them) against a cached prefill of all but the last
+    token (``prefill_pieces``) and one decode step -> the max error."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    model = Transformer(cfg, seed=SEED, device="cuda")
+    kw = arch_conditions(cfg, 1, SEED + 19, dtype=torch.float32,
+                         device="cuda")
+    mem = {k: v for k, v in kw.items() if k == "memory"}
+    p = kw["prefix_embeds"].shape[1] if "prefix_embeds" in kw else 0
+    n = ARCH_CHECK_SEQ
+    toks = torch.from_numpy(np.random.RandomState(SEED + 20).randint(
+        0, cfg.vocab_size, (1, n))).cuda()
+    full = model.apply(toks, **kw).logits[:, -1]
+    cache = model.init_cache(1, p + n + 4, dtype=torch.float32)
+    a = 0
+    for i, m in enumerate(prefill_pieces(cfg, n - 1)):
+        model.apply(toks[:, a:a + m], cache=cache,
+                    cache_pos=0 if i == 0 else p + a,
+                    **(kw if i == 0 else mem))
+        a += m
+    dec = model.decode_step(cache, toks[:, -1:], p + n - 1,
+                            **mem).logits[:, 0]
+    err = float((torch.log_softmax(full, -1)
+                 - torch.log_softmax(dec, -1)).abs().max())
+    print(f"   (b) {cfg.name}: flash forward vs cached prefill "
+          f"{prefill_pieces(cfg, n - 1)} + decode, float32, {n} tokens"
+          f"{f' after {p} prefix embeddings' if p else ''}"
+          f"{' with the memory' if mem else ''}: log-softmax max err "
+          f"{err!r}", flush=True)
+    check(err < 1e-3, f"5h (b) {arch}: the forward and the cached path "
+                      f"differ by {err}")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del model, cache, full, dec, kw
+    free_card()
+    return err
+
+
+def arch_path(card: str, *, requests: int = 8, prefix_len: int = 496,
+              block: int = 16, gen: int = 8) -> tuple[dict, dict, dict]:
+    """Phase 5h: mamba2-1.3b (SSM), recurrentgemma-2b (RG-LRU + local
+    attention), musicgen-large (cross-attention over a 256-frame memory),
+    llava-next-mistral-7b (2880 prefix embeddings) and nemotron-4-15b at
+    full width: (a) ``arch_forward``; (b) ``arch_consistency`` for the
+    first four; (c) ``serve()`` of mamba2 and recurrentgemma, ``requests``
+    prompts of ``prefix_len + block`` tokens (512: a multiple of mamba2's
+    chunk), ``gen`` tokens each, through the OCF prefix index (kernels
+    1-3).  Every model is freed before the next arm."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.serve import serve
+    free_card()
+    torch.cuda.synchronize()
+    cuda.reset_counts()
+    out = {"forward": {}, "consistency": {}, "serve": {}}
+    for arch in ARCH_PATH:
+        out["forward"][arch] = arch_forward(arch, card)
+    for arch in ARCH_PATH[:4]:
+        out["consistency"][arch] = arch_consistency(arch)
+    for arch in ARCH_SERVED:
+        res = serve(arch, requests=requests, prefix_len=prefix_len, gen=gen,
+                    smoke=False, seed=SEED, block=block, device="cuda")
+        out["serve"][arch] = res
+        print(f"   (c) {arch}: serve {requests} requests x ({prefix_len} + "
+              f"{block} prompt, {gen} generated) [{card}]: latency mean "
+              f"{res['latency_mean_s']!r} s p99 {res['latency_p99_s']!r} s, "
+              f"prefill {res['prefill_tokens_per_s']!r} tokens/s, decode "
+              f"{res['decode_tokens_per_s']!r} tokens/s, prefix hit rate "
+              f"{res['prefix_hit_rate']!r}, reused blocks "
+              f"{res['reused_blocks']}", flush=True)
+        check(res["reused_blocks"] > 0, f"5h (c) {arch}: serve reused no "
+                                        f"prefix block")
+        free_card()
+    torch.cuda.synchronize()
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    print(f"   launches={launches} plain_calls={plain}", flush=True)
+    missing = [k for k in ("flash_attention", "fingerprint_hash", "probe",
+                           "insert_bulk") if not launches.get(k)]
+    check(not missing, f"5h never launched {missing}")
+    return launches, plain, out
+
+
 # --------------------------------------------------------- phase 6: times --
 
 
@@ -3713,7 +4028,8 @@ def time_rows(rows: dict, ops_per_s: float = SCALAR_OPS_PER_S, *,
               f"{symbol}")
         out[name] = {"ms": (d1 + d2) / 2, "wrapper_ms": (w1 + w2) / 2,
                      "plain_ms": (p1 + p2) / 2, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+                     "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                     "device_ms_windows": [d1, d2]}
         print(f"   {name}: kernel {d1!r} / {d2!r} ms (device), wrapper "
               f"{w1!r} / {w2!r} ms, plain {p1!r} / {p2!r} ms, bound "
               f"{bound_ms!r} ms ({nbytes} B, {ops} ops)", flush=True)
@@ -4373,10 +4689,13 @@ def flash_kernel_times() -> dict:
 
 def sdpa_backend(q, k, v, **kw) -> str:
     """The backend ``scaled_dot_product_attention`` picks for these inputs
-    (``torch._fused_sdp_choice``), or "none" where it names none."""
+    (``torch._fused_sdp_choice``; GQA where q has more heads than k), or
+    "none" where it names none."""
     import torch
     try:
         from torch.nn.attention import SDPBackend
+        if q.shape[1] != k.shape[1]:
+            kw = dict(kw, enable_gqa=True)
         return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
     except Exception as exc:                     # noqa: BLE001
         return f"none ({type(exc).__name__}: {exc})"
@@ -4433,6 +4752,70 @@ def mla_flash_times() -> dict:
           f"{diff!r}; {n_ops} operations", flush=True)
     del q, k, v, padded
     return row
+
+
+def arch_flash_times() -> dict:
+    """flash_attention at phase 5h's shapes (FlashKernelBench.PATH_CASES,
+    bfloat16): device time, wrapper, plain version and bound (4 * Hq * D
+    operations per live (query, key) pair over the bfloat16 tensor-core
+    rate, or q, k, v and o moved once, the larger), beside one
+    ``scaled_dot_product_attention`` call on the same inputs (GQA; the
+    window as a dense boolean band mask), timed here and used nowhere in
+    the port."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    labels = ("recurrentgemma local", "musicgen self", "musicgen cross",
+              "llava", "nemotron")
+    out = {}
+    for label, case in zip(labels, FlashKernelBench.PATH_CASES):
+        b, hq, hkv, sq, skv, d, causal, window, _cap = case
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for shape in ((b, hq, sq, d),
+                                                     (b, hkv, skv, d),
+                                                     (b, hkv, skv, d)))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        n_ops = 4 * hq * d * live_pairs(sq, skv, causal, window) * b
+        kw = dict(causal=causal, window=window)
+        name = f"flash_attention ({label})"
+        row = time_rows({name: (
+            lambda: flash_attention(q, k, v, **kw),
+            lambda: flash_attention_plain(q, k, v, **kw),
+            None, (nbytes, n_ops), "flash_wgmma_kernel")}, TENSOR_OPS_PER_S,
+            hold=False)[name]
+        if window is not None:
+            pos = torch.arange(skv, device="cuda")
+            qpos = pos[skv - sq:, None]
+            mask = dict(attn_mask=(pos[None, :] <= qpos)
+                        & (pos[None, :] > qpos - window))
+        else:
+            mask = dict(is_causal=causal)
+
+        def lib(mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **mask)
+        row["library_ms"] = (time_ms(lib, 10) + time_ms(lib, 10)) / 2
+        diff = float((lib().float() - flash_attention(
+            q, k, v, **kw).float()).abs().max())
+        row.update(shape=list(case[:8]), x_bound=row["ms"] / row["bound_ms"],
+                   library_backend=sdpa_backend(q, k, v, **mask))
+        d1, d2 = row["device_ms_windows"]
+        if abs(d1 - d2) > 0.1 * max(d1, d2):
+            # the profiler now and then loses launches of a window; the
+            # CUDA-event time of the wrapper is the cross-check
+            print(f"   {name}: the two profiler windows disagree ({d1!r} / "
+                  f"{d2!r} ms); CUDA events read {row['wrapper_ms']!r} ms "
+                  f"a call", flush=True)
+        print(f"   {name} {case[:8]}: x bound {row['x_bound']!r}; "
+              f"scaled_dot_product_attention {row['library_ms']!r} ms "
+              f"(backend {row['library_backend']}), max |difference| "
+              f"{diff!r}; {n_ops} operations", flush=True)
+        out[label] = row
+        del q, k, v, mask
+    return out
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -5183,6 +5566,7 @@ def main() -> int:
         sharded_parity()
         continuous_batcher_parity(*lm_parity())
         moe_parity()
+        arch_parity()
 
     # Each path runs with the counts set to 0 just before it and read just
     # after; its kernels' "launches" come from that run.
@@ -5255,6 +5639,7 @@ def main() -> int:
         flash = flash_kernel_times()
         perf["flash_attention"] = flash["global"]
         perf["flash_attention"]["mla"] = mla_flash_times()
+        perf["flash_attention"]["path_shapes"] = arch_flash_times()
         # The launch floor: a one-element add's device time, beside the
         # kernels whose launches take about that long.
         one = torch.zeros(1, device="cuda")
@@ -5309,6 +5694,22 @@ def main() -> int:
         check(sum(plain["moe"].values()) == 0,
               f"plain versions ran on the MoE path: {plain['moe']}")
 
+    free_card()
+    with phase("SSM, RG-LRU, cross-attention and prefix models at full "
+               "width"):
+        counts, plain["arch"], arch = arch_path(card)
+        for label, n in (("musicgen", "musicgen-large"),
+                         ("llava", "llava-next-mistral-7b"),
+                         ("nemotron", "nemotron-4-15b"),
+                         ("recurrentgemma", "recurrentgemma-2b")):
+            shapes = perf["flash_attention"]["path_shapes"]
+            for key in shapes:
+                if key.startswith(label):
+                    shapes[key]["launches_per_forward"] = \
+                        arch["forward"][n]["flash_launches"]
+        check(sum(plain["arch"].values()) == 0,
+              f"plain versions ran on the 5h path: {plain['arch']}")
+
     rows = []
     for name, (source, replaces, held_by) in KERNEL_ROWS.items():
         t = perf[name]
@@ -5329,7 +5730,7 @@ def main() -> int:
                                           "split_us_per_lane",
                                           "split_plain_ms", "split_bound_ms",
                                           "split_schedule", "groups",
-                                          "group_ms", "mla")
+                                          "group_ms", "mla", "path_shapes")
                         if k in t}})
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"slo": slo_rows}), flush=True)

@@ -1,10 +1,8 @@
-"""Config registry: ``get_config("<arch-id>")``.
+"""Config registry: ``get_config("<arch-id>")`` + per-shape input specs.
 
-Counterpart of ``repro.configs.registry`` (its dry-run cells and shapes
-wait with ``launch/dryrun.py``).  The port carries the config
-files of the architectures it runs (``PORTED``: the dense GQA ones and the
-MoE family, deepseek-v2-lite's MLA among them); asking for another one
-raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 2).
+Counterpart of ``repro.configs.registry``.  The port carries every
+architecture's config file, copied field for field (``PORTED`` is all of
+``ARCHS``); an unknown name raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -25,8 +23,7 @@ ARCHS = [
     "musicgen_large",
 ]
 
-PORTED = ("gemma3_1b", "gemma2_27b", "mistral_nemo_12b",
-          "deepseek_v2_lite_16b", "qwen3_moe_235b_a22b")
+PORTED = tuple(ARCHS)
 
 _ALIASES = {
     "llava-next-mistral-7b": "llava_next_mistral_7b",
@@ -42,6 +39,18 @@ _ALIASES = {
 }
 
 
+# (seq_len, global_batch, mode)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# long_500k runs only for sub-quadratic archs (constant-size state)
+LONG_CONTEXT_ARCHS = {"mamba2_1p3b", "recurrentgemma_2b"}
+
+
 def canonical(arch: str) -> str:
     return _ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
 
@@ -49,10 +58,6 @@ def canonical(arch: str) -> str:
 def _module(arch: str):
     name = canonical(arch)
     if name not in PORTED:
-        if name in ARCHS:
-            raise NotImplementedError(
-                f"{arch}: not ported yet (ROADMAP.md Queue 1 item 2); the "
-                f"port runs {', '.join(PORTED)}")
         raise ValueError(f"unknown architecture {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
@@ -63,3 +68,15 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).SMOKE_CONFIG
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape, runnable) dry-run cells; long_500k is runnable
+    only for ``LONG_CONTEXT_ARCHS``."""
+    out = []
+    for a in ARCHS:
+        for s in SHAPES:
+            runnable = s != "long_500k" or a in LONG_CONTEXT_ARCHS
+            if runnable or include_skipped:
+                out.append((a, s, runnable))
+    return out

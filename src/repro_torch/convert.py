@@ -16,10 +16,12 @@ over a MoE model's dense prefix, ``blocks[j][...]`` stacked over periods,
 ``tail[j][...]`` stacked over one; a MoE block's ``mlp`` holds
 ``router``, ``experts`` stacked over the experts and ``shared``, an MLA
 block's ``mixer`` ``wq``, ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``,
-``wo``): ``transformer_params_from_numpy`` loads them into the port's
-``Transformer`` in its executed layer order, and
+``wo``; an ``ssm`` block holds ``norm1`` and its ``mixer`` only, an
+``rglru`` block the RG-LRU's weights as its ``mixer``, a cross-attention
+block ``xattn`` and ``norm_x`` besides): ``transformer_params_from_numpy``
+loads them into the port's ``Transformer`` in its executed layer order,
 ``transformer_params_to_numpy`` gives them back in that pytree, and
-``cache_to_numpy`` gives a KV cache (or MLA latent cache) in the
+``cache_to_numpy`` gives a cache (KV, MLA latent, SSM or RG-LRU) in the
 reference's layout.
 """
 from __future__ import annotations
@@ -211,13 +213,17 @@ def generational_to_numpy(ring: GenerationalFilter) -> dict:
 
 # ------------------------------------------------------------- LM stack --
 
-_BLOCK_GROUPS = ("mixer", "mlp", "norms")
+_BLOCK_GROUPS = ("mixer", "mlp", "xattn", "norms")
 
 
 def _block_leaves(layer):
     """(reference key path, parameter) of one port block; the norms sit at
-    the top of the reference's block dict."""
+    the top of the reference's block dict.  An ``ssm`` block has no
+    ``mlp`` (nor ``norm2``), a block without cross-attention no
+    ``xattn``."""
     for group in _BLOCK_GROUPS:
+        if group not in layer._modules:
+            continue
         for name, param in getattr(layer, group).named_parameters():
             path = tuple(name.split("."))
             yield (path if group == "norms" else (group, *path)), param
@@ -276,11 +282,13 @@ def transformer_params_to_numpy(model: Transformer) -> dict:
 
 
 def cache_to_numpy(cache: dict) -> dict:
-    """A port KV cache -> ``{"blocks": [(k, v)], "tail": [(k, v)],
-    "prefix": (k, v)}`` of numpy arrays in the reference's layout ([n, B,
-    Hkv, S, D] per slot; MLA: k of [n, B, 1, S, kv_lora + rope])."""
-    def pair(c):
-        return (c.k.detach().float().cpu().numpy(),
-                c.v.detach().float().cpu().numpy())
-    return {group: pair(slots) if group == "prefix" else
-            [pair(c) for c in slots] for group, slots in cache.items()}
+    """A port cache -> ``{"blocks": [fields], "tail": [fields], "prefix":
+    fields}`` of float32 numpy arrays in the reference's layout and field
+    order, a tuple per slot: (k, v) of [n, B, Hkv, S, D] (MLA: k of [n, B,
+    1, S, kv_lora + rope]); ``ssm`` (conv [n, B, d_conv - 1, conv_dim],
+    state [n, B, H, P, N]); ``rglru`` (conv [n, B, d_conv - 1, d_rnn], h
+    [n, B, d_rnn])."""
+    def fields(c):
+        return tuple(t.detach().float().cpu().numpy() for t in c)
+    return {group: fields(slots) if group == "prefix" else
+            [fields(c) for c in slots] for group, slots in cache.items()}

@@ -1,11 +1,11 @@
 """Attention mixers: GQA/MQA (local window, soft-cap, qk-norm) with a KV
-cache, and MLA (DeepSeek-V2 multi-head latent attention) with its latent
-cache.
+cache, MLA (DeepSeek-V2 multi-head latent attention) with its latent
+cache, and cross-attention over a conditioning memory.
 
 Counterpart of ``repro.models.attention`` (``KVCache``,
-``init_attention``, ``apply_attention``, ``init_mla``, ``apply_mla``);
-cross-attention is not ported.  Both apply functions are
-cache-polymorphic like the reference's:
+``init_attention``, ``apply_attention``, ``init_mla``, ``apply_mla``,
+``init_cross_attention``, ``apply_cross_attention``).  Both self-attention
+apply functions are cache-polymorphic like the reference's:
 
   * ``cache=None``: the full-sequence forward; attention goes to the flash
     kernel (``kernels.ops.attention``; MLA's 192-wide q, k and 128-wide v
@@ -179,3 +179,35 @@ def apply_mla(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
                             vv, causal=True, scale=scale, **at)
     out = out.transpose(1, 2).reshape(b, sq, hq * m.v_head_dim)
     return out @ p["wo"].to(dt), cache
+
+
+# ========================================================= cross-attn ====
+
+
+def init_cross_attention(cfg: ModelConfig, *, generator, device) -> dict:
+    """``wq``, ``wk``, ``wv``, ``wo`` in the reference's key order and
+    shapes; k and v project from ``cross_attn_memory_dim`` (else
+    d_model)."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    md = cfg.cross_attn_memory_dim or d
+    return {name: dense_init(shape, generator=generator, device=device)
+            for name, shape in (("wq", (d, hq * hd)), ("wk", (md, hkv * hd)),
+                                ("wv", (md, hkv * hd)),
+                                ("wo", (hq * hd, d)))}
+
+
+def apply_cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
+                          memory: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, E]; memory: [B, M, memory_dim] -> [B, S, E].  The memory
+    is taken in x's dtype (the flash kernel takes one dtype for q, k and
+    v)."""
+    b, sq, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    mem = memory.to(x.dtype)
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, sq, hq, hd).transpose(1, 2)
+    k = (mem @ p["wk"].to(x.dtype)).reshape(b, -1, hkv, hd).transpose(1, 2)
+    v = (mem @ p["wv"].to(x.dtype)).reshape(b, -1, hkv, hd).transpose(1, 2)
+    out = ops.attention(q, k, v, causal=False, window=None,
+                        logit_softcap=None, scale=None)
+    out = out.transpose(1, 2).reshape(b, sq, hq * hd)
+    return out @ p["wo"].to(x.dtype)

@@ -1,8 +1,8 @@
 """Model configuration covering every assigned architecture family.
 
 A copy of ``repro.models.config`` (pure dataclasses), kept here so that the
-port never imports the JAX package.  Every config file loads; the port's
-``Transformer`` runs ``global`` / ``local`` attention, MLA and MoE blocks.
+port never imports the JAX package.  The port's ``Transformer`` runs every
+family below.
 
 One ``ModelConfig`` describes dense / MoE / MLA / SSM / hybrid / vlm / audio
 decoder stacks.  Layer heterogeneity (local vs global attention, recurrent vs

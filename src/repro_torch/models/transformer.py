@@ -1,5 +1,6 @@
-"""Decoder stack: dense ``global`` / ``local`` attention blocks, MoE and
-MLA (DeepSeek-V2's dense prefix, then MoE blocks).
+"""Decoder stack: ``global`` / ``local`` attention blocks (dense or MoE
+MLPs, MLA), Mamba-2 ``ssm`` blocks, Griffin ``rglru`` blocks,
+cross-attention over a conditioning memory and prefix embeddings.
 
 Counterpart of ``repro.models.transformer``.  The reference stacks each
 pattern slot's weights over the periods and runs one ``lax.scan`` per
@@ -7,20 +8,25 @@ slot: the dense prefix (``first_k_dense`` layers of a MoE model) first,
 then **all periods of slot 0, then all periods of slot 1, ...**, then the
 tail.  For gemma3-1b (pattern 5 x local + global, 4 periods, a 2-layer
 tail) the executed order is 20 local layers, 4 global, 2 local, not
-L,L,L,L,L,G repeated.  The port holds its layers in that executed order
-(``Transformer.kinds``, ``layer_slots``), so the same weights give the
-same function.
+L,L,L,L,L,G repeated; for recurrentgemma-2b (rglru, rglru, local; 8
+periods, a 2-layer rglru tail) 8 rglru, 8 rglru, 8 local, 2 rglru.  The
+port holds its layers in that executed order (``Transformer.kinds``,
+``layer_slots``), so the same weights give the same function.
 
 The module holds its weights (float32, as the reference's) and runs
 forward only: the flash kernel has no backward, in the reference as here.
-Caches mirror the reference's layout, ``{"blocks": [KVCache per slot with
-k, v of [n_periods, B, Hkv, S, D]], "tail": [...], "prefix": KVCache}``
-(MLA: k of [n, B, 1, S, kv_lora + rope], v unused); layer (slot j, period
-i) attends over ``cache["blocks"][j]`` at period i, written in place.  A
-MoE block routes a decode step (a cache and one token) exactly, as the
+Caches mirror the reference's layout, one cache per pattern slot stacked
+over the periods, ``{"blocks": [...], "tail": [...], "prefix": ...}``:
+``KVCache`` k, v of [n_periods, B, Hkv, S, D] (MLA: k of [n, B, 1, S,
+kv_lora + rope], v unused), ``ssm.SsmCache`` (conv window, state) and
+``rglru.RglruCache`` (conv window, h) of [n_periods, B, ...]; layer (slot
+j, period i) reads and writes period i of ``cache["blocks"][j]`` in place.
+A MoE block routes a decode step (a cache and one token) exactly, as the
 reference does; ``ModelOutput.aux_loss`` sums the blocks' load-balance
-losses.  SSM, RG-LRU blocks, prefix embeddings and cross-attention memory
-raise ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 2).
+losses.  ``prefix_embeds`` [B, P, E] go before the token embeddings
+(positions run over both; logits cover the tokens only); ``memory`` [B,
+M, memory_dim] feeds the cross-attention of the attention blocks of a
+config with ``cross_attn_memory_len``.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from torch import nn
 from repro_torch.core.hashing import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
@@ -40,6 +48,7 @@ from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
                                        rope_freqs, unembed)
 
 DENSE_KINDS = ("global", "local")
+KINDS = (*DENSE_KINDS, "rglru", "ssm")
 
 
 @dataclasses.dataclass
@@ -83,39 +92,58 @@ def layer_slots(cfg: ModelConfig) -> list[tuple[str, int, int]]:
 
 
 class Block(nn.Module):
-    """norm1 -> attention or MLA (-> norm1b) -> residual -> norm2 -> MLP
-    or MoE (-> norm2b) -> residual; the ``b`` norms where
-    ``use_post_norm``.  A MoE model's prefix blocks take a dense MLP of
-    ``d_ff``."""
+    """One layer of kind ``global`` / ``local`` / ``rglru``: norm1 ->
+    attention, MLA or RG-LRU (-> norm1b) -> residual (-> norm_x ->
+    cross-attention -> residual, where the block has ``xattn`` and a
+    memory is given) -> norm2 -> MLP or MoE (-> norm2b) -> residual; the
+    ``b`` norms where ``use_post_norm``.  A MoE model's prefix blocks and
+    its ``rglru`` blocks take a dense MLP of ``d_ff``.  Kind ``ssm`` (a
+    Mamba-2 block) holds norm1 and the mixer only: x + mixer(norm1(x))."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, generator, device,
                  in_prefix: bool = False):
         super().__init__()
         self.cfg, self.kind = cfg, kind
-        self.moe = cfg.moe is not None and not in_prefix
         d = cfg.d_model
         norms = {"norm1": torch.ones(d, device=device)}
-        init_mixer = (attn_mod.init_mla if cfg.mla is not None
+        init = dict(generator=generator, device=device)
+        if kind == "ssm":
+            self.moe = False
+            self.mixer = ParamTree(ssm_mod.init_ssm(cfg, **init))
+            self.norms = ParamTree(norms)
+            return
+        self.moe = cfg.moe is not None and not in_prefix and kind != "rglru"
+        init_mixer = (rglru_mod.init_rglru if kind == "rglru"
+                      else attn_mod.init_mla if cfg.mla is not None
                       else attn_mod.init_attention)
-        self.mixer = ParamTree(init_mixer(cfg, generator=generator,
-                                          device=device))
+        self.mixer = ParamTree(init_mixer(cfg, **init))
         if cfg.use_post_norm:
             norms["norm1b"] = torch.ones(d, device=device)
         norms["norm2"] = torch.ones(d, device=device)
-        self.mlp = ParamTree(
-            moe_mod.init_moe(cfg, generator=generator, device=device)
-            if self.moe else init_mlp(cfg, cfg.d_ff, generator=generator,
-                                      device=device))
+        self.mlp = ParamTree(moe_mod.init_moe(cfg, **init) if self.moe
+                             else init_mlp(cfg, cfg.d_ff, **init))
         if cfg.use_post_norm:
             norms["norm2b"] = torch.ones(d, device=device)
+        if cfg.cross_attn_memory_len and kind in DENSE_KINDS:
+            self.xattn = ParamTree(attn_mod.init_cross_attention(cfg,
+                                                                 **init))
+            norms["norm_x"] = torch.ones(d, device=device)
         self.norms = ParamTree(norms)
 
-    def forward(self, x, *, rot, cache=None, cache_pos=None, routes=None):
+    def forward(self, x, *, rot, cache=None, cache_pos=None, routes=None,
+                memory=None):
         """-> (x, cache, float32 aux loss or None).  ``routes``: a list
-        that receives a MoE block's ``moe.Routing``."""
+        that receives a MoE block's ``moe.Routing``; ``memory``: the
+        cross-attention memory (ignored by a block without ``xattn``)."""
         cfg = self.cfg
         h = rmsnorm(x, self.norms["norm1"], cfg.rms_eps)
-        if cfg.mla is not None:
+        if self.kind == "ssm":
+            out, cache = ssm_mod.apply_ssm(self.mixer, cfg, h, cache=cache)
+            return x + out, cache, None
+        if self.kind == "rglru":
+            out, cache = rglru_mod.apply_rglru(self.mixer, cfg, h,
+                                               cache=cache)
+        elif cfg.mla is not None:
             out, cache = attn_mod.apply_mla(self.mixer, cfg, h, rot=rot,
                                             cache=cache, cache_pos=cache_pos)
         else:
@@ -130,6 +158,11 @@ class Block(nn.Module):
         # rounded norm input moves MoE routes at near ties)
         s = x.float() + out.float()
         x = s.to(x.dtype)
+        if memory is not None and "xattn" in self._modules:
+            hx = rmsnorm(s, self.norms["norm_x"], cfg.rms_eps).to(x.dtype)
+            s = x.float() + attn_mod.apply_cross_attention(
+                self.xattn, cfg, hx, memory).float()
+            x = s.to(x.dtype)
         h = rmsnorm(s, self.norms["norm2"], cfg.rms_eps).to(x.dtype)
         aux = None
         if self.moe:
@@ -144,17 +177,15 @@ class Block(nn.Module):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    unported = [name for name, on in (
-        ("ssm", cfg.ssm is not None or cfg.family == "ssm"),
-        ("rglru", cfg.rglru is not None or "rglru" in cfg.pattern),
-        ("prefix_embeds", cfg.prefix_embed_len > 0),
-        ("memory", cfg.cross_attn_memory_len > 0)) if on]
-    unported += sorted(set(cfg.pattern) - {*DENSE_KINDS, "rglru"})
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported yet (ROADMAP.md "
-            f"Queue 1 item 2); the port runs global/local attention, MLA "
-            f"and MoE blocks")
+    """ValueError for a block kind the reference does not know, or an
+    ``ssm`` / ``rglru`` kind without its sub-config."""
+    unknown = sorted(set(cfg.pattern) - set(KINDS))
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {unknown}; the "
+                         f"stack runs {', '.join(KINDS)}")
+    for kind, sub in (("ssm", cfg.ssm), ("rglru", cfg.rglru)):
+        if kind in cfg.pattern and sub is None:
+            raise ValueError(f"{cfg.name}: {kind} blocks need cfg.{kind}")
 
 
 class Transformer(nn.Module):
@@ -215,16 +246,23 @@ class Transformer(nn.Module):
         Without ``cache`` this is the full-sequence forward (flash
         attention); with ``cache`` and ``cache_pos`` (a host int) it is
         prefill or decode, and the returned cache is the given one, written
-        in place.  ``routes``: a list that receives each MoE block's
-        ``moe.Routing``, in the executed order.
+        in place.  ``prefix_embeds`` [B, P, E] go before the token
+        embeddings (the positions run over both from ``cache_pos``; the
+        logits cover the S token positions only); ``memory`` [B, M,
+        memory_dim] feeds the cross-attention blocks.  ``routes``: a list
+        that receives each MoE block's ``moe.Routing``, in the executed
+        order.
         """
-        if prefix_embeds is not None or memory is not None:
-            raise NotImplementedError(
-                "prefix_embeds / memory: not ported yet (ROADMAP.md Queue 1 "
-                "item 2)")
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         x = embed(self.emb["embed"], tokens, cfg)
+        n_prefix = 0
+        if prefix_embeds is not None:
+            prefix_embeds = torch.as_tensor(prefix_embeds, device=self.device)
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+            n_prefix = prefix_embeds.shape[1]
+        if memory is not None:
+            memory = torch.as_tensor(memory, device=self.device)
         b, s, _ = x.shape
         rot = self.rotation(b, s, 0 if cache_pos is None else int(cache_pos))
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -232,12 +270,12 @@ class Transformer(nn.Module):
             lc = None
             if cache is not None:
                 slot = cache[group] if group == "prefix" else cache[group][j]
-                lc = KVCache(slot.k[i], slot.v[i])
+                lc = type(slot)(*(t[i] for t in slot))
             x, _, aux = layer(x, rot=rot, cache=lc, cache_pos=cache_pos,
-                              routes=routes)
+                              routes=routes, memory=memory)
             if aux is not None:
                 aux_total = aux_total + aux
-        x = rmsnorm(x, self.emb["final_norm"], cfg.rms_eps)
+        x = rmsnorm(x[:, n_prefix:], self.emb["final_norm"], cfg.rms_eps)
         head = (self.emb["lm_head"] if "lm_head" in self.emb
                 else self.emb["embed"])
         logits = unembed(head, x, cfg)
@@ -247,6 +285,13 @@ class Transformer(nn.Module):
 
     def _slot_cache(self, kind, n, batch, max_len, dtype, *, window_bound):
         cfg = self.cfg
+        if kind == "ssm":
+            return ssm_mod.init_ssm_cache(cfg, batch, dtype, stacked=(n,),
+                                          device=self.device)
+        if kind == "rglru":
+            return rglru_mod.init_rglru_cache(cfg, batch, dtype,
+                                              stacked=(n,),
+                                              device=self.device)
         if cfg.mla is not None:
             m = cfg.mla
             width = m.kv_lora_rank + m.qk_rope_dim
@@ -264,9 +309,11 @@ class Transformer(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    dtype=torch.bfloat16, window_bound: bool = False) -> dict:
-        """Per pattern slot, k and v stacked over periods (and the dense
-        prefix's, stacked over its layers).  ``window_bound=True`` gives
-        local slots a window-long ring."""
+        """Per pattern slot, its cache stacked over periods (and the dense
+        prefix's, stacked over its layers): k and v of ``max_len`` for
+        attention slots, the constant-size conv window and state for
+        ``ssm`` and ``rglru`` slots.  ``window_bound=True`` gives local
+        slots a window-long ring."""
         cfg = self.cfg
         out = {"blocks": [
             self._slot_cache(kind, cfg.n_periods, batch, max_len, dtype,
@@ -283,6 +330,7 @@ class Transformer(nn.Module):
                                              window_bound=window_bound)
         return out
 
-    def decode_step(self, cache, tokens, pos: int) -> ModelOutput:
+    def decode_step(self, cache, tokens, pos: int, *,
+                    memory=None) -> ModelOutput:
         """tokens: [B, 1]; pos: host int — one decode step."""
-        return self.apply(tokens, cache=cache, cache_pos=pos)
+        return self.apply(tokens, memory=memory, cache=cache, cache_pos=pos)

@@ -18,20 +18,22 @@ from repro_torch.models.transformer import Transformer
 
 
 def make_prefill_step(model: Transformer):
-    """(cache, tokens[B,S]) -> (logits[B,S,V], cache)."""
+    """(cache, tokens[B,S], *, memory, prefix_embeds) -> (logits[B,S,V],
+    cache); a prefix of P embeddings takes cache positions 0..P-1."""
 
-    def prefill(cache, tokens):
-        out = model.apply(tokens, cache=cache, cache_pos=0)
+    def prefill(cache, tokens, *, memory=None, prefix_embeds=None):
+        out = model.apply(tokens, cache=cache, cache_pos=0, memory=memory,
+                          prefix_embeds=prefix_embeds)
         return out.logits, out.cache
 
     return prefill
 
 
 def make_decode_step(model: Transformer):
-    """(cache, token[B,1], pos) -> (logits[B,1,V], cache)."""
+    """(cache, token[B,1], pos, *, memory) -> (logits[B,1,V], cache)."""
 
-    def decode(cache, token, pos: int):
-        out = model.apply(token, cache=cache, cache_pos=pos)
+    def decode(cache, token, pos: int, *, memory=None):
+        out = model.apply(token, memory=memory, cache=cache, cache_pos=pos)
         return out.logits, out.cache
 
     return decode
@@ -121,19 +123,23 @@ class GenerationResult:
     steps: int
 
 
-def generate(model: Transformer, prompt, max_new: int, *,
-             cache_len: Optional[int] = None,
+def generate(model: Transformer, prompt, max_new: int, *, memory=None,
+             prefix_embeds=None, cache_len: Optional[int] = None,
              dtype=torch.float32) -> GenerationResult:
-    """Batched greedy generation (prefill + decode loop)."""
+    """Batched greedy generation (prefill + decode loop); ``memory`` goes
+    to every step, ``prefix_embeds`` [B, P, E] before the prompt (the
+    cache then holds P + S + max_new positions)."""
     prompt = torch.as_tensor(prompt, device=model.device)
     b, s = prompt.shape
+    s += 0 if prefix_embeds is None else prefix_embeds.shape[1]
     cache = model.init_cache(b, cache_len or (s + max_new), dtype=dtype)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
-    logits, cache = prefill(cache, prompt)
+    logits, cache = prefill(cache, prompt, memory=memory,
+                            prefix_embeds=prefix_embeds)
     tok = greedy_sample(logits)
     toks = [tok]
     for pos in range(s, s + max_new - 1):
-        logits, cache = decode(cache, tok, pos)
+        logits, cache = decode(cache, tok, pos, memory=memory)
         tok = greedy_sample(logits)
         toks.append(tok)
     return GenerationResult(tokens=torch.cat(toks, dim=1), steps=max_new)

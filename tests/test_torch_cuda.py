@@ -455,6 +455,38 @@ def test_flash_attention_matches_plain(dev, case, dtype):
         assert float(got[:, :, :sq - skv].abs().max()) == 0.0
 
 
+# The shapes of the SSM / RG-LRU / cross-attention / prefix slice's
+# cache-less forwards (bfloat16 there): recurrentgemma-2b local (a GQA
+# group of 10, D 256, window 2048), musicgen-large self and cross
+# (non-causal, Sq 8192 over a 256-frame memory), llava-next-mistral-7b,
+# nemotron-4-15b.
+PATH_SHAPES = [(1, 10, 1, 8192, 8192, 256, True, 2048),
+               (1, 32, 32, 8192, 8192, 64, True, None),
+               (1, 32, 32, 8192, 256, 64, False, None),
+               (1, 32, 8, 8192, 8192, 128, True, None),
+               (1, 48, 8, 4096, 4096, 128, True, None)]
+
+
+@pytest.mark.parametrize("case", PATH_SHAPES)
+def test_flash_attention_path_shapes_match_plain(dev, case):
+    """The kernel against its plain version at those shapes in bfloat16,
+    with the tolerances of ``test_flash_attention_matches_plain``."""
+    b, hq, hkv, sq, skv, d, causal, window = case
+    gen = torch.Generator(device=dev).manual_seed(sq + hq)
+    q, k, v = (torch.randn(shape, device=dev, generator=gen)
+               .to(torch.bfloat16)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+    cuda.reset_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert float(row_rel_err(got, want).max()) <= 1e-2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_reads_strided_views(dev, dtype):
     """q, k, v as the model hands them over, [B, S, H, D] tensors seen as
@@ -927,3 +959,40 @@ def test_sharded_stream_on_card_matches_cpu(dev, backend):
     assert cuda.LAUNCHES["scan_insert"] > 0 and not cuda.PLAIN_CALLS
     for a, b in zip(card, _sharded_stream("cpu", backend)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
+                                  "musicgen-large", "llava-next-mistral-7b",
+                                  "nemotron-4-15b"])
+def test_arch_lm_on_card_matches_cpu(dev, arch):
+    """The SSM, RG-LRU, cross-attention (with a memory) and prefix (with
+    prefix embeddings) smoke models and nemotron's, built on the CPU and
+    copied to the card: float32 logits within 1e-4 (tf32 off), the flash
+    kernel launched once an attention layer (twice with a memory), greedy
+    tokens of prefill + 8 decode steps equal."""
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cpu = Transformer(cfg, seed=1, device="cpu")
+    card = Transformer(cfg, seed=1, device="cpu").to(dev)
+    rng = np.random.RandomState(3)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 64)))
+    kw = {}
+    if cfg.cross_attn_memory_len:
+        kw["memory"] = torch.from_numpy(rng.randn(
+            2, cfg.cross_attn_memory_len, cfg.cross_attn_memory_dim)).float()
+    if cfg.prefix_embed_len:
+        kw["prefix_embeds"] = torch.from_numpy(rng.randn(
+            2, cfg.prefix_embed_len, cfg.d_model)).float()
+    kw_dev = {k: v.to(dev) for k, v in kw.items()}
+    cuda.reset_counts()
+    a = card.apply(toks.to(dev), **kw_dev).logits
+    attn = sum(kind in ("global", "local") for kind in card.kinds)
+    assert cuda.LAUNCHES["flash_attention"] == attn * (
+        2 if "memory" in kw else 1)
+    assert not cuda.PLAIN_CALLS
+    b = cpu.apply(toks, **kw).logits
+    torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    outs = [engine.generate(m, t, 9, **c).tokens.cpu()
+            for m, t, c in ((card, toks.to(dev), kw_dev), (cpu, toks, kw))]
+    assert torch.equal(*outs)

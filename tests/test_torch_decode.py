@@ -56,22 +56,27 @@ def test_prefill_and_decode_match_reference(name):
     assert cuda.PLAIN_CALLS["flash_attention"] == 0
     mine = cache_to_numpy(pc)
     for group in rc:
-        # the dense prefix's cache is one slot, the others lists of slots
+        # the dense prefix's cache is one slot, the others lists of slots;
+        # a slot's fields: k, v (KV), conv, state (SSM) or conv, h (RG-LRU)
         rslots, pslots = ((rc[group],), (mine[group],)) if group == \
             "prefix" else (rc[group], mine[group])
         assert len(rslots) == len(pslots)
-        for rslot, (k, v) in zip(rslots, pslots):
-            np.testing.assert_allclose(k, np.asarray(rslot.k), atol=F32_TOL)
-            np.testing.assert_allclose(v, np.asarray(rslot.v), atol=F32_TOL)
+        for rslot, pslot in zip(rslots, pslots):
+            assert len(rslot) == len(pslot)
+            for want, got in zip(rslot, pslot):
+                np.testing.assert_allclose(got, np.asarray(want),
+                                           atol=F32_TOL)
 
 
-@pytest.mark.parametrize("name", ["deepseek", "qwen3-moe"])
+@pytest.mark.parametrize("name", ["deepseek", "qwen3-moe", "mamba2",
+                                  "recurrentgemma"])
 def test_decode_matches_full_f32(name):
     """tests/test_models.py's serving consistency check on the port: the
     last position's log-softmax of the cache-less forward (flash) against
     a prefill of all but the last token plus one decode step (blockwise
-    over the cache; MLA's absorbed path; exact MoE routing), within 1e-3
-    (observed <= 1e-6)."""
+    over the cache; MLA's absorbed path; exact MoE routing; the SSM's
+    chunked form against its one-step recurrence, the RG-LRU's scan
+    against its step), within 1e-3 (observed <= 1e-6)."""
     _ref, _params, model = lm_models(name)
     toks = torch.from_numpy(lm_tokens(model.cfg, (2, 32), seed=5))
     full = model.apply(toks).logits[:, -1]

@@ -43,12 +43,24 @@ def _np(x):
 
 
 def test_config_files_match_the_reference():
-    for arch in ("gemma3-1b", "gemma2-27b", "mistral-nemo-12b",
-                 "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"):
+    """Every architecture's config and smoke config, field for field; the
+    registry's shapes and dry-run cells."""
+    from repro.configs import registry as ref_registry
+    from repro.configs.registry import get_smoke_config as ref_smoke
+    from repro_torch.configs import registry
+    from repro_torch.configs import get_smoke_config
+    assert registry.ARCHS == ref_registry.ARCHS
+    for arch in registry.ARCHS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
             ref_get_config(arch))
+        assert dataclasses.asdict(get_smoke_config(arch)) == \
+            dataclasses.asdict(ref_smoke(arch))
         assert get_config(arch).param_count() == \
             ref_get_config(arch).param_count()
+    assert registry.SHAPES == ref_registry.SHAPES
+    assert registry.LONG_CONTEXT_ARCHS == ref_registry.LONG_CONTEXT_ARCHS
+    assert registry.cells(True) == ref_registry.cells(True)
+    assert registry.cells() == ref_registry.cells()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -36,7 +36,8 @@ KW = dict(requests=6, prefix_len=48, gen=4, block=16, seed=3)
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "mistral-nemo-12b",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "mamba2-1.3b",
+                                  "recurrentgemma-2b"])
 def test_serve_matches_reference_index(arch):
     ref_m, port_m = RefRegistry(), MetricsRegistry()
     want = ref_serve(arch, smoke=True, metrics=ref_m, **KW)

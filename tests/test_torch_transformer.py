@@ -34,7 +34,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import transformer_params_to_numpy
 from repro_torch.kernels import cuda
 from repro_torch.models import Transformer
-from repro_torch.models.config import SsmConfig
+from repro_torch.models.transformer import DENSE_KINDS
 
 from torch_port_util import LM_CONFIGS, lm_models, lm_tokens, ref_logits
 
@@ -56,8 +56,10 @@ def test_apply_logits_match_reference(name, dtype):
     cuda.reset_counts()
     out = model.apply(torch.from_numpy(toks))
     got = out.logits
-    # every layer's attention went to the flash kernel (its plain version)
-    assert cuda.PLAIN_CALLS["flash_attention"] == model.cfg.n_layers
+    # every attention layer went to the flash kernel (its plain version);
+    # SSM and RG-LRU layers launch none
+    assert cuda.PLAIN_CALLS["flash_attention"] == sum(
+        kind in DENSE_KINDS for kind in model.kinds)
     assert got.dtype == torch.float32 and got.shape == want.shape
     err = np.abs(got.numpy() - want)
     if dtype == "float32":
@@ -110,7 +112,9 @@ def test_layers_run_slot_major():
     assert np.abs(wrong - want).max() > 100 * F32_TOL
 
 
-@pytest.mark.parametrize("name", ["gemma3-14", "deepseek", "qwen3-moe"])
+@pytest.mark.parametrize("name", ["gemma3-14", "deepseek", "qwen3-moe",
+                                  "mamba2", "recurrentgemma", "musicgen",
+                                  "llava"])
 def test_params_round_trip(name):
     _ref, params, model = lm_models(name)
     back = transformer_params_to_numpy(model)
@@ -160,15 +164,21 @@ def test_own_moe_init_has_the_reference_params(arch):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("mamba2-1.3b")
-    with pytest.raises(ValueError):
+    """Every architecture of the reference is ported; what raises now is
+    what the reference does not know: an unknown architecture name, and a
+    pattern kind other than global, local, rglru and ssm (or a recurrent
+    kind without its sub-config)."""
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "musicgen-large",
+                 "llava-next-mistral-7b", "nemotron-4-15b"):
+        assert get_config(arch).name == arch
+    with pytest.raises(ValueError, match="unknown architecture"):
         get_config("no-such-model")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_smoke_config("no-such-model")
     cfg = get_smoke_config("mistral-nemo-12b")
-    ssm = dataclasses.replace(cfg, family="ssm", ssm=SsmConfig())
-    with pytest.raises(NotImplementedError, match="ssm"):
-        Transformer(ssm, device="cpu")
-    model = Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.apply(torch.zeros((1, 4), dtype=torch.int64),
-                    prefix_embeds=torch.zeros((1, 2, cfg.d_model)))
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        Transformer(dataclasses.replace(cfg, pattern=("global", "conv")),
+                    device="cpu")
+    with pytest.raises(ValueError, match="cfg.rglru"):
+        Transformer(dataclasses.replace(cfg, pattern=("rglru",)),
+                    device="cpu")

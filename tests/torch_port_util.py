@@ -126,14 +126,32 @@ def assert_same_ring(ref_ring, port_ring, where=""):
 
 # name -> (arch, ModelConfig overrides) of the smoke configs the LM tests
 # hold against the reference; gemma3 at 14 layers runs 2 periods + a tail;
-# deepseek runs a dense MLA prefix layer, then MLA + MoE blocks.
+# deepseek runs a dense MLA prefix layer, then MLA + MoE blocks; mamba2
+# two SSM blocks; recurrentgemma one (rglru, rglru, local) period; musicgen
+# global blocks with cross-attention; llava a global stack that takes
+# prefix embeddings.
 LM_CONFIGS = {"gemma3": ("gemma3_1b", {}),
               "gemma3-14": ("gemma3_1b", dict(n_layers=14)),
               "gemma2": ("gemma2_27b", {}),
               "mistral-nemo": ("mistral_nemo_12b", {}),
               "deepseek": ("deepseek_v2_lite_16b", {}),
-              "qwen3-moe": ("qwen3_moe_235b_a22b", {})}
+              "qwen3-moe": ("qwen3_moe_235b_a22b", {}),
+              "mamba2": ("mamba2_1p3b", {}),
+              "recurrentgemma": ("recurrentgemma_2b", {}),
+              "musicgen": ("musicgen_large", {}),
+              "llava": ("llava_next_mistral_7b", {})}
 _REF_PARAMS = {}
+
+
+def _ref_vectors(n):
+    """The reference's init of the per-channel leaves of a layer with
+    ``n`` channels (``repro/models/ssm.py:45-54``, ``rglru.py:49-53``)."""
+    y = np.linspace(0.9, 0.999, n) ** (1.0 / 8.0)
+    return {"A_log": np.log(np.linspace(1.0, 16.0, n)),
+            "D": np.ones(n),
+            "dt_bias": np.log(np.expm1(np.exp(np.linspace(
+                np.log(1e-3), np.log(1e-1), n)))),
+            "lam": np.log(y / (1.0 - y))}
 
 
 def lm_configs(name, dtype="float32"):
@@ -149,8 +167,12 @@ def lm_params_np(name, seed=0):
     """Weights for ``LM_CONFIGS[name]`` in the reference's parameter pytree,
     made with numpy from ``seed``: fan-in scaled normals for the matrices
     and the embedding, 1 + 0.1 N(0, 1) for the norm weights (so that a
-    norm weight read from the wrong place shows).  The pytree's structure
-    and shapes are the reference init's (``jax.eval_shape``)."""
+    norm weight read from the wrong place shows), the reference's init
+    values plus 0.1 N(0, 1) for the SSM's and RG-LRU's per-channel leaves
+    (``A_log``, ``D``, ``dt_bias``, ``lam``) and 0.1 N(0, 1) for their
+    biases (``conv_b``, ``b_a``, ``b_x``; the reference's are 0).  The
+    pytree's structure and shapes are the reference init's
+    (``jax.eval_shape``)."""
     import jax
     from repro.models import Transformer as RefTransformer
     rcfg, _ = lm_configs(name)
@@ -159,9 +181,14 @@ def lm_params_np(name, seed=0):
     rng = np.random.RandomState(seed)
 
     def fill(path, leaf):
-        key = str(path[-1])
+        key = getattr(path[-1], "key", str(path[-1]))
         if "norm" in key:
             return (1 + 0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+        if key in ("A_log", "D", "dt_bias", "lam"):
+            base = _ref_vectors(leaf.shape[-1])[key]
+            return (base + 0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+        if key in ("conv_b", "b_a", "b_x"):
+            return (0.1 * rng.randn(*leaf.shape)).astype(np.float32)
         fan_in = leaf.shape[-1] if "embed" in key else leaf.shape[-2]
         return (rng.randn(*leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
     return jax.tree_util.tree_map_with_path(fill, shapes)
