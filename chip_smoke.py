@@ -50,7 +50,15 @@ Phases, each timed, each fatal on failure:
      16-slot stash that fills, 2^14 deletes with duplicates, a stack of
      shards in one launch, crowded rows, self-pairs, deletes of one
      fingerprint across one bucket pair), each insert case at windows of
-     1, 32 and ``MAX_WINDOW`` lanes with its schedule's shares;
+     1, 32 and ``MAX_WINDOW`` lanes with its schedule's shares; and
+     flash attention's backward kernels (``csrc/flash_attention_bwd.cu``:
+     the pre-pass, dk/dv, dq) against their plain version on every
+     flash case above in float32 and bfloat16, at gemma3-1b's training
+     shapes (bfloat16, S 4096, window 512 and global) and on MLA's padded
+     heads through ``ops.attention`` under autograd (FLASH_BWD_TOL
+     elementwise and by row; in float32 also against
+     ``torch.autograd.grad`` through the plain forward), with the
+     forward's ``lse`` against the plain version's;
   3. run seeded streams through the card and the CPU and require
      identical state and answers after every operation: ~100k-key EOF
      streams through ``OCF`` (with and without a stash), two
@@ -80,8 +88,13 @@ Phases, each timed, each fatal on failure:
      (2, with a seeded memory), llava-next-mistral-7b (2, with 128 seeded
      prefix embeddings) and nemotron-4-15b (2), each at full width,
      float32, TF32 off, built on the card and copied to the CPU: logits
-     within 1e-3, greedy tokens of prefill + 4 decode steps equal; and a
-     sharded-filter
+     within 1e-3, greedy tokens of prefill + 4 decode steps equal; one
+     training step of gemma3-1b at full width and 6 layers (float32, TF32
+     off, batch 2 x 256, the same weights and AdamW state): loss,
+     grad_norm, every gradient leaf and the parameters after the step
+     card vs CPU, and the OCF-dedup data pipeline card vs CPU through
+     shard retirements (batches, ``PipelineStats`` and OCF stats equal);
+     and a sharded-filter
      stream on both backends (2 shards x 2^12 buckets x 4, a 128-slot
      stash, both routes at a capacity that defers, a split to 4 and a
      merge back in several rounds; tables, stashes, ok, deferred, overflow
@@ -192,6 +205,16 @@ Phases, each timed, each fatal on failure:
      with the memory or the prefix; (c) ``serve()`` of mamba2 and
      recurrentgemma, 8 requests of 496 + 16 tokens through the prefix
      index (reused blocks > 0); launch counts read around it.
+  5i. (after 5c) training gemma3-1b at full width and depth through
+     ``launch.train.train``: 5 steps of 4 x 4096 tokens (train_4k's batch
+     of 256 cut to 4), 2 microbatches, remat full, the dedup pipeline on
+     the card: finite losses and grad_norms, peak memory, step seconds and
+     tokens/s, the flash forward and backward launches per step, no plain
+     version; one step under a trace (device busy by class); a run killed
+     after a checkpoint resumes to the uninterrupted run's losses.  Phase
+     6 then times the backward kernels at the training shapes beside
+     their bound and SDPA's backward, and the forward with and without
+     ``lse``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -261,6 +284,18 @@ KERNEL_ROWS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:113",
                         "not measured"),
+    # The flash kernel's gradient, for the reference's XLA autodiff of
+    # ops.attention in its train step (no pallas_call: its Pallas kernel
+    # has no VJP).
+    "flash_attention_bwd_pre": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/train/step.py:97",
+                                "not measured"),
+    "flash_attention_bwd_dkdv": (
+        "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "src/repro/train/step.py:97", "cuda_core_float32_products"),
+    "flash_attention_bwd_dq": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                               "src/repro/train/step.py:97",
+                               "cuda_core_float32_products"),
     # The telemetry instantiations, in place of the reference's twins (its
     # XLA emulations with want_stats, not pallas_call sites).
     "probe_tm": ("src/repro_torch/csrc/probe.cu",
@@ -5503,6 +5538,615 @@ def scan_kernel_times(captured: dict) -> dict:
     return out
 
 
+# ------------------------------------------------- the training path --
+
+# Phase 2: the backward kernels against their plain version, |got - want|
+# <= tol * (1 + |want|) elementwise, and row by row ||got - want|| /
+# ||want|| over the rows whose norm is above 1e-3 of the tensor's largest
+# row and above 1e-3 (the inputs are O(1); a row below that, such as dq
+# of a query whose one live key is itself, 0 in exact arithmetic, is held
+# by the elementwise check alone).  float32: dk and dv sum 4 heads x up
+# to 8192 rows a key in another order than the plain version, so an
+# element that cancels to ~0.1 carries ~sqrt(32768) float32 roundings of
+# O(1) terms (observed 3.1e-5 absolute; 5e-6 row-relative); bfloat16:
+# both round the float32 gradient to bfloat16 once (observed 4e-3
+# absolute, 1.3e-3 by row).
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_BWD_ROW_TOL = {"float32": 5e-5, "bfloat16": 1e-2}
+TRAIN_KERNELS = ("flash_attention_bwd_pre", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq")
+# Phase 5i: gemma3-1b at full width and depth, SHAPES["train_4k"]'s
+# sequence of 4096; its global batch of 256 cut to TRAIN_BATCH sequences
+# (what one card holds: the 262144-wide float32 logits of a microbatch of
+# 2 sequences are 8.6 GB, and log-softmax and their gradients as much
+# again), in TRAIN_MICRO microbatches, remat TRAIN_REMAT.
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_MICRO = 2
+TRAIN_REMAT = "full"
+TRAIN_STEPS = 5
+# 5i resume: a run killed at the start of step TRAIN_FAIL_AT after a
+# checkpoint at step TRAIN_CKPT resumes there; its first two steps' losses
+# within TRAIN_RESUME_TOL (relative) of the uninterrupted run's: the same
+# parameters, optimizer state and batches, but the embedding gradient
+# sums rows with atomics, so parameters may differ in their last bits
+# once a step has updated them.
+TRAIN_CKPT = 2
+TRAIN_FAIL_AT = 2
+TRAIN_RESUME_TOL = 1e-4
+# Phase 3: one step card vs CPU at full width, 6 layers, float32, TF32
+# off.  Gradients leaf by leaf, ||got - want|| / ||want|| <= 1e-3
+# (float32 sums in other orders through 6 layers and the 262144-wide
+# softmax; the card sums the embedding gradient's rows with atomics);
+# loss and grad_norm within 1e-4 relative; parameters after the step
+# within 2 lr absolute: Adam's first step moves each weight by about lr
+# times the sign of its gradient, and a gradient near 0 may take the
+# other sign on the other device.
+TRAIN_GRAD_TOL = 1e-3
+
+
+def grad_errs(got, want, tol: float, row_tol: float | None,
+              what: str) -> float:
+    """Check ``got`` against ``want`` elementwise and (unless ``row_tol``
+    is None) row by row (see FLASH_BWD_TOL) -> the max absolute error."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    m = float(err.max()) if err.numel() else 0.0
+    excess = float((err - tol * (1 + w.abs())).max()) if err.numel() else 0
+    rel = 0.0
+    if row_tol is not None and w.numel():
+        num, den = (g - w).norm(dim=-1), w.norm(dim=-1)
+        rows = den > 1e-3 * max(float(den.max()), 1.0)
+        if bool(rows.any()):
+            rel = float((num[rows] / den[rows]).max())
+    print(f"      {what}: max_abs_err {m!r} (max |want| "
+          f"{float(w.abs().max())!r}), row relative error {rel!r}",
+          flush=True)
+    check(excess <= 0, f"{what}: outside {tol} x (1 + |want|) by {excess}")
+    check(row_tol is None or rel <= row_tol,
+          f"{what}: row relative error {rel} > {row_tol}")
+    return m
+
+
+class FlashBwdBench:
+    """flash attention's backward kernels on the card against their plain
+    version (``flash_attention_bwd_plain``, on the same forward output and
+    ``lse``): every shape of FlashKernelBench.CASES (D 16 to 256, float32
+    and bfloat16, causal, window, soft-cap, GQA, ragged lengths, rows with
+    no live key), gemma3-1b's training shapes (bfloat16, Hq 4, Hkv 1, D
+    256, S = TRAIN_SEQ, window 512 and global) and deepseek-v2-lite's MLA
+    heads through ``ops.attention`` under autograd (padded to 256); the
+    pre-pass against ``bwd_delta_plain``; the forward's ``lse`` against
+    the plain version's.  In float32 the kernels are also held against
+    ``torch.autograd.grad`` through the plain forward."""
+
+    TRAIN_CASES = [(1, 4, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, 512, None),
+                   (1, 4, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, None, None)]
+
+    def __init__(self):
+        import torch
+        self.torch = torch
+        self.max_err = {k: 0.0 for k in TRAIN_KERNELS}
+
+    def _note(self, name: str, err: float) -> None:
+        self.max_err[name] = max(self.max_err[name], err)
+
+    def run(self) -> None:
+        torch = self.torch
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 30)
+        both = (torch.float32, torch.bfloat16)
+        cases = [(c, both) for c in FlashKernelBench.CASES] + \
+            [(c, (torch.bfloat16,)) for c in self.TRAIN_CASES]
+        for case, dtypes in cases:
+            for dtype in dtypes:
+                self.one(case, dtype, gen)
+        self.run_mla(gen)
+
+    def one(self, case, dtype, gen) -> None:
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import (
+            _flash_cuda, bwd_delta, bwd_delta_plain, flash_attention_bwd,
+            flash_attention_bwd_plain, flash_attention_plain)
+        b, hq, hkv, sq, skv, d, causal, window, cap = case
+        name = str(dtype).split(".")[-1]
+        tol, row_tol = FLASH_BWD_TOL[name], FLASH_BWD_ROW_TOL[name]
+
+        def randn(*shape):
+            return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        q, k, v = randn(b, hq, sq, d), randn(b, hkv, skv, d), \
+            randn(b, hkv, skv, d)
+        do = randn(b, hq, sq, d)
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
+        with torch.no_grad():
+            o, lse = _flash_cuda(q, k, v, scale=None, with_lse=True, **kw)
+            _po, plse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+        live = plse > -1e29
+        lse_err = float((lse - plse)[live].abs().max()) if bool(
+            live.any()) else 0.0
+        print(f"   flash backward {case} {name}: forward lse max_abs_err "
+              f"{lse_err!r} over live rows; dead rows at -1e30: "
+              f"{bool((lse[~live] == -1e30).all())}", flush=True)
+        check(lse_err <= 1e-4 * (1 + float(plse[live].abs().max()))
+              if bool(live.any()) else True, f"{case}: lse off by {lse_err}")
+        check(bool((lse[~live] == -1e30).all()), f"{case}: a dead row's lse")
+        torch.cuda.synchronize()
+        delta = bwd_delta(o, do)
+        # D sums D products of O(1) values in another order: 1e-5; one
+        # number a row, so no row check
+        self._note("flash_attention_bwd_pre", grad_errs(
+            delta, bwd_delta_plain(o, do), 1e-5, None, "pre-pass D"))
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        for label, g, w, kern in zip(("dq", "dk", "dv"), got, want,
+                                     ("flash_attention_bwd_dq",
+                                      "flash_attention_bwd_dkdv",
+                                      "flash_attention_bwd_dkdv")):
+            check(g.dtype == dtype and g.shape == w.shape,
+                  f"{case}: {label} {g.dtype} {tuple(g.shape)}")
+            self._note(kern, grad_errs(g, w, tol, row_tol,
+                                       f"{label} vs plain"))
+        if causal and skv < sq:
+            check(float(got[0][:, :, :sq - skv].abs().max()) == 0.0,
+                  f"{case}: dq of a row with no live key is not 0")
+        if dtype == torch.float32:
+            # torch.autograd.grad through the plain forward's torch ops
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = flash_attention_plain(*leaves, **kw)
+            ag = torch.autograd.grad(out, leaves, do)
+            for label, g, w in zip(("dq", "dk", "dv"), got, ag):
+                grad_errs(g, w, tol, row_tol,
+                          f"{label} vs autograd of the plain forward")
+            del leaves, out, ag
+
+    def run_mla(self, gen) -> None:
+        """MLA's heads through ``ops.attention`` under autograd: one
+        forward and three backward launches, the gradients through the
+        zero pad and the slice, held against the plain backward on the
+        padded heads cut back, from the forward kernel's own output and
+        ``lse`` (in bfloat16 dS = p (dP - D) cancels, so D from another
+        rounding of o would move the small rows of dq by more than the
+        row tolerance)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import cuda, ops
+        from repro_torch.kernels.flash_attention import (
+            _flash_cuda, flash_attention_bwd_plain)
+        for case in FlashKernelBench.MLA_CASES:
+            b, h, s, dk, dv, name = case
+            dtype = getattr(torch, name)
+            tol, row_tol = FLASH_BWD_TOL[name], FLASH_BWD_ROW_TOL[name]
+            q, k, v = (torch.randn(shape, device="cuda", generator=gen)
+                       .to(dtype).requires_grad_()
+                       for shape in ((b, h, s, dk), (b, h, s, dk),
+                                     (b, h, s, dv)))
+            do = torch.randn((b, h, s, dv), device="cuda",
+                             generator=gen).to(dtype)
+            before = dict(cuda.LAUNCHES)
+            out = ops.attention(q, k, v, scale=dk ** -0.5)
+            got = torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+            launched = {n: cuda.LAUNCHES[n] - before.get(n, 0)
+                        for n in ("flash_attention", *TRAIN_KERNELS)}
+            check(set(launched.values()) == {1},
+                  f"MLA {case}: launches {launched}")
+
+            def pad(t):
+                return F.pad(t.detach(), (0, 256 - t.shape[-1]))
+            pq, pk, pv, pdo = pad(q), pad(k), pad(v), pad(do)
+            with torch.no_grad():
+                po, plse = _flash_cuda(pq, pk, pv, causal=True, window=None,
+                                       logit_softcap=None, scale=dk ** -0.5,
+                                       with_lse=True)
+                want = flash_attention_bwd_plain(pq, pk, pv, po, plse, pdo,
+                                                 scale=dk ** -0.5)
+            print(f"   flash backward MLA {case} through ops.attention, "
+                  f"padded to 256: launches {launched}", flush=True)
+            for label, g, w, width in zip(("dq", "dk", "dv"), got, want,
+                                          (dk, dk, dv)):
+                check(g.shape[-1] == width, f"MLA {case}: {label} width")
+                err = grad_errs(g, w[..., :width], tol, row_tol,
+                                f"{label} vs plain")
+                self._note("flash_attention_bwd_dq" if label == "dq"
+                           else "flash_attention_bwd_dkdv", err)
+
+
+def train_grads(model, batch: dict):
+    """One ``make_train_step`` step of ``model`` from a fresh AdamW state ->
+    (metrics as floats, the gradients it took, its launch and plain-call
+    counts, the step's learning rate).  The gradients are read where the
+    step hands them to ``AdamW.update``."""
+    import torch
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import make_train_step
+    seen = {}
+
+    class Capture(AdamW):
+        def update(self, grads, state, params):
+            seen.update({k: g.detach().float().cpu()
+                         for k, g in grads.items()})
+            return super().update(grads, state, params)
+    tx = Capture(lr=cosine_schedule(3e-4, 20, 10000))
+    params = dict(model.named_parameters())
+    step = make_train_step(model, tx, ParallelConfig())
+    cuda.reset_counts()
+    _p, state, metrics = step(params, tx.init(params), batch)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return ({k: float(v) for k, v in metrics.items()}, seen,
+            dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS),
+            float(tx._lr(state.step)))
+
+
+def train_parity() -> None:
+    """Phase 3: one training step card vs CPU.  gemma3-1b at full width,
+    one period deep (6 layers: 5 local, 1 global), float32, TF32 off, one
+    seeded init on the CPU copied to the card, a batch of 2 x 256 tokens,
+    a fresh AdamW state on both (the training schedule's step-1 learning
+    rate): loss, grad_norm, every gradient leaf and every parameter after
+    the step (TRAIN_GRAD_TOL and 2 lr); the card's step launches the flash
+    forward and the three backward kernels once per layer and no plain
+    version.  Then the OCF-dedup data pipeline on the card and on the CPU
+    (shards of 16 docs, so shards retire): the same batches, the same
+    ``PipelineStats`` and OCF stats, and the card's filter launched the
+    fingerprint, probe, insert and delete kernels."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import Transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=6,
+                              dtype="float32")
+    cpu = Transformer(cfg, seed=SEED, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.RandomState(SEED + 20)
+    flat = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 257)))
+    batch = {"tokens": flat[:, :-1], "targets": flat[:, 1:]}
+    t0 = time.perf_counter()
+    got, g_card, launches, plain, lr = train_grads(
+        card, {k: v.cuda() for k, v in batch.items()})
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, g_cpu, _l, _p, _lr = train_grads(cpu, batch)
+    t_cpu = time.perf_counter() - t0
+    print(f"   train step {cfg.name} x{cfg.n_layers} layers, float32, "
+          f"batch 2 x 256: card {t_card!r} s, cpu {t_cpu!r} s; loss "
+          f"{got['loss']!r} / {want['loss']!r}, grad_norm "
+          f"{got['grad_norm']!r} / {want['grad_norm']!r}", flush=True)
+    for key in ("loss", "grad_norm"):
+        check(abs(got[key] - want[key]) <= 1e-4 * abs(want[key]),
+              f"train step: {key} {got[key]} vs {want[key]}")
+    worst = max(((float((g_card[k] - g_cpu[k]).norm())
+                  / max(float(g_cpu[k].norm()), 1e-30)), k) for k in g_cpu)
+    print(f"   gradients of {len(g_cpu)} leaves: worst ||card - cpu|| / "
+          f"||cpu|| {worst[0]!r} ({worst[1]}), limit {TRAIN_GRAD_TOL}",
+          flush=True)
+    check(worst[0] <= TRAIN_GRAD_TOL, f"gradient {worst[1]}: {worst[0]}")
+    moved = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(card.parameters(), cpu.parameters()))
+    print(f"   parameters after the step: max |card - cpu| {moved!r} "
+          f"(limit 2 lr = {2 * lr!r})", flush=True)
+    check(moved <= 2 * lr, f"parameters differ by {moved} > 2 lr")
+    want_launch = {"flash_attention": 6, **{k: 6 for k in TRAIN_KERNELS}}
+    print(f"   card step launches {launches}, plain {plain}", flush=True)
+    check(all(launches.get(k) == n for k, n in want_launch.items()),
+          f"train step launches {launches}, want {want_launch}")
+    check(not plain, f"plain versions ran in the card's step: {plain}")
+    del card, cpu, g_card, g_cpu
+    free_card()
+    dedup_parity()
+
+
+def dedup_parity(batches: int = 60) -> None:
+    """The OCF-dedup pipeline card vs CPU (see ``train_parity``)."""
+    import itertools
+    from repro_torch.data.pipeline import DedupPipeline, SyntheticDocs
+    from repro_torch.kernels import cuda
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pipe = DedupPipeline(SyntheticDocs(262144, doc_len=65, seed=SEED,
+                                           burst=16),
+                             batch=2, seq=64, shard_docs=16, device=dev)
+        cuda.reset_counts()
+        out = [b for b in itertools.islice(iter(pipe), batches)]
+        runs[dev] = (pipe, out, dict(cuda.LAUNCHES))
+    (cp, cb, launches), (hp, hb, _l) = runs["cuda"], runs["cpu"]
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(cb, hb)
+               for k in ("tokens", "targets"))
+    stats = dataclasses.asdict(cp.stats)
+    print(f"   dedup pipeline, {batches} batches card vs cpu: batches equal "
+          f"{same}; stats {stats} / {dataclasses.asdict(hp.stats)}; OCF "
+          f"stats {dataclasses.asdict(cp.ocf.stats)}; card launches "
+          f"{launches}", flush=True)
+    check(same, "dedup pipeline: batches differ between devices")
+    check(stats == dataclasses.asdict(hp.stats), "PipelineStats differ")
+    check(dataclasses.asdict(cp.ocf.stats) == dataclasses.asdict(
+        hp.ocf.stats), "the dedup OCF's stats differ")
+    check(cp.stats.shards_retired > 0 and cp.stats.docs_deduped > 0,
+          "no shard retired or no doc deduped")
+    missing = [k for k in STATIC_KERNELS if not launches.get(k)]
+    check(not missing, f"the dedup filter never launched {missing}")
+
+
+def train_class(name: str) -> str:
+    key = name.lower()
+    if "flash_bwd" in key:
+        return "flash_bwd"
+    if "flash_" in key:
+        return "flash_fwd"
+    if any(w in key for w in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "products"
+    return "elementwise"
+
+
+def train_path(card: str) -> dict:
+    """Phase 5i: training gemma3-1b at full width and depth on the card
+    through ``launch.train.train`` (26 layers, float32 weights from SEED,
+    bfloat16 activations, the OCF-dedup pipeline on the card): (a)
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MICRO
+    microbatches, remat TRAIN_REMAT: every loss and grad_norm finite, peak
+    memory under 80 GB, the flash forward and backward launch counts per
+    step what 26 layers, the microbatches and remat give, no plain
+    version; step seconds and tokens/s; (b) one more step under a trace:
+    device busy by class (flash forward, flash backward, matrix products,
+    elementwise); (c) a run killed at step TRAIN_FAIL_AT after a
+    checkpoint at TRAIN_CKPT resumes from it: its steps' losses match the
+    uninterrupted run's (TRAIN_RESUME_TOL)."""
+    import shutil
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.train import train
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.step import make_train_step
+    from repro_torch.configs import get_config
+    par = ParallelConfig(remat=TRAIN_REMAT, microbatches=TRAIN_MICRO)
+    n_layers = get_config(LM_ARCH).n_layers
+    passes = 2 if TRAIN_REMAT in ("full", "dots") else 1
+    print(f"   cut: SHAPES['train_4k'] = (4096, 256): the global batch of "
+          f"256 sequences cut to {TRAIN_BATCH} (one card), "
+          f"{TRAIN_MICRO} microbatches of {TRAIN_BATCH // TRAIN_MICRO}, "
+          f"remat {TRAIN_REMAT!r}, {TRAIN_STEPS} steps", flush=True)
+    free_card()
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    out = train(LM_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                smoke=False, device="cuda", parallel=par)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    secs = out["step_seconds"]
+    best = min(secs[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"   (a) {TRAIN_STEPS} steps in {wall!r} s [{card}]: losses "
+          f"{losses}, grad_norms {norms}", flush=True)
+    print(f"   (a) step seconds {secs} (first includes warm-up); min after "
+          f"the first {best!r} s = {tokens / best!r} tokens/s; peak device "
+          f"memory {peak} B", flush=True)
+    print(f"   (a) dedup: {out['pipeline_stats']}; OCF "
+          f"{out['dedup_ocf_stats']}; straggler flags "
+          f"{out['straggler_flags']}", flush=True)
+    per_step = {"flash_attention": n_layers * TRAIN_MICRO * passes,
+                **{k: n_layers * TRAIN_MICRO for k in TRAIN_KERNELS}}
+    print(f"   (a) launches {launches} (per step: {per_step}), plain "
+          f"{plain}", flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          "5i: a loss or grad_norm is not finite")
+    check(peak < PEAK_BYTES, f"5i: peak device memory {peak} B")
+    for k, n in per_step.items():
+        check(launches.get(k, 0) == n * TRAIN_STEPS,
+              f"5i: {k} launched {launches.get(k, 0)} times, want "
+              f"{n * TRAIN_STEPS}")
+    check(sum(plain.values()) == 0, f"5i: plain versions ran: {plain}")
+
+    # (b) one more step under a CUDA-activity trace
+    model, params, state = out["model"], out["params"], out["opt_state"]
+    step = make_train_step(model, AdamW(lr=cosine_schedule(3e-4, 20, 10000)),
+                           par)
+    rng = np.random.RandomState(SEED + 40)
+    flat = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
+                                        (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+    batch = {"tokens": flat[:, :-1], "targets": flat[:, 1:]}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _p, _s, metrics = step(params, state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t1) * 1e3
+    by = {"flash_fwd": 0.0, "flash_bwd": 0.0, "products": 0.0,
+          "elementwise": 0.0}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by[train_class(ev.name)] += (ev.time_range.end
+                                         - ev.time_range.start) / 1e3
+    busy = sum(by.values())
+    print(f"   (b) profile of one step [{card}]: {pwall!r} ms host clock "
+          f"(under the profiler), device busy {busy!r} ms: flash forward "
+          f"{by['flash_fwd']!r}, flash backward {by['flash_bwd']!r}, matrix "
+          f"products {by['products']!r}, elementwise and the rest "
+          f"{by['elementwise']!r}; idle share {1 - busy / pwall!r}",
+          flush=True)
+    result = {"losses": losses, "grad_norms": norms, "step_seconds": secs,
+              "tokens_per_s": tokens / best, "peak_bytes": peak,
+              "launches": launches, "per_step": per_step,
+              "profile_ms": pwall, "device_ms": by,
+              "pipeline_stats": dataclasses.asdict(out["pipeline_stats"])}
+    del out, model, params, state, step, batch, flat, prof, _p, _s
+    free_card()
+
+    # (c) checkpoint, failure, resume
+    ckpt = str(Path(__file__).resolve().parent / "build" / "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, smoke=False, device="cuda",
+              parallel=par, ckpt_dir=ckpt)
+    t0 = time.perf_counter()
+    try:
+        train(LM_ARCH, steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+              inject_failure_at=TRAIN_FAIL_AT, **kw)
+        check(False, "5i: the injected failure did not fire")
+    except RuntimeError as exc:
+        check("injected" in str(exc), f"5i: {exc}")
+    t_fail = time.perf_counter() - t0
+    free_card()
+    t0 = time.perf_counter()
+    resumed = train(LM_ARCH, steps=TRAIN_FAIL_AT + 2, ckpt_every=1000, **kw)
+    t_resume = time.perf_counter() - t0
+    got = [h["loss"] for h in resumed["history"]]
+    want = losses[TRAIN_CKPT:TRAIN_FAIL_AT + 2]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"   (c) killed at step {TRAIN_FAIL_AT} after a checkpoint at "
+          f"step {TRAIN_CKPT} ({t_fail!r} s with the save), resumed "
+          f"({t_resume!r} s with the restore): losses {got} vs the "
+          f"uninterrupted run's {want}, max relative difference {rel!r} "
+          f"(limit {TRAIN_RESUME_TOL})", flush=True)
+    check(len(got) == len(want) and rel <= TRAIN_RESUME_TOL,
+          "5i: the resumed losses differ from the uninterrupted run's")
+    del resumed
+    shutil.rmtree(ckpt, ignore_errors=True)
+    free_card()
+    result.update(resume_losses=got, resume_rel=rel)
+    return result
+
+
+def flash_bwd_times() -> dict:
+    """Phase 6: the backward kernels at gemma3-1b's training shapes
+    (bfloat16, B = 1, Hq 4, Hkv 1, S = TRAIN_SEQ, D 256; a global layer
+    and a local one of window 512), each launch held by the profiler's
+    device time, beside its plain version (the pre-pass: ``bwd_delta_
+    plain``; dk/dv and dq: ``flash_attention_bwd_plain``, which computes
+    all three) and its bound: the pre-pass moves o and dO once and writes
+    D (bytes); dk/dv does 8 Hq D operations per live (query, key) pair
+    (the scores, dP, dv, dk) and dq 6 Hq D (the scores, dP, dq), over the
+    bfloat16 tensor-core rate.  The whole backward (the three launches'
+    device times summed) beside 10 Hq D operations per live pair (2.5 x
+    the forward's 4) and one ``scaled_dot_product_attention`` backward
+    (``torch.autograd.grad`` of its output, causal; the local layer with a
+    dense boolean band mask), timed for the record only.  The forward
+    kernel with and without ``lse`` in turns, at S = TRAIN_SEQ and at
+    LM_SEQ."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.flash_attention import (
+        _flash_cuda, bwd_delta, bwd_delta_plain, flash_attention_bwd,
+        flash_attention_bwd_plain)
+    b, hq, hkv, s, d, win = 1, 4, 1, TRAIN_SEQ, 256, 512
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31)
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for shape in ((b, hq, s, d),
+                                                     (b, hkv, s, d),
+                                                     (b, hkv, s, d),
+                                                     (b, hq, s, d)))
+    pos = torch.arange(s, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - win)
+    out = {}
+    for label, window in (("global", None), ("local", win)):
+        kw = dict(causal=True, window=window, logit_softcap=None)
+        with torch.no_grad():
+            o, lse = _flash_cuda(q, k, v, scale=None, with_lse=True, **kw)
+        delta = bwd_delta(o, do)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        pairs = live_pairs(s, s, True, window) * b
+        mask = (1, -1 if window is None else window, 0.0, d ** -0.5)
+        shape = (b, hq, hkv, s, s, d, 1)
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr())
+        qbytes, kbytes = 2 * q.numel(), 2 * k.numel()
+
+        def plain_bwd(kw=kw, o=o, lse=lse):
+            return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        # the pre-pass's multiply-adds run on the CUDA cores in float32
+        pre = {f"flash_attention_bwd_pre ({label})": (
+            lambda o=o: bwd_delta(o, do),
+            lambda o=o: bwd_delta_plain(o, do), None,
+            (2 * qbytes + 4 * b * hq * s, 2 * q.numel()),
+            "flash_bwd_pre_kernel")}
+        rows = {
+            f"flash_attention_bwd_dkdv ({label})": (
+                lambda common=common, mask=mask: cuda.launch(
+                    "flash_attention_bwd_dkdv", *common, dk.data_ptr(),
+                    dv.data_ptr(), *shape, *mask),
+                plain_bwd, None,
+                (2 * qbytes + 8 * b * hq * s + 4 * kbytes,
+                 8 * hq * d * pairs), "flash_bwd_dkdv_kernel"),
+            f"flash_attention_bwd_dq ({label})": (
+                lambda common=common, mask=mask: cuda.launch(
+                    "flash_attention_bwd_dq", *common, dq.data_ptr(),
+                    *shape, *mask),
+                plain_bwd, None,
+                (3 * qbytes + 8 * b * hq * s + 2 * kbytes,
+                 6 * hq * d * pairs), "flash_bwd_dq_kernel"),
+        }
+        timed = time_rows(pre, SCALAR_OPS_PER_S, hold=False)
+        timed.update(time_rows(rows, TENSOR_OPS_PER_S, hold=False))
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        check(all(bool(torch.isfinite(t).all()) for t in got),
+              f"backward ({label}): not finite")
+        total = sum(r["ms"] for r in timed.values())
+        bound, _by = least_ms(4 * qbytes + 4 * kbytes, 10 * hq * d * pairs,
+                              TENSOR_OPS_PER_S)
+        wrapper = (time_ms(lambda kw=kw, o=o, lse=lse: flash_attention_bwd(
+            q, k, v, o, lse, do, **kw), 5) + time_ms(
+            lambda kw=kw, o=o, lse=lse: flash_attention_bwd(
+                q, k, v, o, lse, do, **kw), 5)) / 2
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sd = F.scaled_dot_product_attention(
+            *leaves, enable_gqa=True,
+            **(dict(is_causal=True) if window is None
+               else dict(attn_mask=band)))
+
+        def lib(sd=sd, leaves=leaves):
+            return torch.autograd.grad(sd, leaves, do, retain_graph=True)
+        library = (time_ms(lib, 5) + time_ms(lib, 5)) / 2
+        print(f"   flash backward ({label}): three kernels {total!r} ms "
+              f"(device), wrapper {wrapper!r} ms, bound {bound!r} ms "
+              f"({10 * hq * d * pairs} operations at 989 TFLOP/s), "
+              f"{total / bound!r} x bound; scaled_dot_product_attention "
+              f"backward {library!r} ms", flush=True)
+        del leaves, sd
+        for name, row in timed.items():
+            out[name] = row
+        out[f"backward ({label})"] = {
+            "ms": total, "wrapper_ms": wrapper, "bound_ms": bound,
+            "x_bound": total / bound, "library_ms": library,
+            "ops": 10 * hq * d * pairs}
+    # the forward with and without lse, in turns
+    for seq in (TRAIN_SEQ, LM_SEQ):
+        x = [t[:, :, :seq] if seq <= s else None for t in (q, k, v)]
+        if seq > s:
+            x = [torch.randn((b, h, seq, d), device="cuda", generator=gen)
+                 .to(torch.bfloat16) for h in (hq, hkv, hkv)]
+        for window in (None, win):
+            def fwd(with_lse, x=x, window=window):
+                return lambda: _flash_cuda(*x, causal=True, window=window,
+                                           logit_softcap=None, scale=None,
+                                           with_lse=with_lse)
+            n1 = kernel_device_ms(fwd(False), 20, None, "flash_wgmma_kernel")
+            l1 = kernel_device_ms(fwd(True), 20, None, "flash_wgmma_kernel")
+            l2 = kernel_device_ms(fwd(True), 20, None, "flash_wgmma_kernel")
+            n2 = kernel_device_ms(fwd(False), 20, None, "flash_wgmma_kernel")
+            print(f"   flash forward S={seq} window {window}: without lse "
+                  f"{n1!r} / {n2!r} ms, with lse {l1!r} / {l2!r} ms "
+                  f"(device)", flush=True)
+            out[f"forward S={seq} window {window}"] = {
+                "no_lse_ms": [n1, n2], "lse_ms": [l1, l2]}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5546,8 +6190,10 @@ def main() -> int:
         sbench.run()
         fbench = FlashKernelBench("cuda")
         fbench.run()
+        bwbench = FlashBwdBench()
+        bwbench.run()
         max_err = {**bench.max_err, **abench.max_err, **sbench.max_err,
-                   **fbench.max_err, **scan_vs_plain()}
+                   **fbench.max_err, **bwbench.max_err, **scan_vs_plain()}
         torch.cuda.synchronize()
 
     with phase("slice parity cuda vs cpu"):
@@ -5567,6 +6213,7 @@ def main() -> int:
         continuous_batcher_parity(*lm_parity())
         moe_parity()
         arch_parity()
+        train_parity()
 
     # Each path runs with the counts set to 0 just before it and read just
     # after; its kernels' "launches" come from that run.
@@ -5612,6 +6259,12 @@ def main() -> int:
                    if not counts.get(k)]
         check(not missing, f"(d) the prefix index never launched {missing}")
 
+    free_card()
+    with phase("training path at full width"):
+        trained = train_path(card)
+        launches.update({k: trained["launches"].get(k, 0)
+                         for k in TRAIN_KERNELS})
+
     for name in cuda.KERNELS:
         check(launches.get(name, 0) > 0,
               f"{name} was never launched on its path")
@@ -5640,6 +6293,17 @@ def main() -> int:
         perf["flash_attention"] = flash["global"]
         perf["flash_attention"]["mla"] = mla_flash_times()
         perf["flash_attention"]["path_shapes"] = arch_flash_times()
+        bwd = flash_bwd_times()
+        for name in TRAIN_KERNELS:
+            perf[name] = dict(bwd[f"{name} (global)"])
+            perf[name]["training_shapes"] = {
+                label: {**bwd[f"{name} ({label})"],
+                        "backward": bwd[f"backward ({label})"]}
+                for label in ("global", "local")}
+            perf[name]["training_shapes"]["launches_per_step"] = \
+                trained["per_step"][name]
+        perf["flash_attention"]["forward_lse"] = {
+            k: v for k, v in bwd.items() if k.startswith("forward")}
         # The launch floor: a one-element add's device time, beside the
         # kernels whose launches take about that long.
         one = torch.zeros(1, device="cuda")
@@ -5730,7 +6394,8 @@ def main() -> int:
                                           "split_us_per_lane",
                                           "split_plain_ms", "split_bound_ms",
                                           "split_schedule", "groups",
-                                          "group_ms", "mla", "path_shapes")
+                                          "group_ms", "mla", "path_shapes",
+                                          "training_shapes", "forward_lse")
                         if k in t}})
     print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
     print(json.dumps({"slo": slo_rows}), flush=True)

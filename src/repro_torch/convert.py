@@ -22,7 +22,12 @@ block ``xattn`` and ``norm_x`` besides): ``transformer_params_from_numpy``
 loads them into the port's ``Transformer`` in its executed layer order,
 ``transformer_params_to_numpy`` gives them back in that pytree, and
 ``cache_to_numpy`` gives a cache (KV, MLA latent, SSM or RG-LRU) in the
-reference's layout.
+reference's layout.  Any dict of tensors keyed by the model's parameter
+names (gradients, AdamW's moments) crosses in the same pytree:
+``named_to_numpy`` / ``named_from_numpy``, and for the optimizer
+``adamw_state_to_numpy`` / ``adamw_state_from_numpy`` (``step``, and m
+and v keyed as the parameter tree), so both packages can start from the
+same parameters and optimizer state and be compared leaf by leaf.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.core.hashing import resolve_device
 from repro_torch.core.ocf import OCF, OcfConfig, OcfStats
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.streaming.generations import (GenerationalFilter,
                                                GenerationConfig, GenStats,
                                                _Generation)
@@ -229,46 +235,50 @@ def _block_leaves(layer):
             yield (path if group == "norms" else (group, *path)), param
 
 
-def _group_tree(tree: dict, group: str, j: int):
-    """The reference's stacked block dict of (group, slot j): ``prefix``
-    is one dict, ``blocks`` and ``tail`` tuples of them."""
-    return tree[group] if group == "prefix" else tree[group][j]
-
-
 def transformer_params_from_numpy(params_np: dict, cfg: ModelConfig, *,
                                   device="cuda") -> Transformer:
     """The reference's parameter pytree (numpy) -> a port ``Transformer``
     holding those weights: layer (slot j, period i) takes
     ``blocks[j][...][i]``, tail layer j takes ``tail[j][...][0]``."""
     model = Transformer(cfg, device=device)
-    dev = model.device
+    arrays = named_from_numpy(model, params_np)
     with torch.no_grad():
-        for name, param in model.emb.named_parameters():
-            param.copy_(torch.from_numpy(np.array(params_np[name])).to(dev))
-        for layer, (group, j, i) in zip(model.layers, model.slots):
-            tree = _group_tree(params_np, group, j)
-            for path, param in _block_leaves(layer):
-                arr = tree
-                for key in path:
-                    arr = arr[key]
-                param.copy_(torch.from_numpy(np.array(arr[i])).to(dev))
+        for name, param in model.named_parameters():
+            param.copy_(torch.from_numpy(np.array(arrays[name])).to(
+                model.device))
     return model
 
 
-def transformer_params_to_numpy(model: Transformer) -> dict:
-    """A port ``Transformer``'s weights -> the reference's pytree (float32
-    numpy), blocks stacked over periods in the reference's order."""
-    out = {name: p.detach().cpu().numpy()
-           for name, p in model.emb.named_parameters()}
-    stacks: dict = {}
-    for layer, (group, j, _i) in zip(model.layers, model.slots):
-        slot = stacks.setdefault(group, {}).setdefault(j, {})
-        for path, param in _block_leaves(layer):
-            node = slot
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node.setdefault(path[-1], []).append(
-                param.detach().cpu().numpy())
+def _named_leaves(model: Transformer) -> list:
+    """(parameter name, reference key path, period index or None) of every
+    parameter of ``model``; the path's second key is the slot index for
+    ``blocks`` and ``tail``."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = [(names[id(p)], (name,), None)
+           for name, p in model.emb.named_parameters()]
+    for layer, (group, j, i) in zip(model.layers, model.slots):
+        head = (group,) if group == "prefix" else (group, j)
+        out += [(names[id(param)], head + path, i)
+                for path, param in _block_leaves(layer)]
+    return out
+
+
+def named_to_numpy(model: Transformer, tensors: dict) -> dict:
+    """``{parameter name: tensor}`` of ``model`` (its parameters, their
+    gradients, AdamW's moments) -> the reference's parameter pytree of
+    numpy arrays, blocks stacked over periods in the reference's order."""
+    out, stacks = {}, {}
+    for name, path, _i in _named_leaves(model):
+        arr = tensors[name].detach().cpu().numpy()
+        if len(path) == 1:
+            out[path[0]] = arr
+            continue
+        group, rest = path[0], path[1:]
+        j, rest = (0, rest) if group == "prefix" else (rest[0], rest[1:])
+        node = stacks.setdefault(group, {}).setdefault(j, {})
+        for key in rest[:-1]:
+            node = node.setdefault(key, {})
+        node.setdefault(rest[-1], []).append(arr)
 
     def stack(node):
         if isinstance(node, list):
@@ -279,6 +289,47 @@ def transformer_params_to_numpy(model: Transformer) -> dict:
         out[group] = (stack(slots[0]) if group == "prefix" else
                       tuple(stack(slots[j]) for j in sorted(slots)))
     return out
+
+
+def named_from_numpy(model: Transformer, tree: dict) -> dict:
+    """The reference's parameter pytree -> ``{parameter name: numpy
+    array}`` of ``model`` (layer (slot j, period i) takes ``[i]`` of its
+    stacked leaf)."""
+    out = {}
+    for name, path, i in _named_leaves(model):
+        arr = tree
+        for key in path:
+            arr = arr[key]
+        out[name] = np.asarray(arr if i is None else arr[i])
+    return out
+
+
+def transformer_params_to_numpy(model: Transformer) -> dict:
+    """A port ``Transformer``'s weights -> the reference's pytree (float32
+    numpy), blocks stacked over periods in the reference's order."""
+    return named_to_numpy(model, dict(model.named_parameters()))
+
+
+def adamw_state_to_numpy(model: Transformer, state: AdamWState) -> dict:
+    """-> {"step": int32 numpy scalar, "m": pytree, "v": pytree}, the
+    moments in the reference's parameter tree."""
+    return {"step": state.step.detach().cpu().numpy(),
+            "m": named_to_numpy(model, state.m),
+            "v": named_to_numpy(model, state.v)}
+
+
+def adamw_state_from_numpy(model: Transformer, step, m: dict, v: dict
+                           ) -> AdamWState:
+    """The reference's AdamW state (step, m and v pytrees) -> the port's,
+    on the model's device, keyed by its parameter names."""
+    dev = model.device
+
+    def tensors(tree):
+        return {k: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+                for k, a in named_from_numpy(model, tree).items()}
+    return AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32, device=dev),
+                      m=tensors(m), v=tensors(v))
 
 
 def cache_to_numpy(cache: dict) -> dict:

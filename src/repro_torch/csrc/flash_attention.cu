@@ -9,6 +9,10 @@
 // the mask, which is applied to p after the exp; float32 running max,
 // denominator and accumulator; a row with no live key gives 0
 // (acc / max(l, 1e-30)); the output has q's type (float or bfloat16).
+// Optionally (a non-null `lse`) each row's float32 log-sum-exp of its
+// scaled, soft-capped scores, m + log(l), or -1e30 for a row with no live
+// key, [B, Hq, Sq]: what the backward kernels (flash_attention_bwd.cu)
+// recompute p from.  A null `lse` is the inference path, unchanged.
 // q, k and v may be strided views: their last dimension is contiguous and
 // every other stride is a multiple of 16 bytes; the output is contiguous.
 // Any Sq and Skv: the last q and kv tiles may be ragged.  Rows past S
@@ -152,9 +156,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 HeadStrides qst, HeadStrides kst, HeadStrides vst, int hq,
-                 int hkv, int sq, int skv, int causal, int window,
-                 float softcap, float scale) {
+                 float* __restrict__ lse, HeadStrides qst, HeadStrides kst,
+                 HeadStrides vst, int hq, int hkv, int sq, int skv,
+                 int causal, int window, float softcap, float scale) {
   using L = Layout<D>;
   extern __shared__ float smem[];
   float* Qs = smem;                      // [kBQ][kRow], pre-scaled
@@ -298,6 +302,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (xs == 0) l_s[xr] = l_run;
+  if (lse != nullptr && xs == 0 && row_live)
+    lse[(size_t)bh * sq + q0 + xr] =
+        l_run > 0.f ? m_run + logf(l_run) : kNegInf;
   __syncthreads();
   float* oh = o + (size_t)bh * sq * D;
 #pragma unroll
@@ -321,6 +328,7 @@ constexpr int kWBK = 64;       // keys per kv tile
 constexpr int kStages = 2;     // K and V ring depth
 constexpr int kWThreads = 384; // producer + two consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of one CTA: the q tile, then kStages K tiles, then kStages
 // V tiles, then the mbarriers (q full; for K, then for V, kStages full and
@@ -591,9 +599,9 @@ __global__ void __launch_bounds__(kWThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap to, int hq, int hkv,
-                   int sq, int skv, int causal, int window, float softcap,
-                   float scale) {
+                   const __grid_constant__ CUtensorMap to,
+                   float* __restrict__ lse, int hq, int hkv, int sq, int skv,
+                   int causal, int window, float softcap, float scale) {
   using L = WgLayout<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -834,6 +842,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[hh] = 1.f / fmaxf(l, 1e-30f);
+      // m_run is in the log2 domain of the scaled (capped) scores
+      if (lse != nullptr && tq4 == 0 && rlive[hh])
+        lse[(size_t)bh * sq + q0 + r0 + 8 * hh] =
+            l > 0.f ? (m_run[hh] + log2f(l)) * kLn2 : kNegInf;
     }
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj)
@@ -921,10 +933,10 @@ cudaError_t allow_smem(K kernel, size_t smem, bool& done) {
 
 // bstrides: byte strides (batch, head, row) of q, then k, then v.
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
-               int hq, int hkv, int sq, int skv, int causal, int window,
-               float softcap, float scale, const long long* bstrides,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int hq, int hkv, int sq, int skv,
+               int causal, int window, float softcap, float scale,
+               const long long* bstrides, cudaStream_t stream) {
   const size_t smem = Layout<D>::kSmemFloats * sizeof(float);
   static bool attr = false;
   const cudaError_t err = allow_smem(flash_f32_kernel<D>, smem, attr);
@@ -938,16 +950,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
   flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, st[0],
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, st[0],
       st[1], st[2], hq, hkv, sq, skv, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
-                int hq, int hkv, int sq, int skv, int causal, int window,
-                float softcap, float scale, const long long* bstrides,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int hq, int hkv, int sq, int skv,
+                int causal, int window, float softcap, float scale,
+                const long long* bstrides, cudaStream_t stream) {
   const size_t smem = WgLayout<D>::kSmemBytes;
   static bool attr = false;
   const cudaError_t err = allow_smem(flash_wgmma_kernel<D>, smem, attr);
@@ -962,20 +974,20 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
     return (int)cudaErrorInvalidValue;
   const dim3 grid(b * hq, (sq + kWBQ - 1) / kWBQ);
   flash_wgmma_kernel<D><<<grid, kWThreads, smem, stream>>>(
-      mq, mk, mv, mo, hq, hkv, sq, skv, causal, window, softcap, scale);
+      mq, mk, mv, mo, lse, hq, hkv, sq, skv, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o,
-           int b, int hq, int hkv, int sq, int skv, int causal, int window,
-           float softcap, float scale, const long long* bstrides,
+           float* lse, int b, int hq, int hkv, int sq, int skv, int causal,
+           int window, float softcap, float scale, const long long* bstrides,
            cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
+    return launch_f32<D>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal, window,
                          softcap, scale, bstrides, stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, b, hq, hkv, sq, skv, causal, window,
+    return launch_bf16<D>(q, k, v, o, lse, b, hq, hkv, sq, skv, causal, window,
                           softcap, scale, bstrides, stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -1003,8 +1015,10 @@ extern "C" int lm_flash_wgmma_smem_bytes(int d) {
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores).  window <= 0:
 // no window; softcap <= 0: none.  strides: 9 byte strides, (batch, head,
 // row) of q, k and v, each a positive multiple of 16; o is contiguous.
+// lse: null, or float32 [B, Hq, Sq] for each row's log-sum-exp.
 extern "C" int lm_flash_attention(const void* q, const void* k,
-                                  const void* v, void* o, int b, int hq,
+                                  const void* v, void* o, void* lse, int b,
+                                  int hq,
                                   int hkv, int sq, int skv, int d, int dtype,
                                   int causal, int window, float softcap,
                                   float scale, const long long* strides,
@@ -1014,8 +1028,8 @@ extern "C" int lm_flash_attention(const void* q, const void* k,
   switch (d) {
 #define FLASH_CASE(D)                                                        \
   case D:                                                                    \
-    return launch<D>(dtype, q, k, v, o, b, hq, hkv, sq, skv, causal, window, \
-                     softcap, scale, strides, st);
+    return launch<D>(dtype, q, k, v, o, (float*)lse, b, hq, hkv, sq, skv,   \
+                     causal, window, softcap, scale, strides, st);
     FLASH_CASE(16)
     FLASH_CASE(32)
     FLASH_CASE(64)

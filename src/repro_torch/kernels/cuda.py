@@ -77,8 +77,15 @@ KERNELS = {
                     [_P, _I, _I, _U, _P, _P, _P, _I, _P, _P, ctypes.c_longlong,
                      _P, _I, _P]),
     "flash_attention": ("flash_attention.cu", "lm_flash_attention",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _P, _P]),
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _F, _P, _P]),
+    "flash_attention_bwd_pre": ("flash_attention_bwd.cu", "lm_flash_bwd_pre",
+                                [_P, _P, _P, ctypes.c_longlong, _I, _I, _P]),
+    "flash_attention_bwd_dkdv": ("flash_attention_bwd.cu",
+                                 "lm_flash_bwd_dkdv",
+                                 [_P] * 8 + [_I] * 9 + [_F, _F, _P]),
+    "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "lm_flash_bwd_dq",
+                               [_P] * 7 + [_I] * 9 + [_F, _F, _P]),
 }
 # The telemetry twins: kernel name -> the kernel they instantiate.
 TM_KERNELS = {"probe_tm": "probe", "insert_bulk_tm": "insert_bulk",

@@ -23,6 +23,20 @@ query, ``window`` keeps keys less than ``window`` positions back, the
 optional soft-cap ``c * tanh(s / c)`` acts before the mask, the default
 scale is D^-0.5, and a row with no live key gives 0.  Accumulation is in
 float32; the output has q's dtype (float32 or bfloat16).
+
+The gradient.  Where grad is enabled and q, k or v requires it,
+``flash_attention`` goes through ``FlashAttentionFn``: its forward also
+returns each row's float32 log-sum-exp (``lse`` [B, Hq, Sq], m + log l of
+the scaled, capped scores; -1e30 for a row with no live key) and saves q,
+k, v, the output and ``lse``; its backward is the exact gradient of the
+function above (``flash_attention_bwd``): the CUDA kernels of
+``csrc/flash_attention_bwd.cu`` on the card (a pre-pass D_i = rowsum(dO
+o), a dk/dv kernel over kv tiles, a dq kernel over q tiles; ``LAUNCHES``
+counts each under its own name), ``flash_attention_bwd_plain`` on the
+CPU.  The reference's Pallas kernel has no VJP; its training step takes
+the gradient of the same attention from XLA's autodiff off the TPU.  On a
+CUDA tensor ``_flash_cuda`` refuses to run under grad rather than return
+an output cut off from the graph.
 """
 from __future__ import annotations
 
@@ -87,13 +101,28 @@ def byte_strides(t: torch.Tensor, name: str = "x") -> tuple[int, int, int]:
     return out[2], out[1], out[0]
 
 
+def _live(qpos, j0: int, width: int, causal: bool, window) -> torch.Tensor:
+    """[Sq, width] bool: the keys j0 .. j0 + width that the masks leave
+    live for queries at positions ``qpos`` [Sq, 1]."""
+    kpos = (j0 + torch.arange(width, device=qpos.device))[None, :]
+    mask = torch.ones((qpos.shape[0], width), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: int | None = None,
                           logit_softcap: float | None = None,
                           scale: float | None = None, bq: int = 128,
-                          bk: int = 128) -> torch.Tensor:
+                          bk: int = 128, return_lse: bool = False):
     """Plain PyTorch version: the reference kernel's online softmax over
-    ``bk``-key blocks, all q rows at once."""
+    ``bk``-key blocks, all q rows at once.  ``return_lse``: also each row's
+    float32 log-sum-exp [B, Hq, Sq] (m + log l; -1e30 for a row with no
+    live key)."""
     cuda.PLAIN_CALLS["flash_attention"] += 1
     _bq, bk_ = _check(q, k, v, bq, bk)
     b, hq, sq, d = q.shape
@@ -111,12 +140,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     l = torch.zeros_like(m)
     for j0 in range(0, skv, bk_):
         width = min(bk_, skv - j0)                   # the last may be ragged
-        kpos = (j0 + torch.arange(width, device=dev))[None, :]
-        mask = torch.ones((sq, width), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= kpos <= qpos
-        if window is not None:
-            mask &= kpos > qpos - window
+        mask = _live(qpos, j0, width, causal, window)
         if not bool(mask.any()):
             continue                      # the kernel's block_live skip
         kb = kf[:, :, None, j0:j0 + bk_]
@@ -132,7 +156,159 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         acc = acc * alpha[..., None] + p @ vb
         m = m_cur
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    out = out.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      NEG_INF)
+    return out, lse.reshape(b, hq, sq)
+
+
+def bwd_delta_plain(o, do) -> torch.Tensor:
+    """The backward's pre-pass in torch ops: D_i = rowsum(dO o), float32
+    [B, Hq, Sq]."""
+    cuda.PLAIN_CALLS["flash_attention_bwd_pre"] += 1
+    return (do.float() * o.float()).sum(-1)
+
+
+def bwd_delta(o, do) -> torch.Tensor:
+    """D_i = rowsum(dO o) -> float32 [B, Hq, Sq]: ``bwd_delta_plain`` for
+    CPU tensors, the pre-pass kernel for contiguous CUDA tensors of one
+    dtype."""
+    if o.device.type == "cpu":
+        return bwd_delta_plain(o, do)
+    cuda.check_cuda("flash_attention_bwd_pre", o=o, do=do)
+    if do.dtype != o.dtype or o.dtype not in _DTYPES or do.shape != o.shape \
+            or o.dim() != 4 or o.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_pre: o and do must be "
+                         f"[B, H, S, D] of one dtype with D in {HEAD_DIMS}, "
+                         f"got {o.dtype} {tuple(o.shape)} and {do.dtype} "
+                         f"{tuple(do.shape)}")
+    b, h, s, d = o.shape
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
+    if delta.numel():
+        cuda.launch("flash_attention_bwd_pre", o.data_ptr(), do.data_ptr(),
+                    delta.data_ptr(), b * h * s, d, _DTYPES[o.dtype])
+    return delta
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              window: int | None = None,
+                              logit_softcap: float | None = None,
+                              scale: float | None = None, bk: int = 64):
+    """Plain PyTorch version of the backward kernels, on their kv-tile
+    schedule: D_i = rowsum(dO o); then per ``bk``-key tile (all q rows at
+    once) p = exp(x - lse) on live pairs, dP = dO v^T, dS = p (dP - D_i)
+    (1 - tanh^2 of the capped score) scale; dv and dk of the tile summed
+    over the group's q heads, dq accumulated over the tiles.  -> (dq, dk,
+    dv) in q's dtype."""
+    cuda.PLAIN_CALLS["flash_attention_bwd"] += 1
+    _check(q, k, v, 128, bk)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale_ = scale if scale is not None else d ** -0.5
+    dev = q.device
+    qf = q.reshape(b, hkv, group, sq, d).float()
+    dof = do.reshape(b, hkv, group, sq, d).float()
+    kf, vf = k.float(), v.float()
+    lse_ = lse.reshape(b, hkv, group, sq, 1).float()
+    delta = bwd_delta_plain(o, do).reshape(b, hkv, group, sq, 1)
+    qpos = (skv - sq + torch.arange(sq, device=dev))[:, None]
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for j0 in range(0, skv, bk):
+        width = min(bk, skv - j0)
+        mask = _live(qpos, j0, width, causal, window)
+        if not bool(mask.any()):
+            continue
+        kb = kf[:, :, None, j0:j0 + width]
+        vb = vf[:, :, None, j0:j0 + width]
+        x = (qf @ kb.transpose(-1, -2)) * scale_
+        dcap = 1.0
+        if logit_softcap is not None:
+            t = torch.tanh(x / logit_softcap)
+            x = logit_softcap * t
+            dcap = 1 - t * t
+        p = torch.where(mask, torch.exp(x - lse_), 0.0)
+        dp = dof @ vb.transpose(-1, -2)
+        ds = p * (dp - delta) * dcap * scale_
+        dv[:, :, j0:j0 + width] = (p.transpose(-1, -2) @ dof).sum(2)
+        dk[:, :, j0:j0 + width] = (ds.transpose(-1, -2) @ qf).sum(2)
+        dq += ds @ kb
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int | None = None,
+                        logit_softcap: float | None = None,
+                        scale: float | None = None):
+    """The gradient of ``flash_attention`` -> (dq, dk, dv) in q's dtype,
+    from the forward's output ``o`` and ``lse`` and the output's gradient
+    ``do``.  CPU tensors take the plain version; CUDA tensors launch the
+    three backward kernels (pre-pass, dk/dv, dq)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         window=window,
+                                         logit_softcap=logit_softcap,
+                                         scale=scale)
+    _check(q, k, v, 128, 128)
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do.to(q.dtype)))
+    lse = lse.contiguous()
+    cuda.check_cuda("flash_attention_bwd", q=q, k=k, v=v, o=o, lse=lse,
+                    do=do)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 "
+                         f"{(b, hq, sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dtype = _DTYPES[q.dtype]
+    delta = bwd_delta(o, do)
+    mask = (int(causal), -1 if window is None else int(window),
+            float(logit_softcap or 0.0),
+            float(scale if scale is not None else d ** -0.5))
+    shape = (b, hq, hkv, sq, skv, d, dtype)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    cuda.launch("flash_attention_bwd_dkdv", *common, dk.data_ptr(),
+                dv.data_ptr(), *shape, *mask)
+    cuda.launch("flash_attention_bwd_dq", *common, dq.data_ptr(), *shape,
+                *mask)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward kernel (or the
+    plain version on the CPU) with ``lse``, and ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_softcap, scale, bq,
+                bk):
+        kw = dict(causal=causal, window=window, logit_softcap=logit_softcap,
+                  scale=scale)
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, bq=bq, bk=bk,
+                                             return_lse=True, **kw)
+        else:
+            out, lse = _flash_cuda(q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -147,9 +323,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
     divide Skv (the reference kernel asserts there; its dispatcher sends
     such lengths elsewhere).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (D in 16, 32, 64, 128, 256; q, k, v as
-    ``byte_strides`` takes them), which takes any Sq and Skv.
+    ``byte_strides`` takes them), which takes any Sq and Skv.  Under grad
+    (grad enabled and q, k or v requiring it) the call goes through
+    ``FlashAttentionFn``, and the output carries its gradient.
     """
     _check(q, k, v, bq, bk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window, logit_softcap,
+                                      scale, bq, bk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      logit_softcap=logit_softcap,
@@ -158,7 +339,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
                        logit_softcap=logit_softcap, scale=scale)
 
 
-def _flash_cuda(q, k, v, *, causal, window, logit_softcap, scale):
+def _flash_cuda(q, k, v, *, causal, window, logit_softcap, scale,
+                with_lse: bool = False):
+    """The forward kernel -> the output (and ``lse`` with ``with_lse``).
+    Refuses to run under grad: its output would carry no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the CUDA forward kernel was "
+                           "called under grad outside FlashAttentionFn; "
+                           "its output would carry no gradient")
     cuda.check_cuda("flash_attention", contiguous=False, q=q, k=k, v=v)
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -171,15 +359,19 @@ def _flash_cuda(q, k, v, *, causal, window, logit_softcap, scale):
         raise ValueError(f"flash_attention: logit_softcap must be > 0, got "
                          f"{logit_softcap}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    # the kernel writes every row's lse (-1e30 where no key is live)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     strides = (ctypes.c_longlong * 9)(*byte_strides(q, "q"),
                                       *byte_strides(k, "k"),
                                       *byte_strides(v, "v"))
     cuda.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), b, hq, hkv, sq, skv, d, _DTYPES[q.dtype],
-                int(causal), -1 if window is None else int(window),
+                out.data_ptr(), cuda.ptr(lse), b, hq, hkv, sq, skv, d,
+                _DTYPES[q.dtype], int(causal),
+                -1 if window is None else int(window),
                 float(logit_softcap or 0.0),
                 float(scale if scale is not None else d ** -0.5),
                 ctypes.addressof(strides))
-    return out
+    return (out, lse) if with_lse else out

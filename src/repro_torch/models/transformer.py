@@ -13,8 +13,13 @@ periods, a 2-layer rglru tail) 8 rglru, 8 rglru, 8 local, 2 rglru.  The
 port holds its layers in that executed order (``Transformer.kinds``,
 ``layer_slots``), so the same weights give the same function.
 
-The module holds its weights (float32, as the reference's) and runs
-forward only: the flash kernel has no backward, in the reference as here.
+The module holds its weights (float32, as the reference's).  ``apply``
+is the serving entry, under ``no_grad``; ``forward`` (``model(tokens)``)
+is the training entry: the same cache-less function, differentiable
+(flash attention's gradient is its ``FlashAttentionFn``), with the
+reference's ``remat`` modes through ``torch.utils.checkpoint``.  The
+weights are frozen parameters until a trainer makes them trainable
+(``make_train_step`` calls ``requires_grad_()``).
 Caches mirror the reference's layout, one cache per pattern slot stacked
 over the periods, ``{"blocks": [...], "tail": [...], "prefix": ...}``:
 ``KVCache`` k, v of [n_periods, B, Hkv, S, D] (MLA: k of [n, B, 1, S,
@@ -31,10 +36,12 @@ config with ``cross_attn_memory_len``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.hashing import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -49,6 +56,21 @@ from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
 
 DENSE_KINDS = ("global", "local")
 KINDS = (*DENSE_KINDS, "rglru", "ssm")
+REMAT = ("none", "full", "dots")
+# The matrix products "dots" keeps: products without batch dimensions
+# (x @ w lowers to aten.mm), as the reference's
+# dots_with_no_batch_dims_saveable keeps dot_generals without batch dims;
+# batched products (MoE's einsums) and everything else are recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(_ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
 
 
 @dataclasses.dataclass
@@ -253,6 +275,26 @@ class Transformer(nn.Module):
         that receives each MoE block's ``moe.Routing``, in the executed
         order.
         """
+        return self._run(tokens, cache=cache, cache_pos=cache_pos,
+                         prefix_embeds=prefix_embeds, memory=memory,
+                         routes=routes)
+
+    def forward(self, tokens, *, prefix_embeds=None, memory=None,
+                remat: str = "none") -> ModelOutput:
+        """The differentiable cache-less forward (training): ``apply``'s
+        function without a cache, under the caller's grad mode.  ``remat``
+        as the reference's: ``"none"`` keeps every activation the backward
+        needs, ``"full"`` keeps only each layer's input and runs its
+        forward again in the backward, ``"dots"`` keeps the layer's matrix
+        products without batch dimensions as well and recomputes the rest.
+        Remat changes memory, never numbers."""
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+        return self._run(tokens, prefix_embeds=prefix_embeds, memory=memory,
+                         remat=remat)
+
+    def _run(self, tokens, *, cache=None, cache_pos=None, prefix_embeds=None,
+             memory=None, routes=None, remat: str = "none") -> ModelOutput:
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         x = embed(self.emb["embed"], tokens, cfg)
@@ -271,8 +313,15 @@ class Transformer(nn.Module):
             if cache is not None:
                 slot = cache[group] if group == "prefix" else cache[group][j]
                 lc = type(slot)(*(t[i] for t in slot))
-            x, _, aux = layer(x, rot=rot, cache=lc, cache_pos=cache_pos,
-                              routes=routes, memory=memory)
+            if remat == "none":
+                x, _, aux = layer(x, rot=rot, cache=lc, cache_pos=cache_pos,
+                                  routes=routes, memory=memory)
+            else:
+                ctx = (_dots_context if remat == "dots"
+                       else ckpt.noop_context_fn)
+                x, _, aux = ckpt.checkpoint(
+                    functools.partial(layer, rot=rot, memory=memory), x,
+                    use_reentrant=False, context_fn=ctx)
             if aux is not None:
                 aux_total = aux_total + aux
         x = rmsnorm(x[:, n_prefix:], self.emb["final_norm"], cfg.rms_eps)

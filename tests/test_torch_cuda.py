@@ -18,7 +18,11 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.delete import (delete_bulk, delete_bulk_adaptive,
                                         delete_bulk_adaptive_plain,
                                         delete_bulk_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (_flash_cuda, bwd_delta,
+                                                 bwd_delta_plain,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                              fingerprint_hash_family,
@@ -996,3 +1000,122 @@ def test_arch_lm_on_card_matches_cpu(dev, arch):
     outs = [engine.generate(m, t, 9, **c).tokens.cpu()
             for m, t, c in ((card, toks.to(dev), kw_dev), (cpu, toks, kw))]
     assert torch.equal(*outs)
+
+
+# ------------------------------------------------------ the training path --
+
+BWD_CASES = [
+    # b, hq, hkv, sq, skv, d, causal, window, softcap
+    (2, 4, 2, 128, 128, 64, True, None, None),
+    (1, 8, 1, 256, 256, 64, True, 64, None),
+    (2, 2, 2, 128, 256, 128, True, None, 30.0),
+    (1, 2, 1, 256, 128, 32, True, None, None),      # rows with no live key
+    (1, 2, 1, 128, 128, 32, False, None, None),
+    (1, 4, 1, 200, 200, 256, True, 64, None),       # ragged tiles, D 256
+    (1, 4, 1, 96, 96, 16, True, 16, None),
+    (1, 4, 4, 1, 384, 64, True, None, None),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain(dev, case, dtype):
+    """The three backward kernels against ``flash_attention_bwd_plain`` on
+    the forward kernel's output and ``lse``; tolerances as
+    ``chip_smoke.py``'s phase 2: 1e-4 (float32: long float32 sums in
+    another order) and 2e-2 (bfloat16) x (1 + |want|) elementwise; the
+    pre-pass within 1e-5; ``lse`` against the plain forward's."""
+    b, hq, hkv, sq, skv, d, causal, window, cap = case
+    rng = np.random.RandomState(sq + d + 7)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape)).to(dev, dtype)
+                   for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                                 (b, hkv, skv, d), (b, hq, sq, d)))
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    o, lse = _flash_cuda(q, k, v, scale=None, with_lse=True, **kw)
+    _o, plse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    live = plse > -1e29
+    torch.testing.assert_close(lse[live], plse[live], atol=1e-4, rtol=1e-5)
+    assert bool((lse[~live] == -1e30).all())
+    torch.testing.assert_close(bwd_delta(o, do), bwd_delta_plain(o, do),
+                               atol=1e-5, rtol=1e-5)
+    cuda.reset_counts()
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert dict(cuda.LAUNCHES) == {"flash_attention_bwd_pre": 1,
+                                   "flash_attention_bwd_dkdv": 1,
+                                   "flash_attention_bwd_dq": 1}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+    if causal and skv < sq:
+        assert float(got[0][:, :, :sq - skv].abs().max()) == 0.0
+
+
+def test_flash_attention_autograd_on_card(dev):
+    """Under grad, ``flash_attention`` on the card launches the forward
+    kernel with ``lse`` and the three backward kernels, and its gradients
+    match autograd through the plain forward (float32); the bare CUDA
+    forward refuses to run under grad."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape)).float().to(dev)
+                   for shape in ((2, 4, 300, 64), (2, 2, 300, 64),
+                                 (2, 2, 300, 64), (2, 4, 300, 64)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cuda.reset_counts()
+    out = flash_attention(*leaves, window=50, logit_softcap=20.0)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert dict(cuda.LAUNCHES) == {"flash_attention": 1,
+                                   "flash_attention_bwd_pre": 1,
+                                   "flash_attention_bwd_dkdv": 1,
+                                   "flash_attention_bwd_dq": 1}
+    assert not cuda.PLAIN_CALLS
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(
+        *ref, window=50, logit_softcap=20.0), ref, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    with pytest.raises(RuntimeError, match="under grad"):
+        _flash_cuda(*leaves, causal=True, window=None, logit_softcap=None,
+                    scale=None)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One ``make_train_step`` step of the gemma3 smoke model (float32,
+    TF32 off) on the card and on the CPU from the same weights: loss and
+    grad_norm within 1e-5 relative, parameters after the step within
+    2 lr (Adam's first step can take a near-zero gradient's other sign)."""
+    import copy
+    import dataclasses
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("gemma3-1b"), dtype="float32")
+    cpu = Transformer(cfg, seed=2, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.RandomState(4)
+    flat = torch.from_numpy(rng.randint(0, cfg.vocab_size, (4, 65)))
+    batch = {"tokens": flat[:, :-1], "targets": flat[:, 1:]}
+    lr = 1e-3
+    metrics = {}
+    for label, model in (("cuda", card), ("cpu", cpu)):
+        tx = AdamW(lr=lr)
+        params = dict(model.named_parameters())
+        step = make_train_step(model, tx, ParallelConfig(remat="full"))
+        cuda.reset_counts()
+        _p, _s, m = step(params, tx.init(params),
+                         {k: t.to(model.device) for k, t in batch.items()})
+        metrics[label] = {k: float(x) for k, x in m.items()}
+        if label == "cuda":
+            assert cuda.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+            assert cuda.LAUNCHES["flash_attention_bwd_dq"] == cfg.n_layers
+            assert not cuda.PLAIN_CALLS
+    for key in ("loss", "grad_norm"):
+        assert metrics["cuda"][key] == pytest.approx(metrics["cpu"][key],
+                                                     rel=1e-5)
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 2 * lr

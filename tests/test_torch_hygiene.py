@@ -214,7 +214,7 @@ def test_kernel_wrappers_refuse_non_cuda_tensors():
 
 def test_build_names_a_library_per_source():
     names = {cuda._lib_path(k).name for k in cuda.KERNELS}
-    assert len(names) == 11
+    assert len(names) == 12
     assert all(n.startswith("lib") and n.endswith(".so") for n in names)
     assert cuda.BUILD_DIR == ROOT / "build"
     for src, _fn, _args in cuda.KERNELS.values():
