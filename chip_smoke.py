@@ -54,11 +54,13 @@ Phases, each timed, each fatal on failure:
      flash attention's backward kernels (``csrc/flash_attention_bwd.cu``:
      the pre-pass, dk/dv, dq) against their plain version on every
      flash case above in float32 and bfloat16, at gemma3-1b's training
-     shapes (bfloat16, S 4096, window 512 and global) and on MLA's padded
-     heads through ``ops.attention`` under autograd (FLASH_BWD_TOL
-     elementwise and by row; in float32 also against
-     ``torch.autograd.grad`` through the plain forward), with the
-     forward's ``lse`` against the plain version's;
+     shapes (bfloat16, S 4096, window 512 and global, B 1 and 2), on
+     gemma3-1b's heads at D 64 and 128 and a soft-capped, windowed,
+     ragged D 256 case, and on MLA's padded heads through
+     ``ops.attention`` under autograd (FLASH_BWD_TOL elementwise and by
+     row; in float32 also against ``torch.autograd.grad`` through the
+     plain forward; in bfloat16 a second run gives the same bits), with
+     the forward's ``lse`` against the plain version's;
   3. run seeded streams through the card and the CPU and require
      identical state and answers after every operation: ~100k-key EOF
      streams through ``OCF`` (with and without a stash), two
@@ -212,9 +214,10 @@ Phases, each timed, each fatal on failure:
      tokens/s, the flash forward and backward launches per step, no plain
      version; one step under a trace (device busy by class); a run killed
      after a checkpoint resumes to the uninterrupted run's losses.  Phase
-     6 then times the backward kernels at the training shapes beside
-     their bound and SDPA's backward, and the forward with and without
-     ``lse``.
+     6 then times the backward kernels at the training shapes (B 1 and
+     5i's microbatch of 2) beside their bound and SDPA's backward, and
+     the forward with and without ``lse`` (at S 4096 beside its bound and
+     SDPA's forward).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -4884,28 +4887,46 @@ def ptxas_summary(log: str) -> list[str]:
     return out
 
 
-def wgmma_report(summary: list[str]) -> list[str]:
-    """flash_wgmma_kernel's lines of ``ptxas_summary`` for the flash
-    library, each with the CTA's dynamic shared memory (from the
-    library's ``lm_flash_wgmma_smem_bytes``); raises on any spill."""
+# library -> {wgmma kernel: (C function giving a CTA's dynamic shared
+# memory at head dim d, its leading arguments, the head dims it is built
+# for)}
+WGMMA_KERNELS = {
+    "flash_attention": {"flash_wgmma_kernel": (
+        "lm_flash_wgmma_smem_bytes", (), (16, 32, 64, 128, 256))},
+    "flash_attention_bwd_pre": {
+        "flash_bwd_dkdv_wgmma_kernel": ("lm_flash_bwd_wgmma_smem_bytes",
+                                        (0,), (64, 128, 256)),
+        "flash_bwd_dq_wgmma_kernel": ("lm_flash_bwd_wgmma_smem_bytes",
+                                      (1,), (64, 128, 256))},
+}
+
+
+def wgmma_report(name: str, summary: list[str]) -> list[str]:
+    """The lines of ``ptxas_summary`` of the wgmma kernels of library
+    ``name`` (``WGMMA_KERNELS``), each with the CTA's dynamic shared memory
+    from the library; raises on any spill or a head dim not built."""
     import ctypes
     import re
     from repro_torch.kernels import cuda
-    smem = ctypes.CDLL(str(cuda._lib_path("flash_attention"))) \
-        .lm_flash_wgmma_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    lib = ctypes.CDLL(str(cuda._lib_path(name)))
     out = []
-    for line in summary:
-        m = re.match(r"flash_wgmma_kernel<(\d+)>", line)
-        if not m:
-            continue
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
-        check(spills and not any(spills),
-              f"ptxas spills in flash_wgmma_kernel: {line}")
-        out.append(f"{line}; {smem(int(m.group(1)))} bytes of dynamic "
-                   f"shared memory a CTA")
-    check(len(out) == 5, f"ptxas reported {len(out)} of the 5 head dims of "
-                         f"flash_wgmma_kernel")
+    for kernel, (symbol, lead, dims) in WGMMA_KERNELS[name].items():
+        smem = getattr(lib, symbol)
+        smem.argtypes = [ctypes.c_int] * (len(lead) + 1)
+        smem.restype = ctypes.c_int
+        seen = []
+        for line in summary:
+            m = re.match(rf"{kernel}<(\d+)>", line)
+            if not m:
+                continue
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            check(spills and not any(spills),
+                  f"ptxas spills in {kernel}: {line}")
+            seen.append(int(m.group(1)))
+            out.append(f"{line}; {smem(*lead, seen[-1])} bytes of dynamic "
+                       f"shared memory a CTA")
+        check(sorted(seen) == list(dims), f"ptxas reported {kernel} at "
+                                          f"head dims {seen}, not {dims}")
     return out
 
 
@@ -5614,14 +5635,24 @@ class FlashBwdBench:
     ``lse``): every shape of FlashKernelBench.CASES (D 16 to 256, float32
     and bfloat16, causal, window, soft-cap, GQA, ragged lengths, rows with
     no live key), gemma3-1b's training shapes (bfloat16, Hq 4, Hkv 1, D
-    256, S = TRAIN_SEQ, window 512 and global) and deepseek-v2-lite's MLA
-    heads through ``ops.attention`` under autograd (padded to 256); the
-    pre-pass against ``bwd_delta_plain``; the forward's ``lse`` against
-    the plain version's.  In float32 the kernels are also held against
-    ``torch.autograd.grad`` through the plain forward."""
+    256, S = TRAIN_SEQ, window 512 and global, B 1 and the microbatch's B
+    2), gemma3-1b's heads at D 64 and 128 and a soft-capped, windowed,
+    ragged D 256 case (BF16_CASES: the wgmma kernels' head dims), and
+    deepseek-v2-lite's MLA heads through ``ops.attention`` under autograd
+    (padded to 256); the pre-pass against ``bwd_delta_plain``; the
+    forward's ``lse`` against the plain version's.  In float32 the kernels
+    are also held against ``torch.autograd.grad`` through the plain
+    forward; in bfloat16 a second run must give the same bits (no
+    atomics: each output element is summed in a fixed order)."""
 
     TRAIN_CASES = [(1, 4, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, 512, None),
-                   (1, 4, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, None, None)]
+                   (1, 4, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, None, None),
+                   (2, 4, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, 512, None),
+                   (2, 4, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, None, None)]
+    BF16_CASES = [(1, 4, 1, 1000, 1000, 64, True, None, None),
+                  (2, 4, 1, 1000, 1000, 128, True, 200, None),
+                  (1, 4, 1, 300, 300, 256, True, 100, 30.0),
+                  (1, 2, 1, 100, 250, 128, False, 70, None)]
 
     def __init__(self):
         import torch
@@ -5637,7 +5668,8 @@ class FlashBwdBench:
         gen.manual_seed(SEED + 30)
         both = (torch.float32, torch.bfloat16)
         cases = [(c, both) for c in FlashKernelBench.CASES] + \
-            [(c, (torch.bfloat16,)) for c in self.TRAIN_CASES]
+            [(c, (torch.bfloat16,))
+             for c in self.TRAIN_CASES + self.BF16_CASES]
         for case, dtypes in cases:
             for dtype in dtypes:
                 self.one(case, dtype, gen)
@@ -5678,6 +5710,13 @@ class FlashBwdBench:
             delta, bwd_delta_plain(o, do), 1e-5, None, "pre-pass D"))
         got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            same = [bool(torch.equal(a, b)) for a, b in zip(got, again)]
+            print(f"      a second run gives the same bits (dq, dk, dv): "
+                  f"{same}", flush=True)
+            check(all(same), f"{case}: two runs of the backward differ")
+            del again
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
         for label, g, w, kern in zip(("dq", "dk", "dv"), got, want,
                                      ("flash_attention_bwd_dq",
@@ -6020,41 +6059,21 @@ def train_path(card: str) -> dict:
     return result
 
 
-def flash_bwd_times() -> dict:
-    """Phase 6: the backward kernels at gemma3-1b's training shapes
-    (bfloat16, B = 1, Hq 4, Hkv 1, S = TRAIN_SEQ, D 256; a global layer
-    and a local one of window 512), each launch held by the profiler's
-    device time, beside its plain version (the pre-pass: ``bwd_delta_
-    plain``; dk/dv and dq: ``flash_attention_bwd_plain``, which computes
-    all three) and its bound: the pre-pass moves o and dO once and writes
-    D (bytes); dk/dv does 8 Hq D operations per live (query, key) pair
-    (the scores, dP, dv, dk) and dq 6 Hq D (the scores, dP, dq), over the
-    bfloat16 tensor-core rate.  The whole backward (the three launches'
-    device times summed) beside 10 Hq D operations per live pair (2.5 x
-    the forward's 4) and one ``scaled_dot_product_attention`` backward
-    (``torch.autograd.grad`` of its output, causal; the local layer with a
-    dense boolean band mask), timed for the record only.  The forward
-    kernel with and without ``lse`` in turns, at S = TRAIN_SEQ and at
-    LM_SEQ."""
+def flash_bwd_rows(q, k, v, do, band, win: int) -> dict:
+    """``flash_bwd_times``'s rows for one batch of gemma3-1b's heads: the
+    three backward kernels (and the whole backward beside SDPA's) of a
+    global layer and of a ``win``-window one (``band`` its dense mask)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import cuda
     from repro_torch.kernels.flash_attention import (
         _flash_cuda, bwd_delta, bwd_delta_plain, flash_attention_bwd,
         flash_attention_bwd_plain)
-    b, hq, hkv, s, d, win = 1, 4, 1, TRAIN_SEQ, 256, 512
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 31)
-    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen)
-                   .to(torch.bfloat16) for shape in ((b, hq, s, d),
-                                                     (b, hkv, s, d),
-                                                     (b, hkv, s, d),
-                                                     (b, hq, s, d)))
-    pos = torch.arange(s, device="cuda")
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
-                                             > pos[:, None] - win)
     out = {}
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
     for label, window in (("global", None), ("local", win)):
+        tag = label if b == 1 else f"{label}, B {b}"
         kw = dict(causal=True, window=window, logit_softcap=None)
         with torch.no_grad():
             o, lse = _flash_cuda(q, k, v, scale=None, with_lse=True, **kw)
@@ -6070,32 +6089,32 @@ def flash_bwd_times() -> dict:
         def plain_bwd(kw=kw, o=o, lse=lse):
             return flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
         # the pre-pass's multiply-adds run on the CUDA cores in float32
-        pre = {f"flash_attention_bwd_pre ({label})": (
+        pre = {f"flash_attention_bwd_pre ({tag})": (
             lambda o=o: bwd_delta(o, do),
             lambda o=o: bwd_delta_plain(o, do), None,
             (2 * qbytes + 4 * b * hq * s, 2 * q.numel()),
             "flash_bwd_pre_kernel")}
         rows = {
-            f"flash_attention_bwd_dkdv ({label})": (
+            f"flash_attention_bwd_dkdv ({tag})": (
                 lambda common=common, mask=mask: cuda.launch(
                     "flash_attention_bwd_dkdv", *common, dk.data_ptr(),
                     dv.data_ptr(), *shape, *mask),
                 plain_bwd, None,
                 (2 * qbytes + 8 * b * hq * s + 4 * kbytes,
-                 8 * hq * d * pairs), "flash_bwd_dkdv_kernel"),
-            f"flash_attention_bwd_dq ({label})": (
+                 8 * hq * d * pairs), ("flash_bwd_dkdv",)),
+            f"flash_attention_bwd_dq ({tag})": (
                 lambda common=common, mask=mask: cuda.launch(
                     "flash_attention_bwd_dq", *common, dq.data_ptr(),
                     *shape, *mask),
                 plain_bwd, None,
                 (3 * qbytes + 8 * b * hq * s + 2 * kbytes,
-                 6 * hq * d * pairs), "flash_bwd_dq_kernel"),
+                 6 * hq * d * pairs), ("flash_bwd_dq",)),
         }
         timed = time_rows(pre, SCALAR_OPS_PER_S, hold=False)
         timed.update(time_rows(rows, TENSOR_OPS_PER_S, hold=False))
         got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         check(all(bool(torch.isfinite(t).all()) for t in got),
-              f"backward ({label}): not finite")
+              f"backward ({tag}): not finite")
         total = sum(r["ms"] for r in timed.values())
         bound, _by = least_ms(4 * qbytes + 4 * kbytes, 10 * hq * d * pairs,
                               TENSOR_OPS_PER_S)
@@ -6112,7 +6131,7 @@ def flash_bwd_times() -> dict:
         def lib(sd=sd, leaves=leaves):
             return torch.autograd.grad(sd, leaves, do, retain_graph=True)
         library = (time_ms(lib, 5) + time_ms(lib, 5)) / 2
-        print(f"   flash backward ({label}): three kernels {total!r} ms "
+        print(f"   flash backward ({tag}): three kernels {total!r} ms "
               f"(device), wrapper {wrapper!r} ms, bound {bound!r} ms "
               f"({10 * hq * d * pairs} operations at 989 TFLOP/s), "
               f"{total / bound!r} x bound; scaled_dot_product_attention "
@@ -6120,10 +6139,54 @@ def flash_bwd_times() -> dict:
         del leaves, sd
         for name, row in timed.items():
             out[name] = row
-        out[f"backward ({label})"] = {
+        out[f"backward ({tag})"] = {
             "ms": total, "wrapper_ms": wrapper, "bound_ms": bound,
             "x_bound": total / bound, "library_ms": library,
             "ops": 10 * hq * d * pairs}
+    return out
+
+
+def flash_bwd_times() -> dict:
+    """Phase 6: the backward kernels at gemma3-1b's training shapes
+    (bfloat16, Hq 4, Hkv 1, S = TRAIN_SEQ, D 256; a global layer and a
+    local one of window 512), at B 1 and at phase 5i's launch size, a
+    microbatch of TRAIN_BATCH // TRAIN_MICRO sequences (rows "(global, B
+    2)" ...), each launch held by the profiler's device time, beside its
+    plain version (the pre-pass: ``bwd_delta_plain``; dk/dv and dq:
+    ``flash_attention_bwd_plain``, which computes
+    all three) and its bound: the pre-pass moves o and dO once and writes
+    D (bytes); dk/dv does 8 Hq D operations per live (query, key) pair
+    (the scores, dP, dv, dk) and dq 6 Hq D (the scores, dP, dq), over the
+    bfloat16 tensor-core rate.  The whole backward (the three launches'
+    device times summed) beside 10 Hq D operations per live pair (2.5 x
+    the forward's 4) and one ``scaled_dot_product_attention`` backward
+    (``torch.autograd.grad`` of its output, causal; the local layer with a
+    dense boolean band mask), timed for the record only.  The forward
+    kernel with and without ``lse`` in turns, at S = TRAIN_SEQ and at
+    LM_SEQ; at TRAIN_SEQ beside its bound (4 Hq D operations per live
+    pair) and one ``scaled_dot_product_attention`` forward (the local
+    layer with the dense band mask)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import _flash_cuda
+    hq, hkv, s, d, win = 4, 1, TRAIN_SEQ, 256, 512
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 31)
+    pos = torch.arange(s, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - win)
+    out = {}
+    for b in (1, TRAIN_BATCH // TRAIN_MICRO):
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=gen)
+                       .to(torch.bfloat16) for shape in ((b, hq, s, d),
+                                                         (b, hkv, s, d),
+                                                         (b, hkv, s, d),
+                                                         (b, hq, s, d)))
+        if b == 1:
+            fwd_qkv = (q, k, v)
+        out.update(flash_bwd_rows(q, k, v, do, band, win))
+    q, k, v = fwd_qkv
+    b = 1
     # the forward with and without lse, in turns
     for seq in (TRAIN_SEQ, LM_SEQ):
         x = [t[:, :, :seq] if seq <= s else None for t in (q, k, v)]
@@ -6142,8 +6205,22 @@ def flash_bwd_times() -> dict:
             print(f"   flash forward S={seq} window {window}: without lse "
                   f"{n1!r} / {n2!r} ms, with lse {l1!r} / {l2!r} ms "
                   f"(device)", flush=True)
-            out[f"forward S={seq} window {window}"] = {
-                "no_lse_ms": [n1, n2], "lse_ms": [l1, l2]}
+            row = {"no_lse_ms": [n1, n2], "lse_ms": [l1, l2]}
+            if seq == TRAIN_SEQ:
+                ops = 4 * hq * d * live_pairs(seq, seq, True, window)
+                bound, _by = least_ms(0, ops, TENSOR_OPS_PER_S)
+                kw = (dict(is_causal=True) if window is None
+                      else dict(attn_mask=band))
+                with torch.no_grad():
+                    library = time_ms(
+                        lambda x=x, kw=kw: F.scaled_dot_product_attention(
+                            *x, enable_gqa=True, **kw), 20)
+                print(f"   flash forward S={seq} window {window}: bound "
+                      f"{bound!r} ms ({ops} operations at 989 TFLOP/s), "
+                      f"scaled_dot_product_attention {library!r} ms",
+                      flush=True)
+                row.update(bound_ms=bound, library_ms=library)
+            out[f"forward S={seq} window {window}"] = row
     return out
 
 
@@ -6176,8 +6253,8 @@ def main() -> int:
                 summary = ptxas_summary(log.read_text())
                 for line in summary:
                     print(f"   {name}: {line}", flush=True)
-                if name == "flash_attention":
-                    for line in wgmma_report(summary):
+                if name in WGMMA_KERNELS:
+                    for line in wgmma_report(name, summary):
                         print(f"   ptxas, no spills: {line}", flush=True)
             cuda.kernel_fn(name)
 
@@ -6299,7 +6376,8 @@ def main() -> int:
             perf[name]["training_shapes"] = {
                 label: {**bwd[f"{name} ({label})"],
                         "backward": bwd[f"backward ({label})"]}
-                for label in ("global", "local")}
+                for label in ("global", "local", "global, B 2",
+                              "local, B 2")}
             perf[name]["training_shapes"]["launches_per_step"] = \
                 trained["per_step"][name]
         perf["flash_attention"]["forward_lse"] = {

@@ -1014,6 +1014,11 @@ BWD_CASES = [
     (1, 4, 1, 200, 200, 256, True, 64, None),       # ragged tiles, D 256
     (1, 4, 1, 96, 96, 16, True, 16, None),
     (1, 4, 4, 1, 384, 64, True, None, None),
+    # gemma3-1b's heads (Hq 4, Hkv 1) at the bfloat16 wgmma kernels' head
+    # dims, ragged lengths; soft-capped and windowed at D 256
+    (1, 4, 1, 1000, 1000, 64, True, None, None),
+    (2, 4, 1, 600, 600, 128, True, 200, None),
+    (1, 4, 1, 300, 300, 256, True, 100, 30.0),
 ]
 
 
@@ -1051,6 +1056,24 @@ def test_flash_attention_bwd_matches_plain(dev, case, dtype):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
     if causal and skv < sq:
         assert float(got[0][:, :, :sq - skv].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_bwd_is_deterministic(dev, d):
+    """The bfloat16 backward kernels sum each output element in a fixed
+    order (no atomics; dk/dv's cluster adds its CTAs' sums in rank order):
+    two runs give the same bits."""
+    rng = np.random.RandomState(d)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape)).to(dev, torch.bfloat16)
+                   for shape in ((2, 4, 700, d), (2, 1, 700, d),
+                                 (2, 1, 700, d), (2, 4, 700, d)))
+    o, lse = _flash_cuda(q, k, v, causal=True, window=None,
+                         logit_softcap=None, scale=None, with_lse=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    second = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_autograd_on_card(dev):
