@@ -116,16 +116,18 @@ Phases, each timed, each fatal on failure:
   5d. filter-op waves at full size: the filter's serving front
      (``FilterOpBatcher``, 4096-key waves, double-buffered) over 2^20
      buckets of 4 with a 128-slot stash: inserts to load 0.85, lookups of
-     every acknowledged key and as many absent ones, deletes of half;
-     the same over the adaptive planes with report waves; each with
-     telemetry off and on in turns (off, on, on, off, off, on: equal
-     results and states, the counter sums checked, no telemetry launch in
-     the off arm, the median walls), then each under a trace for the
-     device's idle share;
+     every acknowledged key and a quarter as many absent ones, deletes of
+     a quarter (``WAVE_CUT``); the same over the adaptive planes with
+     report waves; each with telemetry off and on in turns (off, on, on,
+     off: equal results and states, the counter sums checked, no
+     telemetry launch in the off arm, the median walls), then each under
+     a trace for the device's idle share;
   5e. SLO scenarios at node size: each scenario of the SLO harness with
      its own mix, hit blend, burst pattern and load trajectory at one
      node's filter (the reference's stacks with n_buckets and wave_slots
-     scaled by one factor: 2^20 buckets of 4 and waves of 2^17–2^18 keys;
+     scaled by one factor: 2^20 buckets of 4 and waves of 2^17–2^18 keys,
+     half the reference's waves of each scenario but adversarial,
+     ``SLO_DEPTH``;
      the ttl ring at 4 generations of 2^22 slots and 2^19-key waves; the
      admission arm at 2^20 buckets, 2^19-key waves); the burst train also
      through the sync and async arms (equal bit for bit); no false
@@ -218,6 +220,19 @@ Phases, each timed, each fatal on failure:
      5i's microbatch of 2) beside their bound and SDPA's backward, and
      the forward with and without ``lse`` (at S 4096 beside its bound and
      SDPA's forward).
+  5j. (a) ``ContinuousBatcher`` over every cache kind at full width: after
+     5g, deepseek-v2-lite-16b (5g's config and seed; an MLA latent cache a
+     slot, exact MoE routing at decode), after 5h mamba2-1.3b and
+     recurrentgemma-2b (constant-size recurrent caches): 4 requests of 512
+     tokens (two share 256) into 2 slots, 6 generated; the tokens equal
+     ``generate``'s of each request alone, the prefix index's kernels
+     launched; (b) the five filter examples (``examples/torch_*.py``) as
+     processes on the card, each rc 0 and its facts read back; (c) the
+     dry-run (``repro_torch.launch.dryrun``) in a host process, started
+     after the build and read here: gemma3-1b at ``train_4k`` and
+     ``prefill_32k`` on the single-pod mesh, its OK lines; beside it the
+     model-FLOPs share at 989 TFLOP/s of 5c's 8192-token forward and 5i's
+     step (``model_flops_for`` scaled to the tokens run).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device the script exits non-zero before printing any result.
@@ -228,6 +243,7 @@ import collections
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2252,14 +2268,21 @@ def adaptive_path(card: str, *, n_buckets=1 << 22, bursts=12,
 # ------------------------------- phase 5d: filter-op waves at full size --
 
 
+# Phase 5d's depth: lookups of absent keys and deletes a quarter of the
+# acknowledged keys (half and as many before), and two repeated arms of a
+# family (four before); table, wave width and the inserts to load 0.85 stay.
+WAVE_CUT = 4
+WAVE_REPEATS = ("on", "off")
+
+
 def filter_wave_run(keys: np.ndarray, absent: np.ndarray, *,
                     adaptive: bool, telemetry: bool, n_buckets: int,
                     wave: int, stash_slots: int, load: float) -> dict:
     """One arm of phase 5d: a ``FilterOpBatcher`` over a fresh state and
     stash on the card; insert waves of ``keys``, lookup waves over every
-    acknowledged key and as many of ``absent``, for the adaptive filter
-    report waves of the absent keys that hit, then delete waves over the
-    first half of the acknowledged keys."""
+    acknowledged key and a ``WAVE_CUT``-th as many of ``absent``, for the
+    adaptive filter report waves of the absent keys that hit, then delete
+    waves over the first ``WAVE_CUT``-th of the acknowledged keys."""
     import torch
     from repro_torch.adaptive.state import make_adaptive_state
     from repro_torch.core.filter import make_state
@@ -2287,13 +2310,14 @@ def filter_wave_run(keys: np.ndarray, absent: np.ndarray, *,
     ins = waves("insert", keys)
     b.flush()
     acked = keys[np.concatenate([w.results for w in ins])]
-    look = waves("lookup", np.concatenate([acked, absent[:acked.size]]))
+    n_absent = acked.size // WAVE_CUT
+    look = waves("lookup", np.concatenate([acked, absent[:n_absent]]))
     reps = []
     if adaptive:
         b.flush()
         hit = np.concatenate([w.results for w in look])[acked.size:]
-        reps = waves("report", absent[:acked.size][hit])
-    dels = waves("delete", acked[: acked.size // 2])
+        reps = waves("report", absent[:n_absent][hit])
+    dels = waves("delete", acked[: acked.size // WAVE_CUT])
     b.flush()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2313,10 +2337,10 @@ def filter_wave_run(keys: np.ndarray, absent: np.ndarray, *,
 
 def filter_wave_family(card: str, adaptive: bool, keys, absent,
                        **kw) -> dict:
-    """Phase 5d for one state family: telemetry off, on, on, off, off, on
-    from the same seed (walls in turns, the median of three an arm), then
-    each once more under a CUDA-activity trace; checks the arms equal and
-    the counters' sums."""
+    """Phase 5d for one state family: telemetry off, on, then
+    ``WAVE_REPEATS`` from the same seed (walls in turns, the median of an
+    arm's runs), then each once more under a CUDA-activity trace; checks
+    the arms equal and the counters' sums."""
     import torch
     from repro_torch.kernels import cuda
     from torch.profiler import ProfilerActivity, profile
@@ -2333,7 +2357,7 @@ def filter_wave_family(card: str, adaptive: bool, keys, absent,
     walls = {"off": [off["wall"]], "on": [on["wall"]]}
     plain = collections.Counter(off["plain"]) + collections.Counter(
         on["plain"])
-    for name in ("on", "off", "off", "on"):
+    for name in WAVE_REPEATS:
         t = filter_wave_run(keys, absent, adaptive=adaptive,
                             telemetry=name == "on", **kw)
         check(t["count"] == off["count"],
@@ -2384,10 +2408,11 @@ def filter_wave_family(card: str, adaptive: bool, keys, absent,
         check(snap.get("filter_selector_bumps", 0) > 0,
               "adaptive: the report waves bumped no selector")
     n_slots = kw["n_buckets"] * 4
+    n_absent = on["acked"] // WAVE_CUT
     print(f"   {label}: {keys.size} insert lanes, {on['acked']} acknowledged "
           f"(load {on['acked'] / n_slots!r}), false positives "
-          f"{int(on['hits'][on['acked']:].sum())} of {on['acked']} absent "
-          f"({on['reported']} reported), {n_del} of {on['acked'] // 2} "
+          f"{int(on['hits'][on['acked']:].sum())} of {n_absent} absent "
+          f"({on['reported']} reported), {n_del} of {n_absent} "
           f"deletes acknowledged, no false negatives", flush=True)
     print(f"   {label} counters: kick depth "
           f"{snap['filter_kick_depth']['counts']}, "
@@ -2397,7 +2422,7 @@ def filter_wave_family(card: str, adaptive: bool, keys, absent,
                                        "filter_selector"))), flush=True)
     print(f"   {label} launches: off {off['launches']}, on {on['launches']}",
           flush=True)
-    wall = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    wall = {k: float(np.median(v)) for k, v in walls.items()}
     for name, arm in arms.items():
         dev_s, t_wall = busy[name]
         print(f"   [{card}] {label}, telemetry {name}: "
@@ -2430,6 +2455,9 @@ def filter_wave_path(card: str, *, n_buckets=1 << 20, wave=4096,
     rng = np.random.RandomState(SEED + 19)
     keys = random_keys(rng, int(load * n_buckets * 4))
     absent = random_keys(rng, keys.size)
+    print(f"   depth cut: absent lookups and deletes 1/{WAVE_CUT} of the "
+          f"acknowledged keys (were 1 and 1/2), repeated arms "
+          f"{WAVE_REPEATS} (were on, off, off, on)", flush=True)
     kw = dict(n_buckets=n_buckets, wave=wave, stash_slots=stash_slots,
               load=load)
     out = {"launches": {}, "plain": {}, "families": {}}
@@ -2463,6 +2491,12 @@ SLO_RING_WAVE = 1 << 19
 # the band 0.18 / 0.12, double-buffered.
 SLO_ADMISSION = (dict(n_buckets=1 << 20, stash_slots=32), 1 << 19)
 SLO_BAND = (0.18, 0.12)
+# Phase 5e's depth: half the reference's waves of each scenario whose
+# checks do not count rounds (adversarial keeps its four rounds); the
+# stacks, wave widths and the telemetry mode's sizes stay.
+SLO_DEPTH = {"uniform": dict(waves=24), "zipfian": dict(waves=24),
+             "delete_heavy": dict(waves=18), "burst_train": dict(bursts=3),
+             "ttl_churn": dict(waves=18)}
 SLO_KERNELS = ("probe", "insert_bulk", "delete_bulk", "probe_adaptive",
                "insert_bulk_adaptive", "fingerprint_hash_family",
                "probe_multi", "fingerprint_hash", "probe_tm",
@@ -2498,7 +2532,8 @@ def slo_arm(name: str, *, stack: dict, wave: int, label=None,
     from repro_torch.serving.slo import _warm_batcher, make_batcher
     from repro_torch.serving.workloads import scenario_stream
     t0 = time.perf_counter()
-    stream = scenario_stream(name, SEED, wave_slots=wave)
+    stream = scenario_stream(name, SEED, wave_slots=wave,
+                             **SLO_DEPTH.get(name, {}))
     t1 = time.perf_counter()
     b = make_batcher(name, wave_slots=wave, double_buffer=double_buffer,
                      admission=admission, **stack)
@@ -2664,6 +2699,9 @@ def slo_node_path(card: str) -> dict:
     torch.cuda.synchronize()
     cuda.reset_counts()
     rows: dict = {"slo_seed": SEED}
+    print(f"   depth cut to {SLO_DEPTH} (the reference's: uniform and "
+          f"zipfian 48 waves, delete_heavy and ttl_churn 36, burst_train 6 "
+          f"bursts)", flush=True)
 
     def counted(label, fn):
         before = collections.Counter(cuda.LAUNCHES)
@@ -2750,7 +2788,8 @@ def slo_node_path(card: str) -> dict:
     # ttl_churn on phase 5b's ring at ttl 3.0
     def ring_arm(trace=False):
         cfg = GenerationConfig(**SLO_RING)
-        stream = scenario_stream("ttl_churn", SEED, wave_slots=SLO_RING_WAVE)
+        stream = scenario_stream("ttl_churn", SEED, wave_slots=SLO_RING_WAVE,
+                                 **SLO_DEPTH["ttl_churn"])
         _warm_generational(cfg)
         h = slo_recorder()
         gc.collect()
@@ -3749,6 +3788,214 @@ def arch_path(card: str, *, requests: int = 8, prefix_len: int = 496,
                            "insert_bulk") if not launches.get(k)]
     check(not missing, f"5h never launched {missing}")
     return launches, plain, out
+
+
+# ------------------------- phase 5j: batcher, examples, dry-run on the host --
+
+BATCHER_ARCHS = {"mla": ("deepseek-v2-lite-16b",),
+                 "recurrent": ("mamba2-1.3b", "recurrentgemma-2b")}
+BATCHER_REQUESTS = 4
+BATCHER_SLOTS = 2
+BATCHER_PROMPT = 512      # one routing group of 512; two mamba2 chunks
+BATCHER_SHARED = 256      # the even requests' common prefix
+BATCHER_GEN = 6
+# example -> (the facts its output must show: regex, test on the match)
+EXAMPLES = {
+    "quickstart": ((r"false negatives: (\d+)", lambda v: v == 0),
+                   (r"blind deletes blocked: (\d+)", lambda v: v == 1000),
+                   (r"shrinks=(\d+)", lambda v: v > 0)),
+    "adaptive_abuse_detection": (
+        (r"round 0: false positives=\s*(\d+)", lambda v: v > 0),
+        (r"replayed population: (\d+)", lambda v: v == 0)),
+    "distributed_membership": (
+        (r"present keys found: (\d+)/32768", lambda v: v == 32768),
+        (r"(\d+) deferred", lambda v: v > 0),
+        (r"pending=(\d+)", lambda v: v == 0)),
+    "serve_with_prefix_cache": ((r"\((\d+) blocks reused\)",
+                                 lambda v: v > 0),),
+    "streaming_dedup": ((r"(\d+) duplicates dropped", lambda v: v > 0),
+                        (r"after TTL: (\d+) generations retired",
+                         lambda v: v > 0)),
+}
+DRYRUN_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "prefill_32k"))
+DRYRUN_TIMEOUT = 900
+
+
+def batcher_path(card: str, archs) -> dict:
+    """Phase 5j (a): ``ContinuousBatcher`` at full width over each arch's
+    own cache kind (float32 weights from SEED, bfloat16 activations):
+    BATCHER_REQUESTS prompts of BATCHER_PROMPT tokens (the even ones share
+    BATCHER_SHARED) into BATCHER_SLOTS slots, BATCHER_GEN tokens each; the
+    tokens equal ``generate``'s of each request alone, the prefix index
+    reused blocks and launched its kernels, no plain version ran."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import Transformer
+    from repro_torch.serving import ContinuousBatcher, Request, generate
+
+    out = {}
+    for arch in archs:
+        free_card()
+        cfg = get_config(arch)
+        model = Transformer(cfg, seed=SEED, device="cuda")
+        rng = np.random.RandomState(SEED + 23)
+        shared = rng.randint(0, cfg.vocab_size, BATCHER_SHARED)
+        prompts = [np.concatenate([shared, rng.randint(
+            0, cfg.vocab_size, BATCHER_PROMPT - BATCHER_SHARED)]).astype(
+            np.int32) if i % 2 == 0 else rng.randint(
+            0, cfg.vocab_size, BATCHER_PROMPT).astype(np.int32)
+            for i in range(BATCHER_REQUESTS)]
+        cache_len = BATCHER_PROMPT + BATCHER_GEN
+        torch.cuda.synchronize()
+        cuda.reset_counts()
+        b = ContinuousBatcher(model, slots=BATCHER_SLOTS,
+                              cache_len=cache_len, block=16)
+        reqs = [Request(rid=i, prompt=p, max_new=BATCHER_GEN)
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            check(b.submit(r), f"5j (a) {arch}: a request was refused")
+        stats = b.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(cuda.LAUNCHES), dict(cuda.PLAIN_CALLS)
+        kind = sorted({type(c).__name__ for c in model.init_cache(
+            1, 1, device="meta")["blocks"]})
+        want = [generate(model, torch.from_numpy(r.prompt).cuda()[None, :],
+                         BATCHER_GEN, cache_len=cache_len
+                         ).tokens[0].tolist() for r in reqs]
+        same = [r.out == w for r, w in zip(reqs, want)]
+        print(f"   (a) {arch} [{card}]: caches {kind}, {BATCHER_REQUESTS} "
+              f"requests x {BATCHER_PROMPT} tokens into {BATCHER_SLOTS} "
+              f"slots, {BATCHER_GEN} generated: {wall!r} s, {stats}; "
+              f"tokens {[r.out for r in reqs]}; equal to generate's: "
+              f"{same}; launches {launches}", flush=True)
+        check(all(same), f"5j (a) {arch}: the batcher's tokens differ from "
+                         f"generate's: {[r.out for r in reqs]} vs {want}")
+        check(stats.finished == BATCHER_REQUESTS
+              and stats.prefix_blocks_reused > 0,
+              f"5j (a) {arch}: {stats}")
+        missing = [k for k in ("fingerprint_hash", "probe", "insert_bulk")
+                   if not launches.get(k)]
+        check(not missing, f"5j (a) {arch}: the prefix index never "
+                           f"launched {missing}")
+        check(sum(plain.values()) == 0,
+              f"5j (a) {arch}: plain versions ran: {plain}")
+        out[arch] = {"wall_s": wall, "stats": dataclasses.asdict(stats),
+                     "launches": launches}
+        del model, b, reqs
+        free_card()
+    return out
+
+
+def run_examples(card: str) -> dict:
+    """Phase 5j (b): the five filter examples as processes on the card, all
+    started at once: each exits 0 (each asserts its own facts) and prints
+    the facts of ``EXAMPLES``."""
+    import re
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name in EXAMPLES:
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(root / "examples" / f"torch_{name}.py")],
+                cwd=str(root), env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        outs = {name: p.communicate(timeout=600)
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for name, (stdout, stderr) in outs.items():
+        rc = procs[name].returncode
+        tail = " | ".join(stdout.strip().splitlines()[-3:])
+        print(f"   (b) examples/torch_{name}.py on {card}: rc {rc}; {tail}",
+              flush=True)
+        check(rc == 0, f"5j (b) {name} exited {rc}: {stderr[-2000:]}")
+        for pattern, ok in EXAMPLES[name]:
+            m = re.search(pattern, stdout)
+            check(m is not None and ok(int(m.group(1))),
+                  f"5j (b) {name}: {pattern} not as expected in its output")
+    print(f"   (b) five examples in {wall!r} s (concurrently)", flush=True)
+    return {"wall_s": wall}
+
+
+def start_dryrun(out_dir: Path) -> list:
+    """Start phase 5j (c)'s dry-run cells, each a host process (no card:
+    the fake process group and ``meta`` tensors), while the card runs the
+    other phases -> [(cell, process, started)]."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = []
+    for arch, shape in DRYRUN_CELLS:
+        out.append(((arch, shape), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out",
+             str(out_dir)], cwd=str(root), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), time.perf_counter()))
+    return out
+
+
+def stop_dryrun(procs: list) -> None:
+    for _cell, p, _t in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dryrun_path(card: str, procs: list, out_dir: Path, lm: dict,
+                trained: dict) -> dict:
+    """Phase 5j (c): read the dry-run processes (each prints an OK line and
+    writes its record), and beside them the model-FLOPs share at the
+    card's peak of 5c's forward and 5i's step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import SHAPES, canonical
+    from repro_torch.roofline.analysis import PEAK_FLOPS, model_flops_for
+
+    out = {}
+    try:
+        for (arch, shape), p, t0 in procs:
+            stdout, stderr = p.communicate(timeout=DRYRUN_TIMEOUT)
+            oks = [x for x in stdout.splitlines() if x.startswith("OK ")]
+            print(f"   (c) dry-run {arch} {shape} single (host process, "
+                  f"rc {p.returncode}, {time.perf_counter() - t0!r} s since "
+                  f"it started): {oks}", flush=True)
+            check(p.returncode == 0 and len(oks) == 1,
+                  f"5j (c) dry-run {arch} {shape}: {stdout[-1000:]} "
+                  f"{stderr[-2000:]}")
+            name = f"{canonical(arch)}__{shape}__single.json"
+            rec = json.loads((out_dir / name).read_text())
+            print(f"   (c) {arch} {shape}: flops/device "
+                  f"{rec['flops_per_dev']!r}, bytes/device "
+                  f"{rec['bytes_per_dev']!r}, wire bytes/device "
+                  f"{rec['wire_bytes_per_dev']!r}, collectives "
+                  f"{rec['collectives']['count']}, bottleneck "
+                  f"{rec['bottleneck']}, memory {rec['memory_stats']}",
+                  flush=True)
+            out[(arch, shape)] = rec
+    finally:
+        stop_dryrun(procs)
+    cfg = get_config(LM_ARCH)
+    n = cfg.active_param_count()
+    for label, shape, tokens, secs in (
+            ("5c forward", "prefill_32k", LM_SEQ, lm["forward_s"]),
+            ("5i step", "train_4k", TRAIN_BATCH * TRAIN_SEQ,
+             TRAIN_BATCH * TRAIN_SEQ / trained["tokens_per_s"])):
+        seq, gbatch, _mode = SHAPES[shape]
+        flops = model_flops_for(cfg, shape, n) * tokens / (seq * gbatch)
+        share = flops / secs / PEAK_FLOPS
+        print(f"   (c) {label} of {cfg.name}: {tokens} tokens in {secs!r} "
+              f"s, model FLOPs {flops!r} -> {share!r} of {PEAK_FLOPS!r} "
+              f"FLOP/s [{card}]", flush=True)
+        out[label] = share
+    return out
 
 
 # --------------------------------------------------------- phase 6: times --
@@ -6258,6 +6505,18 @@ def main() -> int:
                         print(f"   ptxas, no spills: {line}", flush=True)
             cuda.kernel_fn(name)
 
+    # 5j (c)'s dry-run runs on the host beside the card's phases
+    dry_dir = root / "build" / "dryrun_torch"
+    dry = start_dryrun(dry_dir)
+    try:
+        return run_phases(card, cuda, t_start, dry, dry_dir)
+    finally:
+        stop_dryrun(dry)
+
+
+def run_phases(card: str, cuda, t_start: float, dry: list,
+               dry_dir: Path) -> int:
+    import torch
     with phase("kernels vs plain versions"):
         bench = KernelBench("cuda")
         bench.run()
@@ -6329,7 +6588,7 @@ def main() -> int:
         plain["sharded"] = sharded["plain"]
 
     with phase("LM serving path at full size"):
-        counts, plain["lm"], _lm = lm_path(card)
+        counts, plain["lm"], lm_out = lm_path(card)
         launches.update({k: counts.get(k, 0) for k in LM_KERNELS})
         counts, plain["lm_batcher"], _lmb = lm_batcher_path(card)
         missing = [k for k in ("fingerprint_hash", "probe", "insert_bulk")
@@ -6436,6 +6695,9 @@ def main() -> int:
         check(sum(plain["moe"].values()) == 0,
               f"plain versions ran on the MoE path: {plain['moe']}")
 
+    with phase("5j (a) ContinuousBatcher over MLA caches at full width"):
+        batcher_path(card, BATCHER_ARCHS["mla"])
+
     free_card()
     with phase("SSM, RG-LRU, cross-attention and prefix models at full "
                "width"):
@@ -6451,6 +6713,16 @@ def main() -> int:
                         arch["forward"][n]["flash_launches"]
         check(sum(plain["arch"].values()) == 0,
               f"plain versions ran on the 5h path: {plain['arch']}")
+
+    with phase("5j (a) ContinuousBatcher over recurrent caches at full "
+               "width"):
+        batcher_path(card, BATCHER_ARCHS["recurrent"])
+
+    with phase("5j (b) the five filter examples on the card"):
+        run_examples(card)
+
+    with phase("5j (c) the dry-run on the host, model-FLOPs shares"):
+        dryrun_path(card, dry, dry_dir, lm_out, trained)
 
     rows = []
     for name, (source, replaces, held_by) in KERNEL_ROWS.items():

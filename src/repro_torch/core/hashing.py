@@ -54,20 +54,27 @@ _SEL_TWEAKS = (0x00000000, 0x7F4A7C15, 0x94D049BB, 0xBF58476D)
 # ---------------------------------------------------------------- device ---
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda", *, construct: bool = False) -> torch.device:
     """The device an entry point runs on; raises rather than fall back.
 
     ``device="cuda"`` (the default of every entry point) needs a card:
     without one this raises ``RuntimeError`` instead of quietly running the
     plain PyTorch versions on the CPU.  Pass ``device="cpu"`` to run there.
+    ``"meta"`` (shapes without storage, for the dry-run's abstract model
+    and caches) is taken only where ``construct=True``: a constructor that
+    allocates, never an entry point that computes.  No device resolves to
+    another.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: no CUDA device is available; pass device='cpu' "
             "to run the plain PyTorch versions on the CPU")
+    if dev.type == "meta" and construct:
+        return dev
     if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r} (cuda | cpu)")
+        raise ValueError(f"unsupported device {device!r} (cuda | cpu"
+                         f"{' | meta' if construct else ''})")
     return dev
 
 

@@ -2,9 +2,9 @@
 
 Counterpart of the filter part of ``repro.distributed.elastic``
 (``filter_mesh``, ``insert_pairs``, the migration round, ``MigrationReport``,
-``migrate_state``, ``split_state``, ``merge_state``, ``ElasticController``).
-Mesh elasticity (``largest_mesh``, ``reshard_state``) waits for the LM
-stack's mesh.
+``migrate_state``, ``split_state``, ``merge_state``, ``ElasticController``)
+and of its mesh elasticity for the LM stack (``largest_mesh``,
+``reshard_state``) on ``torch.distributed`` ``DeviceMesh``es.
 
 A resident slot stores (bucket, fingerprint), and ``min(bucket, alt(bucket,
 fp))`` plus the fingerprint identifies the key's bucket pair from either
@@ -50,6 +50,44 @@ def filter_mesh(n_shards: int, axis_name: str = "data",
         raise ValueError(f"a filter mesh needs a shard, got {n_shards}")
     return ShardMesh(int(n_shards), axis_name,
                      hashing.resolve_device(device))
+
+
+def largest_mesh(ranks=None, *, model_parallel: int,
+                 axis_names=("data", "model")):
+    """Largest (data, model) ``DeviceMesh`` on the surviving ``ranks``
+    (default: every rank of the process group).  Keeps TP fixed (the
+    weights must still fit) and gives every remaining multiple of
+    ``model_parallel`` ranks to data parallelism.  A CPU mesh, as
+    ``launch.mesh``'s."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    n = len(ranks)
+    data = n // model_parallel
+    if data < 1:
+        raise RuntimeError(
+            f"{n} ranks cannot host model_parallel={model_parallel}")
+    use = torch.tensor(ranks[:data * model_parallel]).reshape(
+        data, model_parallel)
+    return DeviceMesh("cpu", use, mesh_dim_names=tuple(axis_names))
+
+
+def reshard_state(state: dict, specs: dict, new_mesh, parallel) -> dict:
+    """Re-derive each tensor's layout from its logical spec on
+    ``new_mesh`` and move it there: ``{name: tensor or DTensor}`` ->
+    ``{name: DTensor}`` (a DTensor on the old mesh is gathered whole
+    first; a ``meta`` tensor moves nothing)."""
+    from repro_torch.distributed.sharding import (distribute, is_dtensor,
+                                                  spec_to_pspec)
+    out = {}
+    for name, t in state.items():
+        pspec = spec_to_pspec(tuple(specs[name]), tuple(t.shape), new_mesh,
+                              parallel)
+        if is_dtensor(t):
+            t = (torch.empty(t.shape, dtype=t.dtype, device="meta")
+                 if t.is_meta else t.full_tensor())
+        out[name] = distribute(t, new_mesh, pspec)
+    return out
 
 
 def insert_pairs(table, stash, bucket, fp, valid, *, n_buckets,

@@ -1,24 +1,51 @@
-"""Placement of a sharded filter state on its mesh, and the training
-step's ``ParallelConfig``.
+"""Logical-axis -> mesh-axis sharding rules (FSDP x TP x EP x pod-DP),
+their DTensor placements, and the placement of a sharded filter state.
 
-Counterpart of ``repro.distributed.sharding.shard_filter_state`` and
-``ParallelConfig``.  A ``ShardMesh`` holds every shard on one device, so
-placing a state moves each tensor field whose leading dimension is the
-shard count there; other fields (``n_buckets``) pass through.  The
-reference module's LM specs wait for the LM stack's mesh.
+Counterpart of ``repro.distributed.sharding``.  Every parameter dim has a
+*logical* name (``launch.specs.param_specs``); this module turns those
+names into a mesh-axis tuple a tensor dim, the reference's
+``PartitionSpec`` written as a plain tuple (an entry is ``None``, one
+mesh-axis name, or a tuple of names, major to minor; trailing ``None``s
+are dropped, as ``PartitionSpec`` drops them):
+
+  expert -> model   (expert parallelism)
+  vocab/heads/kv/mlp/rnn/lora -> model   (Megatron TP)
+  embed -> data     (FSDP: weights sharded over the DP axis, gathered at
+                     their use)
+  mem   -> data
+
+Each mesh axis is used at most once a tensor (``PRIORITY`` order); a dim
+that does not divide falls back to its last axis alone, else to
+replication.  ``pod``: pure data parallelism by default, FSDP over (pod,
+data) with ``pod_fsdp=True``.
+
+A mesh is anything with a ``.shape`` mapping axis names to sizes (the
+reference's rules read nothing else) or a ``torch.distributed``
+``DeviceMesh`` with ``mesh_dim_names``.  ``to_placements`` turns a tuple
+into DTensor placements: a dim on ``("pod", "data")`` is ``Shard(d)`` on
+both mesh dims, in that order, which DTensor splits major to minor, as
+JAX does (``local_shape_and_offset`` gives a rank's block).
 
 ``ParallelConfig`` carries every field of the reference's.  On one card
 only ``remat``, ``microbatches`` and ``compress_grads`` /
-``compress_int8`` act (the last two only with a ``pod_axis``, as in the
-reference's train step); the mesh fields are carried and inert until the
-port has a mesh for the LM stack.
+``compress_int8`` act (the last two only with a ``pod_axis``); with
+``axis_sizes`` and DTensor weights (the dry-run) the use-site and
+activation constraints act too.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
+
+PRIORITY = ["expert", "vocab", "heads", "kv", "mlp", "rnn", "lora", "embed",
+            "mem"]
+AXIS_FOR = {
+    "expert": "model", "vocab": "model", "heads": "model", "kv": "model",
+    "mlp": "model", "rnn": "model", "lora": "model",
+    "embed": "data", "mem": "data",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +76,274 @@ class ParallelConfig:
             # no TP: the model axis carries extra data parallelism
             axes = (*axes, self.model_axis)
         return axes
+
+
+# ------------------------------------------------------------------ mesh --
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` or a mesh with a ``.shape``
+    mapping."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh.shape)
+
+
+def _mesh_axis(logical: str, parallel: ParallelConfig):
+    a = AXIS_FOR.get(logical)
+    if logical == "expert" and parallel.ep_axis == "data":
+        # EP over the data axis: the dispatch becomes the MoE all-to-all
+        return parallel.data_axis
+    if parallel.layout == "fsdp_only" and a == "model":
+        return None           # weights replicated across the model axis
+    if parallel.layout == "tp_only" and a == "data":
+        return None           # no FSDP: weights whole per TP rank
+    if a == "data":
+        if parallel.pod_fsdp and parallel.pod_axis:
+            return (parallel.pod_axis, parallel.data_axis)
+        return parallel.data_axis
+    if a == "model":
+        return parallel.model_axis
+    return None
+
+
+def _trim(spec: list) -> tuple:
+    while spec and spec[-1] is None:
+        spec.pop()
+    return tuple(spec)
+
+
+def spec_to_pspec(spec: tuple, shape: tuple, mesh,
+                  parallel: ParallelConfig) -> tuple:
+    """One tensor's logical spec -> its mesh-axis tuple, with the
+    reference's priority order and divisibility fallback."""
+    sizes = axis_sizes(mesh)
+    used: set = set()
+    assign: dict[int, Any] = {}
+    order = sorted(range(len(spec)),
+                   key=lambda i: PRIORITY.index(spec[i])
+                   if spec[i] in PRIORITY else len(PRIORITY))
+    for i in order:
+        name = spec[i]
+        if name is None or name == "layers":
+            continue
+        ax = _mesh_axis(name, parallel)
+        if ax is None:
+            continue
+        axes = ax if isinstance(ax, tuple) else (ax,)
+        if any(a in used for a in axes):
+            continue
+        size = 1
+        for a in axes:
+            size *= sizes[a]
+        if shape[i] % size != 0:
+            # fall back to the last axis alone if that divides
+            if (len(axes) > 1 and shape[i] % sizes[axes[-1]] == 0
+                    and axes[-1] not in used):
+                axes = (axes[-1],)
+            else:
+                continue
+        used.update(axes)
+        assign[i] = axes if len(axes) > 1 else axes[0]
+    return _trim([assign.get(i) for i in range(len(spec))])
+
+
+def make_shardings(mesh, specs: dict, shapes: dict,
+                   parallel: ParallelConfig) -> dict:
+    """``{name: logical spec}`` and ``{name: tensor or shape}`` -> ``{name:
+    mesh-axis tuple}``."""
+    def shape_of(s):
+        return tuple(s.shape) if hasattr(s, "shape") else tuple(s)
+    return {k: spec_to_pspec(tuple(specs[k]), shape_of(shapes[k]), mesh,
+                             parallel) for k in specs}
+
+
+def batch_pspec(batch_size: int, ndim: int, mesh, parallel: ParallelConfig,
+                *, seq_dim: int | None = None) -> tuple:
+    """A [B, ...] input: batch over (pod,)data when divisible, else over
+    data; the sequence over model with ``seq_shard``."""
+    sizes = axis_sizes(mesh)
+    axes = parallel.batch_axes()
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    first = None
+    if batch_size % size == 0:
+        first = axes if len(axes) > 1 else axes[0]
+    elif batch_size % sizes[parallel.data_axis] == 0:
+        first = parallel.data_axis
+    spec = [first] + [None] * (ndim - 1)
+    if parallel.seq_shard and seq_dim is not None and first is not None:
+        spec[seq_dim] = parallel.model_axis
+    return _trim(spec)
+
+
+def cache_pspec(shape: tuple, mesh, parallel: ParallelConfig) -> tuple:
+    """KV and state caches [n_periods, B, ...]: batch over data; a KV or
+    MLA-latent cache's sequence dim over model (context-parallel decode);
+    a state without a long sequence dim (SSM, RG-LRU) over its feature
+    dim."""
+    sizes = axis_sizes(mesh)
+    ndim = len(shape)
+    spec: list = [None] * ndim
+    if ndim >= 2 and shape[1] % sizes[parallel.data_axis] == 0:
+        spec[1] = parallel.data_axis
+    m = sizes[parallel.model_axis]
+    if ndim >= 4 and shape[-2] % m == 0 and shape[-2] >= 16 * m:
+        spec[-2] = parallel.model_axis      # seq dim (KV / MLA-latent cache)
+    elif shape[-1] % m == 0 and shape[-1] >= 16:
+        spec[-1] = parallel.model_axis      # feature dim (SSM/RG-LRU states)
+    return _trim(spec)
+
+
+# ------------------------------------------------------------- DTensor --
+
+
+def to_placements(pspec: tuple, mesh) -> list:
+    """A mesh-axis tuple -> one DTensor placement a mesh dim: ``Shard(d)``
+    on every mesh dim that tensor dim d names, ``Replicate()`` elsewhere.
+    A dim on several axes must name them in mesh order (major first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for d, entry in enumerate(pspec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"dim {d} on {axes}: axes must follow the "
+                             f"mesh order {tuple(names)}")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+def local_shape_and_offset(shape: tuple, mesh, pspec: tuple,
+                           coordinate=None) -> tuple:
+    """(local shape, global offset) of the block of a tensor of ``shape``
+    laid out by ``pspec`` at a mesh ``coordinate`` (this rank's by
+    default)."""
+    from torch.distributed.tensor._utils import (
+        _compute_local_shape_and_global_offset,
+        compute_local_shape_and_global_offset)
+    placements = to_placements(pspec, mesh)
+    if coordinate is None:
+        return compute_local_shape_and_global_offset(shape, mesh, placements)
+    return _compute_local_shape_and_global_offset(
+        shape, tuple(mesh.shape), list(coordinate), placements)
+
+
+def distribute(t: torch.Tensor, mesh, pspec: tuple, *,
+               requires_grad: bool = False):
+    """A DTensor laid out by ``pspec`` whose local block is this rank's
+    block of ``t``.  A meta tensor gives a meta block (nothing moves)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    placements = to_placements(pspec, mesh)
+    if t.is_meta:
+        local, _ = local_shape_and_offset(tuple(t.shape), mesh, pspec)
+        out = DTensor.from_local(
+            torch.empty(local, dtype=t.dtype, device="meta"), mesh,
+            placements, run_check=False, shape=t.shape, stride=t.stride())
+    else:
+        out = distribute_tensor(t.detach(), mesh, placements)
+    return out.requires_grad_(requires_grad)
+
+
+def is_dtensor(t) -> bool:
+    """True for a ``torch.distributed`` DTensor (no import without one)."""
+    return type(t).__name__ == "DTensor" and hasattr(t, "placements")
+
+
+def split_last(t, *sizes):
+    """``t`` [..., prod(sizes)] -> [..., *sizes].  DTensor cannot split a
+    dim sharded over more ranks than the leading factor divides by (four
+    heads over a 16-way model axis): such a DTensor is made whole in that
+    dim first."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        last = t.ndim - 1
+        mesh = t.device_mesh
+        n = 1
+        for i, p in enumerate(t.placements):
+            if isinstance(p, Shard) and p.dim == last:
+                n *= mesh.size(i)
+        if sizes[0] % n:
+            t = t.redistribute(mesh, [
+                Replicate() if isinstance(p, Shard) and p.dim == last else p
+                for p in t.placements])
+    return t.reshape(*t.shape[:-1], *sizes)
+
+
+def unsplit_rows(t, like, shape):
+    """``t`` [G, T, ...] -> ``shape`` [B, S, ...] (rows regrouped into
+    ``like``'s batch).  Where DTensor ``t``'s rows are sharded over mesh
+    dims that do not shard ``like``'s batch, they are gathered first:
+    DTensor cannot regroup rows split finer than the batch."""
+    if is_dtensor(t) and is_dtensor(like):
+        from torch.distributed.tensor import Replicate, Shard
+        keep = [isinstance(q, Shard) and q.dim == 0 for q in like.placements]
+        placements = [Replicate() if isinstance(p, Shard) and p.dim == 0
+                      and not k else p for p, k in zip(t.placements, keep)]
+        if placements != list(t.placements):
+            t = t.redistribute(t.device_mesh, placements)
+    return t.reshape(shape)
+
+
+def per_batch_shard(call, batched: tuple, rest: tuple = ()):
+    """``call(*batched, *rest)`` one batch block a rank, for a function
+    that is independent over dim 0 of every ``batched`` tensor (a scan
+    over the sequence, a chunked recurrence): the DTensors among
+    ``batched`` keep the first one's batch sharding and are made whole
+    in every other dim, the DTensors among ``rest`` are made whole, and
+    ``call`` runs on the local blocks.  Its outputs (a tensor or a
+    tuple) come back as DTensors with that batch sharding.  Without a
+    DTensor this is ``call(*batched, *rest)``."""
+    lead = next((t for t in batched if is_dtensor(t)), None)
+    if lead is None:
+        return call(*batched, *rest)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = lead.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in lead.placements]
+    whole = [Replicate()] * mesh.ndim
+
+    def local(t, placements):
+        return t.redistribute(mesh, placements).to_local() \
+            if is_dtensor(t) else t
+    out = call(*(local(t, rows) for t in batched),
+               *(local(t, whole) for t in rest))
+
+    def back(o):
+        shape = (lead.shape[0], *o.shape[1:])
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(o.contiguous(), mesh, rows, run_check=False,
+                                  shape=shape, stride=stride)
+    return tuple(back(o) for o in out) if isinstance(out, tuple) \
+        else back(out)
+
+
+def constrain_batch_activations(x, parallel: Optional[ParallelConfig], *,
+                                batch_size: Optional[int] = None):
+    """Pin [B, S, D] activations to batch-over-(pod,)data (+ the sequence
+    over model with ``seq_shard``): a ``redistribute`` of a DTensor.  A
+    no-op on a plain tensor, without ``axis_sizes``, or where the batch
+    does not divide."""
+    if parallel is None or not parallel.axis_sizes or not is_dtensor(x):
+        return x
+    b = batch_size if batch_size is not None else x.shape[0]
+    axes = parallel.batch_axes()
+    prod = 1
+    for a in axes:
+        prod *= max(1, parallel.size_of(a))
+    if prod <= 1 or b % prod != 0:
+        return x
+    spec = [axes if len(axes) > 1 else axes[0]] + [None] * (x.ndim - 1)
+    if parallel.seq_shard and x.ndim >= 3:
+        spec[1] = parallel.model_axis
+    return x.redistribute(x.device_mesh,
+                          to_placements(_trim(spec), x.device_mesh))
 
 
 def shard_filter_state(mesh, axis: str, state):

@@ -101,6 +101,27 @@ def byte_strides(t: torch.Tensor, name: str = "x") -> tuple[int, int, int]:
     return out[2], out[1], out[0]
 
 
+def _on_host(t: torch.Tensor) -> bool:
+    """True for a CPU tensor, or a ``meta`` one (the dry-run's abstract
+    tensors, DTensors included): these take the plain version.  A CUDA
+    tensor launches the kernel or raises."""
+    return t.device.type in ("cpu", "meta")
+
+
+def _block_live(sq: int, skv: int, j0: int, width: int, causal: bool,
+                window) -> bool:
+    """Whether any query of the right-aligned rows ``skv - sq .. skv - 1``
+    sees a key of ``j0 .. j0 + width - 1`` (``_live``'s mask has a set
+    element), from the positions alone: the live keys of all rows span
+    ``(first row - window, last row]``."""
+    if sq <= 0 or width <= 0:
+        return False
+    first, last = skv - sq, skv - 1
+    if causal and j0 > last:
+        return False
+    return window is None or j0 + width - 1 > first - window
+
+
 def _live(qpos, j0: int, width: int, causal: bool, window) -> torch.Tensor:
     """[Sq, width] bool: the keys j0 .. j0 + width that the masks leave
     live for queries at positions ``qpos`` [Sq, 1]."""
@@ -140,9 +161,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     l = torch.zeros_like(m)
     for j0 in range(0, skv, bk_):
         width = min(bk_, skv - j0)                   # the last may be ragged
-        mask = _live(qpos, j0, width, causal, window)
-        if not bool(mask.any()):
+        if not _block_live(sq, skv, j0, width, causal, window):
             continue                      # the kernel's block_live skip
+        mask = _live(qpos, j0, width, causal, window)
         kb = kf[:, :, None, j0:j0 + bk_]
         vb = vf[:, :, None, j0:j0 + bk_]
         s = qf @ kb.transpose(-1, -2)                       # [.., sq, bk]
@@ -175,7 +196,7 @@ def bwd_delta(o, do) -> torch.Tensor:
     """D_i = rowsum(dO o) -> float32 [B, Hq, Sq]: ``bwd_delta_plain`` for
     CPU tensors, the pre-pass kernel for contiguous CUDA tensors of one
     dtype."""
-    if o.device.type == "cpu":
+    if _on_host(o):
         return bwd_delta_plain(o, do)
     cuda.check_cuda("flash_attention_bwd_pre", o=o, do=do)
     if do.dtype != o.dtype or o.dtype not in _DTYPES or do.shape != o.shape \
@@ -220,9 +241,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     dv = torch.zeros_like(vf)
     for j0 in range(0, skv, bk):
         width = min(bk, skv - j0)
-        mask = _live(qpos, j0, width, causal, window)
-        if not bool(mask.any()):
+        if not _block_live(sq, skv, j0, width, causal, window):
             continue
+        mask = _live(qpos, j0, width, causal, window)
         kb = kf[:, :, None, j0:j0 + width]
         vb = vf[:, :, None, j0:j0 + width]
         x = (qf @ kb.transpose(-1, -2)) * scale_
@@ -247,9 +268,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         scale: float | None = None):
     """The gradient of ``flash_attention`` -> (dq, dk, dv) in q's dtype,
     from the forward's output ``o`` and ``lse`` and the output's gradient
-    ``do``.  CPU tensors take the plain version; CUDA tensors launch the
-    three backward kernels (pre-pass, dk/dv, dq)."""
-    if q.device.type == "cpu":
+    ``do``.  CPU (and ``meta``) tensors take the plain version; CUDA
+    tensors launch the three backward kernels (pre-pass, dk/dv, dq)."""
+    if _on_host(q):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window,
                                          logit_softcap=logit_softcap,
@@ -295,7 +316,7 @@ class FlashAttentionFn(torch.autograd.Function):
                 bk):
         kw = dict(causal=causal, window=window, logit_softcap=logit_softcap,
                   scale=scale)
-        if q.device.type == "cpu":
+        if _on_host(q):
             out, lse = flash_attention_plain(q, k, v, bq=bq, bk=bk,
                                              return_lse=True, **kw)
         else:
@@ -321,17 +342,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``bq`` and ``bk`` are the reference's tiles; the plain version walks
     ``min(bk, Skv)``-key blocks, the last one ragged where it does not
     divide Skv (the reference kernel asserts there; its dispatcher sends
-    such lengths elsewhere).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (D in 16, 32, 64, 128, 256; q, k, v as
-    ``byte_strides`` takes them), which takes any Sq and Skv.  Under grad
-    (grad enabled and q, k or v requiring it) the call goes through
-    ``FlashAttentionFn``, and the output carries its gradient.
+    such lengths elsewhere).  CPU and ``meta`` tensors take the plain
+    version; CUDA tensors launch the kernel (D in 16, 32, 64, 128, 256; q,
+    k, v as ``byte_strides`` takes them), which takes any Sq and Skv.
+    Under grad (grad enabled and q, k or v requiring it) the call goes
+    through ``FlashAttentionFn``, and the output carries its gradient.
     """
     _check(q, k, v, bq, bk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, window, logit_softcap,
                                       scale, bq, bk)
-    if q.device.type == "cpu":
+    if _on_host(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      logit_softcap=logit_softcap,
                                      scale=scale, bq=bq, bk=bk)

@@ -521,6 +521,33 @@ def adaptive_report_tm(table: torch.Tensor, sels: torch.Tensor,
     return table, sels, adapted, resident, tm
 
 
+def _per_shard(call, q, k, v):
+    """Attention of DTensor q, k, v, one block a rank.  Attention is
+    independent over batch and heads, so each rank runs ``call`` on its
+    own rows: batch sharding stays; head sharding stays where both head
+    counts divide by its shards (a rank's q heads then read its own kv
+    heads); every other dim (sequence, head width) and a partial sum are
+    made whole first.  The output has q's batch and head placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    head_shards = 1
+    for i, pl in enumerate(q.placements):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            head_shards *= mesh.size(i)
+    keep_heads = q.shape[1] % head_shards == 0 \
+        and k.shape[1] % head_shards == 0
+    placements = [pl if isinstance(pl, Shard) and (
+        pl.dim == 0 or (pl.dim == 1 and keep_heads)) else Replicate()
+        for pl in q.placements]
+    local = [t.redistribute(mesh, placements).to_local() for t in (q, k, v)]
+    out = call(*local)
+    b, hq, sq = q.shape[:3]
+    shape = (b, hq, sq, v.shape[-1])
+    stride = (hq * sq * shape[3], sq * shape[3], shape[3], 1)
+    return DTensor.from_local(out, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               logit_softcap: float | None = None, scale: float | None = None,
               qpos_start=None, valid_len=None, key_positions=None):
@@ -537,7 +564,15 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     smallest D in ``HEAD_DIMS`` that holds both, the scale fixed first
     (the given one, else Dk^-0.5), and the output cut back to v's width:
     zero columns add 0 to every dot product and give zero output
-    columns, so this is the same function."""
+    columns, so this is the same function.
+
+    DTensor q, k, v (the dry-run's) run one block a rank
+    (``_per_shard``), each rank's call taking the route above."""
+    if type(q).__name__ == "DTensor":
+        return _per_shard(functools.partial(
+            attention, causal=causal, window=window,
+            logit_softcap=logit_softcap, scale=scale, qpos_start=qpos_start,
+            valid_len=valid_len, key_positions=key_positions), q, k, v)
     if qpos_start is None and valid_len is None and key_positions is None:
         dk, dv = q.shape[-1], v.shape[-1]
         if dk == dv and dk in HEAD_DIMS:

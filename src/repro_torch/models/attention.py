@@ -25,9 +25,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, split_last
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
+from repro_torch.models.layers import (apply_rope, dense_init, rmsnorm,
+                                       use_site_tp)
 
 
 class KVCache(NamedTuple):
@@ -49,18 +51,32 @@ def init_attention(cfg: ModelConfig, *, generator, device) -> dict:
     return p
 
 
+def _ring_write(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor):
+    """dst[:, :, idx] = src, in place.  A DTensor ring (sequence-sharded,
+    the dry-run's) takes the write out of place and copies it back:
+    DTensor has no in-place indexed write that keeps a sharded dim."""
+    src = src.to(dst.dtype)
+    if is_dtensor(dst):
+        dst.copy_(dst.index_copy(2, idx, src))
+    else:
+        dst[:, :, idx] = src
+
+
 def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
                     window: Optional[int] = None,
                     cache: Optional[KVCache] = None,
-                    cache_pos: Optional[int] = None):
+                    cache_pos: Optional[int] = None, parallel=None):
     """x: [B, S, E] -> ([B, S, E], cache or None).  ``rot``: the (cos,
     sin) of ``layers.rope_angles`` for this call's positions, [B, 1, S,
     head_dim / 2]."""
     b, sq, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, sq, hq, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, sq, hkv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, sq, hkv, hd)
+
+    def weight(name, dims):
+        return use_site_tp(p[name].to(x.dtype), dims, parallel)
+    q = split_last(x @ weight("wq", (-1,)), hq, hd)
+    k = split_last(x @ weight("wk", (-1,)), hkv, hd)
+    v = split_last(x @ weight("wv", (-1,)), hkv, hd)
     if cfg.use_qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
         k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
@@ -78,8 +94,8 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
             w = min(sq, klen)
             idx = (cache_pos + torch.arange(sq - w, sq, device=x.device)) \
                 % klen
-            cache.k[:, :, idx] = k[:, :, sq - w:].to(cache.k.dtype)
-            cache.v[:, :, idx] = v[:, :, sq - w:].to(cache.v.dtype)
+            _ring_write(cache.k, idx, k[:, :, sq - w:])
+            _ring_write(cache.v, idx, v[:, :, sq - w:])
             newest = cache_pos + sq - 1
             slot = torch.arange(klen, device=x.device)
             key_pos = newest - torch.remainder(newest - slot, klen)
@@ -103,7 +119,7 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
                             logit_softcap=cfg.attn_logit_softcap,
                             scale=cfg.attn_scale)
     out = out.transpose(1, 2).reshape(b, sq, hq * hd)
-    return out @ p["wo"].to(x.dtype), cache
+    return out @ weight("wo", (-2,)), cache
 
 
 # =============================================================== MLA ======
@@ -127,7 +143,7 @@ def init_mla(cfg: ModelConfig, *, generator, device) -> dict:
 
 def apply_mla(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
               cache: Optional[KVCache] = None,
-              cache_pos: Optional[int] = None):
+              cache_pos: Optional[int] = None, parallel=None):
     """x: [B, S, E] -> ([B, S, E], cache or None).  ``rot``: the (cos,
     sin) of ``layers.rope_angles`` at ``qk_rope_dim``, [B, 1, S,
     qk_rope_dim / 2].  The cache holds the normed latent and the rotated
@@ -138,10 +154,13 @@ def apply_mla(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
     b, sq, _ = x.shape
     hq, dt = cfg.n_heads, x.dtype
     nope, lora = m.qk_nope_dim, m.kv_lora_rank
-    q = (x @ p["wq"].to(dt)).reshape(b, sq, hq, nope + m.qk_rope_dim)
+
+    def weight(name, dims):
+        return use_site_tp(p[name].to(dt), dims, parallel)
+    q = split_last(x @ weight("wq", (-1,)), hq, nope + m.qk_rope_dim)
     q_nope = q[..., :nope].transpose(1, 2)                  # [B, H, S, n]
     q_rope = apply_rope(q[..., nope:].transpose(1, 2), *rot)
-    latent = x @ p["w_dkv"].to(dt)                          # [B, S, l + r]
+    latent = x @ weight("w_dkv", ())                        # [B, S, l + r]
     c_kv = rmsnorm(latent[..., :lora], p["kv_norm"], cfg.rms_eps)
     k_rope = apply_rope(latent[..., None, lora:].transpose(1, 2), *rot)
     scale = (nope + m.qk_rope_dim) ** -0.5
@@ -159,26 +178,26 @@ def apply_mla(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
 
     if cache is not None and sq <= 8:
         # the absorbed path: attention against the latent cache itself
-        w_uk = p["w_uk"].to(dt).reshape(lora, hq, nope)
+        w_uk = weight("w_uk", (-1,)).reshape(lora, hq, nope)
         q_lat = torch.einsum("bhqd,lhd->bhql", q_nope, w_uk)
         out_lat = ops.attention(torch.cat([q_lat, q_rope], dim=-1),
                                 hist[:, None], c_kv_all[:, None],
                                 causal=True, scale=scale, **at)
-        w_uv = p["w_uv"].to(dt).reshape(lora, hq, m.v_head_dim)
+        w_uv = weight("w_uv", (-1,)).reshape(lora, hq, m.v_head_dim)
         out = torch.einsum("bhql,lhd->bhqd", out_lat, w_uv)
     else:
         ct = torch.promote_types(c_kv_all.dtype, dt)
         c_all = c_kv_all.to(ct)
-        k_nope = (c_all @ p["w_uk"].to(dt).to(ct)).reshape(
+        k_nope = (c_all @ weight("w_uk", (-1,)).to(ct)).reshape(
             b, skv, hq, nope).transpose(1, 2)
-        vv = (c_all @ p["w_uv"].to(dt).to(ct)).reshape(
+        vv = (c_all @ weight("w_uv", (-1,)).to(ct)).reshape(
             b, skv, hq, m.v_head_dim).transpose(1, 2)
         k_rope_b = k_rope_all.expand(b, hq, skv, m.qk_rope_dim).to(dt)
         out = ops.attention(torch.cat([q_nope, q_rope], dim=-1),
                             torch.cat([k_nope, k_rope_b.to(ct)], dim=-1),
                             vv, causal=True, scale=scale, **at)
     out = out.transpose(1, 2).reshape(b, sq, hq * m.v_head_dim)
-    return out @ p["wo"].to(dt), cache
+    return out @ weight("wo", (-2,)), cache
 
 
 # ========================================================= cross-attn ====
@@ -204,9 +223,9 @@ def apply_cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
     b, sq, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     mem = memory.to(x.dtype)
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, sq, hq, hd).transpose(1, 2)
-    k = (mem @ p["wk"].to(x.dtype)).reshape(b, -1, hkv, hd).transpose(1, 2)
-    v = (mem @ p["wv"].to(x.dtype)).reshape(b, -1, hkv, hd).transpose(1, 2)
+    q = split_last(x @ p["wq"].to(x.dtype), hq, hd).transpose(1, 2)
+    k = split_last(mem @ p["wk"].to(x.dtype), hkv, hd).transpose(1, 2)
+    v = split_last(mem @ p["wv"].to(x.dtype), hkv, hd).transpose(1, 2)
     out = ops.attention(q, k, v, causal=False, window=None,
                         logit_softcap=None, scale=None)
     out = out.transpose(1, 2).reshape(b, sq, hq * hd)

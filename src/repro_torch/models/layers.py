@@ -7,8 +7,10 @@ same logits within rounding: ``rmsnorm`` and ``rope`` compute in float32
 and cast back, ``embed`` takes the table in the activation dtype and scales
 by ``sqrt(d_model)`` rounded to that dtype (34.0 for gemma3-1b in
 bfloat16), ``unembed`` returns float32 logits after the final soft-cap.
-The reference's ``use_site_tp`` (a sharding constraint) has no mesh to act
-on here and is dropped.
+``use_site_tp`` is the reference's use-site constraint: on a DTensor
+weight (the dry-run's) a ``redistribute`` to TP-only sharding, a no-op on
+a plain tensor or without a mesh.  The logical axis names of every weight
+are ``launch.specs.LOGICAL_SPECS``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor, to_placements
 from repro_torch.models.config import ModelConfig
 
 
@@ -28,18 +31,53 @@ def act_dtype(cfg: ModelConfig) -> torch.dtype:
 # ------------------------------------------------------------------ init ---
 
 
+def use_site_tp(w, tp_dims: tuple, parallel):
+    """Constrain a weight at its use site to TP-only sharding.
+
+    A resident weight is FSDP-sharded (an axis over ``data``); contracting
+    against it in that layout would partial-sum the activations over the
+    data axis.  Keeping only its TP dims sharded gathers the (small)
+    weight instead, ZeRO-3's per-layer prefetch.  A ``redistribute`` of a
+    DTensor; a no-op without a mesh or on a plain tensor."""
+    if parallel is None or not getattr(parallel, "axis_sizes", None) \
+            or not is_dtensor(w):
+        return w
+    m = parallel.size_of(parallel.model_axis)
+    if m <= 1:
+        return w
+    spec = [None] * w.ndim
+    for d in tp_dims:
+        if w.shape[d] % m == 0:
+            spec[d] = parallel.model_axis
+    return w.redistribute(w.device_mesh, to_placements(tuple(spec),
+                                                       w.device_mesh))
+
+
 def dense_init(shape, *, generator: torch.Generator, device,
                in_axis: int = -2) -> torch.Tensor:
     """Truncated-normal fan-in init in float32: ``std * N(0, 1)`` cut at
-    +-2 standard deviations, ``std = 1 / sqrt(shape[in_axis])``."""
+    +-2 standard deviations, ``std = 1 / sqrt(shape[in_axis])``.  On
+    ``meta`` (an abstract model) only the shape is made."""
     fan_in = shape[in_axis] if shape else 1
     std = 1.0 / math.sqrt(max(1, fan_in))
     t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.is_meta:
+        return t
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(std)
 
 
+def zeros_init(shape, specs, *, device) -> tuple:
+    """(float32 zeros, their logical spec)."""
+    return torch.zeros(shape, dtype=torch.float32, device=device), specs
+
+
 # ----------------------------------------------------------------- norms ---
+
+
+def init_rmsnorm(d: int, spec_axis: str = "embed", *, device) -> tuple:
+    """(float32 ones [d], its logical spec)."""
+    return torch.ones(d, dtype=torch.float32, device=device), (spec_axis,)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -110,17 +148,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    h = x @ p["w_in"].to(x.dtype)
-    if cfg.activation == "silu_glu":
-        h = silu(x @ p["w_gate"].to(x.dtype)) * h
-    elif cfg.activation == "gelu_glu":
-        h = F.gelu(x @ p["w_gate"].to(x.dtype), approximate="tanh") * h
+def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor,
+              parallel=None) -> torch.Tensor:
+    h = x @ use_site_tp(p["w_in"].to(x.dtype), (-1,), parallel)
+    if cfg.activation in ("silu_glu", "gelu_glu"):
+        g = x @ use_site_tp(p["w_gate"].to(x.dtype), (-1,), parallel)
+        h = (silu(g) if cfg.activation == "silu_glu"
+             else F.gelu(g, approximate="tanh")) * h
     elif cfg.activation == "squared_relu":
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_out"].to(x.dtype)
+    return h @ use_site_tp(p["w_out"].to(x.dtype), (-2,), parallel)
 
 
 # ------------------------------------------------------------- embedding ---
@@ -133,10 +172,20 @@ def init_embedding(cfg: ModelConfig, *, generator, device) -> torch.Tensor:
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig):
     """Rows of the table in the activation dtype (gathered, then cast:
-    the same values as the reference's cast-then-gather), times
+    the same values as the reference's cast-then-gather; ``F.embedding``,
+    whose gradient DTensor lays out on a sharded table), times
     ``sqrt(d_model)`` rounded to that dtype where ``embed_scale``."""
     dt = act_dtype(cfg)
-    x = table[tokens].to(dt)
+    if is_dtensor(table):
+        # the lookup reads whole rows: a vocab-sharded table (the
+        # dry-run's) is gathered over the vocab first, as a use site
+        # gathers a weight (the masked vocab-parallel lookup's gradient
+        # does not sum with the tied unembedding's)
+        from torch.distributed.tensor import Replicate, Shard
+        table = table.redistribute(table.device_mesh, [
+            Replicate() if isinstance(q, Shard) and q.dim == 0 else q
+            for q in table.placements])
+    x = F.embedding(tokens, table).to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     return x

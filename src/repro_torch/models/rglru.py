@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, use_site_tp, zeros_init
 
 _C = 8.0
 
@@ -45,9 +45,11 @@ def init_rglru(cfg: ModelConfig, *, generator, device) -> dict:
         return dense_init(shape, generator=generator, device=device)
     p = {"w_in_rnn": dense((d, dr)), "w_in_gate": dense((d, dr)),
          "conv_w": dense((r.d_conv, dr)),
-         "conv_b": torch.zeros(dr, device=device),
-         "w_a": dense((dr, dr)), "b_a": torch.zeros(dr, device=device),
-         "w_x": dense((dr, dr)), "b_x": torch.zeros(dr, device=device)}
+         "conv_b": zeros_init(dr, ("rnn",), device=device)[0],
+         "w_a": dense((dr, dr)),
+         "b_a": zeros_init(dr, ("rnn",), device=device)[0],
+         "w_x": dense((dr, dr)),
+         "b_x": zeros_init(dr, ("rnn",), device=device)[0]}
     y = torch.linspace(0.9, 0.999, dr) ** (1.0 / _C)
     p["lam"] = torch.log(y / (1.0 - y)).to(device)
     p["w_out"] = dense((dr, d))
@@ -91,17 +93,23 @@ def _rglru_scan(x, a, *, h0: Optional[torch.Tensor] = None):
 
 
 def apply_rglru(p, cfg: ModelConfig, x: torch.Tensor, *,
-                cache: Optional[RglruCache] = None):
+                cache: Optional[RglruCache] = None, parallel=None):
     """Griffin recurrent block. x: [B, S, E] -> ([B, S, E], cache or
     None); with a cache, S > 1 is a prefill from ``cache.h`` and S = 1 a
     decode step, the cache written in place."""
     s = x.shape[1]
-    gate = F.gelu(x @ p["w_in_gate"].to(x.dtype), approximate="tanh")
-    u = x @ p["w_in_rnn"].to(x.dtype)
+
+    def weight(name, dims, dt=x.dtype):
+        return use_site_tp(p[name].to(dt), dims, parallel)
+    gate = F.gelu(x @ weight("w_in_gate", (-1,)), approximate="tanh")
+    u = x @ weight("w_in_rnn", (-1,))
     u, new_conv = _conv(u, p["conv_w"], p["conv_b"],
                         cache.conv if cache is not None else None)
-    r = torch.sigmoid((u @ p["w_a"].to(u.dtype)).float() + p["b_a"].float())
-    i = torch.sigmoid((u @ p["w_x"].to(u.dtype)).float() + p["b_x"].float())
+    # column-parallel w_a / w_x: the only collective is the output's
+    r = torch.sigmoid((u @ weight("w_a", (-1,), u.dtype)).float()
+                      + p["b_a"].float())
+    i = torch.sigmoid((u @ weight("w_x", (-1,), u.dtype)).float()
+                      + p["b_x"].float())
     log_a = _C * r * F.logsigmoid(p["lam"].float())           # [B, S, D]
     a = torch.exp(log_a)
     gated = i * u.float()
@@ -116,7 +124,7 @@ def apply_rglru(p, cfg: ModelConfig, x: torch.Tensor, *,
     if cache is not None:
         cache.conv.copy_(new_conv)
         cache.h.copy_(h[:, -1])
-    y = (h.to(x.dtype) * gate) @ p["w_out"].to(x.dtype)
+    y = (h.to(x.dtype) * gate) @ weight("w_out", (-2,))
     return y, cache
 
 

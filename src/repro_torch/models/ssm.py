@@ -27,8 +27,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import per_batch_shard
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, rmsnorm, silu
+from repro_torch.models.layers import dense_init, rmsnorm, silu, use_site_tp
 from repro_torch.models.rglru import _conv
 
 
@@ -138,13 +139,13 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int,
 
 
 def apply_ssm(p, cfg: ModelConfig, x: torch.Tensor, *,
-              cache: Optional[SsmCache] = None):
+              cache: Optional[SsmCache] = None, parallel=None):
     """x: [B, S, E] -> ([B, S, E], cache or None).  With a cache: S > 1
     is a prefill from ``cache.state``, S = 1 a decode step; the cache is
     written in place and returned."""
     s_cfg, d_in, n_heads, _conv_dim = _dims(cfg)
     bsz, seq, _ = x.shape
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    zxbcdt = x @ use_site_tp(p["in_proj"].to(x.dtype), (-1,), parallel)
     z, xbc, dt = _split_proj(cfg, zxbcdt)
     dt = F.softplus(dt.float() + p["dt_bias"].float())       # [B, S, H]
     A = -torch.exp(p["A_log"].float())                        # [H]
@@ -158,27 +159,39 @@ def apply_ssm(p, cfg: ModelConfig, x: torch.Tensor, *,
     C = xbc_c[..., d_in + gn:].reshape(bsz, seq, s_cfg.n_groups,
                                        s_cfg.d_state)
     if cache is None or seq > 1:
-        y, final = ssd_chunked(
-            xs.float(), dt, A, B.float(), C.float(),
-            chunk=min(s_cfg.chunk, seq),
-            init_state=cache.state if cache is not None else None)
+        # one batch block a rank where the tensors are DTensors (the
+        # dry-run): the chunked recurrence runs along the sequence
+        def ssd(xs_, dt_, B_, C_, state_, A_):
+            return ssd_chunked(xs_, dt_, A_, B_, C_,
+                               chunk=min(s_cfg.chunk, seq),
+                               init_state=state_)
+        y, final = per_batch_shard(
+            ssd, (xs.float(), dt, B.float(), C.float(),
+                  cache.state if cache is not None else None), (A,))
     else:
         rep = n_heads // s_cfg.n_groups
-        Br = B.repeat_interleave(rep, dim=2)[:, 0].float()   # [B, H, N]
-        Cr = C.repeat_interleave(rep, dim=2)[:, 0].float()
-        dt1 = dt[:, 0]                                       # [B, H]
-        dA = torch.exp(dt1 * A)
-        xs1 = xs[:, 0].float()                               # [B, H, P]
-        final = (cache.state.float() * dA[..., None, None]
-                 + torch.einsum("bhp,bhn->bhpn", xs1 * dt1[..., None], Br))
-        y = torch.einsum("bhpn,bhn->bhp", final, Cr)[:, None]
+
+        def step(xs_, dt_, B_, C_, state_, A_):
+            Br = B_.repeat_interleave(rep, dim=2)[:, 0].float()  # [B, H, N]
+            Cr = C_.repeat_interleave(rep, dim=2)[:, 0].float()
+            dt1 = dt_[:, 0]                                     # [B, H]
+            dA = torch.exp(dt1 * A_)
+            xs1 = xs_[:, 0].float()                             # [B, H, P]
+            final_ = (state_.float() * dA[..., None, None]
+                      + torch.einsum("bhp,bhn->bhpn", xs1 * dt1[..., None],
+                                     Br))
+            return torch.einsum("bhpn,bhn->bhp", final_, Cr)[:, None], final_
+        y, final = per_batch_shard(step, (xs, dt, B, C, cache.state), (A,))
     if cache is not None:
         cache.conv.copy_(new_prev)
         cache.state.copy_(final)
-    y = y + p["D"].float()[:, None] * xs.float()
-    y = y.reshape(bsz, seq, d_in).to(x.dtype)
+    # the skip term in [B, S, d_in] (each head's D over its P channels):
+    # the same sums as over [B, S, H, P], without reshaping a sharded dim
+    d_skip = p["D"].float().repeat_interleave(s_cfg.head_dim)
+    y = (y.reshape(bsz, seq, d_in)
+         + d_skip * xbc_c[..., :d_in].float()).to(x.dtype)
     y = rmsnorm(y * silu(z), p["norm"], cfg.rms_eps)
-    return y @ p["out_proj"].to(x.dtype), cache
+    return y @ use_site_tp(p["out_proj"].to(x.dtype), (-2,), parallel), cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, *,

@@ -50,9 +50,10 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.distributed.sharding import constrain_batch_activations
 from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
-                                       init_mlp, rmsnorm, rope_angles,
-                                       rope_freqs, unembed)
+                                       init_mlp, init_rmsnorm, rmsnorm,
+                                       rope_angles, rope_freqs, unembed)
 
 DENSE_KINDS = ("global", "local")
 KINDS = (*DENSE_KINDS, "rglru", "ssm")
@@ -127,7 +128,10 @@ class Block(nn.Module):
         super().__init__()
         self.cfg, self.kind = cfg, kind
         d = cfg.d_model
-        norms = {"norm1": torch.ones(d, device=device)}
+
+        def ones():
+            return init_rmsnorm(d, device=device)[0]
+        norms = {"norm1": ones()}
         init = dict(generator=generator, device=device)
         if kind == "ssm":
             self.moe = False
@@ -140,39 +144,47 @@ class Block(nn.Module):
                       else attn_mod.init_attention)
         self.mixer = ParamTree(init_mixer(cfg, **init))
         if cfg.use_post_norm:
-            norms["norm1b"] = torch.ones(d, device=device)
-        norms["norm2"] = torch.ones(d, device=device)
+            norms["norm1b"] = ones()
+        norms["norm2"] = ones()
         self.mlp = ParamTree(moe_mod.init_moe(cfg, **init) if self.moe
                              else init_mlp(cfg, cfg.d_ff, **init))
         if cfg.use_post_norm:
-            norms["norm2b"] = torch.ones(d, device=device)
+            norms["norm2b"] = ones()
         if cfg.cross_attn_memory_len and kind in DENSE_KINDS:
             self.xattn = ParamTree(attn_mod.init_cross_attention(cfg,
                                                                  **init))
-            norms["norm_x"] = torch.ones(d, device=device)
+            norms["norm_x"] = ones()
         self.norms = ParamTree(norms)
 
     def forward(self, x, *, rot, cache=None, cache_pos=None, routes=None,
-                memory=None):
+                memory=None, parallel=None):
         """-> (x, cache, float32 aux loss or None).  ``routes``: a list
         that receives a MoE block's ``moe.Routing``; ``memory``: the
-        cross-attention memory (ignored by a block without ``xattn``)."""
+        cross-attention memory (ignored by a block without ``xattn``);
+        ``parallel``: the use-site constraints' ``ParallelConfig`` (off at
+        decode, as in the reference: there the activation all-reduce is
+        cheaper than gathering the weights every step)."""
         cfg = self.cfg
+        if cache is not None and x.shape[1] == 1 and parallel is not None:
+            parallel = dataclasses.replace(parallel, axis_sizes=None)
         h = rmsnorm(x, self.norms["norm1"], cfg.rms_eps)
         if self.kind == "ssm":
-            out, cache = ssm_mod.apply_ssm(self.mixer, cfg, h, cache=cache)
+            out, cache = ssm_mod.apply_ssm(self.mixer, cfg, h, cache=cache,
+                                           parallel=parallel)
             return x + out, cache, None
         if self.kind == "rglru":
             out, cache = rglru_mod.apply_rglru(self.mixer, cfg, h,
-                                               cache=cache)
+                                               cache=cache,
+                                               parallel=parallel)
         elif cfg.mla is not None:
             out, cache = attn_mod.apply_mla(self.mixer, cfg, h, rot=rot,
-                                            cache=cache, cache_pos=cache_pos)
+                                            cache=cache, cache_pos=cache_pos,
+                                            parallel=parallel)
         else:
             window = cfg.window if self.kind == "local" else None
             out, cache = attn_mod.apply_attention(
                 self.mixer, cfg, h, rot=rot, window=window, cache=cache,
-                cache_pos=cache_pos)
+                cache_pos=cache_pos, parallel=parallel)
         if cfg.use_post_norm:
             out = rmsnorm(out, self.norms["norm1b"], cfg.rms_eps)
         # the residual rounds to x's dtype, the norm reads the float32 sum:
@@ -190,9 +202,9 @@ class Block(nn.Module):
         if self.moe:
             exact = cache is not None and x.shape[1] == 1   # decode
             out, aux = moe_mod.apply_moe(self.mlp, cfg, h, exact=exact,
-                                         routes=routes)
+                                         routes=routes, parallel=parallel)
         else:
-            out = apply_mlp(self.mlp, cfg, h)
+            out = apply_mlp(self.mlp, cfg, h, parallel)
         if cfg.use_post_norm:
             out = rmsnorm(out, self.norms["norm2b"], cfg.rms_eps)
         return x + out, cache, aux
@@ -215,7 +227,8 @@ class Transformer(nn.Module):
     ``device`` (fan-in truncated normal, norms at 1; other numbers than the
     reference's ``jax.random`` draws: ``convert.
     transformer_params_from_numpy`` loads the reference's weights).
-    ``device="cuda"`` raises without a card."""
+    ``device="cuda"`` raises without a card; ``device="meta"`` builds the
+    abstract model (shapes only, no draws) the dry-run lays out."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0,
                  device: str = "cuda"):
@@ -223,13 +236,15 @@ class Transformer(nn.Module):
         cfg.validate()
         check_supported(cfg)
         self.cfg = cfg
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        dev = resolve_device(device, construct=True)
+        gen = None
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         emb = {"embed": init_embedding(cfg, generator=gen, device=dev)}
         if not cfg.tie_embeddings:
             emb["lm_head"] = init_embedding(cfg, generator=gen, device=dev)
-        emb["final_norm"] = torch.ones(cfg.d_model, device=dev)
+        emb["final_norm"] = init_rmsnorm(cfg.d_model, device=dev)[0]
         self.emb = ParamTree(emb)
         self.slots = layer_slots(cfg)
         self.kinds = [cfg.tail[j] if g == "tail" else cfg.pattern[j]
@@ -261,7 +276,7 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def apply(self, tokens, *, cache=None, cache_pos: Optional[int] = None,
               prefix_embeds=None, memory=None,
-              routes: Optional[list] = None) -> ModelOutput:
+              routes: Optional[list] = None, parallel=None) -> ModelOutput:
         """tokens: int [B, S] -> ModelOutput (float32 logits [B, S, V],
         the float32 aux loss summed over the MoE blocks).
 
@@ -273,14 +288,16 @@ class Transformer(nn.Module):
         logits cover the S token positions only); ``memory`` [B, M,
         memory_dim] feeds the cross-attention blocks.  ``routes``: a list
         that receives each MoE block's ``moe.Routing``, in the executed
-        order.
+        order.  ``parallel``: a ``ParallelConfig`` with ``axis_sizes``
+        turns on the reference's sharding constraints (block-boundary
+        activations, use-site weights) where the tensors are DTensors.
         """
         return self._run(tokens, cache=cache, cache_pos=cache_pos,
                          prefix_embeds=prefix_embeds, memory=memory,
-                         routes=routes)
+                         routes=routes, parallel=parallel)
 
     def forward(self, tokens, *, prefix_embeds=None, memory=None,
-                remat: str = "none") -> ModelOutput:
+                remat: str = "none", parallel=None) -> ModelOutput:
         """The differentiable cache-less forward (training): ``apply``'s
         function without a cache, under the caller's grad mode.  ``remat``
         as the reference's: ``"none"`` keeps every activation the backward
@@ -291,10 +308,11 @@ class Transformer(nn.Module):
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         return self._run(tokens, prefix_embeds=prefix_embeds, memory=memory,
-                         remat=remat)
+                         remat=remat, parallel=parallel)
 
     def _run(self, tokens, *, cache=None, cache_pos=None, prefix_embeds=None,
-             memory=None, routes=None, remat: str = "none") -> ModelOutput:
+             memory=None, routes=None, remat: str = "none",
+             parallel=None) -> ModelOutput:
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         x = embed(self.emb["embed"], tokens, cfg)
@@ -313,14 +331,17 @@ class Transformer(nn.Module):
             if cache is not None:
                 slot = cache[group] if group == "prefix" else cache[group][j]
                 lc = type(slot)(*(t[i] for t in slot))
+            x = constrain_batch_activations(x, parallel)
             if remat == "none":
                 x, _, aux = layer(x, rot=rot, cache=lc, cache_pos=cache_pos,
-                                  routes=routes, memory=memory)
+                                  routes=routes, memory=memory,
+                                  parallel=parallel)
             else:
                 ctx = (_dots_context if remat == "dots"
                        else ckpt.noop_context_fn)
                 x, _, aux = ckpt.checkpoint(
-                    functools.partial(layer, rot=rot, memory=memory), x,
+                    functools.partial(layer, rot=rot, memory=memory,
+                                      parallel=parallel), x,
                     use_reentrant=False, context_fn=ctx)
             if aux is not None:
                 aux_total = aux_total + aux
@@ -332,51 +353,58 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------ cache --
 
-    def _slot_cache(self, kind, n, batch, max_len, dtype, *, window_bound):
+    def _slot_cache(self, kind, n, batch, max_len, dtype, *, window_bound,
+                    device):
         cfg = self.cfg
         if kind == "ssm":
             return ssm_mod.init_ssm_cache(cfg, batch, dtype, stacked=(n,),
-                                          device=self.device)
+                                          device=device)
         if kind == "rglru":
             return rglru_mod.init_rglru_cache(cfg, batch, dtype,
                                               stacked=(n,),
-                                              device=self.device)
+                                              device=device)
         if cfg.mla is not None:
             m = cfg.mla
             width = m.kv_lora_rank + m.qk_rope_dim
             return KVCache(
                 k=torch.zeros((n, batch, 1, max_len, width), dtype=dtype,
-                              device=self.device),
+                              device=device),
                 v=torch.zeros((n, 1, 1, 1, 1), dtype=dtype,
-                              device=self.device))
+                              device=device))
         klen = max_len
         if window_bound and kind == "local":
             klen = min(max_len, cfg.window)
         shape = (n, batch, cfg.n_kv_heads, klen, cfg.head_dim_)
-        return KVCache(k=torch.zeros(shape, dtype=dtype, device=self.device),
-                       v=torch.zeros(shape, dtype=dtype, device=self.device))
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device))
 
     def init_cache(self, batch: int, max_len: int,
-                   dtype=torch.bfloat16, window_bound: bool = False) -> dict:
+                   dtype=torch.bfloat16, window_bound: bool = False,
+                   device=None) -> dict:
         """Per pattern slot, its cache stacked over periods (and the dense
         prefix's, stacked over its layers): k and v of ``max_len`` for
         attention slots, the constant-size conv window and state for
         ``ssm`` and ``rglru`` slots.  ``window_bound=True`` gives local
-        slots a window-long ring."""
+        slots a window-long ring.  ``device``: the model's by default;
+        ``"meta"`` gives the abstract cache (shapes only)."""
         cfg = self.cfg
+        device = (self.device if device is None
+                  else resolve_device(device, construct=True))
         out = {"blocks": [
             self._slot_cache(kind, cfg.n_periods, batch, max_len, dtype,
-                             window_bound=window_bound)
+                             window_bound=window_bound, device=device)
             for kind in cfg.pattern]}
         if cfg.tail:
             out["tail"] = [self._slot_cache(kind, 1, batch, max_len, dtype,
-                                            window_bound=window_bound)
+                                            window_bound=window_bound,
+                                            device=device)
                            for kind in cfg.tail]
         prefix = cfg.moe.first_k_dense if cfg.moe else 0
         if prefix:
             out["prefix"] = self._slot_cache(cfg.pattern[0], prefix, batch,
                                              max_len, dtype,
-                                             window_bound=window_bound)
+                                             window_bound=window_bound,
+                                             device=device)
         return out
 
     def decode_step(self, cache, tokens, pos: int, *,

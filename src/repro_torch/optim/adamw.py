@@ -53,8 +53,10 @@ class AdamW:
     def init(self, params: dict) -> AdamWState:
         """Zero float32 moments beside each parameter; step 0."""
         dev = next(iter(params.values())).device
-        def z(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+        def z(p):   # a DTensor parameter gets a DTensor moment, laid out alike
+            return torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                           m={k: z(p) for k, p in params.items()},
                           v={k: z(p) for k, p in params.items()})

@@ -17,23 +17,26 @@ import torch
 from repro_torch.models.transformer import Transformer
 
 
-def make_prefill_step(model: Transformer):
+def make_prefill_step(model: Transformer, parallel=None):
     """(cache, tokens[B,S], *, memory, prefix_embeds) -> (logits[B,S,V],
-    cache); a prefix of P embeddings takes cache positions 0..P-1."""
+    cache); a prefix of P embeddings takes cache positions 0..P-1.
+    ``parallel``: the sharding constraints' ``ParallelConfig``, as in the
+    reference (they act on DTensors only)."""
 
     def prefill(cache, tokens, *, memory=None, prefix_embeds=None):
         out = model.apply(tokens, cache=cache, cache_pos=0, memory=memory,
-                          prefix_embeds=prefix_embeds)
+                          prefix_embeds=prefix_embeds, parallel=parallel)
         return out.logits, out.cache
 
     return prefill
 
 
-def make_decode_step(model: Transformer):
+def make_decode_step(model: Transformer, parallel=None):
     """(cache, token[B,1], pos, *, memory) -> (logits[B,1,V], cache)."""
 
     def decode(cache, token, pos: int, *, memory=None):
-        out = model.apply(token, memory=memory, cache=cache, cache_pos=pos)
+        out = model.apply(token, memory=memory, cache=cache, cache_pos=pos,
+                          parallel=parallel)
         return out.logits, out.cache
 
     return decode

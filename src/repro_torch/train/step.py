@@ -73,7 +73,8 @@ def make_train_step(model: Transformer, tx: AdamW, parallel: ParallelConfig):
             kwargs["prefix_embeds"] = batch["prefix_embeds"]
         if cfg.cross_attn_memory_len:
             kwargs["memory"] = batch["memory"]
-        out = model(batch["tokens"], remat=parallel.remat, **kwargs)
+        out = model(batch["tokens"], remat=parallel.remat, parallel=parallel,
+                    **kwargs)
         loss = cross_entropy(out.logits, batch["targets"], batch.get("mask"))
         return loss + out.aux_loss, loss, out.aux_loss
 

@@ -58,7 +58,9 @@ def test_no_jax_or_reference_imports_in_source():
                 "configs/registry.py", "launch/serve.py",
                 "kernels/scan.py", "core/distributed.py",
                 "distributed/elastic.py", "distributed/fault.py",
-                "distributed/sharding.py", "checkpoint/ckpt.py"):
+                "distributed/sharding.py", "checkpoint/ckpt.py",
+                "launch/dryrun.py", "launch/mesh.py", "launch/specs.py",
+                "roofline/analysis.py"):
         assert sub in files, sub
     bad = []
     for path in _port_files():
@@ -90,7 +92,8 @@ def test_importing_every_module_loads_no_jax():
         " 'serving.engine', 'models.transformer', 'kernels.flash_attention',"
         " 'configs.gemma3_1b', 'launch.serve', 'kernels.scan',"
         " 'core.distributed', 'distributed.elastic', 'distributed.fault',"
-        " 'distributed.sharding', 'checkpoint.ckpt'):\n"
+        " 'distributed.sharding', 'checkpoint.ckpt', 'launch.dryrun',"
+        " 'launch.mesh', 'launch.specs', 'roofline.analysis'):\n"
         "    assert 'repro_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
@@ -149,6 +152,50 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert mesh.device.type == "cpu" and mesh.shape == {"data": 2}
     assert make_sharded_state(2, 64, device="cpu").tables.device.type == \
         "cpu"
+
+
+def test_meta_reaches_construction_only(monkeypatch):
+    """``"meta"`` (the dry-run's abstract model) builds a model and a
+    cache, and nothing else: ``resolve_device`` refuses it unless a
+    constructor asks, no entry point takes it, and ``"cuda"`` still
+    raises without a card rather than resolve to anything."""
+    from repro_torch.core.hashing import resolve_device
+    from repro_torch.launch.specs import abstract_init, batch_specs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for construct in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device("cuda", construct=construct)
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    assert resolve_device("meta", construct=True).type == "meta"
+    assert resolve_device("cpu", construct=True).type == "cpu"
+    table = np.zeros((1024, 4), np.uint32)
+    for call in (lambda: OCF(OcfConfig(capacity=4096, device="meta")),
+                 lambda: make_state(256, device="meta"),
+                 lambda: make_stash(8, device="meta"),
+                 lambda: state_from_numpy(table, 0, 1024, device="meta"),
+                 lambda: GenerationalFilter(GenerationConfig(
+                     capacity=4096, device="meta")),
+                 lambda: filter_mesh(2, device="meta"),
+                 lambda: make_sharded_state(2, 64, device="meta"),
+                 lambda: serve("gemma3-1b", requests=1, prefix_len=16,
+                               gen=2, device="meta")):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    cfg = get_smoke_config("gemma3-1b")
+    model = Transformer(cfg, device="meta")
+    assert all(p.is_meta for p in model.parameters())
+    cache = model.init_cache(2, 16)
+    assert cache["blocks"][0].k.is_meta
+    assert model.init_cache(2, 16, device="cpu")["blocks"][0].k.device.type \
+        == "cpu"
+    shapes, specs = abstract_init(cfg)
+    assert set(shapes) == set(specs) and all(t.is_meta
+                                             for t in shapes.values())
+    assert all(t.is_meta for t in batch_specs(cfg, "train_4k").values())
+    # a model that does compute holds real weights
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transformer(cfg)
 
 
 def test_backends():

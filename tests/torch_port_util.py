@@ -376,3 +376,146 @@ def put(tag, state, **arrays):
     for k, v in arrays.items():
         OUT[f"{tag}/{k}"] = np.asarray(v)
 """
+
+
+# ------------------------------------------------------- small-mesh dry-run --
+#
+# The port's dry-run on a 2 x 2 x 2 (pod, data, model) mesh of the fake
+# process-group backend (world 8, one process a run), and the reference's
+# ``tests/test_dryrun_small.py`` step on 8 host devices, for the same smoke
+# config, batch (8 x 32) and decode cache (64).
+
+DRYRUN_PORT_SCRIPT = """
+import json, sys, torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.distributed.sharding import ParallelConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import init_fake_process_group, make_test_mesh
+from repro_torch.launch.specs import abstract_cache
+from repro_torch.models import Transformer
+from repro_torch.optim.adamw import AdamW
+from repro_torch.serving.engine import make_decode_step
+from repro_torch.train.step import make_train_step
+
+arch = sys.argv[1]
+dryrun._quiet()
+init_fake_process_group(8)
+dryrun.register_strategies()
+mesh = make_test_mesh(2, 2, pod=2)
+parallel = ParallelConfig(pod_axis="pod", remat="dots", compress_grads=True,
+                          axis_sizes=tuple(zip(mesh.mesh_dim_names,
+                                               mesh.shape)))
+cfg = get_smoke_config(arch)
+B, S = 8, 32
+meta = dict(dtype=torch.int32, device="meta")
+batch = {"tokens": torch.empty(B, S, **meta),
+         "targets": torch.empty(B, S, **meta)}
+if cfg.prefix_embed_len:
+    batch["prefix_embeds"] = torch.empty(
+        B, cfg.prefix_embed_len, cfg.d_model, dtype=torch.bfloat16,
+        device="meta")
+if cfg.cross_attn_memory_len:
+    batch["memory"] = torch.empty(
+        B, cfg.cross_attn_memory_len, cfg.cross_attn_memory_dim,
+        dtype=torch.bfloat16, device="meta")
+batch = dryrun.distribute_batch(batch, mesh, parallel)
+model = Transformer(cfg, device="meta")
+dryrun.distribute_params(model, mesh, parallel)
+tx = AdamW(lr=1e-3)
+step = make_train_step(model, tx, parallel)
+params = dict(model.named_parameters())
+opt = tx.init(params)
+_, train = dryrun.trace(lambda: step(params, opt, batch))
+
+dec_model = Transformer(cfg, device="meta")
+dryrun.distribute_params(dec_model, mesh, parallel)
+cache = dryrun.distribute_cache(abstract_cache(dec_model, B, 64), mesh,
+                                parallel)
+tok = dryrun.distribute_batch(
+    {"token": torch.empty(B, 1, **meta)}, mesh, parallel)["token"]
+kw = {"memory": batch["memory"]} if cfg.cross_attn_memory_len else {}
+dec = make_decode_step(dec_model)
+(logits, _), decode = dryrun.trace(lambda: dec(cache, tok, 63, **kw))
+print(json.dumps({
+    "train_collectives": train.count, "train_flops": train.flops,
+    "train_by_op": train.by_op, "decode_collectives": decode.count,
+    "decode_shape": list(logits.shape), "decode_ok": True}))
+"""
+
+DRYRUN_REF_FLOPS_SCRIPT = """
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import json, sys
+import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs.registry import get_smoke_config
+from repro.distributed.sharding import (ParallelConfig, batch_pspec,
+                                        make_shardings)
+from repro.launch.specs import abstract_init
+from repro.models.transformer import Transformer
+from repro.optim.adamw import AdamW, AdamWState
+from repro.train.step import make_train_step
+from repro.roofline.analysis import parse_collectives
+
+arch = sys.argv[1]
+mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 3)
+parallel = ParallelConfig(pod_axis="pod", remat="dots", compress_grads=True)
+cfg = get_smoke_config(arch)
+model = Transformer(cfg)
+shapes, specs = abstract_init(model)
+shard = make_shardings(mesh, specs, shapes, parallel)
+tx = AdamW(lr=1e-3)
+o_shapes = jax.eval_shape(tx.init, shapes)
+rep = NamedSharding(mesh, P())
+o_shard = AdamWState(step=rep, m=shard, v=shard)
+B, S = 8, 32
+batch = {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32),
+         "targets": jax.ShapeDtypeStruct((B, S), jnp.int32)}
+bs = {k: NamedSharding(mesh, batch_pspec(B, 2, mesh, parallel))
+      for k in batch}
+if cfg.cross_attn_memory_len:
+    batch["memory"] = jax.ShapeDtypeStruct(
+        (B, cfg.cross_attn_memory_len, cfg.cross_attn_memory_dim),
+        jnp.bfloat16)
+    bs["memory"] = NamedSharding(mesh, batch_pspec(B, 3, mesh, parallel))
+if cfg.prefix_embed_len:
+    batch["prefix_embeds"] = jax.ShapeDtypeStruct(
+        (B, cfg.prefix_embed_len, cfg.d_model), jnp.bfloat16)
+    bs["prefix_embeds"] = NamedSharding(mesh, batch_pspec(B, 3, mesh,
+                                                          parallel))
+step = make_train_step(model, tx, parallel)
+with mesh:
+    compiled = jax.jit(step, in_shardings=(shard, o_shard, bs)).lower(
+        shapes, o_shapes, batch).compile()
+coll = parse_collectives(compiled.as_text())
+print(json.dumps({"train_flops": coll.flops, "train_collectives": coll.count}))
+"""
+
+
+def run_script(script: str, *args, jax_devices: bool = False,
+               timeout: int = 600) -> dict:
+    """Run a script in a process of its own (one process group, or one
+    JAX device count, a process) -> the JSON of its last line."""
+    import json
+    import os
+    import subprocess
+    import sys
+    env = {"PYTHONPATH": str(_ROOT / "src"),
+           "PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "HOME": os.environ.get("HOME", "/tmp")}
+    if jax_devices:
+        env["JAX_PLATFORMS"] = "cpu"
+    res = subprocess.run([sys.executable, "-c", script, *args],
+                         cwd=str(_ROOT), env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def check_traced(out: dict) -> None:
+    """A small-mesh dry-run traced its train and decode steps, and the
+    sharded train step communicated."""
+    assert out["decode_ok"] and out["decode_shape"][:2] == [8, 1]
+    assert out["train_collectives"] > 0, "sharded training must communicate"
+    assert out["train_flops"] > 0
