@@ -228,9 +228,12 @@ Phases, each timed, each fatal on failure:
      ``generate``'s of each request alone, the prefix index's kernels
      launched; (b) the five filter examples (``examples/torch_*.py``) as
      processes on the card, each rc 0 and its facts read back; (c) the
-     dry-run (``repro_torch.launch.dryrun``) in a host process, started
-     after the build and read here: gemma3-1b at ``train_4k`` and
-     ``prefill_32k`` on the single-pod mesh, its OK lines; beside it the
+     dry-run (``repro_torch.launch.dryrun``), a host process a cell,
+     started after the build and read here (``DRYRUN_CELLS``): gemma3-1b
+     at ``train_4k`` and ``prefill_32k``, recurrentgemma-2b at
+     ``train_4k`` and deepseek-v2-lite-16b at ``decode_32k`` on the
+     single-pod mesh, gemma3-1b at ``train_4k`` on the multi-pod mesh;
+     each cell's OK line and host seconds; beside them the
      model-FLOPs share at 989 TFLOP/s of 5c's 8192-token forward and 5i's
      step (``model_flops_for`` scaled to the tokens run).
 
@@ -3817,7 +3820,13 @@ EXAMPLES = {
                         (r"after TTL: (\d+) generations retired",
                          lambda v: v > 0)),
 }
-DRYRUN_CELLS = (("gemma3-1b", "train_4k"), ("gemma3-1b", "prefill_32k"))
+# (arch, shape, mesh): gemma3-1b's train and prefill, the two cells the
+# card machine's torch once refused, and one cell on the 2 x 16 x 16 mesh
+DRYRUN_CELLS = (("gemma3-1b", "train_4k", "single"),
+                ("gemma3-1b", "prefill_32k", "single"),
+                ("recurrentgemma-2b", "train_4k", "single"),
+                ("deepseek-v2-lite-16b", "decode_32k", "single"),
+                ("gemma3-1b", "train_4k", "multi"))
 DRYRUN_TIMEOUT = 900
 
 
@@ -3934,10 +3943,10 @@ def start_dryrun(out_dir: Path) -> list:
     env = {**os.environ, "PYTHONPATH": str(root / "src"),
            "CUDA_VISIBLE_DEVICES": ""}
     out = []
-    for arch, shape in DRYRUN_CELLS:
-        out.append(((arch, shape), subprocess.Popen(
+    for arch, shape, mesh in DRYRUN_CELLS:
+        out.append(((arch, shape, mesh), subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "single", "--out",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
              str(out_dir)], cwd=str(root), env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True), time.perf_counter()))
     return out
@@ -3961,25 +3970,27 @@ def dryrun_path(card: str, procs: list, out_dir: Path, lm: dict,
 
     out = {}
     try:
-        for (arch, shape), p, t0 in procs:
+        for (arch, shape, mesh), p, t0 in procs:
             stdout, stderr = p.communicate(timeout=DRYRUN_TIMEOUT)
             oks = [x for x in stdout.splitlines() if x.startswith("OK ")]
-            print(f"   (c) dry-run {arch} {shape} single (host process, "
+            print(f"   (c) dry-run {arch} {shape} {mesh} (host process, "
                   f"rc {p.returncode}, {time.perf_counter() - t0!r} s since "
                   f"it started): {oks}", flush=True)
             check(p.returncode == 0 and len(oks) == 1,
-                  f"5j (c) dry-run {arch} {shape}: {stdout[-1000:]} "
+                  f"5j (c) dry-run {arch} {shape} {mesh}: {stdout[-1000:]} "
                   f"{stderr[-2000:]}")
-            name = f"{canonical(arch)}__{shape}__single.json"
+            name = f"{canonical(arch)}__{shape}__{mesh}.json"
             rec = json.loads((out_dir / name).read_text())
-            print(f"   (c) {arch} {shape}: flops/device "
+            print(f"   (c) {arch} {shape} {mesh}: host seconds build "
+                  f"{rec['t_build_s']!r}, trace {rec['t_trace_s']!r}; "
+                  f"flops/device "
                   f"{rec['flops_per_dev']!r}, bytes/device "
                   f"{rec['bytes_per_dev']!r}, wire bytes/device "
                   f"{rec['wire_bytes_per_dev']!r}, collectives "
                   f"{rec['collectives']['count']}, bottleneck "
                   f"{rec['bottleneck']}, memory {rec['memory_stats']}",
                   flush=True)
-            out[(arch, shape)] = rec
+            out[(arch, shape, mesh)] = rec
     finally:
         stop_dryrun(procs)
     cfg = get_config(LM_ARCH)

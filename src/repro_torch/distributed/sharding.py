@@ -278,17 +278,126 @@ def split_last(t, *sizes):
 
 def unsplit_rows(t, like, shape):
     """``t`` [G, T, ...] -> ``shape`` [B, S, ...] (rows regrouped into
-    ``like``'s batch).  Where DTensor ``t``'s rows are sharded over mesh
-    dims that do not shard ``like``'s batch, they are gathered first:
-    DTensor cannot regroup rows split finer than the batch."""
+    ``like``'s batch).  Where DTensor ``t``'s groups are sharded over mesh
+    dims that do not shard ``like``'s batch, or its tokens are sharded at
+    all, they are gathered first: DTensor cannot regroup rows split finer
+    than the batch."""
     if is_dtensor(t) and is_dtensor(like):
         from torch.distributed.tensor import Replicate, Shard
         keep = [isinstance(q, Shard) and q.dim == 0 for q in like.placements]
-        placements = [Replicate() if isinstance(p, Shard) and p.dim == 0
-                      and not k else p for p, k in zip(t.placements, keep)]
+        placements = [Replicate() if isinstance(p, Shard) and (
+            p.dim == 1 or p.dim == 0 and not k) else p
+            for p, k in zip(t.placements, keep)]
         if placements != list(t.placements):
             t = t.redistribute(t.device_mesh, placements)
     return t.reshape(shape)
+
+
+def tp_matmul(x, w, *, reduced: bool = False):
+    """``x @ w`` for activations x [..., K] and a weight ``w`` [K, N]: on
+    DTensors one block a rank, so that DTensor chooses no layout of its
+    own.  Each mesh dim follows w's split there.  Where w splits its
+    columns, x is whole on that dim and the output is split by columns
+    (column-parallel); where w splits its rows, x is split in K alike and
+    the output is a partial sum (row-parallel), reduced back to x's split
+    where x's rows were split on that dim (a resident layout's activation
+    sum, as at decode); where w is whole, x keeps the sharding of its
+    leading dims and the output has it.  ``reduced``: a partial-sum
+    output is reduced, split along its last dim, for a product that a
+    nonlinearity follows.  The backward states its partial sums: x's
+    gradient where w's columns are split, w's where x's rows are.  A
+    plain ``x @ w`` without a DTensor."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    x_pl, w_pl, out, x_grad, w_grad, back = [], [], [], [], [], []
+    for q, r in zip(x.placements, w.placements):
+        rows = isinstance(q, Shard) and q.dim != last
+        if isinstance(r, Shard) and r.dim == 1:          # w's columns
+            x_pl.append(Replicate())
+            w_pl.append(Shard(1))
+            out.append(Shard(last))
+            x_grad.append(Partial())
+            w_grad.append(Shard(1))
+        elif isinstance(r, Shard) and r.dim == 0:        # w's rows
+            x_pl.append(Shard(last))
+            w_pl.append(Shard(0))
+            out.append(Partial())
+            x_grad.append(Shard(last))
+            w_grad.append(Shard(0))
+        else:                                            # w whole
+            x_pl.append(q if rows else Replicate())
+            w_pl.append(Replicate())
+            out.append(x_pl[-1])
+            x_grad.append(x_pl[-1])
+            w_grad.append(Partial() if rows else Replicate())
+        if isinstance(out[-1], Partial):
+            back.append(q if rows else Shard(last) if reduced else out[-1])
+        else:
+            back.append(out[-1])
+    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad)
+    wl = w.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    y = wrap_local(xl @ wl, mesh, out, (*x.shape[:-1], w.shape[1]))
+    return y if back == out else y.redistribute(mesh, back)
+
+
+def wrap_local(local, mesh, placements, shape):
+    """The DTensor of global ``shape`` laid out by ``placements`` whose
+    block on this rank is ``local``.  Its gradient comes back laid out by
+    the placements, a partial sum's taken whole, on every torch version
+    (``DTensor.from_local``'s gradient for a partial sum differs between
+    versions, and 2.11 takes no ``grad_placements``)."""
+    return _WrapLocal.apply(local.contiguous(), mesh, list(placements),
+                            tuple(shape))
+
+
+class _WrapLocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, placements, shape):
+        from torch.distributed.tensor import DTensor, Replicate
+        ctx.mesh = mesh
+        ctx.grad = [Replicate() if q.is_partial() else q for q in placements]
+        return DTensor.from_local(
+            local, mesh, placements, run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(ctx.mesh, ctx.grad).to_local(), None, \
+            None, None
+
+
+def row_parallel_head(x, w):
+    """``x @ w`` for activations x [B, S, K] and a weight ``w`` [K, N]
+    taken whole (an LM head: N is the vocabulary).  On DTensors one
+    block a rank: x keeps its batch sharding and splits its sequence over
+    the mesh dims that do not shard it (where they divide it), so each
+    rank multiplies its own rows by the whole weight and the output,
+    split as x's rows, is whole along N (a softmax over N stays local).
+    In the backward w's gradient is a partial sum over the mesh dims that
+    split x's rows.  A plain ``x @ w`` without a DTensor."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    batch = [isinstance(q, Shard) and q.dim == 0 for q in x.placements]
+    seq, split = x.shape[1], 1
+    x_pl = []
+    for i, b in enumerate(batch):
+        if b:
+            x_pl.append(Shard(0))
+        elif seq % (split * mesh.size(i)) == 0:
+            split *= mesh.size(i)
+            x_pl.append(Shard(1))
+        else:
+            x_pl.append(Replicate())
+    xl = x.redistribute(mesh, x_pl).to_local()
+    wl = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Partial() if isinstance(q, Shard) else q
+                         for q in x_pl])
+    return wrap_local(xl @ wl, mesh, x_pl, (*x.shape[:-1], w.shape[1]))
 
 
 def per_batch_shard(call, batched: tuple, rest: tuple = ()):
@@ -298,28 +407,27 @@ def per_batch_shard(call, batched: tuple, rest: tuple = ()):
     ``batched`` keep the first one's batch sharding and are made whole
     in every other dim, the DTensors among ``rest`` are made whole, and
     ``call`` runs on the local blocks.  Its outputs (a tensor or a
-    tuple) come back as DTensors with that batch sharding.  Without a
-    DTensor this is ``call(*batched, *rest)``."""
+    tuple) come back as DTensors with that batch sharding; the gradient
+    of a ``rest`` DTensor is a partial sum over the mesh dims that split
+    the batch.  Without a DTensor this is ``call(*batched, *rest)``."""
     lead = next((t for t in batched if is_dtensor(t)), None)
     if lead is None:
         return call(*batched, *rest)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = lead.device_mesh
     rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
             for p in lead.placements]
     whole = [Replicate()] * mesh.ndim
+    summed = [Partial() if isinstance(p, Shard) else p for p in rows]
 
-    def local(t, placements):
-        return t.redistribute(mesh, placements).to_local() \
-            if is_dtensor(t) else t
-    out = call(*(local(t, rows) for t in batched),
-               *(local(t, whole) for t in rest))
+    def local(t, placements, grads):
+        return t.redistribute(mesh, placements).to_local(
+            grad_placements=grads) if is_dtensor(t) else t
+    out = call(*(local(t, rows, rows) for t in batched),
+               *(local(t, whole, summed) for t in rest))
 
     def back(o):
-        shape = (lead.shape[0], *o.shape[1:])
-        stride = torch.empty(shape, device="meta").stride()
-        return DTensor.from_local(o.contiguous(), mesh, rows, run_check=False,
-                                  shape=shape, stride=stride)
+        return wrap_local(o, mesh, rows, (lead.shape[0], *o.shape[1:]))
     return tuple(back(o) for o in out) if isinstance(out, tuple) \
         else back(out)
 

@@ -40,21 +40,25 @@ from repro_torch.kernels.delete import delete_bulk, delete_bulk_adaptive
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 from repro_torch.kernels.fingerprint import (fingerprint_hash,
                                              fingerprint_hash_family)
-from repro_torch.kernels.insert import (insert_bulk, insert_bulk_adaptive,
+from repro_torch.kernels.insert import (DEFAULT_EVICT_ROUNDS, insert_bulk,
+                                        insert_bulk_adaptive,
                                         insert_bulk_adaptive_tm,
-                                        insert_bulk_tm)
+                                        insert_bulk_tm, insert_once)
 from repro_torch.kernels.probe import (probe, probe_adaptive,
                                        probe_adaptive_tm, probe_multi,
                                        probe_tm)
 from repro_torch.kernels.ref import blockwise_attention
-from repro_torch.kernels.selector import report_adapt
-from repro_torch.kernels.stash import stash_delete_ref, stash_occupancy
-from repro_torch.kernels.telemetry import (empty_telemetry, from_counts,
-                                           from_insert_plane)
+from repro_torch.kernels.selector import (make_key_planes, make_sel_plane,
+                                          report_adapt)
+from repro_torch.kernels.stash import (DEFAULT_STASH_SLOTS, make_stash,
+                                       stash_delete_ref, stash_occupancy)
+from repro_torch.kernels.telemetry import (FilterTelemetry, empty_telemetry,
+                                           from_counts, from_insert_plane)
 
-# Parity constants: the reference's VMEM footprint model and candidates.
+# Parity constants: the reference's VMEM footprint model and candidates
+# (``RANK_BYTES_PER_ELEM``, an int32 rank, keeps the reference's name).
 PARITY_VMEM_TABLE_BUDGET = 12 * 2**20
-PARITY_RANK_BYTES_PER_ELEM = 4
+RANK_BYTES_PER_ELEM = 4
 PARITY_BLOCK_CANDIDATES = (128, 256, 512, 1024, 2048, 4096, 8192)
 
 
@@ -62,7 +66,7 @@ def kernel_vmem_bytes(op: str, *, table_bytes: int, block: int,
                       evict_rounds: int = 0, stash_slots: int = 0) -> int:
     """The reference's footprint model of one kernel program (parity
     only: ``autotune_block`` budgets with it)."""
-    rank_bytes = PARITY_RANK_BYTES_PER_ELEM * block * block
+    rank_bytes = RANK_BYTES_PER_ELEM * block * block
     stash_bytes = 8 * stash_slots + block * stash_slots if stash_slots else 0
     if op == "probe":
         return table_bytes + 16 * block + stash_bytes
@@ -593,3 +597,17 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
                                logit_softcap=logit_softcap, scale=scale,
                                qpos_start=qpos_start, valid_len=valid_len,
                                key_positions=key_positions)
+
+
+# The reference's ``__all__`` but its TPU budget ``VMEM_TABLE_BUDGET``.
+__all__ = ["hash_keys", "filter_lookup", "filter_lookup_multi",
+           "filter_insert", "filter_delete", "attention", "fingerprint_hash",
+           "fingerprint_hash_family", "probe", "probe_multi", "insert_once",
+           "insert_bulk", "delete_bulk", "flash_attention",
+           "kernel_vmem_bytes", "autotune_block", "DEFAULT_EVICT_ROUNDS",
+           "DEFAULT_STASH_SLOTS", "make_stash", "stash_occupancy",
+           "adaptive_lookup", "adaptive_insert", "adaptive_delete",
+           "adaptive_report", "make_sel_plane", "make_key_planes",
+           "FilterTelemetry", "empty_telemetry", "probe_dispatch_tm",
+           "filter_insert_tm", "filter_delete_tm", "adaptive_lookup_tm",
+           "adaptive_insert_tm", "adaptive_delete_tm", "adaptive_report_tm"]

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.distributed.sharding import is_dtensor, split_last
+from repro_torch.distributed.sharding import is_dtensor, split_last, tp_matmul
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense_init, rmsnorm,
@@ -52,14 +52,35 @@ def init_attention(cfg: ModelConfig, *, generator, device) -> dict:
 
 
 def _ring_write(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor):
-    """dst[:, :, idx] = src, in place.  A DTensor ring (sequence-sharded,
-    the dry-run's) takes the write out of place and copies it back:
-    DTensor has no in-place indexed write that keeps a sharded dim."""
+    """dst[:, :, idx] = src, in place (``idx``: distinct slots).  A DTensor
+    ring (sequence-sharded, the dry-run's) is written one block a rank:
+    DTensor has no indexed write that keeps a sharded dim, so each rank
+    sets the slots it holds (``_write_block``) from src laid out as dst
+    but whole in the written dim."""
     src = src.to(dst.dtype)
-    if is_dtensor(dst):
-        dst.copy_(dst.index_copy(2, idx, src))
-    else:
+    if not is_dtensor(dst):
         dst[:, :, idx] = src
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = dst.device_mesh
+    src = src.redistribute(mesh, [
+        Replicate() if isinstance(q, Shard) and q.dim == 2 else q
+        for q in dst.placements]).to_local()
+    _, offset = compute_local_shape_and_global_offset(dst.shape, mesh,
+                                                      dst.placements)
+    _write_block(dst.to_local(), offset[2], idx, src)
+
+
+def _write_block(block: torch.Tensor, start: int, idx: torch.Tensor,
+                 src: torch.Tensor):
+    """The slots ``start ..`` of a ring that ``block`` holds, written in
+    place: block[:, :, s] = src[:, :, j] where idx[j] == start + s."""
+    slots = start + torch.arange(block.shape[2], device=idx.device)
+    hit = idx[:, None] == slots[None, :]                 # [w, block slots]
+    new = src.index_select(2, hit.int().argmax(0))
+    block.copy_(torch.where(hit.any(0)[:, None], new, block))
 
 
 def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
@@ -74,9 +95,9 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
 
     def weight(name, dims):
         return use_site_tp(p[name].to(x.dtype), dims, parallel)
-    q = split_last(x @ weight("wq", (-1,)), hq, hd)
-    k = split_last(x @ weight("wk", (-1,)), hkv, hd)
-    v = split_last(x @ weight("wv", (-1,)), hkv, hd)
+    q = split_last(tp_matmul(x, weight("wq", (-1,))), hq, hd)
+    k = split_last(tp_matmul(x, weight("wk", (-1,))), hkv, hd)
+    v = split_last(tp_matmul(x, weight("wv", (-1,))), hkv, hd)
     if cfg.use_qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
         k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
@@ -119,7 +140,7 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
                             logit_softcap=cfg.attn_logit_softcap,
                             scale=cfg.attn_scale)
     out = out.transpose(1, 2).reshape(b, sq, hq * hd)
-    return out @ weight("wo", (-2,)), cache
+    return tp_matmul(out, weight("wo", (-2,))), cache
 
 
 # =============================================================== MLA ======
@@ -157,10 +178,11 @@ def apply_mla(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
 
     def weight(name, dims):
         return use_site_tp(p[name].to(dt), dims, parallel)
-    q = split_last(x @ weight("wq", (-1,)), hq, nope + m.qk_rope_dim)
+    q = split_last(tp_matmul(x, weight("wq", (-1,))), hq,
+                   nope + m.qk_rope_dim)
     q_nope = q[..., :nope].transpose(1, 2)                  # [B, H, S, n]
     q_rope = apply_rope(q[..., nope:].transpose(1, 2), *rot)
-    latent = x @ weight("w_dkv", ())                        # [B, S, l + r]
+    latent = tp_matmul(x, weight("w_dkv", ()))              # [B, S, l + r]
     c_kv = rmsnorm(latent[..., :lora], p["kv_norm"], cfg.rms_eps)
     k_rope = apply_rope(latent[..., None, lora:].transpose(1, 2), *rot)
     scale = (nope + m.qk_rope_dim) ** -0.5
@@ -188,16 +210,19 @@ def apply_mla(p, cfg: ModelConfig, x: torch.Tensor, *, rot,
     else:
         ct = torch.promote_types(c_kv_all.dtype, dt)
         c_all = c_kv_all.to(ct)
-        k_nope = (c_all @ weight("w_uk", (-1,)).to(ct)).reshape(
-            b, skv, hq, nope).transpose(1, 2)
-        vv = (c_all @ weight("w_uv", (-1,)).to(ct)).reshape(
-            b, skv, hq, m.v_head_dim).transpose(1, 2)
+        # column-parallel w_uk / w_uv over the latent made whole in its
+        # sequence (a sequence-sharded cache's is gathered), one block a
+        # rank (``tp_matmul``)
+        k_nope = tp_matmul(c_all, weight("w_uk", (-1,)).to(ct)) \
+            .reshape(b, skv, hq, nope).transpose(1, 2)
+        vv = tp_matmul(c_all, weight("w_uv", (-1,)).to(ct)) \
+            .reshape(b, skv, hq, m.v_head_dim).transpose(1, 2)
         k_rope_b = k_rope_all.expand(b, hq, skv, m.qk_rope_dim).to(dt)
         out = ops.attention(torch.cat([q_nope, q_rope], dim=-1),
                             torch.cat([k_nope, k_rope_b.to(ct)], dim=-1),
                             vv, causal=True, scale=scale, **at)
     out = out.transpose(1, 2).reshape(b, sq, hq * m.v_head_dim)
-    return out @ weight("wo", (-2,)), cache
+    return tp_matmul(out, weight("wo", (-2,))), cache
 
 
 # ========================================================= cross-attn ====

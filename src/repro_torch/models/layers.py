@@ -19,7 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import is_dtensor, to_placements
+from repro_torch.distributed.sharding import (is_dtensor, row_parallel_head,
+                                              to_placements, tp_matmul)
 from repro_torch.models.config import ModelConfig
 
 
@@ -150,16 +151,22 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor,
               parallel=None) -> torch.Tensor:
-    h = x @ use_site_tp(p["w_in"].to(x.dtype), (-1,), parallel)
+    """The dense MLP.  On DTensors its products run one block a rank
+    (``tp_matmul``): the input products column-parallel (x whole in the
+    sequence and the features, the hidden activations split by their
+    features alone), the output product row-parallel (a partial sum over
+    the split features)."""
+    h = tp_matmul(x, use_site_tp(p["w_in"].to(x.dtype), (-1,), parallel))
     if cfg.activation in ("silu_glu", "gelu_glu"):
-        g = x @ use_site_tp(p["w_gate"].to(x.dtype), (-1,), parallel)
+        g = tp_matmul(x, use_site_tp(p["w_gate"].to(x.dtype), (-1,),
+                                     parallel))
         h = (silu(g) if cfg.activation == "silu_glu"
              else F.gelu(g, approximate="tanh")) * h
     elif cfg.activation == "squared_relu":
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ use_site_tp(p["w_out"].to(x.dtype), (-2,), parallel)
+    return tp_matmul(h, use_site_tp(p["w_out"].to(x.dtype), (-2,), parallel))
 
 
 # ------------------------------------------------------------- embedding ---
@@ -192,10 +199,12 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig):
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
-    """float32 logits; the final soft-cap ``c * tanh(logits / c)``."""
+    """float32 logits; the final soft-cap ``c * tanh(logits / c)``.  On
+    DTensors the head is whole and each rank takes its own rows
+    (``row_parallel_head``), so the logits are whole in the vocabulary."""
     w = table_or_head.to(x.dtype)
-    logits = (x @ w.T if table_or_head.shape[0] == cfg.vocab_size
-              else x @ w).float()
+    logits = row_parallel_head(x, w.T if table_or_head.shape[0]
+                               == cfg.vocab_size else w).float()
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)

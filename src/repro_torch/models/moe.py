@@ -37,7 +37,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.distributed.sharding import (is_dtensor, to_placements,
-                                              unsplit_rows)
+                                              tp_matmul, unsplit_rows,
+                                              wrap_local)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp, silu,
                                        use_site_tp)
@@ -147,7 +148,7 @@ def _expert_blocks(cfg: ModelConfig, xe, ws: dict):
     weights' experts shards xe's experts too, xe keeps its group sharding
     elsewhere, and each rank runs its groups through its experts (the
     products are independent over both)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = xe.device_mesh
     by_expert = [any(isinstance(w.placements[i], Shard)
                      for w in ws.values()) for i in range(mesh.ndim)]
@@ -155,13 +156,15 @@ def _expert_blocks(cfg: ModelConfig, xe, ws: dict):
                                       and q.dim == 0 else Replicate())
                   for e, q in zip(by_expert, xe.placements)]
     w_place = [Shard(0) if e else Replicate() for e in by_expert]
+    # a rank's weight gradient sums over its own groups: partial where
+    # the groups are split
+    w_grad = [Partial() if isinstance(q, Shard) and q.dim == 0 else w
+              for q, w in zip(placements, w_place)]
     out = _expert_math(
         cfg, xe.redistribute(mesh, placements).to_local(),
-        {k: w.redistribute(mesh, w_place).to_local() for k, w in ws.items()})
-    shape = tuple(xe.shape)
-    stride = torch.empty(shape, device="meta").stride()
-    return DTensor.from_local(out.contiguous(), mesh, placements,
-                              run_check=False, shape=shape, stride=stride)
+        {k: w.redistribute(mesh, w_place).to_local(grad_placements=w_grad)
+         for k, w in ws.items()})
+    return wrap_local(out, mesh, placements, tuple(xe.shape))
 
 
 def _combine(comb, ye):
@@ -171,7 +174,7 @@ def _combine(comb, ye):
     are split, the blocks keep them."""
     if not (is_dtensor(comb) and is_dtensor(ye)):
         return torch.einsum("gtec,gecd->gtd", comb, ye)
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = ye.device_mesh
 
     def split(q, dim):
@@ -190,9 +193,8 @@ def _combine(comb, ye):
     out = torch.einsum("gtec,gecd->gtd",
                        comb.redistribute(mesh, c_pl).to_local(),
                        ye.redistribute(mesh, y_pl).to_local())
-    shape = (comb.shape[0], comb.shape[1], ye.shape[3])
-    return DTensor.from_local(out, mesh, o_pl, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+    return wrap_local(out, mesh, o_pl,
+                      (comb.shape[0], comb.shape[1], ye.shape[3]))
 
 
 def _constrain(t, spec, parallel):
@@ -210,6 +212,15 @@ def _constrain(t, spec, parallel):
         return t
     return t.redistribute(t.device_mesh, to_placements(tuple(spec),
                                                        t.device_mesh))
+
+
+def _pin(t):
+    """A DTensor redistributed to its own layout (a plain tensor as it
+    is): nothing moves forward, and the backward brings the gradient to
+    this layout."""
+    if not is_dtensor(t):
+        return t
+    return t.redistribute(t.device_mesh, t.placements)
 
 
 def _whole(t):
@@ -232,9 +243,13 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor, *, exact: bool = False,
         # one group over every token (decode): its ranks and capacity
         # count over all of them, so the tokens are gathered first
         x = _whole(x)
+    # each use pinned: its gradient reaches the sum of the three in the
+    # layout the reshape gave (DTensor may shard it otherwise, by the
+    # tokens of a group, which it cannot fold back into the batch)
     xt = x.reshape(n_groups, t, d)
     with record_function("moe.dispatch"):
-        r = route((xt @ p["router"].to(dt)).float(), cfg, exact=exact)
+        r = route(tp_matmul(_pin(xt), p["router"].to(dt)).float(), cfg,
+                  exact=exact)
         # a dropped pair points at class `capacity`, whose column is cut
         slot = torch.where(r.keep, r.rank, r.capacity)
         pos_oh = F.one_hot(slot, r.capacity + 1)[..., :r.capacity].to(dt)
@@ -247,7 +262,7 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor, *, exact: bool = False,
         ma = parallel.model_axis if parallel else None
         disp = _constrain(disp, (da, None, ma, None), parallel)
         comb = _constrain(comb, (da, None, ma, None), parallel)
-        xe = torch.einsum("gtec,gtd->gecd", disp, xt)
+        xe = torch.einsum("gtec,gtd->gecd", disp, _pin(xt))
         xe = _constrain(xe, (da, ma, None, None), parallel)
     with record_function("moe.experts"):
         ye = _expert_ffn(p["experts"], cfg, xe, parallel)
@@ -257,7 +272,7 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor, *, exact: bool = False,
     with record_function("moe.combine"):
         y = _combine(comb, ye)
     if m.n_shared_experts:
-        y = y + apply_mlp(p["shared"], cfg, xt, parallel)
+        y = y + apply_mlp(p["shared"], cfg, _pin(xt), parallel)
     # the Switch load-balance loss
     me = r.probs.mean(dim=(0, 1))
     ce = F.one_hot(r.expert[..., 0], m.n_experts).float().mean(dim=(0, 1))

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import tp_matmul
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, use_site_tp, zeros_init
 
@@ -101,15 +102,18 @@ def apply_rglru(p, cfg: ModelConfig, x: torch.Tensor, *,
 
     def weight(name, dims, dt=x.dtype):
         return use_site_tp(p[name].to(dt), dims, parallel)
-    gate = F.gelu(x @ weight("w_in_gate", (-1,)), approximate="tanh")
-    u = x @ weight("w_in_rnn", (-1,))
+    gate = F.gelu(tp_matmul(x, weight("w_in_gate", (-1,))),
+                  approximate="tanh")
+    u = tp_matmul(x, weight("w_in_rnn", (-1,)))
     u, new_conv = _conv(u, p["conv_w"], p["conv_b"],
                         cache.conv if cache is not None else None)
-    # column-parallel w_a / w_x: the only collective is the output's
-    r = torch.sigmoid((u @ weight("w_a", (-1,), u.dtype)).float()
-                      + p["b_a"].float())
-    i = torch.sigmoid((u @ weight("w_x", (-1,), u.dtype)).float()
-                      + p["b_x"].float())
+    # column-parallel w_a / w_x: u is gathered whole in its features,
+    # and each rank multiplies its block (``tp_matmul``); at decode their
+    # rows are split, and the partial sums are reduced before the bias
+    r = torch.sigmoid(tp_matmul(u, weight("w_a", (-1,), u.dtype),
+                                reduced=True).float() + p["b_a"].float())
+    i = torch.sigmoid(tp_matmul(u, weight("w_x", (-1,), u.dtype),
+                                reduced=True).float() + p["b_x"].float())
     log_a = _C * r * F.logsigmoid(p["lam"].float())           # [B, S, D]
     a = torch.exp(log_a)
     gated = i * u.float()
@@ -124,7 +128,7 @@ def apply_rglru(p, cfg: ModelConfig, x: torch.Tensor, *,
     if cache is not None:
         cache.conv.copy_(new_conv)
         cache.h.copy_(h[:, -1])
-    y = (h.to(x.dtype) * gate) @ weight("w_out", (-2,))
+    y = tp_matmul(h.to(x.dtype) * gate, weight("w_out", (-2,)))
     return y, cache
 
 

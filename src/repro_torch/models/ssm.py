@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import per_batch_shard
+from repro_torch.distributed.sharding import per_batch_shard, tp_matmul
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, rmsnorm, silu, use_site_tp
 from repro_torch.models.rglru import _conv
@@ -145,7 +145,8 @@ def apply_ssm(p, cfg: ModelConfig, x: torch.Tensor, *,
     written in place and returned."""
     s_cfg, d_in, n_heads, _conv_dim = _dims(cfg)
     bsz, seq, _ = x.shape
-    zxbcdt = x @ use_site_tp(p["in_proj"].to(x.dtype), (-1,), parallel)
+    zxbcdt = tp_matmul(x, use_site_tp(p["in_proj"].to(x.dtype), (-1,),
+                                      parallel))
     z, xbc, dt = _split_proj(cfg, zxbcdt)
     dt = F.softplus(dt.float() + p["dt_bias"].float())       # [B, S, H]
     A = -torch.exp(p["A_log"].float())                        # [H]
@@ -191,7 +192,8 @@ def apply_ssm(p, cfg: ModelConfig, x: torch.Tensor, *,
     y = (y.reshape(bsz, seq, d_in)
          + d_skip * xbc_c[..., :d_in].float()).to(x.dtype)
     y = rmsnorm(y * silu(z), p["norm"], cfg.rms_eps)
-    return y @ use_site_tp(p["out_proj"].to(x.dtype), (-2,), parallel), cache
+    return tp_matmul(y, use_site_tp(p["out_proj"].to(x.dtype), (-2,),
+                                   parallel)), cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, *,

@@ -301,3 +301,172 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          cwd=tmp_path)
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+# ------------------------------------------------ the reference's surface --
+
+REF = ROOT / "src" / "repro"
+
+# Names of the reference that the port leaves out by design (docs/PORT.md,
+# "Left out by design"), by the reference module that defines them.
+LEFT_OUT = {
+    # the oracles: the tests import them from the reference
+    "core": {"PyCuckooFilter"},
+    "streaming": {"PyStashFilter"},
+    # the XLA grid emulation arms; the kernels' plain versions take their
+    # place
+    "kernels.probe": {"probe_emulated", "probe_emulated_tm",
+                      "probe_adaptive_emulated",
+                      "probe_adaptive_emulated_tm"},
+    # the off-TPU attention stand-ins
+    "kernels.ref": {"attention_ref", "local_attention"},
+    # the TPU's VMEM budget (the parity block rule keeps its value as
+    # PARITY_VMEM_TABLE_BUDGET)
+    "kernels.ops": {"VMEM_TABLE_BUDGET"},
+    # the HLO text parser and the TPU interconnect rates
+    "roofline.analysis": {"parse_collectives", "ICI_BW", "DCN_BW"},
+    # the alias of jax.ShapeDtypeStruct (``meta`` tensors take its place)
+    "launch.specs": {"SDS"},
+}
+
+
+def _ref_public_names(path: Path) -> set:
+    """Public names a reference module defines at its top level or lists
+    in ``__all__``, read with ``ast`` (nothing of it is imported); a
+    package ``__init__``'s imports are its re-exports."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for target in targets:
+                for n in ast.walk(target):
+                    if not isinstance(n, ast.Name):
+                        continue
+                    if n.id == "__all__":
+                        names.update(ast.literal_eval(node.value))
+                    else:
+                        names.add(n.id)
+        elif path.name == "__init__.py" and isinstance(
+                node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def _ported_modules() -> list:
+    """Dotted names (below the package) of the reference's modules that
+    have a counterpart file in the port."""
+    out = []
+    for path in sorted(REF.rglob("*.py")):
+        rel = path.relative_to(REF)
+        if (PORT / rel).exists():
+            out.append(".".join(rel.with_suffix("").parts)
+                       .removesuffix("__init__").rstrip("."))
+    return out
+
+
+def _ref_path(mod: str) -> Path:
+    base = REF.joinpath(*mod.split(".")) if mod else REF
+    return base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+
+
+@pytest.mark.parametrize("mod", _ported_modules(), ids=lambda m: m or "repro")
+def test_port_has_the_reference_modules_names(mod):
+    """Every public name of a ported reference module exists on its
+    counterpart, but the exclusions of ``LEFT_OUT``, each of which the
+    reference defines and the port does not."""
+    import importlib
+    names = _ref_public_names(_ref_path(mod))
+    port = importlib.import_module(f"repro_torch.{mod}".rstrip("."))
+    left = LEFT_OUT.get(mod, set())
+    assert left <= names, left - names
+    assert not [n for n in left if hasattr(port, n)]
+    missing = sorted(n for n in names - left if not hasattr(port, n))
+    assert not missing, missing
+
+
+def test_package_names_and_ops_all():
+    """The package-level names of the reference's two ``__init__``s and
+    ``kernels.ops.__all__`` (but its TPU budget) import from the port;
+    ``kernels.probe`` is the function, as in the reference, and its module
+    still imports by its dotted name."""
+    import repro_torch.kernels.ops as ops_mod
+    from repro_torch.core import OCF as ocf_cls
+    from repro_torch.core import FilterOps as ops_cls
+    from repro_torch.core import OcfConfig as cfg_cls
+    from repro_torch.core import make_state as make_state_fn
+    from repro_torch.kernels import (flash_attention, fingerprint_hash,
+                                     insert_once, make_stash, ops, probe,
+                                     ref, stash_occupancy)
+    from repro_torch.kernels.probe import probe_multi
+    assert (ocf_cls, cfg_cls, ops_cls, make_state_fn) == (
+        OCF, OcfConfig, FilterOps, make_state)
+    assert ops is ops_mod and ref.__name__ == "repro_torch.kernels.ref"
+    for fn in (probe, flash_attention, fingerprint_hash, insert_once,
+               make_stash, stash_occupancy, probe_multi):
+        assert callable(fn) and not isinstance(fn, type(ops)), fn
+    want = set(ast.literal_eval(next(
+        node.value for node in ast.parse(
+            (REF / "kernels" / "ops.py").read_text()).body
+        if isinstance(node, ast.Assign)
+        and getattr(node.targets[0], "id", "") == "__all__")))
+    assert set(ops.__all__) == want - {"VMEM_TABLE_BUDGET"}
+    assert all(hasattr(ops, n) for n in ops.__all__)
+
+
+def _quickstart(core, metrics, n_keys):
+    """``examples/quickstart.py``'s lines on ``core``'s OCF -> every
+    number it prints, every answer, and the filter."""
+    rng = np.random.RandomState(0)
+    keys = rng.randint(0, 2 ** 63, size=n_keys,
+                       dtype=np.int64).astype(np.uint64)
+    ocf = core.OCF(core.OcfConfig(capacity=4096, mode="EOF", **(
+        {"backend": "pallas"} if core.__name__ == "repro.core"
+        else {"device": "cpu"})))
+    seen = [(ocf.capacity, ocf.occupancy)]
+    for i in range(0, keys.size, 4096):
+        seen.append(np.asarray(ocf.insert(keys[i:i + 4096])))
+    seen.append((ocf.capacity, ocf.occupancy, ocf.stats.resizes,
+                 ocf.stats.grows))
+    probes = rng.randint(0, 2 ** 63, size=n_keys,
+                         dtype=np.int64).astype(np.uint64)
+    seen.append((metrics.measure_false_negatives(ocf, keys),
+                 metrics.measure_false_positives(ocf, probes)))
+    foreign = rng.randint(0, 2 ** 63, size=1000,
+                          dtype=np.int64).astype(np.uint64)
+    seen.append(np.asarray(ocf.delete(foreign)))
+    seen.append(ocf.stats.blind_deletes_blocked)
+    seen.append(np.asarray(ocf.lookup(keys)))
+    for i in range(0, n_keys * 9 // 10, 2048):
+        seen.append(np.asarray(ocf.delete(keys[i:i + 2048])))
+    seen.append((ocf.capacity, ocf.occupancy, ocf.stats.shrinks,
+                 list(ocf.capacity_history)))
+    return seen, ocf
+
+
+def test_quickstart_through_the_package_names_matches_reference():
+    """``from repro_torch.core import OCF, OcfConfig`` runs the
+    quickstart's lines on the CPU and answers as the reference's
+    ``repro.core.OCF(backend="pallas")`` does, bit for bit: every answer,
+    every printed number and the filter it leaves."""
+    import repro.core as ref_core
+    import repro.core.metrics as ref_metrics
+
+    import repro_torch.core as port_core
+    import repro_torch.core.metrics as port_metrics
+    from torch_port_util import (assert_same_state, port_snapshot,
+                                 ref_snapshot)
+    want, ref_ocf = _quickstart(ref_core, ref_metrics, 12000)
+    got, port_ocf = _quickstart(port_core, port_metrics, 12000)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(g, w, err_msg=str(i))
+        else:
+            assert g == w, (i, g, w)
+    assert want[-1][2] >= 1 and len(want[-1][3]) >= 3  # grew and shrank
+    assert_same_state(ref_snapshot(ref_ocf), port_snapshot(port_ocf))

@@ -385,7 +385,129 @@ def put(tag, state, **arrays):
 # ``tests/test_dryrun_small.py`` step on 8 host devices, for the same smoke
 # config, batch (8 x 32) and decode cache (64).
 
-DRYRUN_PORT_SCRIPT = """
+# Records, in a dry-run process, every DTensor transition that torch 2.11's
+# DTensor refuses and later versions carry out: a redistribution from
+# ``Shard`` to ``Partial`` on a mesh dim ("redistribute from S(0) to P(sum)
+# not supported yet"), and a strict view (``view``, ``_unsafe_view``) that
+# flattens input dims of which one but the first is sharded ("Attempted to
+# flatten multiple dimensions, with dimension 1 being sharded"), or whose
+# first is sharded unevenly, or that splits a sharded dim whose first part
+# the shards do not divide ("Attempted to split the sharded dimension"),
+# and a pointwise operation that 2.11 would resolve by turning a shard into
+# a partial sum (``_Meets``, over the steps run through ``watched``).  The
+# port lays such sites out explicitly, so a run on any version records
+# none.
+REFUSED_RECORDER = """
+import torch
+from torch.distributed.tensor import Partial, Shard
+from torch.distributed.tensor import _api, _dispatch, _redistribute
+from torch.distributed.tensor._ops import _view_ops
+from torch.utils._python_dispatch import TorchDispatchMode
+try:
+    from torch.distributed.tensor.placement_types import _StridedShard
+except ImportError:
+    _StridedShard = Shard
+REFUSED = []
+
+
+def _sharded(p):
+    return isinstance(p, (Shard, _StridedShard))
+
+
+def _recording_redistribute(fn):
+    def redistribute_local_tensor(local, current, target, *a, **kw):
+        if any(_sharded(src) and isinstance(dst, Partial)
+               for src, dst in zip(current.placements, target.placements)):
+            REFUSED.append(f"redistribute {tuple(current.placements)} -> "
+                           f"{tuple(target.placements)} of "
+                           f"{tuple(current.shape)}")
+        return fn(local, current, target, *a, **kw)
+    return redistribute_local_tensor
+
+
+for _mod in (_api, _dispatch, _redistribute):
+    _mod.redistribute_local_tensor = _recording_redistribute(
+        _mod.redistribute_local_tensor)
+
+
+def _flattens(spec):
+    if isinstance(spec, _view_ops.Flatten):
+        yield spec
+    for child in spec.inputs():
+        yield from _flattens(child)
+
+
+def _splits(spec):
+    # (input dim, first output size) of each split that starts a dim
+    if isinstance(spec, _view_ops.Split) and spec.split_id == 0:
+        src = spec.input_dim
+        if isinstance(src, _view_ops.Flatten):
+            src = src.input_dims[0]
+        if isinstance(src, _view_ops.InputDim):
+            yield src.input_dim, spec.group_shape[0]
+    for child in spec.inputs():
+        yield from _splits(child)
+
+
+_propagate = _view_ops.propagate_shape_and_sharding
+
+
+def propagate_shape_and_sharding(placements, shape, rule, mesh_sizes,
+                                 strict_view=False):
+    if strict_view:
+        sharded = {p.dim for p in placements if _sharded(p)}
+        uneven = {p.dim for p, n in zip(placements, mesh_sizes)
+                  if _sharded(p) and shape[p.dim] % n}
+        for spec in rule:
+            for f in _flattens(spec):
+                dims = [d.input_dim for d in f.input_dims
+                        if isinstance(d, _view_ops.InputDim)]
+                if sharded & set(dims[1:]) or uneven & set(dims[:1]):
+                    REFUSED.append(f"flatten dims {dims} of {tuple(shape)} "
+                                   f"under {tuple(placements)}")
+            for dim, first in _splits(spec):
+                ways = 1
+                for p, n in zip(placements, mesh_sizes):
+                    ways *= n if _sharded(p) and p.dim == dim else 1
+                if first % ways:
+                    REFUSED.append(f"split dim {dim} of {tuple(shape)} "
+                                   f"into {first} x .. under "
+                                   f"{tuple(placements)}")
+    return _propagate(placements, shape, rule, mesh_sizes, strict_view)
+
+
+_view_ops.propagate_shape_and_sharding = propagate_shape_and_sharding
+
+
+class _Meets(TorchDispatchMode):
+    # a pointwise operation whose most sharded DTensor operand (the first
+    # on a tie: the one 2.11's strategy follows) holds a partial sum on a
+    # mesh dim where another operand is sharded: 2.11 asks for that shard
+    # to become a partial sum
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        dts = [a for a in (*args, *kwargs.values())
+               if type(a).__name__ == "DTensor"]
+        if torch.Tag.pointwise in func.tags and len(dts) > 1:
+            lead = max(dts, key=lambda d: sum(map(_sharded, d.placements)))
+            for i, p in enumerate(lead.placements):
+                if p.is_partial() and any(_sharded(d.placements[i])
+                                          for d in dts if d is not lead):
+                    REFUSED.append(f"{func} follows a partial sum onto a "
+                                   f"shard: "
+                                   f"{[tuple(d.placements) for d in dts]}")
+                    break
+        return func(*args, **kwargs)
+
+
+def watched(fn, *args, **kwargs):
+    # fn under _Meets, entered inside the step counter so that it sees
+    # the DTensor operations
+    with _Meets():
+        return fn(*args, **kwargs)
+"""
+
+DRYRUN_PORT_SCRIPT = REFUSED_RECORDER + """
 import json, sys, torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.distributed.sharding import ParallelConfig
@@ -425,7 +547,7 @@ tx = AdamW(lr=1e-3)
 step = make_train_step(model, tx, parallel)
 params = dict(model.named_parameters())
 opt = tx.init(params)
-_, train = dryrun.trace(lambda: step(params, opt, batch))
+_, train = dryrun.trace(lambda: watched(step, params, opt, batch))
 
 dec_model = Transformer(cfg, device="meta")
 dryrun.distribute_params(dec_model, mesh, parallel)
@@ -435,11 +557,13 @@ tok = dryrun.distribute_batch(
     {"token": torch.empty(B, 1, **meta)}, mesh, parallel)["token"]
 kw = {"memory": batch["memory"]} if cfg.cross_attn_memory_len else {}
 dec = make_decode_step(dec_model)
-(logits, _), decode = dryrun.trace(lambda: dec(cache, tok, 63, **kw))
+(logits, _), decode = dryrun.trace(lambda: watched(dec, cache, tok, 63,
+                                                   **kw))
 print(json.dumps({
     "train_collectives": train.count, "train_flops": train.flops,
     "train_by_op": train.by_op, "decode_collectives": decode.count,
-    "decode_shape": list(logits.shape), "decode_ok": True}))
+    "decode_shape": list(logits.shape), "decode_ok": True,
+    "refused": REFUSED}))
 """
 
 DRYRUN_REF_FLOPS_SCRIPT = """
@@ -519,3 +643,4 @@ def check_traced(out: dict) -> None:
     assert out["decode_ok"] and out["decode_shape"][:2] == [8, 1]
     assert out["train_collectives"] > 0, "sharded training must communicate"
     assert out["train_flops"] > 0
+    assert not out["refused"], out["refused"]
