@@ -2,6 +2,10 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 5f     # the build and phase 5f alone
+
+``--only 5f`` is the call for several cards: phase 5f then lays its second
+layout's shards over every card the machine has.
 
 Phases, each timed, each fatal on failure:
 
@@ -146,9 +150,20 @@ Phases, each timed, each fatal on failure:
      of shard 1 (``degraded_lookup`` flags exactly its keys and answers
      them True, the others as before), ``recover_shard`` (every answer
      back); routed deletes of half the keys (all acknowledged, the other
-     half still found); then the same writes, lookups and deletes on the
-     scan backend; wall and device-busy time of each step, launch counts
-     read around it;
+     half still found).  That kernel-backend stream runs on two layouts in
+     turn: every shard in one part on ``cuda:0`` (its launch counts are
+     the path's), then one part a shard on ``cuda:(s % cards)``, held bit
+     for bit against the first after every step (tables, stashes, the
+     pump's answers and counts, hits, reports, degraded answers, delete
+     acknowledgements), with each shard's device, peer access between the
+     cards, the bytes each step's exchanges copy between cards and the
+     launches by card.  With two cards or more it first launches ``probe``
+     and ``insert_bulk`` on ``cuda:1`` tensors with ``cuda:0`` current (the
+     profile must put them on card 1, equal to the plain versions) and
+     flash attention on ``cuda:1`` after ``cuda:0``.  Then the same writes,
+     lookups and deletes on the scan backend (one part); wall, and
+     device-busy time per card, of each step, launch counts read around
+     it;
   5c. the LM serving path at full size: gemma3-1b (26 layers, full width,
      bfloat16 activations, float32 weights from SEED): a cache-less
      forward over 8192 tokens (prompt scoring, the flash kernel), the
@@ -243,6 +258,7 @@ device the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -5305,7 +5321,7 @@ def sharded_stream(device: str, backend: str) -> list:
     steps = []
 
     def step(label, state, *arrays):
-        steps.append((label, [x.cpu() for x in (state.tables, state.stashes,
+        steps.append((label, [x.cpu() for x in (*state.stacked(),
                                                 *arrays)]))
 
     for route in ("key", "pair"):
@@ -5395,15 +5411,124 @@ class _Capture:
         return False
 
 
+SHARDED_LAYOUTS = ("one part", "a part a shard")
+
+
+def sync_cards() -> None:
+    """Wait for every card: ``torch.cuda.synchronize()`` waits for the
+    current one only."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def device_busy_by_card(prof) -> dict:
+    """Device time of a CUDA-activity profile by card index, in seconds
+    (kernels, copies and fills; one stream a card here, so no overlap)."""
+    from torch.autograd import DeviceType
+    busy = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            busy[ev.device_index] += ev.time_range.elapsed_us()
+    return {k: v / 1e6 for k, v in sorted(busy.items())}
+
+
+def layout_meshes(layout: str, n_cards: int) -> tuple:
+    """Phase 5f's 2- and 4-shard meshes: every shard in one part on
+    ``cuda:0``, or one part a shard on ``cuda:(s % n_cards)``."""
+    from repro_torch.distributed.elastic import filter_mesh
+    if layout == "one part":
+        return tuple(filter_mesh(n, device="cuda:0") for n in (2, 4))
+    return tuple(filter_mesh(n, devices=[f"cuda:{s % n_cards}"
+                                         for s in range(n)])
+                 for n in (2, 4))
+
+
+def second_card_checks() -> None:
+    """With two cards or more: ``probe`` and ``insert_bulk`` on ``cuda:1``
+    tensors while ``cuda:0`` is current run on card 1 (the profile puts
+    their kernels there) and equal their plain versions bit for bit; flash
+    attention on ``cuda:1`` after ``cuda:0`` (each card opts the kernel in
+    to its shared memory) within phase 2's bfloat16 tolerances."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.insert import (DEFAULT_BLOCK, insert_bulk,
+                                            insert_bulk_plain)
+    from repro_torch.core.hashing import key_to_u32_pair_np
+    from repro_torch.kernels.probe import probe, probe_plain
+    if torch.cuda.device_count() < 2:
+        print("   second card: one card here; the launches on cuda:1 run "
+              "in the call on four cards (--only 5f)", flush=True)
+        return
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    rng = np.random.RandomState(SEED + 32)
+    nb, keys = 1 << 16, random_keys(rng, 1 << 17)
+    hi, lo = (torch.from_numpy(x.view(np.int32).copy()).to(c1)
+              for x in key_to_u32_pair_np(keys))
+    valid = torch.from_numpy(rng.rand(keys.size) < 0.95).to(c1)
+    tk = torch.zeros((nb, 4), dtype=torch.int32, device=c1)
+    sk = torch.zeros((2, 128), dtype=torch.int32, device=c1)
+    tp, sp = tk.clone(), sk.clone()
+    kw = dict(fp_bits=16, n_buckets=nb)
+    cuda.reset_counts()
+    with torch.cuda.device(c0), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        ok_k = insert_bulk(tk, hi, lo, valid=valid, evict_rounds=16,
+                           stash=sk, **kw)[-1]
+        hit_k = probe(tk, hi, lo, stash=sk, **kw)
+        torch.cuda.synchronize(c1)
+    ok_p = insert_bulk_plain(tp, hi, lo, valid, evict_rounds=16, stash=sp,
+                             block=DEFAULT_BLOCK, **kw)
+    hit_p = probe_plain(tp, hi, lo, stash=sp, **kw)
+    cards = {}
+    for ev in prof.events():
+        for key in ("insert_kernel", "probe_kernel"):
+            if key in ev.name:
+                cards.setdefault(key, set()).add(ev.device_index)
+    launched = {k: v for (k, i), v in cuda.CARD_LAUNCHES.items() if i == 1}
+    print(f"   second card: insert_bulk and probe on cuda:1 tensors with "
+          f"cuda:0 current: profile cards {cards}, launches on card 1 "
+          f"{launched}, {int(ok_k.sum())} of {int(valid.sum())} placed",
+          flush=True)
+    check(cards == {"insert_kernel": {1}, "probe_kernel": {1}},
+          f"kernels of cuda:1 tensors ran on cards {cards}")
+    check(torch.equal(tk, tp) and torch.equal(sk, sp)
+          and torch.equal(ok_k, ok_p) and torch.equal(hit_k, hit_p),
+          "insert_bulk / probe on cuda:1 differ from their plain versions")
+    shapes = ((1, 4, 2048, 256), (1, 1, 2048, 256), (1, 1, 2048, 256))
+    arrays = [rng.randn(*s) for s in shapes]
+    for card in (c0, c1):
+        q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16)
+                   for a in arrays)
+        cuda.reset_counts()
+        with torch.cuda.device(c0):
+            got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize(card)
+        err = float((got.float() - want.float()).abs().max())
+        row = float(row_rel_err(got, want).max())
+        print(f"   second card: flash_attention on {card} (cuda:0 current): "
+              f"{cuda.LAUNCHES['flash_attention']} launch, max abs err "
+              f"{err!r}, row err {row!r}", flush=True)
+        check(cuda.LAUNCHES["flash_attention"] == 1 and got.device == card
+              and err <= 2e-2 and row <= 1e-2,
+              f"flash_attention on {card} failed its tolerance")
+
+
 def sharded_node_path(card: str) -> dict:
     """Phase 5f: one sharded node set at node size (``SHARDED``), driven
     through the entry points a store's control plane calls: the pump writes
     SHARDED_KEYS distinct keys in waves, routed lookups of every key and as
     many absent ones, a live split to 4 shards and a merge back through
     ``ElasticController``, a snapshot, the loss of shard 1 (degraded
-    lookups), its recovery, and routed deletes of half the keys; then the
-    same node once more on the scan backend.  Fatal checks in each step;
-    wall and device-busy time per step."""
+    lookups), its recovery, and routed deletes of half the keys, on the
+    layouts of SHARDED_LAYOUTS in turn, the second held bit for bit against
+    the first after every step; then the same node once more on the scan
+    backend.  Fatal checks in each step; wall, device-busy time per card
+    and bytes copied between cards per step."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -5413,13 +5538,18 @@ def sharded_node_path(card: str) -> dict:
     from repro_torch.core import hashing
     from repro_torch.core.metrics import theoretical_fp_rate
     from repro_torch.distributed import elastic
-    from repro_torch.distributed.elastic import ElasticController, filter_mesh
+    from repro_torch.distributed.elastic import ElasticController
     from repro_torch.distributed.fault import (FaultInjector,
                                                degraded_lookup, recover_shard)
     from repro_torch.kernels import cuda
     from repro_torch.obs import MetricsRegistry, RecoveryMetrics
     from repro_torch.serving.scheduler import DeferredWritePump
 
+    second_card_checks()
+    n_cards = torch.cuda.device_count()
+    peers = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+             for i in range(n_cards) for j in range(n_cards) if i != j}
+    print(f"   {n_cards} card(s); peer access {peers}", flush=True)
     cfg = SHARDED
     fp_bits, route, cf = cfg["fp_bits"], cfg["route"], cfg["capacity_factor"]
     rng = np.random.RandomState(SEED + 5)
@@ -5440,17 +5570,23 @@ def sharded_node_path(card: str) -> dict:
 
     def timed(label, fn):
         """Run ``fn`` under a CUDA-activity profile -> its result; record
-        the wall and device-busy seconds."""
-        torch.cuda.synchronize()
+        the wall, the device-busy seconds per card and the bytes the
+        exchanges copied between cards."""
+        sync_cards()
+        dist.reset_exchange_counts()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             out = fn()
-            torch.cuda.synchronize()
+            sync_cards()
         wall = time.perf_counter() - t0
-        busy = device_busy_s(prof)
-        times[label] = (wall, busy)
-        print(f"   [{card}] {label}: {wall!r} s wall, device busy {busy!r} s"
-              f" (idle share {1 - busy / wall!r})", flush=True)
+        busy = device_busy_by_card(prof)
+        moved = dict(dist.EXCHANGE)
+        times[label] = (wall, busy, moved.get("bytes", 0))
+        per = ", ".join(f"card {i} {b!r} s (idle share {1 - b / wall!r})"
+                        for i, b in busy.items())
+        print(f"   [{card}] {label}: {wall!r} s wall; device busy {per}; "
+              f"between cards {moved.get('copies', 0)} copies, "
+              f"{moved.get('bytes', 0)} bytes", flush=True)
         return out
 
     def lookups(mesh, state, h, l, backend="cuda"):
@@ -5462,150 +5598,225 @@ def sharded_node_path(card: str) -> dict:
         return torch.cat(out).cpu().numpy()
 
     def live(state):
-        return int((state.tables != 0).sum()
-                   + (state.stashes[:, 0] != 0).sum())
+        tables, stashes = state.stacked()
+        return int((tables != 0).sum() + (stashes[:, 0] != 0).sum())
 
-    def arm(backend: str, reg):
-        mesh = filter_mesh(cfg["n_shards"])
+    def where(state) -> str:
+        devs = state.devices
+        return (f"shards on {[str(d) for d in devs]}, {len(state.parts)} "
+                f"part(s) over {len(set(devs))} card(s)")
+
+    def arm(backend: str, reg, mesh, tag=""):
         state = dist.make_sharded_state(
             cfg["n_shards"], cfg["n_buckets"], cfg["bucket_size"],
-            stash_slots=cfg["stash_slots"])
+            stash_slots=cfg["stash_slots"], mesh=mesh)
         pump = DeferredWritePump(mesh, "data", state, fp_bits=fp_bits,
                                  backend=backend, route=route,
                                  capacity_factor=cf, metrics=reg)
+        acks = []
 
         def write():
             for s in range(0, SHARDED_KEYS, SHARDED_WAVE):
-                pump.submit(hi_np[s:s + SHARDED_WAVE],
-                            lo_np[s:s + SHARDED_WAVE])
+                acks.append(pump.submit(hi_np[s:s + SHARDED_WAVE],
+                                        lo_np[s:s + SHARDED_WAVE]))
                 pump.run_until_drained()
             return pump.stats
-        stats = timed(f"{backend}: pump writes {SHARDED_KEYS} keys in waves "
-                      f"of {SHARDED_WAVE}", write)
+        stats = timed(f"{tag}{backend}: pump writes {SHARDED_KEYS} keys in "
+                      f"waves of {SHARDED_WAVE}", write)
         stats = dataclasses.replace(stats)
-        print(f"   {backend}: {stats}, pending {pump.pending}, load "
-              f"{float(dist.sharded_occupancy(pump.state))!r}", flush=True)
+        print(f"   {tag}{backend}: {stats}, pending {pump.pending}, load "
+              f"{float(dist.sharded_occupancy(pump.state))!r}; "
+              f"{where(pump.state)}", flush=True)
         check(stats.failed == 0 and pump.pending == 0
               and stats.inserted == SHARDED_KEYS,
               f"{backend}: the pump failed or left keys: {stats}")
-        return mesh, pump
+        ok = np.concatenate([a[0] for a in acks])
+        dfr = np.concatenate([a[1] for a in acks])
+        return pump, stats, ok, dfr
 
-    # -- the kernel backend: writes, lookups, split, merge, loss, deletes --
-    reg = MetricsRegistry()
-    rec = RecoveryMetrics(metrics=reg)
-    torch.cuda.synchronize()
-    cuda.reset_counts()
-    mesh2, pump = arm("cuda", reg)
-    eps = theoretical_fp_rate(cfg["bucket_size"], fp_bits,
-                              float(dist.sharded_occupancy(pump.state)))
+    def kernel_stream(layout: str, want):
+        """The kernel backend's writes, lookups, split, merge, loss and
+        deletes on ``layout`` -> (its steps, the one-part migration's
+        figures and captured scan inputs).  With ``want`` (the first
+        layout's steps), each step is held against it bit for bit."""
+        tag = "" if want is None else f"{layout}: "
+        mesh2, m4 = layout_meshes(layout, n_cards)
+        steps = []
 
-    def check_lookups(mesh, state, label, n, fn_limit=0):
-        hits = lookups(mesh, state, hi_np[:n], lo_np[:n])
-        miss = lookups(mesh, state, a_hi[:n], a_lo[:n])
-        fn, fp = int((~hits).sum()), int(miss.sum())
-        print(f"   {label}: false negatives {fn}, false positives {fp} "
-              f"(rate {fp / n!r}, 4 x theoretical {4 * eps!r}; the pair "
-              f"owner takes log2(shards) bits of a fingerprint's entropy, "
-              f"so expect about shards x theoretical)", flush=True)
-        check(fn <= fn_limit, f"{label}: {fn} false negatives")
-        check(fp / n <= 4 * eps, f"{label}: fp rate too high")
-        return hits, miss
+        def step(label, state=None, *items):
+            got = [] if state is None else [
+                x.clone() for x in state.stacked("cpu")]   # kept as it is
+            got += [torch.as_tensor(np.asarray(x)) if not isinstance(
+                x, torch.Tensor) else x.cpu() for x in items]
+            if want is None:
+                steps.append((label, got))
+                return
+            w_label, w_items = want[len(steps)]
+            steps.append((label, None))
+            same = w_label == label and len(w_items) == len(got) and all(
+                a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(got, w_items))
+            print(f"   {tag}{label}: {'equal to' if same else 'DIFFERS from'}"
+                  f" one part bit for bit", flush=True)
+            check(same, f"5f {layout}, {label}: differs from one part")
 
-    timed(f"lookups of {2 * SHARDED_KEYS} keys (2 shards)",
-          lambda: check_lookups(mesh2, pump.state, "2 shards", SHARDED_KEYS))
-    ctrl = ElasticController(pump, axis="data", recovery=rec)
-    live0 = live(pump.state)
-    m4 = filter_mesh(4)
-    pump.hold()            # the concurrent stream parks mid-cutover
-    ok, dfr = pump.submit(hi_np[SHARDED_KEYS:], lo_np[SHARDED_KEYS:])
-    check(not ok.any() and bool(dfr.all())
-          and pump.pending == SHARDED_CONCURRENT,
-          "the held pump did not park the concurrent stream")
-    with _Capture(elastic, "scan_insert") as scap:
-        rep = timed("split 2 -> 4 (ElasticController)",
-                    lambda: ctrl.split(m4))
-    print(f"   split: {rep}; backlog after {pump.pending}, {pump.stats}",
-          flush=True)
-    st4 = pump.state
-    check(rep.failed == 0, f"the split failed {rep.failed} lanes")
-    check(pump.pending == 0 and pump.stats.failed == 0
-          and pump.stats.inserted == n_all,
-          f"the parked stream did not drain after the split: {pump.stats}")
-    # Each acknowledged insert adds one live entry, so the split conserved
-    # the live entries when the count grew by exactly the parked stream.
-    live0 += SHARDED_CONCURRENT
-    check(live(st4) == live0, "the split did not conserve live entries")
-    eps = theoretical_fp_rate(cfg["bucket_size"], fp_bits,
-                              2 * float(dist.sharded_occupancy(st4)))
-    nb = cfg["n_buckets"]
-    for s in range(4):
-        t = st4.tables[s].reshape(-1)
-        rows = torch.arange(st4.tables.shape[1], device=t.device
-                            ).repeat_interleave(cfg["bucket_size"])
-        occ = t != 0
-        s_occ = st4.stashes[s, 0] != 0
-        owner = torch.cat([
-            hashing.owner_shard_pair(rows[occ], t[occ], nb, 4),
-            hashing.owner_shard_pair(st4.stashes[s, 1][s_occ],
-                                     st4.stashes[s, 0][s_occ], nb, 4)])
-        check(bool((owner == s).all()),
-              f"shard {s} holds entries it does not own after the split")
-    timed(f"lookups of {2 * n_all} keys (4 shards)",
-          lambda: check_lookups(m4, st4, "4 shards", n_all))
-    with _Capture(elastic, "scan_insert") as cap:
-        rep = timed("merge 4 -> 2 (ElasticController)",
-                    lambda: ctrl.merge(mesh2))
-    print(f"   merge: {rep}", flush=True)
-    check(live0 == live(pump.state) + rep.failed,
-          "the merge did not conserve live entries")
-    healthy = timed(f"lookups of {2 * n_all} keys (merged)",
-                    lambda: check_lookups(mesh2, pump.state, "merged", n_all,
-                                          fn_limit=rep.failed))
-    migration = {"split_s": times["split 2 -> 4 (ElasticController)"][0],
-                 "merge_s": times["merge 4 -> 2 (ElasticController)"][0],
-                 "merge_lanes": cap.lanes, "merge_failed": rep.failed,
-                 "merge_rounds": rep.rounds, "merge_moved": rep.keys_moved}
+        def report(rep):
+            return torch.tensor([rep.keys_moved, rep.rounds, rep.failed])
 
-    # -- loss of shard 1 and its recovery from a snapshot --
-    state = pump.state
-    with tempfile.TemporaryDirectory() as tmp:
-        timed("save_sharded", lambda: save_sharded(tmp, 1, state))
-        inj = FaultInjector(recovery=rec)
-        dead = inj.kill(state, 1)
+        reg = MetricsRegistry()
+        rec = RecoveryMetrics(metrics=reg)
+        pump, stats, ok, dfr = arm("cuda", reg, mesh2, tag)
+        step("pump writes", pump.state, ok, dfr, torch.tensor(
+            list(dataclasses.asdict(stats).values())),
+            torch.tensor(reg.snapshot()["routing_overflow_lanes"]))
+        eps = theoretical_fp_rate(cfg["bucket_size"], fp_bits,
+                                  float(dist.sharded_occupancy(pump.state)))
 
-        def degraded():
-            outs = [degraded_lookup(
-                mesh2, "data", dead, dev(h[s:s + SHARDED_BATCH]),
-                dev(l[s:s + SHARDED_BATCH]), fp_bits=fp_bits, injector=inj,
-                route=route, capacity_factor=cf, recovery=rec)
-                for h, l in ((hi_np, lo_np), (a_hi, a_lo))
-                for s in range(0, h.size, SHARDED_BATCH)]
-            return (np.concatenate([o[0] for o in outs]),
-                    np.concatenate([o[2] for o in outs]))
-        out, deg = timed("degraded lookups (shard 1 lost)", degraded)
-        owner = np.concatenate([hashing.owner_shard_key_pair_np(
-            h, l, nb, fp_bits, 2) for h, l in ((hi_np, lo_np),
-                                                (a_hi, a_lo))])
-        want = np.concatenate(healthy)
-        check(bool((deg == (owner == 1)).all()),
-              "degraded_lookup flagged other keys than shard 1's")
-        check(bool(out[deg].all()), "a lost shard's key answered False")
-        check(bool((out[~deg] == want[~deg]).all()),
-              "a surviving shard's answer changed")
-        back = timed("recover_shard 1", lambda: recover_shard(
-            dead, 1, ckpt_dir=tmp, injector=inj, recovery=rec))
-    after = np.concatenate([lookups(mesh2, back, hi_np, lo_np),
-                            lookups(mesh2, back, a_hi, a_lo)])
-    check(bool((after == want).all()),
-          "recovery did not bring every answer back")
-    print(f"   shard loss: {int(deg.sum())} degraded answers, recovered in "
-          f"{times['recover_shard 1'][0]!r} s; every answer back",
-          flush=True)
+        def check_lookups(mesh, state, label, n, fn_limit=0):
+            hits = lookups(mesh, state, hi_np[:n], lo_np[:n])
+            miss = lookups(mesh, state, a_hi[:n], a_lo[:n])
+            fn, fp = int((~hits).sum()), int(miss.sum())
+            print(f"   {tag}{label}: false negatives {fn}, false positives "
+                  f"{fp} (rate {fp / n!r}, 4 x theoretical {4 * eps!r}; the "
+                  f"pair owner takes log2(shards) bits of a fingerprint's "
+                  f"entropy, so expect about shards x theoretical)",
+                  flush=True)
+            check(fn <= fn_limit, f"{label}: {fn} false negatives")
+            check(fp / n <= 4 * eps, f"{label}: fp rate too high")
+            return hits, miss
 
-    # -- routed deletes of half the keys --
-    half = n_all // 2
+        hits = timed(f"{tag}lookups of {2 * SHARDED_KEYS} keys (2 shards)",
+                     lambda: check_lookups(mesh2, pump.state, "2 shards",
+                                           SHARDED_KEYS))
+        step("lookups (2 shards)", None, *hits)
+        ctrl = ElasticController(pump, axis="data", recovery=rec)
+        live0 = live(pump.state)
+        pump.hold()            # the concurrent stream parks mid-cutover
+        ok, dfr = pump.submit(hi_np[SHARDED_KEYS:], lo_np[SHARDED_KEYS:])
+        check(not ok.any() and bool(dfr.all())
+              and pump.pending == SHARDED_CONCURRENT,
+              "the held pump did not park the concurrent stream")
+        capture = want is None
+        with (_Capture(elastic, "scan_insert") if capture
+              else contextlib.nullcontext()) as scap:
+            rep = timed(f"{tag}split 2 -> 4 (ElasticController)",
+                        lambda: ctrl.split(m4))
+        print(f"   {tag}split: {rep}; backlog after {pump.pending}, "
+              f"{pump.stats}; {where(pump.state)}", flush=True)
+        st4 = pump.state
+        step("split", st4, report(rep), torch.tensor(
+            list(dataclasses.asdict(pump.stats).values())))
+        check(rep.failed == 0, f"the split failed {rep.failed} lanes")
+        check(pump.pending == 0 and pump.stats.failed == 0
+              and pump.stats.inserted == n_all,
+              f"the parked stream did not drain after the split: "
+              f"{pump.stats}")
+        check(st4.devices == m4.devices, "the split's shards are not on "
+                                          "the new mesh's devices")
+        # Each acknowledged insert adds one live entry, so the split
+        # conserved the live entries when the count grew by exactly the
+        # parked stream.
+        live0 += SHARDED_CONCURRENT
+        check(live(st4) == live0, "the split did not conserve live entries")
+        eps = theoretical_fp_rate(cfg["bucket_size"], fp_bits,
+                                  2 * float(dist.sharded_occupancy(st4)))
+        nb = cfg["n_buckets"]
+        for s in range(4):
+            t, st = st4.table(s).reshape(-1), st4.stash(s)
+            rows = torch.arange(st4.table(s).shape[0], device=t.device
+                                ).repeat_interleave(cfg["bucket_size"])
+            occ = t != 0
+            s_occ = st[0] != 0
+            owner = torch.cat([
+                hashing.owner_shard_pair(rows[occ], t[occ], nb, 4),
+                hashing.owner_shard_pair(st[1][s_occ], st[0][s_occ], nb, 4)])
+            check(bool((owner == s).all()),
+                  f"shard {s} holds entries it does not own after the split")
+        hits = timed(f"{tag}lookups of {2 * n_all} keys (4 shards)",
+                     lambda: check_lookups(m4, st4, "4 shards", n_all))
+        step("lookups (4 shards)", None, *hits)
+        with (_Capture(elastic, "scan_insert") if capture
+              else contextlib.nullcontext()) as cap:
+            rep = timed(f"{tag}merge 4 -> 2 (ElasticController)",
+                        lambda: ctrl.merge(mesh2))
+        print(f"   {tag}merge: {rep}; {where(pump.state)}", flush=True)
+        step("merge", pump.state, report(rep))
+        check(pump.state.devices == mesh2.devices,
+              "the merge did not fold the shards back onto the old mesh")
+        check(live0 == live(pump.state) + rep.failed,
+              "the merge did not conserve live entries")
+        healthy = timed(f"{tag}lookups of {2 * n_all} keys (merged)",
+                        lambda: check_lookups(mesh2, pump.state, "merged",
+                                              n_all, fn_limit=rep.failed))
+        step("lookups (merged)", None, *healthy)
+        figures = None
+        if capture:
+            figures = {
+                "migration": {
+                    "split_s": times["split 2 -> 4 (ElasticController)"][0],
+                    "merge_s": times["merge 4 -> 2 (ElasticController)"][0],
+                    "merge_lanes": cap.lanes, "merge_failed": rep.failed,
+                    "merge_rounds": rep.rounds,
+                    "merge_moved": rep.keys_moved},
+                "split_input": scap.best, "merge_input": cap.best}
 
-    def deletes(mesh, state, backend):
+        # -- loss of shard 1 and its recovery from a snapshot --
+        state = pump.state
+        with tempfile.TemporaryDirectory() as tmp:
+            timed(f"{tag}save_sharded", lambda: save_sharded(tmp, 1, state))
+            inj = FaultInjector(recovery=rec)
+            dead = inj.kill(state, 1)
+            step("kill shard 1", dead)
+
+            def degraded():
+                outs = [degraded_lookup(
+                    mesh2, "data", dead, dev(h[s:s + SHARDED_BATCH]),
+                    dev(l[s:s + SHARDED_BATCH]), fp_bits=fp_bits,
+                    injector=inj, route=route, capacity_factor=cf,
+                    recovery=rec)
+                    for h, l in ((hi_np, lo_np), (a_hi, a_lo))
+                    for s in range(0, h.size, SHARDED_BATCH)]
+                return (np.concatenate([o[0] for o in outs]),
+                        np.concatenate([o[2] for o in outs]))
+            out, deg = timed(f"{tag}degraded lookups (shard 1 lost)",
+                             degraded)
+            step("degraded lookups", None, out, deg)
+            owner = np.concatenate([hashing.owner_shard_key_pair_np(
+                h, l, nb, fp_bits, 2) for h, l in ((hi_np, lo_np),
+                                                    (a_hi, a_lo))])
+            want_all = np.concatenate(healthy)
+            check(bool((deg == (owner == 1)).all()),
+                  "degraded_lookup flagged other keys than shard 1's")
+            check(bool(out[deg].all()), "a lost shard's key answered False")
+            check(bool((out[~deg] == want_all[~deg]).all()),
+                  "a surviving shard's answer changed")
+            back = timed(f"{tag}recover_shard 1", lambda: recover_shard(
+                dead, 1, ckpt_dir=tmp, injector=inj, recovery=rec))
+        step("recover_shard 1", back)
+        check(back.devices == mesh2.devices,
+              "the recovered shard left its device")
+        after = np.concatenate([lookups(mesh2, back, hi_np, lo_np),
+                                lookups(mesh2, back, a_hi, a_lo)])
+        check(bool((after == want_all).all()),
+              "recovery did not bring every answer back")
+        print(f"   {tag}shard loss: {int(deg.sum())} degraded answers, "
+              f"recovered in {times[tag + 'recover_shard 1'][0]!r} s; every "
+              f"answer back", flush=True)
+
+        # -- routed deletes of half the keys --
+        back, dok = timed(f"{tag}deletes of {n_all // 2} keys",
+                          lambda: deletes(mesh2, back, "cuda", n_all // 2))
+        step("deletes", back, dok)
+        check(bool(dok.all()), f"{int((~dok).sum())} verified deletes "
+                               f"refused")
+        rest = lookups(mesh2, back, hi_np[n_all // 2:n_all],
+                       lo_np[n_all // 2:n_all])
+        check(bool(rest.all()), f"{int((~rest).sum())} false negatives "
+                                f"after the deletes")
+        del pump, ctrl, st4, state, dead, back
+        return steps, figures
+
+    def deletes(mesh, state, backend, half):
         oks = []
         for s in range(0, half, SHARDED_BATCH):
             e = min(half, s + SHARDED_BATCH)
@@ -5615,28 +5826,43 @@ def sharded_node_path(card: str) -> dict:
                 capacity_factor=cf, donate=True)
             oks.append(ok.cpu().numpy())
         return state, np.concatenate(oks)
-    back, dok = timed(f"deletes of {half} keys",
-                      lambda: deletes(mesh2, back, "cuda"))
-    check(bool(dok.all()), f"{int((~dok).sum())} verified deletes refused")
-    rest = lookups(mesh2, back, hi_np[half:n_all], lo_np[half:n_all])
-    check(bool(rest.all()), f"{int((~rest).sum())} false negatives after "
-                            f"the deletes")
-    torch.cuda.synchronize()
+
+    # -- the kernel backend on the two layouts in turn --
+    sync_cards()
+    cuda.reset_counts()
+    steps, figures = kernel_stream(SHARDED_LAYOUTS[0], None)
+    sync_cards()
     launches = dict(cuda.LAUNCHES)
     plain = dict(cuda.PLAIN_CALLS)
-    print(f"   launches (kernel backend) {launches} plain_calls {plain}",
-          flush=True)
+    print(f"   launches (kernel backend, {SHARDED_LAYOUTS[0]}) {launches} "
+          f"plain_calls {plain}", flush=True)
     missing = [k for k in ("probe", "insert_bulk", "delete_bulk",
                            "scan_insert") if not launches.get(k)]
     check(not missing, f"phase 5f never launched {missing}")
-    del pump, ctrl, st4, state, dead, back
     gc.collect()
     torch.cuda.empty_cache()
+    cuda.reset_counts()
+    kernel_stream(SHARDED_LAYOUTS[1], steps)
+    sync_cards()
+    by_card = collections.defaultdict(dict)
+    for (name, i), n in sorted(cuda.CARD_LAUNCHES.items()):
+        by_card[name][i] = n
+    plain = dict(collections.Counter(plain) + collections.Counter(
+        cuda.PLAIN_CALLS))
+    print(f"   launches (kernel backend, {SHARDED_LAYOUTS[1]}) by card "
+          f"{dict(by_card)}; every step equal to one part bit for bit",
+          flush=True)
+    del steps
+    gc.collect()
+    for i in range(n_cards):
+        with torch.cuda.device(i):
+            torch.cuda.empty_cache()
 
     # -- the same node on the scan backend: writes, lookups, deletes --
     cuda.reset_counts()
+    mesh_s = layout_meshes(SHARDED_LAYOUTS[0], n_cards)[0]
     with _Capture(tfilter, "scan_insert") as icap:
-        mesh_s, pump_s = arm("torch", None)
+        pump_s = arm("torch", None, mesh_s)[0]
     hits = timed("scan backend: lookups of the keys",
                  lambda: lookups(mesh_s, pump_s.state, hi_np[:SHARDED_KEYS],
                                  lo_np[:SHARDED_KEYS], backend="torch"))
@@ -5644,12 +5870,12 @@ def sharded_node_path(card: str) -> dict:
     half = SHARDED_KEYS // 2
     with _Capture(tfilter, "scan_delete") as dcap:
         st, dok = timed(f"scan backend: deletes of {half} keys",
-                        lambda: deletes(mesh_s, pump_s.state, "torch"))
+                        lambda: deletes(mesh_s, pump_s.state, "torch", half))
     check(bool(dok.all()), "scan backend: a verified delete was refused")
     rest = lookups(mesh_s, st, hi_np[half:SHARDED_KEYS],
                    lo_np[half:SHARDED_KEYS], backend="torch")
     check(bool(rest.all()), "scan backend: false negatives after deletes")
-    torch.cuda.synchronize()
+    sync_cards()
     s_launches = dict(cuda.LAUNCHES)
     plain = dict(collections.Counter(plain) + collections.Counter(
         cuda.PLAIN_CALLS))
@@ -5662,8 +5888,7 @@ def sharded_node_path(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": dict(counts), "plain": plain, "times": times,
-            "migration": migration, "split_input": scap.best,
-            "merge_input": cap.best,
+            "by_card": dict(by_card), **figures,
             "insert_input": icap.best, "delete_input": dcap.best}
 
 
@@ -6355,14 +6580,14 @@ def flash_bwd_rows(q, k, v, do, band, win: int) -> dict:
         rows = {
             f"flash_attention_bwd_dkdv ({tag})": (
                 lambda common=common, mask=mask: cuda.launch(
-                    "flash_attention_bwd_dkdv", *common, dk.data_ptr(),
+                    "flash_attention_bwd_dkdv", q.device, *common, dk.data_ptr(),
                     dv.data_ptr(), *shape, *mask),
                 plain_bwd, None,
                 (2 * qbytes + 8 * b * hq * s + 4 * kbytes,
                  8 * hq * d * pairs), ("flash_bwd_dkdv",)),
             f"flash_attention_bwd_dq ({tag})": (
                 lambda common=common, mask=mask: cuda.launch(
-                    "flash_attention_bwd_dq", *common, dq.data_ptr(),
+                    "flash_attention_bwd_dq", q.device, *common, dq.data_ptr(),
                     *shape, *mask),
                 plain_bwd, None,
                 (3 * qbytes + 8 * b * hq * s + 2 * kbytes,
@@ -6483,7 +6708,12 @@ def flash_bwd_times() -> dict:
 
 
 def main() -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["5f"], default=None,
+                    help="run the build and this phase alone")
+    only = ap.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -6491,12 +6721,13 @@ def main() -> int:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import cuda  # fails outside a checkout
 
-    smi = subprocess.run(
+    smis = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    card = smi
+        check=True).stdout.strip().splitlines()
+    for line in smis:
+        print(line, flush=True)
+    card = smis[0]
     t_start = time.perf_counter()
 
     with phase("build"):
@@ -6516,6 +6747,8 @@ def main() -> int:
                         print(f"   ptxas, no spills: {line}", flush=True)
             cuda.kernel_fn(name)
 
+    if only == "5f":
+        return run_sharded_alone(card, t_start)
     # 5j (c)'s dry-run runs on the host beside the card's phases
     dry_dir = root / "build" / "dryrun_torch"
     dry = start_dryrun(dry_dir)
@@ -6523,6 +6756,57 @@ def main() -> int:
         return run_phases(card, cuda, t_start, dry, dry_dir)
     finally:
         stop_dryrun(dry)
+
+
+def warm_sharded() -> None:
+    """``--only 5f``'s warm-up, in place of the earlier phases that warm
+    the cards in a whole run: on every layout of SHARDED_LAYOUTS, 2^12-bucket
+    shards take pump writes, a lookup, a split, a merge and deletes (each
+    card gets its context, the kernels' modules, the allocator's blocks
+    and the profiler's first cycle)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.hashing import key_to_u32_pair_np
+    from repro_torch.distributed.elastic import ElasticController
+    from repro_torch.serving.scheduler import DeferredWritePump
+    rng = np.random.RandomState(SEED + 6)
+    hi, lo = key_to_u32_pair_np(random_keys(rng, 3 << 12))
+    h, l = (torch.from_numpy(x.view(np.int32).copy()).cuda()
+            for x in (hi, lo))
+    kw = dict(fp_bits=16, route="pair", capacity_factor=4.0)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for layout in SHARDED_LAYOUTS:
+            m2, m4 = layout_meshes(layout, torch.cuda.device_count())
+            pump = DeferredWritePump(m2, "data", dist.make_sharded_state(
+                2, 1 << 12, 4, stash_slots=128, mesh=m2), **kw)
+            pump.submit(hi, lo)
+            pump.run_until_drained()
+            ctrl = ElasticController(pump)
+            ctrl.split(m4)
+            dist.distributed_lookup(m4, "data", pump.state, h, l, **kw)
+            ctrl.merge(m2)
+            dist.distributed_delete(m2, "data", pump.state, h, l, **kw)
+        sync_cards()
+
+
+def run_sharded_alone(card: str, t_start: float) -> int:
+    """``--only 5f``: phase 5f after the build and a warm-up, then the last
+    line."""
+    import torch
+    with phase("warm-up of the sharded path on every card"):
+        warm_sharded()
+    with phase("sharded node set at node size"):
+        sharded = sharded_node_path(card)
+    print(f"   launches (one part and the scan backend) "
+          f"{sharded['launches']}", flush=True)
+    check(sum(sharded["plain"].values()) == 0,
+          f"plain versions ran on the sharded path: {sharded['plain']}")
+    print(f"total {time.perf_counter() - t_start:.1f} s on {card}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def run_phases(card: str, cuda, t_start: float, dry: list,

@@ -3,13 +3,16 @@ routed shard to shard (paper §I-B).
 
 The paper's Cassandra-cluster scenario: keys are owned by shards; batched
 inserts, lookups and verified deletes are routed to their owner with one
-capacity-bounded exchange and run by the owner's data plane.  The port's
-``ShardMesh`` holds every shard on one device (``filter_mesh``), so the
-exchange is a transpose of the send buffers there; the writes resolve
-their eviction chains and stash spills on the device.  On the card by
-default, on the CPU with ``--device cpu``:
+capacity-bounded exchange and run by the owner's data plane.  With
+``--cards N`` shard s lies on ``cuda:(s % N)``, one part a shard
+(``filter_mesh(devices=...)``), and the exchange copies each shard's
+slice of the send buffers to its owner's card; without it every shard
+lies in one part on ``--device`` and the exchange stays on that device.
+The writes resolve their eviction chains and stash spills on the device.
+On the card by default, on the CPU with ``--device cpu``:
 
     PYTHONPATH=src python examples/torch_distributed_membership.py
+    PYTHONPATH=src python examples/torch_distributed_membership.py --cards 4
 """
 import argparse
 
@@ -28,10 +31,19 @@ def main():
     ap.add_argument("--shards", type=int, default=8)
     ap.add_argument("--n-buckets", type=int, default=4096)
     ap.add_argument("--keys", type=int, default=32768)
+    ap.add_argument("--cards", type=int, default=0,
+                    help="put shard s on cuda:(s %% N), one part a shard "
+                         "(with --device cpu: every part on the CPU)")
     args = ap.parse_args()
     n_shards, n_buckets, n = args.shards, args.n_buckets, args.keys
 
-    mesh = filter_mesh(n_shards, device=args.device)
+    if args.cards:
+        mesh = filter_mesh(n_shards, devices=[
+            f"cuda:{s % args.cards}" if args.device == "cuda"
+            else args.device for s in range(n_shards)])
+    else:
+        mesh = filter_mesh(n_shards, device=args.device)
+    print(f"shards on {[str(d) for d in mesh.devices]}")
     rng = np.random.RandomState(0)
 
     def halves(k):
@@ -46,8 +58,7 @@ def main():
     # routed insert: every key goes to its owner shard, which runs the
     # conflict-aware scheduled insert on its table on the device
     owner = np.asarray(hashing.owner_shard_np(hi_np, lo_np, n_shards))
-    state = dist.make_sharded_state(n_shards, n_buckets, 4,
-                                    device=args.device)
+    state = dist.make_sharded_state(n_shards, n_buckets, 4, mesh=mesh)
     state, ok, deferred, _ov = dist.distributed_insert(
         mesh, "data", state, hi, lo, fp_bits=16)
     assert bool(ok.all()) and not bool(deferred.any())
@@ -100,7 +111,7 @@ def main():
     shi, slo = hashing.key_to_u32_pair_np(skewed)
     pump = DeferredWritePump(mesh, "data",
                              dist.make_sharded_state(n_shards, n_buckets, 4,
-                                                     device=args.device),
+                                                     mesh=mesh),
                              fp_bits=16, capacity_factor=0.5)
     ok, deferred = pump.submit(shi, slo)
     print(f"\nburst of {skewed.size} under tight capacity: "

@@ -153,22 +153,24 @@ def _u32(t: torch.Tensor) -> np.ndarray:
 
 def save_sharded(ckpt_dir: str, step: int, state) -> str:
     """Checkpoint a ``ShardedFilterState`` (the fault-recovery snapshot):
-    tables (and stashes) as uint32 leaves, ``n_buckets`` in the manifest."""
-    tree = {"tables": _u32(state.tables)}
-    if state.stashes is not None:
-        tree["stashes"] = _u32(state.stashes)
+    tables (and stashes) stacked over every shard as uint32 leaves,
+    whatever the state's parts, ``n_buckets`` in the manifest."""
+    tables, stashes = state.stacked("cpu")
+    tree = {"tables": _u32(tables)}
+    if stashes is not None:
+        tree["stashes"] = _u32(stashes)
     extra = {"sharded_filter": {"n_buckets": state.n_buckets,
-                                "has_stashes": state.stashes is not None}}
+                                "has_stashes": stashes is not None}}
     return save(ckpt_dir, step, tree, extra=extra)
 
 
 def restore_sharded(ckpt_dir: str, step: Optional[int] = None, *,
-                    device="cuda"):
+                    device="cuda", mesh=None, devices=None):
     """Restore a ``ShardedFilterState`` saved by ``save_sharded`` (by either
-    package) onto ``device``; ``step=None`` takes the latest."""
-    from repro_torch.core.distributed import ShardedFilterState
-    from repro_torch.core.hashing import resolve_device
-    dev = resolve_device(device)
+    package), each shard on its device: laid out as ``mesh`` is, or one
+    part a shard on ``devices``, or one part on ``device``; ``step=None``
+    takes the latest."""
+    from repro_torch.core.distributed import place_shards, shard_layout
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -183,12 +185,14 @@ def restore_sharded(ckpt_dir: str, step: Optional[int] = None, *,
 
     def i32(a):
         a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
-        return torch.from_numpy(a.view(np.int32).copy()).to(dev)
+        return torch.from_numpy(a.view(np.int32).copy())
 
-    return ShardedFilterState(
-        tables=i32(tree["tables"]),
-        stashes=i32(tree["stashes"]) if meta["has_stashes"] else None,
-        n_buckets=meta["n_buckets"])
+    tables = i32(tree["tables"])
+    parts = (mesh.parts if mesh is not None else
+             shard_layout(tables.shape[0], device=device, devices=devices))
+    return place_shards(parts, tables,
+                        i32(tree["stashes"]) if meta["has_stashes"] else None,
+                        meta["n_buckets"])
 
 
 def restore_ocf(ckpt_dir: str, step: int, ocf):

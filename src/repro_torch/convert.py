@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.adaptive.state import AdaptiveState
-from repro_torch.core.distributed import ShardedFilterState
+from repro_torch.core.distributed import (ShardedFilterState, place_shards,
+                                          shard_layout)
 from repro_torch.core.filter import FilterState
 from repro_torch.core.hashing import resolve_device
 from repro_torch.core.ocf import OCF, OcfConfig, OcfStats
@@ -82,23 +83,29 @@ def state_to_numpy(state: FilterState, stash: Optional[torch.Tensor] = None
 def sharded_state_from_numpy(tables: np.ndarray,
                              stashes: Optional[np.ndarray] = None,
                              n_buckets: Optional[int] = None, *,
-                             device="cuda") -> ShardedFilterState:
+                             device="cuda", mesh=None, devices=None
+                             ) -> ShardedFilterState:
     """uint32 tables [S, buf, b] (+ uint32 stashes [S, 2, slots])
-    -> ``ShardedFilterState`` on ``device``."""
-    dev = resolve_device(device)
-    return ShardedFilterState(
-        tables=_tensor(tables, dev),
-        stashes=None if stashes is None else _tensor(stashes, dev),
-        n_buckets=None if n_buckets is None else int(n_buckets))
+    -> ``ShardedFilterState``, each shard on its device: laid out as
+    ``mesh`` is, or one part a shard on ``devices``, or one part on
+    ``device``."""
+    cpu = torch.device("cpu")
+    t = _tensor(tables, cpu)
+    parts = (mesh.parts if mesh is not None else
+             shard_layout(t.shape[0], device=device, devices=devices))
+    return place_shards(parts, t,
+                        None if stashes is None else _tensor(stashes, cpu),
+                        None if n_buckets is None else int(n_buckets))
 
 
 def sharded_state_to_numpy(state: ShardedFilterState) -> dict:
     """-> {"tables": uint32[S, buf, b], "stashes": uint32[S, 2, slots] or
-    None, "n_buckets": int or None}."""
+    None, "n_buckets": int or None}, stacked over every part."""
     def u32(t):
-        return t.detach().cpu().numpy().view(np.uint32).copy()
-    return {"tables": u32(state.tables),
-            "stashes": None if state.stashes is None else u32(state.stashes),
+        return t.detach().numpy().view(np.uint32).copy()
+    tables, stashes = state.stacked("cpu")
+    return {"tables": u32(tables),
+            "stashes": None if stashes is None else u32(stashes),
             "n_buckets": state.n_buckets}
 
 

@@ -70,6 +70,10 @@ def resolve_device(device="cuda", *, construct: bool = False) -> torch.device:
         raise RuntimeError(
             "repro_torch: no CUDA device is available; pass device='cpu' "
             "to run the plain PyTorch versions on the CPU")
+    if dev.type == "cuda" and dev.index is not None \
+            and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"repro_torch: {dev} asked for, but the machine "
+                           f"has {torch.cuda.device_count()} card(s)")
     if dev.type == "meta" and construct:
         return dev
     if dev.type not in ("cuda", "cpu"):

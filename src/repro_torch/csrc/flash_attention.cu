@@ -643,7 +643,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                int causal, int window, float softcap, float scale,
                const long long* bstrides, cudaStream_t stream) {
   const size_t smem = Layout<D>::kSmemFloats * sizeof(float);
-  static bool attr = false;
+  static unsigned long long attr = 0;  // a bit a card
   const cudaError_t err = allow_smem(flash_f32_kernel<D>, smem, attr);
   if (err != cudaSuccess) return (int)err;
   HeadStrides st[3];
@@ -666,7 +666,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int causal, int window, float softcap, float scale,
                 const long long* bstrides, cudaStream_t stream) {
   const size_t smem = WgLayout<D>::kSmemBytes;
-  static bool attr = false;
+  static unsigned long long attr = 0;  // a bit a card
   const cudaError_t err = allow_smem(flash_wgmma_kernel<D>, smem, attr);
   if (err != cudaSuccess) return (int)err;
   const long long ost[3] = {(long long)hq * sq * D * 2, (long long)sq * D * 2,

@@ -1046,7 +1046,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
     using L = DkdvLayout<D>;
     using W = typename L::T;
     const size_t smem = L::kSmemBytes;
-    static bool attr = false;
+    static unsigned long long attr = 0;  // a bit a card
     const cudaError_t err =
         allow_smem(flash_bwd_dkdv_wgmma_kernel<D>, smem, attr);
     if (err != cudaSuccess) return (int)err;
@@ -1065,7 +1065,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   } else {
     using L = BwdTiles<D>;
     const size_t smem = L::kSmemFloats * sizeof(float);
-    static bool attr = false;
+    static unsigned long long attr = 0;  // a bit a card
     const cudaError_t err =
         allow_smem(flash_bwd_dkdv_kernel<T, D>, smem, attr);
     if (err != cudaSuccess) return (int)err;
@@ -1085,7 +1085,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     using L = DqLayout<D>;
     using W = typename L::T;
     const size_t smem = L::kSmemBytes;
-    static bool attr = false;
+    static unsigned long long attr = 0;  // a bit a card
     const cudaError_t err =
         allow_smem(flash_bwd_dq_wgmma_kernel<D>, smem, attr);
     if (err != cudaSuccess) return (int)err;
@@ -1103,7 +1103,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   } else {
     using L = BwdTiles<D>;
     const size_t smem = L::kSmemFloats * sizeof(float);
-    static bool attr = false;
+    static unsigned long long attr = 0;  // a bit a card
     const cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, smem, attr);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((mk.sq + L::kBQ - 1) / L::kBQ, b * hq);

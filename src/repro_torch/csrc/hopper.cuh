@@ -356,12 +356,19 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int d,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Opt a kernel in to ``smem`` bytes of dynamic shared memory on the current
+// card, once a card: the attribute belongs to the card's context, so
+// ``done`` holds one bit a card (cards past 64 set it on every launch).
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+cudaError_t allow_smem(K kernel, size_t smem, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  done = err == cudaSuccess;
+  if (err == cudaSuccess) done |= bit;
   return err;
 }
 

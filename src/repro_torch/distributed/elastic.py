@@ -19,9 +19,17 @@ slots with their row, stash entries with their stored bucket), compute the
 pair owner under the target count, rank the foreign lanes per destination
 (``conflict_waves``), clear at the source only the lanes that fit this
 round's ``cap``, exchange ``(fp, bucket)`` buffers, and pair-insert what
-each shard received with ``scan_insert`` (mode ``"pair"``, one launch for
-every receiving shard, exhausted chains spilled to the shard's stash).
-Rounds repeat until no shard holds a foreign lane.
+each shard received with ``scan_insert`` (mode ``"pair"``, one launch a
+part of the mesh over its stacked shards, exhausted chains spilled to the
+shard's stash).  Each part does its share on its own device; the exchange
+copies between parts (``core.distributed._exchange``).  Rounds repeat
+until no shard holds a foreign lane.
+
+Meshes come from ``filter_mesh``: one part a shard on the given
+``devices`` (the reference's layout), or one part on ``device``.  A split
+keeps shards 0..n-1 where they were and seeds n..2n-1 on the new mesh's
+devices; a merge drains onto the old mesh and drops its top half's
+shards.
 """
 from __future__ import annotations
 
@@ -33,7 +41,9 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.core.distributed import (ShardMesh, ShardedFilterState,
-                                          _all_to_all, _scatter_routed)
+                                          _exchange, _fields, _on_mesh,
+                                          _pack_routed, lay_out,
+                                          place_shards, shard_layout)
 from repro_torch.core.scheduling import conflict_waves
 from repro_torch.kernels.scan import scan_insert
 
@@ -42,14 +52,18 @@ MIGRATION_MAX_DISP = 64
 
 
 def filter_mesh(n_shards: int, axis_name: str = "data",
-                device="cuda") -> ShardMesh:
-    """1-D filter mesh of ``n_shards`` shards on one device (raises if
-    ``"cuda"`` has no card).  The elastic controller builds the pre- and
-    post-cutover meshes with this."""
-    if n_shards < 1:
-        raise ValueError(f"a filter mesh needs a shard, got {n_shards}")
+                devices=None, *, device="cuda") -> ShardMesh:
+    """1-D filter mesh of ``n_shards`` shards.
+
+    With ``devices``, shard s lies on ``devices[s]``, one part a shard, over
+    the first ``n_shards`` of them (fewer raise); a device may repeat.
+    Without, every shard lies on ``device`` in one part.  A card that is
+    not there raises; nothing falls back to another device.  The elastic
+    controller builds the pre- and post-cutover meshes with this, so a
+    2->4 split and its 4->2 inverse agree on device order."""
     return ShardMesh(int(n_shards), axis_name,
-                     hashing.resolve_device(device))
+                     shard_layout(int(n_shards), device=device,
+                                  devices=devices))
 
 
 def largest_mesh(ranks=None, *, model_parallel: int,
@@ -106,41 +120,50 @@ def insert_pairs(table, stash, bucket, fp, valid, *, n_buckets,
     return table, stash, ok
 
 
-def _migrate_round(tables, stashes, *, target_shards: int, cap: int,
-                   n_buckets: int, max_disp: int):
-    """One migration round over every shard, IN PLACE on ``tables`` and
-    ``stashes`` -> (moved, remaining, failed), int64[S] each.
+def _migrate_round(mesh: ShardMesh, table_parts, stash_parts, *,
+                   target_shards: int, cap: int, n_buckets: int,
+                   max_disp: int) -> list:
+    """One migration round over every shard, IN PLACE on each part's
+    tables and stashes -> per part, int64[3]: (moved, remaining, failed)
+    summed over its shards, on its device.
 
     ``remaining`` counts foreign lanes still resident (the stop condition);
     ``failed`` counts received lanes that neither placed nor spilled.
     """
-    n_mesh, buf, bs = tables.shape
-    dev = tables.device
-    lane_fp = torch.cat([tables.reshape(n_mesh, -1), stashes[:, 0, :]], 1)
-    rows = torch.arange(buf, dtype=torch.int32, device=dev)
-    lane_bkt = torch.cat([rows.repeat_interleave(bs).expand(n_mesh, -1),
-                          stashes[:, 1, :]], 1)
-    me = torch.arange(n_mesh, device=dev)[:, None]
-    owner = hashing.owner_shard_pair(lane_bkt, lane_fp, n_buckets,
-                                     target_shards)
-    foreign = (lane_fp != 0) & (owner != me)
-    rank = conflict_waves((me * n_mesh + owner).reshape(-1),
-                          foreign.reshape(-1)).reshape(owner.shape)
-    fits = (rank < cap) & foreign
-    dst = torch.where(fits, owner, n_mesh)
-    # Clear shipped lanes at the source before inserting received ones, so
-    # a shard that both sends and receives reuses the freed slots.
-    b_fp, b_bkt, b_valid = _scatter_routed(dst, rank, fits, n_mesh, cap,
-                                           lane_fp, lane_bkt)
-    n_table = buf * bs
-    tables.reshape(n_mesh, -1).masked_fill_(fits[:, :n_table], 0)
-    stashes.masked_fill_(fits[:, None, n_table:], 0)
-    r_fp, r_bkt, r_valid = (_all_to_all(b).reshape(n_mesh, -1)
-                            for b in (b_fp, b_bkt, b_valid))
-    ok = scan_insert(tables, r_bkt, r_fp, n_buckets=n_buckets, mode="pair",
-                     max_disp=max_disp, valid=r_valid, stashes=stashes)
-    return (fits.sum(1), (foreign & ~fits).sum(1),
-            (r_valid & ~ok).sum(1))
+    n_mesh = mesh.n_shards
+    sends, counts = [], []
+    for (dev, a, _b), tables, stashes in zip(mesh.spans(), table_parts,
+                                             stash_parts):
+        n_p, buf, bs = tables.shape
+        lane_fp = torch.cat([tables.reshape(n_p, -1), stashes[:, 0, :]], 1)
+        rows = torch.arange(buf, dtype=torch.int32, device=dev)
+        lane_bkt = torch.cat([rows.repeat_interleave(bs).expand(n_p, -1),
+                              stashes[:, 1, :]], 1)
+        me = torch.arange(n_p, device=dev)[:, None]
+        owner = hashing.owner_shard_pair(lane_bkt, lane_fp, n_buckets,
+                                         target_shards)
+        foreign = (lane_fp != 0) & (owner != me + a)
+        rank = conflict_waves((me * n_mesh + owner).reshape(-1),
+                              foreign.reshape(-1)).reshape(owner.shape)
+        fits = (rank < cap) & foreign
+        dst = torch.where(fits, owner, n_mesh)
+        # Clear shipped lanes at the source before inserting received
+        # ones, so a shard that both sends and receives reuses the freed
+        # slots.
+        sends.append(_pack_routed(dst, rank, fits, n_mesh, cap, lane_fp,
+                                  lane_bkt))
+        n_table = buf * bs
+        tables.reshape(n_p, -1).masked_fill_(fits[:, :n_table], 0)
+        stashes.masked_fill_(fits[:, None, n_table:], 0)
+        counts.append([fits.sum(), (foreign & ~fits).sum()])
+    for recv, tables, stashes, c in zip(_exchange(sends, mesh), table_parts,
+                                        stash_parts, counts):
+        r_fp, r_bkt, r_valid = _fields(recv)
+        ok = scan_insert(tables, r_bkt, r_fp, n_buckets=n_buckets,
+                         mode="pair", max_disp=max_disp, valid=r_valid,
+                         stashes=stashes)
+        c.append((r_valid & ~ok).sum())
+    return [torch.stack(c) for c in counts]
 
 
 @dataclasses.dataclass
@@ -166,22 +189,24 @@ def migrate_state(mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
     (default: everything a shard holds, one round).  Requires stashes.
     """
     _require_stashes(state)
-    if state.tables.shape[0] != mesh.shape[axis]:
-        raise ValueError(f"{state.tables.shape[0]} shards on a mesh of "
+    if state.n_shards != mesh.shape[axis]:
+        raise ValueError(f"{state.n_shards} shards on a mesh of "
                          f"{mesh.shape[axis]}")
-    n_buckets = (state.n_buckets if state.n_buckets is not None
-                 else state.tables.shape[1])
+    _on_mesh(mesh, state)
+    _n, buf, bs = state.table_parts[0].shape
+    n_buckets = state.n_buckets if state.n_buckets is not None else buf
     if cap is None:
-        cap = n_buckets * state.tables.shape[2] + state.stashes.shape[2]
-    tables = state.tables.to(mesh.device).clone()
-    stashes = state.stashes.to(mesh.device).clone()
+        cap = n_buckets * bs + state.stash_parts[0].shape[2]
+    tables = tuple(t.clone() for t in state.table_parts)
+    stashes = tuple(s.clone() for s in state.stash_parts)
     moved_total = rounds = failed_total = 0
     while True:
-        moved, remaining, failed = _migrate_round(
-            tables, stashes, target_shards=target_shards, cap=cap,
+        per_part = _migrate_round(
+            mesh, tables, stashes, target_shards=target_shards, cap=cap,
             n_buckets=n_buckets, max_disp=max_disp)
-        moved, remaining, failed = (int(x) for x in torch.stack(
-            [moved.sum(), remaining.sum(), failed.sum()]).tolist())
+        # one host read a part, after every part's round is issued
+        moved, remaining, failed = (
+            sum(c) for c in zip(*(x.tolist() for x in per_part)))
         rounds += 1
         moved_total += moved
         failed_total += failed
@@ -191,19 +216,21 @@ def migrate_state(mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
             raise RuntimeError(
                 f"migration did not drain in {max_rounds} rounds "
                 f"({remaining} lanes still foreign)")
-    new_state = state._replace(tables=tables, stashes=stashes)
+    new_state = state._replace(table_parts=tables, stash_parts=stashes)
     return new_state, moved_total, rounds, failed_total
 
 
 def _require_stashes(state: ShardedFilterState) -> None:
-    if state.stashes is None:
+    if state.stash_parts is None:
         raise ValueError("elastic migration requires per-shard stashes "
                          "(spill target)")
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    """Wait for every card among ``devices``."""
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def split_state(new_mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
@@ -211,27 +238,33 @@ def split_state(new_mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
                 max_disp: int = MIGRATION_MAX_DISP, max_rounds: int = 64
                 ) -> tuple[ShardedFilterState, MigrationReport]:
     """Grow a pair-routed state 2x, live and rebuild-free: shard s < n keeps
-    old shard s, shards n..2n-1 start empty, then the migration runs on the
-    NEW mesh.  Every foreign lane of shard s goes to s + n, and a
-    destination bucket receives at most one source bucket's slots, so a
-    split cannot overfill."""
+    old shard s (on the new mesh's device for it: the same one where the
+    meshes come from ``filter_mesh`` over one device list), shards
+    n..2n-1 start empty on theirs, then the migration runs on the NEW
+    mesh.  Every foreign lane of shard s goes to s + n, and a destination
+    bucket receives at most one source bucket's slots, so a split cannot
+    overfill."""
     _require_stashes(state)
-    n_old = state.tables.shape[0]
+    n_old = state.n_shards
     n_new = new_mesh.shape[axis]
     if n_new != 2 * n_old or n_new & (n_new - 1):
         raise ValueError(f"a split doubles a pow2 shard count: {n_old} -> "
                          f"{n_new}")
     t0 = time.perf_counter()
-    dev = new_mesh.device
-    seeded = state._replace(
-        tables=torch.cat([state.tables.to(dev),
-                          torch.zeros_like(state.tables, device=dev)]),
-        stashes=torch.cat([state.stashes.to(dev),
-                           torch.zeros_like(state.stashes, device=dev)]))
+    devs = new_mesh.devices
+    t0_shape, s0_shape = state.table(0).shape, state.stash(0).shape
+    seeded = place_shards(
+        new_mesh.parts,
+        [state.table(s) if s < n_old else
+         torch.zeros(t0_shape, dtype=torch.int32, device=devs[s])
+         for s in range(n_new)],
+        [state.stash(s) if s < n_old else
+         torch.zeros(s0_shape, dtype=torch.int32, device=devs[s])
+         for s in range(n_new)], state.n_buckets)
     new_state, moved, rounds, failed = migrate_state(
         new_mesh, axis, seeded, target_shards=n_new, cap=cap,
         max_disp=max_disp, max_rounds=max_rounds)
-    _sync(dev)
+    _sync(devs)
     return new_state, MigrationReport(
         "split", n_old, n_new, moved, rounds, failed,
         time.perf_counter() - t0)
@@ -244,8 +277,9 @@ def merge_state(old_mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
     """Shrink a pair-routed state 2x, live and rebuild-free: the migration
     runs on the OLD mesh with the halved owner (shard s + n/2 folds onto s,
     through the full pair insert: receivers are contended), then the
-    drained top half is sliced off."""
-    n_old = state.tables.shape[0]
+    drained top half's shards are dropped: shards 0..n/2-1 stay where the
+    old mesh has them."""
+    n_old = state.n_shards
     if n_old != old_mesh.shape[axis] or n_old % 2:
         raise ValueError(f"a merge halves an even shard count on its mesh, "
                          f"got {n_old}")
@@ -254,14 +288,23 @@ def merge_state(old_mesh: ShardMesh, axis: str, state: ShardedFilterState, *,
     new_state, moved, rounds, failed = migrate_state(
         old_mesh, axis, state, target_shards=k, cap=cap, max_disp=max_disp,
         max_rounds=max_rounds)
-    top = (int((new_state.tables[k:] != 0).sum()),
-           int((new_state.stashes[k:, 0, :] != 0).sum()))
+    top = [torch.stack([(new_state.table(s) != 0).sum(),
+                        (new_state.stash(s)[0] != 0).sum()]).tolist()
+           for s in range(k, n_old)]
+    top = tuple(sum(c) for c in zip(*top))
     if top != (0, 0):
         raise RuntimeError(f"merge left {top[0]}+{top[1]} lanes on drained "
                            "shards")
-    merged = new_state._replace(tables=new_state.tables[:k].clone(),
-                                stashes=new_state.stashes[:k].clone())
-    _sync(merged.tables.device)
+    kept_parts, n = [], 0
+    for dev, c in old_mesh.parts:       # the old parts, cut at shard k
+        if n < k:
+            kept_parts.append((dev, min(c, k - n)))
+        n += c
+    merged = place_shards(tuple(kept_parts),
+                          [new_state.table(s) for s in range(k)],
+                          [new_state.stash(s) for s in range(k)],
+                          new_state.n_buckets)
+    _sync(old_mesh.devices)
     return merged, MigrationReport(
         "merge", n_old, k, moved, rounds, failed, time.perf_counter() - t0)
 
@@ -315,6 +358,7 @@ class ElasticController:
                     new_state, report = merge_state(
                         pump.mesh, self.axis, pump.state, cap=self.cap,
                         max_disp=self.max_disp, max_rounds=self.max_rounds)
+                    new_state = lay_out(new_mesh, new_state)
                 pump.retarget(new_mesh, self.axis, new_state)
         finally:
             if admission is not None and hasattr(admission, "thaw"):

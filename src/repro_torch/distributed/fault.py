@@ -12,9 +12,9 @@ Counterpart of ``repro.distributed.fault``:
   * ``retry_routed_write`` / ``run_with_restarts`` bound the retries;
   * ``StragglerWatchdog`` flags slow steps.
 
-A state that comes out of a fault or a recovery lies on the device of the
-state that went in (the rows are written on a copy there), so the next
-routed op runs where the mesh is.
+A state that comes out of a fault or a recovery is laid out as the state
+that went in: each part is copied on its device and the shard's rows are
+written on its own device, so the next routed op runs where the mesh is.
 """
 from __future__ import annotations
 
@@ -134,27 +134,23 @@ class FaultInjector:
 
     def kill(self, state, shard: int):
         """Zero one shard's table and stash rows (node gone, memory gone)."""
-        tables = state.tables.clone()
-        tables[shard] = 0
-        stashes = None
-        if state.stashes is not None:
-            stashes = state.stashes.clone()
-            stashes[shard] = 0
+        state = _copied(state)
+        state.table(shard).zero_()
+        if state.stash_parts is not None:
+            state.stash(shard).zero_()
         self._mark("kill", shard)
-        return state._replace(tables=tables, stashes=stashes)
+        return state
 
     def corrupt(self, state, shard: int, seed: int = 0):
         """Scramble one shard's table rows (the shard still answers,
         wrongly, until the control plane notices)."""
         rng = np.random.default_rng(seed)
-        tables = state.tables.clone()
-        words = rng.integers(0, 2**32, tuple(tables[shard].shape),
-                             dtype=np.uint32)
-        tables[shard] = torch.from_numpy(words.view(np.int32)).to(
-            tables.device)
-        stashes = None if state.stashes is None else state.stashes.clone()
+        state = _copied(state)
+        table = state.table(shard)
+        words = rng.integers(0, 2**32, tuple(table.shape), dtype=np.uint32)
+        table.copy_(torch.from_numpy(words.view(np.int32)))
         self._mark("corrupt", shard)
-        return state._replace(tables=tables, stashes=stashes)
+        return state
 
     def delay(self, fn: Callable, seconds: float) -> Callable:
         """Wrap ``fn`` with a fixed sleep (the straggler injector)."""
@@ -182,6 +178,14 @@ class FaultInjector:
         self.lost.discard(int(shard))
 
 
+def _copied(state):
+    """A copy of a sharded state, each part on its own device."""
+    return state._replace(
+        table_parts=tuple(t.clone() for t in state.table_parts),
+        stash_parts=(None if state.stash_parts is None
+                     else tuple(s.clone() for s in state.stash_parts)))
+
+
 # ------------------------------------------------- degraded-mode serving --
 
 
@@ -195,9 +199,9 @@ def degraded_lookup(mesh, axis: str, state, hi, lo, *, fp_bits: int,
 
     Every lane whose owner shard is in the injector's lost set answers True
     ("maybe present"), and ``degraded`` marks it; the surviving shards'
-    answers are the healthy path's.  The owners are hashed on the mesh's
-    device; one host read returns both arrays.  ``recovery.degraded``
-    counts the degraded answers.
+    answers are the healthy path's.  The owners are hashed where the
+    answers gather (``hi``'s device); one host read returns both arrays.
+    ``recovery.degraded`` counts the degraded answers.
     """
     from repro_torch.core.distributed import distributed_lookup
     hits, overflow = distributed_lookup(
@@ -207,7 +211,7 @@ def degraded_lookup(mesh, axis: str, state, hi, lo, *, fp_bits: int,
     hi, lo = hi.to(hits.device), lo.to(hits.device)
     if route == "pair":
         nb = (state.n_buckets if state.n_buckets is not None
-              else state.tables.shape[1])
+              else state.table(0).shape[0])
         owner = hashing.owner_shard_key_pair(hi, lo, nb, fp_bits, n_shards)
     else:
         owner = hashing.owner_shard(hi, lo, n_shards)
@@ -225,29 +229,27 @@ def recover_shard(state, shard: int, *, ckpt_dir: str,
                   injector: Optional[FaultInjector] = None, recovery=None):
     """Re-populate one lost shard from the last durable snapshot.
 
-    Grafts the snapshot's rows of ``shard`` (table and stash) into a copy
-    of the live state on its device; the other shards keep their CURRENT
-    rows.  Heals the injector and reports the time to recover.  Keys the
-    shard took after the snapshot are gone (upstream re-inserts them).
+    Grafts the snapshot's rows of ``shard`` (table and stash), read on the
+    host, into a copy of the live state on the shard's own device; the
+    other shards keep their CURRENT rows.  Heals the injector and reports
+    the time to recover.  Keys the shard took after the snapshot are gone
+    (upstream re-inserts them).
     """
     from repro_torch.checkpoint.ckpt import restore_sharded
     t0 = time.perf_counter()
     ctx = (recovery.span("recover_shard", shard=int(shard))
            if recovery is not None else _NULL)
     with ctx:
-        snap = restore_sharded(ckpt_dir, step, device=state.tables.device)
-        tables = state.tables.clone()
-        tables[shard] = snap.tables[shard]
-        stashes = None
-        if state.stashes is not None:
-            stashes = state.stashes.clone()
-            if snap.stashes is not None:
-                stashes[shard] = snap.stashes[shard]
+        snap = restore_sharded(ckpt_dir, step, device="cpu")
+        new_state = _copied(state)
+        new_state.table(shard).copy_(snap.table(shard))
+        if new_state.stash_parts is not None:
+            if snap.stash_parts is not None:
+                new_state.stash(shard).copy_(snap.stash(shard))
             else:
-                stashes[shard] = 0
+                new_state.stash(shard).zero_()
         if injector is not None:
             injector.heal(shard)
-    new_state = state._replace(tables=tables, stashes=stashes)
     if recovery is not None:
         recovery.recovered("shard_restore", time.perf_counter() - t0)
     return new_state

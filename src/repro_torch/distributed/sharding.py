@@ -455,14 +455,11 @@ def constrain_batch_activations(x, parallel: Optional[ParallelConfig], *,
 
 
 def shard_filter_state(mesh, axis: str, state):
-    """Move a ``ShardedFilterState``'s [n_shards, ...] tensors (tables,
-    stashes) onto ``mesh``'s device -> the same NamedTuple type."""
-    n_shards = mesh.shape[axis]
-
-    def place(x):
-        if isinstance(x, torch.Tensor) and x.dim() >= 1 \
-                and x.shape[0] == n_shards:
-            return x.to(mesh.device)
-        return x
-
-    return type(state)(*(place(x) for x in state))
+    """Lay a ``ShardedFilterState`` out on ``mesh``: each shard's table and
+    stash on the mesh's device for it, stacked in the mesh's parts (a state
+    laid out so already comes back as it is)."""
+    from repro_torch.core.distributed import lay_out
+    if state.n_shards != mesh.shape[axis]:
+        raise ValueError(f"{state.n_shards} shards on a mesh of "
+                         f"{mesh.shape[axis]}")
+    return lay_out(mesh, state)

@@ -10,7 +10,8 @@ edited source is rebuilt.
 
 Every kernel wrapper counts its launches in ``LAUNCHES`` (one per kernel
 launch, nowhere else), and every plain PyTorch version counts its calls in
-``PLAIN_CALLS``, so a run can show which path it went through.  The
+``PLAIN_CALLS``, so a run can show which path it went through;
+``CARD_LAUNCHES`` counts the same launches by (kernel, card index).  The
 telemetry instantiations (``TM_KERNELS``) are entries of their own, with
 the sources of their kernels: ``LAUNCHES`` counts them under their own
 names, so a run shows which of the two arms it took.
@@ -116,6 +117,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+CARD_LAUNCHES: collections.Counter = collections.Counter()
 PLAIN_CALLS: collections.Counter = collections.Counter()
 _FUNCS: dict = {}
 
@@ -123,6 +125,7 @@ _FUNCS: dict = {}
 def reset_counts() -> None:
     """Zero every launch and plain-call count."""
     LAUNCHES.clear()
+    CARD_LAUNCHES.clear()
     PLAIN_CALLS.clear()
 
 
@@ -202,7 +205,9 @@ def spill_buffer(name: str, device, *args):
     """The device-memory buffer a launch of ``name`` needs beside its shared
     memory (``SPILL_SIZES``), or None when it needs none."""
     symbol, argtypes = SPILL_SIZES[name]
-    nbytes = _c_function(name, symbol, argtypes, ctypes.c_longlong)(*args)
+    with torch.cuda.device(device):
+        nbytes = _c_function(name, symbol, argtypes,
+                             ctypes.c_longlong)(*args)
     if nbytes == 0:
         return None
     return torch.empty((nbytes,), dtype=torch.uint8, device=device)
@@ -215,14 +220,19 @@ def spans(n: int, block: int, split_keys: int = SPLIT_KEYS):
     return [(s, min(n, s + step)) for s in range(0, n, step)]
 
 
-def launch(name: str, *args) -> None:
-    """Launch a kernel on the current stream; raise if CUDA refused it."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = kernel_fn(name)(*args, stream)
+def launch(name: str, device, *args) -> None:
+    """Launch a kernel on ``device``, the card its tensors lie on, and on
+    that card's current stream; raise if CUDA refused it.  The C entry
+    point runs with ``device`` current, whichever card the caller had
+    current, so its launch and its per-card queries reach that card."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = kernel_fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")
     LAUNCHES[name] += 1
+    CARD_LAUNCHES[name, torch.device(device).index] += 1
 
 
 def ptr(t) -> int | None:
@@ -230,9 +240,11 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def check_cuda(name: str, *, contiguous: bool = True, **tensors) -> None:
+def check_cuda(name: str, *, contiguous: bool = True,
+               **tensors) -> torch.device:
     """Wrapper-side checks: every tensor on one CUDA device and, unless the
-    kernel takes strides (``contiguous=False``), contiguous."""
+    kernel takes strides (``contiguous=False``), contiguous -> that
+    device."""
     devs = {t.device for t in tensors.values() if t is not None}
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         raise ValueError(f"{name}: tensors must share one CUDA device, got "
@@ -240,6 +252,7 @@ def check_cuda(name: str, *, contiguous: bool = True, **tensors) -> None:
     for key, t in tensors.items():
         if contiguous and t is not None and not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+    return next(iter(devs))
 
 
 def check_table(name: str, table, n_buckets: int, stash=None, *,

@@ -68,8 +68,8 @@ def _delete_cuda(table, hi, lo, valid, *, fp_bits, n_buckets, block):
     ok = torch.empty((n,), dtype=torch.bool, device=table.device)
     spill = cuda.spill_buffer("delete_bulk", table.device, table.shape[1], n,
                               block)
-    cuda.launch("delete_bulk", table.data_ptr(), table.shape[1],
-                int(n_buckets), hi.data_ptr(), lo.data_ptr(),
+    cuda.launch("delete_bulk", table.device, table.data_ptr(),
+                table.shape[1], int(n_buckets), hi.data_ptr(), lo.data_ptr(),
                 valid.data_ptr(), ok.data_ptr(), n, block, fp_bits,
                 cuda.ptr(spill))
     return ok
@@ -164,9 +164,9 @@ def _delete_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
     spill = cuda.spill_buffer(name, table.device, table.shape[1],
                               min(n, split_keys), block)
     for s, e in cuda.spans(n, block, split_keys):
-        cuda.launch(name, table.data_ptr(), sels.data_ptr(), khi.data_ptr(),
-                    klo.data_ptr(), table.shape[1], int(n_buckets),
-                    hi[s:e].data_ptr(), lo[s:e].data_ptr(),
+        cuda.launch(name, table.device, table.data_ptr(), sels.data_ptr(),
+                    khi.data_ptr(), klo.data_ptr(), table.shape[1],
+                    int(n_buckets), hi[s:e].data_ptr(), lo[s:e].data_ptr(),
                     valid[s:e].data_ptr(), ok[s:e].data_ptr(), e - s, block,
                     fp_bits, cuda.ptr(spill))
     return ok

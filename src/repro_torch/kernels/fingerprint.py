@@ -42,9 +42,9 @@ def fingerprint_hash(hi: torch.Tensor, lo: torch.Tensor, *, fp_bits: int,
     cuda.check_cuda("fingerprint_hash", hi=hi, lo=lo)
     cuda.check_dtype("fingerprint_hash", torch.int32, hi=hi, lo=lo)
     fp, i1, i2 = (torch.empty_like(hi) for _ in range(3))
-    cuda.launch("fingerprint_hash", hi.data_ptr(), lo.data_ptr(),
-                fp.data_ptr(), i1.data_ptr(), i2.data_ptr(), n, fp_bits,
-                int(n_buckets))
+    cuda.launch("fingerprint_hash", hi.device, hi.data_ptr(),
+                lo.data_ptr(), fp.data_ptr(), i1.data_ptr(), i2.data_ptr(),
+                n, fp_bits, int(n_buckets))
     return fp, i1, i2
 
 
@@ -84,6 +84,6 @@ def _family_cuda(hi, lo, *, fp_bits, n_buckets):
     cuda.check_dtype("fingerprint_hash_family", torch.int32, hi=hi, lo=lo)
     n = hi.shape[0]
     out = torch.empty((6, n), dtype=torch.int32, device=hi.device)
-    cuda.launch("fingerprint_hash_family", hi.data_ptr(), lo.data_ptr(),
-                out.data_ptr(), n, fp_bits, int(n_buckets))
+    cuda.launch("fingerprint_hash_family", hi.device, hi.data_ptr(),
+                lo.data_ptr(), out.data_ptr(), n, fp_bits, int(n_buckets))
     return tuple(out[:4]), out[4], out[5]

@@ -208,8 +208,9 @@ def bwd_delta(o, do) -> torch.Tensor:
     b, h, s, d = o.shape
     delta = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
     if delta.numel():
-        cuda.launch("flash_attention_bwd_pre", o.data_ptr(), do.data_ptr(),
-                    delta.data_ptr(), b * h * s, d, _DTYPES[o.dtype])
+        cuda.launch("flash_attention_bwd_pre", o.device, o.data_ptr(),
+                    do.data_ptr(), delta.data_ptr(), b * h * s, d,
+                    _DTYPES[o.dtype])
     return delta
 
 
@@ -300,10 +301,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     shape = (b, hq, hkv, sq, skv, d, dtype)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
-    cuda.launch("flash_attention_bwd_dkdv", *common, dk.data_ptr(),
-                dv.data_ptr(), *shape, *mask)
-    cuda.launch("flash_attention_bwd_dq", *common, dq.data_ptr(), *shape,
-                *mask)
+    cuda.launch("flash_attention_bwd_dkdv", q.device, *common,
+                dk.data_ptr(), dv.data_ptr(), *shape, *mask)
+    cuda.launch("flash_attention_bwd_dq", q.device, *common, dq.data_ptr(),
+                *shape, *mask)
     return dq, dk, dv
 
 
@@ -388,9 +389,9 @@ def _flash_cuda(q, k, v, *, causal, window, logit_softcap, scale,
     strides = (ctypes.c_longlong * 9)(*byte_strides(q, "q"),
                                       *byte_strides(k, "k"),
                                       *byte_strides(v, "v"))
-    cuda.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), cuda.ptr(lse), b, hq, hkv, sq, skv, d,
-                _DTYPES[q.dtype], int(causal),
+    cuda.launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), cuda.ptr(lse), b, hq, hkv, sq,
+                skv, d, _DTYPES[q.dtype], int(causal),
                 -1 if window is None else int(window),
                 float(logit_softcap or 0.0),
                 float(scale if scale is not None else d ** -0.5),

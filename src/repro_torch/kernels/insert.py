@@ -205,9 +205,9 @@ def _insert_cuda(table, hi, lo, valid, *, fp_bits, n_buckets, evict_rounds,
             valid.data_ptr(), ok.data_ptr(), n, block, fp_bits, evict_rounds,
             cuda.ptr(spill))
     if plane is None:
-        cuda.launch("insert_bulk", *args)
+        cuda.launch("insert_bulk", table.device, *args)
     else:
-        cuda.launch("insert_bulk_tm", *args, plane.data_ptr())
+        cuda.launch("insert_bulk_tm", table.device, *args, plane.data_ptr())
     return ok
 
 
@@ -512,9 +512,10 @@ def _insert_adaptive_cuda(table, sels, khi, klo, hi, lo, valid, *, fp_bits,
                 ok[s:e].data_ptr(), e - s, block, fp_bits, evict_rounds,
                 cuda.ptr(spill))
         if plane is None:
-            cuda.launch(name, *args)
+            cuda.launch(name, table.device, *args)
         else:
-            cuda.launch(name + "_tm", *args, plane.data_ptr())
+            cuda.launch(name + "_tm", table.device, *args,
+                        plane.data_ptr())
     return ok
 
 

@@ -77,9 +77,10 @@ def probe(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
                      stash=stash)
     cuda.check_table("probe", table, n_buckets, stash)
     hit = torch.empty((n,), dtype=torch.bool, device=table.device)
-    cuda.launch("probe", table.data_ptr(), table.shape[1], cuda.ptr(stash),
-                0 if stash is None else stash.shape[1], hi.data_ptr(),
-                lo.data_ptr(), hit.data_ptr(), n, fp_bits, int(n_buckets))
+    cuda.launch("probe", table.device, table.data_ptr(), table.shape[1],
+                cuda.ptr(stash), 0 if stash is None else stash.shape[1],
+                hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
+                int(n_buckets))
     return hit
 
 
@@ -114,7 +115,7 @@ def probe_tm(table: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, *,
     hit = torch.empty((n,), dtype=torch.bool, device=table.device)
     plane = torch.zeros((PROBE_DEPTHS,), dtype=torch.int32,
                         device=table.device)
-    cuda.launch("probe_tm", table.data_ptr(), table.shape[1],
+    cuda.launch("probe_tm", table.device, table.data_ptr(), table.shape[1],
                 cuda.ptr(stash), 0 if stash is None else stash.shape[1],
                 hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
                 int(n_buckets), plane.data_ptr(), n_valid)
@@ -204,8 +205,8 @@ def _probe_multi_cuda(tables, hi, lo, *, fp_bits, n_buckets, stashes,
         word = (mask >> c0) & ((1 << 64) - 1)
         if c0 and not word:
             continue
-        cuda.launch(name, tables[c0].data_ptr(), min(64, k - c0), word, buf,
-                    bucket_size,
+        cuda.launch(name, tables.device, tables[c0].data_ptr(),
+                    min(64, k - c0), word, buf, bucket_size,
                     None if stashes is None else stashes[c0].data_ptr(),
                     slots, hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n,
                     fp_bits, int(n_buckets), int(c0 > 0))
@@ -268,7 +269,8 @@ def _probe_adaptive_cuda(table, sels, hi, lo, *, fp_bits, n_buckets, stash):
     cuda.check_table(name, table, n_buckets, stash, sels=sels)
     n = hi.shape[0]
     hit = torch.empty((n,), dtype=torch.bool, device=table.device)
-    cuda.launch(name, table.data_ptr(), sels.data_ptr(), table.shape[1],
+    cuda.launch(name, table.device, table.data_ptr(), sels.data_ptr(),
+                table.shape[1],
                 cuda.ptr(stash), 0 if stash is None else stash.shape[1],
                 hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
                 int(n_buckets))
@@ -305,7 +307,8 @@ def probe_adaptive_tm(table: torch.Tensor, sels: torch.Tensor,
     hit = torch.empty((n,), dtype=torch.bool, device=table.device)
     plane = torch.zeros((PROBE_DEPTHS,), dtype=torch.int32,
                         device=table.device)
-    cuda.launch(name, table.data_ptr(), sels.data_ptr(), table.shape[1],
+    cuda.launch(name, table.device, table.data_ptr(), sels.data_ptr(),
+                table.shape[1],
                 cuda.ptr(stash), 0 if stash is None else stash.shape[1],
                 hi.data_ptr(), lo.data_ptr(), hit.data_ptr(), n, fp_bits,
                 int(n_buckets), plane.data_ptr(), n_valid)

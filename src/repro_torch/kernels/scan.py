@@ -253,9 +253,9 @@ def _scan_insert_cuda(tables, a, b, valid, *, n_buckets, mode, fp_bits,
     ok_c = torch.zeros((idx.shape[0],), dtype=torch.bool,
                        device=tables.device)
     if idx.shape[0]:
-        cuda.launch("scan_insert", tables.data_ptr(), tables.shape[1],
-                    tables.shape[2], int(n_buckets), cuda.ptr(stashes),
-                    0 if stashes is None else stashes.shape[2],
+        cuda.launch("scan_insert", tables.device, tables.data_ptr(),
+                    tables.shape[1], tables.shape[2], int(n_buckets),
+                    cuda.ptr(stashes), 0 if stashes is None else stashes.shape[2],
                     a_c.data_ptr(), b_c.data_ptr(), offsets.data_ptr(),
                     ok_c.data_ptr(), tables.shape[0], MODES.index(mode),
                     int(fp_bits or 0), int(max_disp), int(window),
@@ -288,9 +288,9 @@ def _scan_delete_cuda(tables, hi, lo, valid, *, n_buckets, fp_bits):
     ok_c = torch.zeros((idx.shape[0],), dtype=torch.bool,
                        device=tables.device)
     if idx.shape[0]:
-        cuda.launch("scan_delete", tables.data_ptr(), tables.shape[1],
-                    tables.shape[2], int(n_buckets), hi_c.data_ptr(),
-                    lo_c.data_ptr(), offsets.data_ptr(), tables.shape[0],
+        cuda.launch("scan_delete", tables.device, tables.data_ptr(),
+                    tables.shape[1], tables.shape[2], int(n_buckets),
+                    hi_c.data_ptr(), lo_c.data_ptr(), offsets.data_ptr(), tables.shape[0],
                     keys.data_ptr(), perm.data_ptr(), idx.shape[0],
                     ok_c.data_ptr(), int(fp_bits))
     return _uncompact(valid, idx, ok_c)

@@ -627,10 +627,19 @@ class ShardedFilterFills:
 
     def fills(self) -> tuple[float, float]:
         state = self._get()
-        fill = float((state.tables != 0).float().mean())
-        stash_fill = (float((state.stashes[:, 0, :] != 0).float().mean())
-                      if state.stashes is not None else 0.0)
+        fill = _share(t for t in state.table_parts)
+        stash_fill = (_share(s[:, 0, :] for s in state.stash_parts)
+                      if state.stash_parts is not None else 0.0)
         return fill, stash_fill
+
+
+def _share(planes) -> float:
+    """Nonzero cells over cells of every part's plane, the float32 mean the
+    reference takes (an exact count a part, divided in float32)."""
+    planes = list(planes)
+    live = sum(int((p != 0).sum()) for p in planes)
+    cells = sum(p.numel() for p in planes)
+    return float(torch.tensor(float(live), dtype=torch.float32) / cells)
 
 
 @dataclasses.dataclass
@@ -652,7 +661,9 @@ class DeferredWritePump:
     allows (trip at its high water, resume at its low water).  Parked
     batches are padded to the shard count with ``valid=False`` lanes, so a
     resubmission never inserts a sentinel key.  Keys are numpy uint32
-    halves on the host; the writes run on the mesh's device.
+    halves on the host; each wave's lanes go from the host to their source
+    shards' devices, the writes run on the mesh's parts, and the answers
+    come back to the host.
     """
 
     def __init__(self, mesh, axis: str, state, *, fp_bits: int,
@@ -712,17 +723,15 @@ class DeferredWritePump:
             hi = np.concatenate([hi, np.zeros(pad, np.uint32)])
             lo = np.concatenate([lo, np.zeros(pad, np.uint32)])
             valid[-pad:] = False
-        dev = self.mesh.device
-
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return torch.from_numpy(np.ascontiguousarray(a))
 
         self.state, ok, deferred, ov = self._insert(
             self.mesh, self.axis, self.state, put(hi.view(np.int32)),
             put(lo.view(np.int32)), fp_bits=self.fp_bits,
             capacity_factor=self.capacity_factor, backend=self.backend,
             donate=self.donate, valid=put(valid), route=self.route)
-        ok, deferred = ok.cpu().numpy(), deferred.cpu().numpy()
+        ok, deferred = ok.numpy(), deferred.numpy()
         self._pend_hi = np.concatenate([self._pend_hi, hi[deferred]])
         self._pend_lo = np.concatenate([self._pend_lo, lo[deferred]])
         self.stats.inserted += int(ok.sum())

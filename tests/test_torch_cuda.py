@@ -942,14 +942,14 @@ def _sharded_stream(device, backend):
         if route == "pair":
             m4 = filter_mesh(4, device=device)
             state, rep = split_state(m4, "data", state)
-            out += [state.tables, state.stashes,
+            out += [*state.stacked(),
                     torch.tensor([rep.keys_moved, rep.rounds, rep.failed])]
             state, rep = merge_state(m4, "data", state, cap=300)
             out += [torch.tensor([rep.keys_moved, rep.rounds, rep.failed])]
         state, dok, ddf, dov = dist.distributed_delete(
             mesh, "data", state, hi[:1800], lo[:1800], fp_bits=16,
             backend=backend, route=route)
-        out += [state.tables, state.stashes, dok, ddf, dov]
+        out += [*state.stacked(), dok, ddf, dov]
     return [x.cpu() for x in out]
 
 
@@ -1142,3 +1142,67 @@ def test_train_step_on_card_matches_cpu(dev):
                                                      rel=1e-5)
     for a, b in zip(card.parameters(), cpu.parameters()):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= 2 * lr
+
+
+@pytest.fixture
+def two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_their_tensors_card(two_cards):
+    """``probe`` and ``insert_bulk`` given ``cuda:1`` tensors while
+    ``cuda:0`` is current run on card 1 (the profile puts their kernels on
+    device 1) and equal their plain versions bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    c0, c1 = two_cards
+    c = _kernel_case("block-128-stash")
+    nb, block, rounds = c["n_buckets"], c["block"], c["rounds"]
+    hi, lo = (t32(x).to(c1) for x in split(c["keys"]))
+    valid = torch.from_numpy(c["valid"]).to(c1)
+    tk, sk = t32(c["table"]).to(c1), t32(c["stash"]).to(c1)
+    tp, sp = tk.clone(), sk.clone()
+    cuda.reset_counts()
+    with torch.cuda.device(c0), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        ok_k = insert_bulk(tk, hi, lo, fp_bits=16, n_buckets=nb,
+                           valid=valid, evict_rounds=rounds, stash=sk,
+                           block=block)[-1]
+        hit_k = probe(tk, hi, lo, fp_bits=16, n_buckets=nb, stash=sk)
+        torch.cuda.synchronize(c1)
+    assert cuda.LAUNCHES["insert_bulk"] == 1 and cuda.LAUNCHES["probe"] == 1
+    ok_p = insert_bulk_plain(tp, hi, lo, valid, fp_bits=16, n_buckets=nb,
+                             evict_rounds=rounds, stash=sp, block=block)
+    hit_p = probe_plain(tp, hi, lo, fp_bits=16, n_buckets=nb, stash=sp)
+    assert torch.equal(tk, tp) and torch.equal(sk, sp)
+    assert torch.equal(ok_k, ok_p) and torch.equal(hit_k, hit_p)
+    ours = {}
+    for ev in prof.events():
+        for key in ("insert_kernel", "probe_kernel"):
+            if key in ev.name:
+                ours.setdefault(key, set()).add(ev.device_index)
+    assert ours == {"insert_kernel": {1}, "probe_kernel": {1}}, ours
+
+
+def test_flash_attention_on_a_second_card(two_cards):
+    """A flash launch on ``cuda:1`` after one on ``cuda:0`` (``cuda:0``
+    current for both): each card opts the kernel in to its shared memory,
+    and both equal the plain version within the bfloat16 tolerances of
+    ``test_flash_attention_matches_plain``."""
+    rng = np.random.RandomState(11)
+    shapes = ((1, 4, 256, 128), (1, 2, 256, 128), (1, 2, 256, 128))
+    arrays = [rng.randn(*s) for s in shapes]
+    for card in two_cards:
+        q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16)
+                   for a in arrays)
+        cuda.reset_counts()
+        with torch.cuda.device(two_cards[0]):
+            got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize(card)
+        assert cuda.LAUNCHES["flash_attention"] == 1
+        assert got.device == card
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert float(row_rel_err(got, want).max()) <= 1e-2

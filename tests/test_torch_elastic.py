@@ -6,7 +6,8 @@ buckets, a 128-slot stash, capacity factor 4.0, 3072 keys), with a small
 ``cap`` that streams several rounds, on a dense state whose merge loses
 lanes, and through ``ElasticController`` over a ``DeferredWritePump`` with
 writes parked during the cutover.  The reference runs in one subprocess
-with four CPU devices."""
+with four CPU devices; the port in both layouts (every shard in one part,
+one part a shard) against the same outputs."""
 import dataclasses
 
 import numpy as np
@@ -21,8 +22,9 @@ from repro_torch.distributed.elastic import (ElasticController,
 from repro_torch.obs import MetricsRegistry, RecoveryMetrics, TraceRecorder
 from repro_torch.serving.scheduler import DeferredWritePump
 
-from torch_port_util import (REF_JIT_LOOKUP, random_keys, reference_run,
-                             split, t32, u32)
+from torch_port_util import (LAYOUTS, REF_JIT_LOOKUP, layout_mesh,
+                             random_keys, reference_run, sharded_u32, split,
+                             t32)
 
 pytestmark = pytest.mark.tier1
 
@@ -112,26 +114,33 @@ def ref():
 
 
 def _same_state(ref, tag, state):
-    np.testing.assert_array_equal(ref[tag + "/tables"], u32(state.tables),
-                                  err_msg=tag)
-    np.testing.assert_array_equal(ref[tag + "/stashes"], u32(state.stashes),
+    tables, stashes = sharded_u32(state)
+    np.testing.assert_array_equal(ref[tag + "/tables"], tables, err_msg=tag)
+    np.testing.assert_array_equal(ref[tag + "/stashes"], stashes,
                                   err_msg=tag)
 
 
+def _live(state) -> int:
+    tables, stashes = state.stacked()
+    return int((tables != 0).sum() + (stashes[:, 0] != 0).sum())
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("label", list(MIGRATIONS))
-def test_split_and_merge_match_reference(ref, label):
+def test_split_and_merge_match_reference(ref, label, layout):
     nb, slots, n, extra, scap, mcap, md = MIGRATIONS[label]
     hi, lo, _c, _d = _keys()
-    m2, m4 = filter_mesh(2, device="cpu"), filter_mesh(4, device="cpu")
-    st = dist.make_sharded_state(2, nb, 4, stash_slots=slots, device="cpu")
+    m2, m4 = layout_mesh(2, layout), layout_mesh(4, layout)
+    st = dist.make_sharded_state(2, nb, 4, stash_slots=slots, mesh=m2)
     st, ok, dfr, _ = dist.distributed_insert(
         m2, "data", st, t32(hi[:n]), t32(lo[:n]), fp_bits=16,
         backend="torch", route="pair", capacity_factor=4.0)
     _same_state(ref, label + "/seed", st)
     np.testing.assert_array_equal(ref[label + "/seed/ok"], ok.numpy())
-    before = st.tables.clone()
+    before = st.stacked()[0].clone()
     st4, rep = split_state(m4, "data", st, cap=scap, max_disp=md)
-    assert torch.equal(st.tables, before), "the input state is kept"
+    assert torch.equal(st.stacked()[0], before), "the input state is kept"
+    assert st4.parts == m4.parts
     _same_state(ref, label + "/split", st4)
     assert [rep.keys_moved, rep.rounds, rep.failed] == \
         ref[label + "/split/report"].tolist()
@@ -149,12 +158,12 @@ def test_split_and_merge_match_reference(ref, label):
     _same_state(ref, label + "/merge", st2)
     assert [rep.keys_moved, rep.rounds, rep.failed] == \
         ref[label + "/merge/report"].tolist()
-    assert st2.tables.shape[0] == 2 and rep.new_shards == 2
+    assert st2.n_shards == 2 and rep.new_shards == 2
+    assert st2.parts == m2.parts, "the merge keeps the old mesh's first half"
     if label == "dense-merge-fails":
         assert rep.failed > 0, "the dense merge must lose lanes"
-    live = int((st4.tables != 0).sum() + (st4.stashes[:, 0] != 0).sum())
-    after = int((st2.tables != 0).sum() + (st2.stashes[:, 0] != 0).sum())
-    assert live == after + rep.failed, "live entries are conserved"
+    assert _live(st4) == _live(st2) + rep.failed, \
+        "live entries are conserved"
 
 
 def test_split_from_a_reference_state_matches(ref):
@@ -167,14 +176,15 @@ def test_split_from_a_reference_state_matches(ref):
     _same_state(ref, "elastic-bench/split", st4)
 
 
-def test_controller_over_pump_matches_reference(ref):
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_controller_over_pump_matches_reference(ref, layout):
     hi, lo, chi, clo = _keys()
-    m2, m4 = filter_mesh(2, device="cpu"), filter_mesh(4, device="cpu")
+    m2, m4 = layout_mesh(2, layout), layout_mesh(4, layout)
     reg, tr = MetricsRegistry(), TraceRecorder()
     rec = RecoveryMetrics(metrics=reg, tracer=tr)
     pump = DeferredWritePump(
         m2, "data", dist.make_sharded_state(2, NB, BS, stash_slots=SS,
-                                            device="cpu"),
+                                            mesh=m2),
         fp_bits=FP, backend="torch", donate=False, metrics=reg, tracer=tr,
         route="pair", capacity_factor=CF)
     pump.submit(hi, lo)
@@ -186,8 +196,10 @@ def test_controller_over_pump_matches_reference(ref):
     assert pump.pending == int(ref["ctrl/pending_mid"]) == N_CONCURRENT
     rs = ctrl.split(m4)
     _same_state(ref, "ctrl/split", pump.state)
+    assert pump.state.parts == m4.parts
     rm = ctrl.merge(m2)
     _same_state(ref, "ctrl/merge", pump.state)
+    assert pump.state.parts == m2.parts
     assert [[r.keys_moved, r.rounds, r.failed] for r in (rs, rm)] == \
         ref["ctrl/reports"].tolist()
     assert list(dataclasses.asdict(pump.stats).values()) == \
@@ -216,3 +228,26 @@ def test_split_and_merge_refuse_bad_shapes():
                                        device="cpu")
     with pytest.raises(ValueError, match="stashes"):
         split_state(filter_mesh(4, device="cpu"), "data", no_stash)
+
+
+def test_controller_follows_the_new_mesh_layout():
+    """A merge onto a mesh laid out otherwise than the old mesh's first
+    half lands the state in the new mesh's parts, each shard's rows
+    kept."""
+    hi, lo, _c, _d = _keys()
+    m2 = filter_mesh(2, device="cpu")
+    m4 = layout_mesh(4, "a part a shard")
+    pump = DeferredWritePump(
+        m2, "data", dist.make_sharded_state(2, NB, BS, stash_slots=SS,
+                                            mesh=m2),
+        fp_bits=FP, backend="torch", route="pair", capacity_factor=CF)
+    pump.submit(hi, lo)
+    ctrl = ElasticController(pump, axis="data")
+    ctrl.split(m4)
+    assert pump.state.parts == m4.parts
+    ctrl.merge(m2)
+    assert pump.mesh is m2 and pump.state.parts == m2.parts
+    hits, _ = dist.distributed_lookup(
+        m2, "data", pump.state, t32(hi), t32(lo), fp_bits=FP,
+        backend="torch", route="pair", capacity_factor=CF)
+    assert hits.all()

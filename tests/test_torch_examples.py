@@ -78,6 +78,15 @@ def test_example_runs_on_the_cpu(name):
     check(name, run_example(name, CASES[name]))
 
 
+def test_distributed_example_runs_a_part_a_shard():
+    """``--cards`` lays the shards out one part a shard (on the CPU here,
+    every part there); the example's facts hold as in one part."""
+    out = run_example("distributed_membership",
+                      [*CASES["distributed_membership"], "--cards", "4"])
+    check("distributed_membership", out)
+    assert "shards on ['cpu', 'cpu'," in out
+
+
 def test_examples_default_to_the_card():
     """Without ``--device`` an example asks for the card, and raises
     without one rather than run on the CPU."""

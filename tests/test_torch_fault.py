@@ -3,7 +3,9 @@
 the straggler watchdog, restarts and bounded retries, kill and corrupt,
 ``degraded_lookup`` on ``filter_mesh(2)`` (reference in a subprocess with
 two CPU devices), ``recover_shard``, and checkpoints written by either
-package restored by the other."""
+package restored by the other.  The sharded ones run in both layouts, every
+shard in one part and one part a shard, against the same reference
+outputs."""
 import dataclasses
 import os
 
@@ -22,11 +24,11 @@ from repro_torch.convert import sharded_state_from_numpy
 from repro_torch.core import distributed as dist
 from repro_torch.core.ocf import OCF, OcfConfig
 from repro_torch.distributed import fault
-from repro_torch.distributed.elastic import filter_mesh
 from repro_torch.obs import MetricsRegistry, RecoveryMetrics
 
-from torch_port_util import (REF_JIT_LOOKUP, port_snapshot, random_keys,
-                             ref_snapshot, reference_run, split, t32, u32)
+from torch_port_util import (LAYOUTS, REF_JIT_LOOKUP, layout_mesh,
+                             port_snapshot, random_keys, ref_snapshot,
+                             reference_run, sharded_u32, split, t32)
 
 pytestmark = pytest.mark.tier1
 
@@ -95,23 +97,24 @@ def _numpy_state(seed=1, shards=3):
     return tables, stashes
 
 
-def test_kill_and_corrupt_match_reference():
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_kill_and_corrupt_match_reference(layout):
     tables, stashes = _numpy_state()
     ref_st = jdist.ShardedFilterState(tables, stashes, 32)
-    st = sharded_state_from_numpy(tables, stashes, 32, device="cpu")
+    st = sharded_state_from_numpy(tables, stashes, 32,
+                                  mesh=layout_mesh(3, layout))
     rec_reg = MetricsRegistry()
     ref_inj, inj = jfault.FaultInjector(), fault.FaultInjector(
         recovery=RecoveryMetrics(metrics=rec_reg))
     for name, args in (("kill", (1,)), ("corrupt", (2, 5))):
         ref_st = getattr(ref_inj, name)(ref_st, *args)
-        before = st.tables.clone()
+        before = st.stacked()[0].clone()
         new = getattr(inj, name)(st, *args)
-        np.testing.assert_array_equal(np.asarray(ref_st.tables),
-                                      u32(new.tables))
-        np.testing.assert_array_equal(np.asarray(ref_st.stashes),
-                                      u32(new.stashes))
-        assert new.tables.device == st.tables.device
-        assert torch.equal(st.tables, before), "the input is kept"
+        got_t, got_s = sharded_u32(new)
+        np.testing.assert_array_equal(np.asarray(ref_st.tables), got_t)
+        np.testing.assert_array_equal(np.asarray(ref_st.stashes), got_s)
+        assert new.parts == st.parts
+        assert torch.equal(st.stacked()[0], before), "the input is kept"
         st = new
     assert inj.lost == ref_inj.lost == {1, 2}
     assert rec_reg.snapshot()['shard_faults{kind="kill"}'] == 1
@@ -131,21 +134,28 @@ def test_delay_and_failing_wrappers():
     assert flaky() == 7
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("direction", ["port-to-reference",
                                        "reference-to-port"])
-def test_sharded_checkpoints_cross_restore(tmp_path, direction):
+def test_sharded_checkpoints_cross_restore(tmp_path, direction, layout):
     tables, stashes = _numpy_state(seed=2)
     d = str(tmp_path)
+    mesh = layout_mesh(3, layout)
     if direction == "reference-to-port":
         jckpt.save_sharded(d, 3, jdist.ShardedFilterState(
             jnp.asarray(tables), jnp.asarray(stashes), 32))
-        got = ckpt.restore_sharded(d, device="cpu")
-        np.testing.assert_array_equal(u32(got.tables), tables)
-        np.testing.assert_array_equal(u32(got.stashes), stashes)
-        assert got.n_buckets == 32 and got.tables.dtype == torch.int32
+        got = ckpt.restore_sharded(d, mesh=mesh)
+        got_t, got_s = sharded_u32(got)
+        np.testing.assert_array_equal(got_t, tables)
+        np.testing.assert_array_equal(got_s, stashes)
+        assert got.n_buckets == 32 and got.parts == mesh.parts
+        assert got.table_parts[0].dtype == torch.int32
+        if layout == "a part a shard":
+            again = ckpt.restore_sharded(d, devices=["cpu"] * 3)
+            assert again.parts == mesh.parts
     else:
         ckpt.save_sharded(d, 3, sharded_state_from_numpy(
-            tables, None, None, device="cpu"))
+            tables, None, None, mesh=mesh))
         got = jckpt.restore_sharded(d)
         np.testing.assert_array_equal(np.asarray(got.tables), tables)
         assert got.stashes is None and got.n_buckets is None
@@ -261,12 +271,14 @@ def degraded_ref(tmp_path_factory):
     return out, (hi, lo, qh, ql), d
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("route", ["key", "pair"])
 def test_degraded_lookup_and_recovery_match_reference(degraded_ref,
-                                                      tmp_path, route):
+                                                      tmp_path, route,
+                                                      layout):
     ref, (hi, lo, qh, ql), ref_dir = degraded_ref
-    mesh = filter_mesh(2, device="cpu")
-    st = dist.make_sharded_state(2, 256, 4, stash_slots=16, device="cpu")
+    mesh = layout_mesh(2, layout)
+    st = dist.make_sharded_state(2, 256, 4, stash_slots=16, mesh=mesh)
     st, ok, _, _ = dist.distributed_insert(mesh, "data", st, t32(hi),
                                            t32(lo), fp_bits=16,
                                            backend="torch", route=route)
@@ -280,7 +292,7 @@ def test_degraded_lookup_and_recovery_match_reference(degraded_ref,
     inj = fault.FaultInjector(recovery=rec)
     dead = inj.kill(st, 1)
     np.testing.assert_array_equal(ref[route + "/dead/tables"],
-                                  u32(dead.tables))
+                                  sharded_u32(dead)[0])
     out, ov, deg = fault.degraded_lookup(mesh, "data", dead, t32(qh),
                                          t32(ql), fp_bits=16, injector=inj,
                                          route=route, backend="torch",
@@ -295,10 +307,12 @@ def test_degraded_lookup_and_recovery_match_reference(degraded_ref,
     for d in (str(tmp_path), os.path.join(ref_dir, route)):
         back = fault.recover_shard(dead, 1, ckpt_dir=d, injector=inj,
                                    recovery=rec)
+        got_t, got_s = sharded_u32(back)
         np.testing.assert_array_equal(ref[route + "/recovered/tables"],
-                                      u32(back.tables))
+                                      got_t)
         np.testing.assert_array_equal(ref[route + "/recovered/stashes"],
-                                      u32(back.stashes))
+                                      got_s)
+        assert back.parts == mesh.parts
         after, _ = dist.distributed_lookup(mesh, "data", back, t32(qh),
                                            t32(ql), fp_bits=16,
                                            backend="torch", route=route)

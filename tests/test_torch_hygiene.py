@@ -149,9 +149,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert ring.insert(np.arange(100, dtype=np.uint64), now=0.0).all()
     assert ring.lookup(np.arange(100, dtype=np.uint64), now=0.0).all()
     mesh = filter_mesh(2, device="cpu")
-    assert mesh.device.type == "cpu" and mesh.shape == {"data": 2}
-    assert make_sharded_state(2, 64, device="cpu").tables.device.type == \
-        "cpu"
+    assert [d.type for d in mesh.devices] == ["cpu"] * 2
+    assert mesh.shape == {"data": 2}
+    assert make_sharded_state(2, 64, device="cpu").devices == \
+        (torch.device("cpu"),) * 2
 
 
 def test_meta_reaches_construction_only(monkeypatch):

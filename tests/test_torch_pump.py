@@ -22,7 +22,8 @@ from repro_torch.obs import MetricsRegistry, TraceRecorder
 from repro_torch.serving.scheduler import (DeferredWritePump, PumpStats,
                                            ShardedFilterFills)
 
-from torch_port_util import REF_JIT_LOOKUP, reference_run, split, t32, u32
+from torch_port_util import (LAYOUTS, REF_JIT_LOOKUP, layout_mesh,
+                             reference_run, sharded_u32, split, t32)
 
 pytestmark = pytest.mark.tier1
 
@@ -148,8 +149,9 @@ class Gate:
 
 
 def _same_state(ref, tag, state):
-    np.testing.assert_array_equal(ref[tag + "/tables"], u32(state.tables))
-    np.testing.assert_array_equal(ref[tag + "/stashes"], u32(state.stashes))
+    tables, stashes = sharded_u32(state)
+    np.testing.assert_array_equal(ref[tag + "/tables"], tables)
+    np.testing.assert_array_equal(ref[tag + "/stashes"], stashes)
 
 
 @pytest.mark.parametrize("backend", list(BACKENDS))
@@ -170,7 +172,7 @@ def test_valid_mask_lanes_stay_inert(ref, backend):
     np.testing.assert_array_equal(ref[tag + "/mask/ok"], ok.numpy())
     np.testing.assert_array_equal(ref[tag + "/mask/deferred"], dfr.numpy())
     assert ok[:n].all() and not ok[n:].any() and not dfr.any()
-    assert int((st.tables != 0).sum()) == n
+    assert int((st.stacked()[0] != 0).sum()) == n
     zhit, _ = dist.distributed_lookup(mesh, "data", st,
                                       torch.zeros(2, dtype=torch.int32),
                                       torch.zeros(2, dtype=torch.int32),
@@ -178,16 +180,17 @@ def test_valid_mask_lanes_stay_inert(ref, backend):
     assert not zhit.any() and not ref[tag + "/zero_hit"].any()
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("backend", list(BACKENDS))
-def test_skewed_burst_pump_matches_reference(ref, backend):
+def test_skewed_burst_pump_matches_reference(ref, backend, layout):
     tag = BACKENDS[backend]
     ref = ref(tag)
     _h, _l, shi, slo = _inputs()
-    mesh = filter_mesh(2, device="cpu")
+    mesh = layout_mesh(2, layout)
     reg, tr = MetricsRegistry(), TraceRecorder()
     pump = DeferredWritePump(
         mesh, "data", dist.make_sharded_state(2, NB, BS, stash_slots=64,
-                                              device="cpu"),
+                                              mesh=mesh),
         fp_bits=FP, capacity_factor=0.25, backend=backend, metrics=reg,
         tracer=tr)
     sok, sdfr = pump.submit(shi, slo)
@@ -216,15 +219,16 @@ def test_skewed_burst_pump_matches_reference(ref, backend):
         int(ref[tag + "/spans"]) > 0
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("backend", list(BACKENDS))
-def test_admission_holds_a_congested_pump(ref, backend):
+def test_admission_holds_a_congested_pump(ref, backend, layout):
     tag = BACKENDS[backend]
     ref = ref(tag)
     hi, lo, _s, _t = _inputs()
-    mesh = filter_mesh(2, device="cpu")
+    mesh = layout_mesh(2, layout)
     pump = DeferredWritePump(
         mesh, "data", dist.make_sharded_state(2, 64, 4, stash_slots=8,
-                                              device="cpu"),
+                                              mesh=mesh),
         fp_bits=FP, capacity_factor=0.25, backend=backend)
     pump.submit(hi[:480], lo[:480])
     fills = ShardedFilterFills(lambda: pump.state).fills()
@@ -257,5 +261,5 @@ def test_hold_parks_fresh_submits_and_retarget_keeps_the_backlog():
     assert pump.n_shards == 4 and pump.pump() == 10 and pump.pending == 0
     assert pump.stats.inserted == 10
     owner = hashing.owner_shard_np(hi[:10], lo[:10], 4)
-    live = (pump.state.tables != 0).sum(dim=(1, 2)).tolist()
+    live = (pump.state.stacked()[0] != 0).sum(dim=(1, 2)).tolist()
     assert live == np.bincount(owner, minlength=4).tolist()

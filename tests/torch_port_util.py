@@ -33,6 +33,27 @@ def u32(t):
     return t.detach().cpu().numpy().view(np.uint32)
 
 
+# The sharded filter's two layouts on the CPU: every shard in one part, and
+# one part a shard (the reference's layout; the devices repeat here).
+LAYOUTS = ("one part", "a part a shard")
+
+
+def layout_mesh(n_shards, layout):
+    """``filter_mesh(n_shards)`` on the CPU in ``layout``."""
+    from repro_torch.distributed.elastic import filter_mesh
+    if layout == "one part":
+        return filter_mesh(n_shards, device="cpu")
+    assert layout == "a part a shard", layout
+    return filter_mesh(n_shards, devices=("cpu",) * n_shards)
+
+
+def sharded_u32(state):
+    """A sharded state's tables and stashes, stacked over its parts, as
+    uint32 numpy (stashes None without)."""
+    tables, stashes = state.stacked("cpu")
+    return u32(tables), None if stashes is None else u32(stashes)
+
+
 def ref_snapshot(ocf):
     st = ocf.stash
     return {"table": np.asarray(ocf.state.table),

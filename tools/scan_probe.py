@@ -293,8 +293,8 @@ def launch_inputs(nb: int, device) -> dict:
     for s in range(2):
         mine = np.flatnonzero(owner == s)[:int(nb * 4 * LOAD)]
         _fill(tables[s], hi[mine], lo[mine], nb)
-    state = state._replace(tables=torch.from_numpy(
-        tables.view(np.int32)).to(device))
+    state = state._replace(table_parts=(torch.from_numpy(
+        tables.view(np.int32)).to(device),))
     mesh4 = elastic.filter_mesh(4, device=device)
     fn = spy(elastic, "split")
     try:
